@@ -1,0 +1,167 @@
+"""The port's kernel modules against the JAX Pallas kernels.
+
+On the CPU each port wrapper computes its plain PyTorch version; here that
+version is held against the JAX kernel run in interpret mode, as
+tests/test_pallas_glm.py and tests/test_re_kernel.py run it, on the same
+numpy inputs. Tolerances: f32 sums over a few dozen terms taken in another
+order, so rtol 1e-5 with atol 1e-5 (bf16 inputs are rounded identically by
+both frameworks, and all sums are f32 in both). The CUDA kernels themselves
+are held against the plain versions by tests/test_torch_gpu.py and
+chip_smoke.py on the card.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from photon_tpu.ops import losses as jlosses
+from photon_tpu.ops import pallas_glm
+from photon_tpu.ops.pallas_glm import fused_data_hvp, fused_data_value_and_grad
+from photon_tpu.ops.pallas_newton import fused_newton_system
+from photon_tpu_torch.ops import fused_glm, fused_newton, kernels
+from photon_tpu_torch.ops import losses as tlosses
+
+RTOL, ATOL = 1e-5, 1e-5
+
+LOSSES = {
+    "logistic": (jlosses.LogisticLoss, tlosses.LogisticLoss),
+    "squared": (jlosses.SquaredLoss, tlosses.SquaredLoss),
+    "poisson": (jlosses.PoissonLoss, tlosses.PoissonLoss),
+    "hinge": (jlosses.SmoothedHingeLoss, tlosses.SmoothedHingeLoss),
+}
+
+
+def _problem(n=37, d=13, seed=0, poisson=False):
+    """Deliberately not tile or lane aligned."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    X[:, 0] = 1.0
+    w = (rng.normal(size=d) / np.sqrt(d)).astype(np.float32)
+    z = X @ w
+    if poisson:
+        y = rng.poisson(np.exp(np.clip(z, None, 3))).astype(np.float32)
+    else:
+        y = (rng.uniform(size=n) < 1 / (1 + np.exp(-z))).astype(np.float32)
+    weight = rng.uniform(0.5, 2.0, size=n).astype(np.float32)
+    offset = (rng.normal(size=n) * 0.2).astype(np.float32)
+    return X, y, weight, offset, w
+
+
+def _jx(X, dtype):
+    return jnp.asarray(X).astype(jnp.bfloat16 if dtype == "bf16" else jnp.float32)
+
+
+def _tx(X, dtype):
+    return torch.from_numpy(X).to(torch.bfloat16 if dtype == "bf16" else torch.float32)
+
+
+def _close(got, want):
+    np.testing.assert_allclose(
+        np.asarray(got.float() if isinstance(got, torch.Tensor) else got, np.float64),
+        np.asarray(want, np.float64), rtol=RTOL, atol=ATOL,
+    )
+
+
+@pytest.mark.parametrize("margins", [False, True])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("loss", list(LOSSES))
+def test_value_grad_plain_matches_pallas(loss, dtype, margins, monkeypatch):
+    monkeypatch.setattr(pallas_glm, "DEFAULT_TILE_N", 16)  # multi-tile grid
+    jl, tl = LOSSES[loss]
+    X, y, wt, off, w = _problem(poisson=loss == "poisson")
+    want = fused_data_value_and_grad(
+        jl, jnp.asarray(w), _jx(X, dtype), jnp.asarray(y), jnp.asarray(off), jnp.asarray(wt),
+        interpret=True, return_margins=margins,
+    )
+    t = torch.from_numpy
+    got = fused_glm.fused_value_grad(tl, t(w), _tx(X, dtype), t(y), t(off), t(wt), return_margins=margins)
+    assert len(got) == len(want)
+    for g, wv in zip(got, want):
+        _close(g, wv)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_hvp_plain_matches_pallas(dtype, monkeypatch):
+    monkeypatch.setattr(pallas_glm, "DEFAULT_TILE_N", 16)
+    X, _, wt, _, w = _problem(seed=1)
+    want = fused_data_hvp(jnp.asarray(w), _jx(X, dtype), jnp.asarray(wt), interpret=True)
+    got = fused_glm.fused_hvp(torch.from_numpy(w), _tx(X, dtype), torch.from_numpy(wt))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("padded", [False, True], ids=["whole_slab_3a", "row_tiled_3b"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_newton_system_plain_matches_pallas(dtype, padded):
+    rng = np.random.default_rng(2)
+    E, n, d = 5, 29, 7  # d not a multiple of 8, ragged n
+    X = rng.normal(size=(E, n, d)).astype(np.float32)
+    d2 = rng.uniform(0.0, 0.25, size=(E, n)).astype(np.float32)
+    dz = rng.normal(size=(E, n)).astype(np.float32)
+    d2[:, -4:] = dz[:, -4:] = 0.0  # padding samples
+    jf = jax.vmap(lambda x, a, b: fused_newton_system(x, a, b, interpret=True, padded=padded))
+    H_want, g_want = jf(_jx(X, dtype), jnp.asarray(d2), jnp.asarray(dz))
+    H, g = fused_newton.newton_system(_tx(X, dtype), torch.from_numpy(d2), torch.from_numpy(dz))
+    assert H.shape == (E, d, d) and g.shape == (E, d)
+    _close(H, H_want)
+    _close(g, g_want)
+
+
+@pytest.mark.parametrize("loss", list(LOSSES))
+def test_losses_match_reference(loss):
+    jl, tl = LOSSES[loss]
+    z = np.linspace(-40.0, 40.0, 161)
+    for y in (0.0, 1.0, 3.0):
+        yy = np.full_like(z, y)
+        with jax.enable_x64(True):
+            jz, jy = jnp.asarray(z), jnp.asarray(yy)
+            want = [np.asarray(f(jz, jy)) for f in (jl.value, jl.dz, jl.dzz)] + [np.asarray(jl.mean(jz))]
+        tz, ty = torch.from_numpy(z), torch.from_numpy(yy)
+        got = [f(tz, ty).numpy() for f in (tl.value, tl.dz, tl.dzz)] + [tl.mean(tz).numpy()]
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, rtol=1e-12, atol=1e-12)
+
+
+def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
+    X, y, wt, off, w = _problem()
+    t = torch.from_numpy
+    kernels.reset_launches()
+    fused_glm.fused_value_grad(tlosses.LogisticLoss, t(w), t(X), t(y), t(off), t(wt))
+    fused_glm.fused_hvp(t(w), t(X), t(wt))
+    fused_newton.newton_system(t(X)[None], t(wt)[None], t(y)[None])
+    assert kernels.LAUNCHES == {name: 0 for name in kernels.KERNELS}
+
+
+def test_width_limits_raise():
+    Xw = torch.zeros(2, fused_glm.MAX_FUSED_DIM + 1)
+    v, r = torch.zeros(fused_glm.MAX_FUSED_DIM + 1), torch.zeros(2)
+    with pytest.raises(ValueError, match=str(fused_glm.MAX_FUSED_DIM)):
+        fused_glm.fused_value_grad(tlosses.LogisticLoss, v, Xw, r, r, r)
+    with pytest.raises(ValueError, match=str(fused_glm.MAX_FUSED_DIM)):
+        fused_glm.fused_hvp(v, Xw, r)
+    d = fused_newton.NEWTON_MAX_DIM + 1
+    with pytest.raises(ValueError, match=str(fused_newton.NEWTON_MAX_DIM)):
+        fused_newton.newton_system(torch.zeros(1, 2, d), torch.zeros(1, 2), torch.zeros(1, 2))
+
+
+def test_resolve_re_kernel_routes_and_refuses_cuda_on_cpu():
+    assert fused_newton.resolve_re_kernel("auto", "cpu") == "torch"
+    assert fused_newton.resolve_re_kernel("auto", "cuda") == "cuda"
+    assert fused_newton.resolve_re_kernel("torch", "cpu") == "torch"
+    for k in ("cuda", "cuda_bf16x"):
+        with pytest.raises(ValueError, match="needs CUDA"):
+            fused_newton.resolve_re_kernel(k, "cpu")
+    with pytest.raises(ValueError, match="re_kernel must be one of"):
+        fused_newton.resolve_re_kernel("pallas", "cpu")
+
+
+def test_cuda_kernel_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.require_cuda("fused_hvp", torch.zeros(3), torch.zeros(3))
+
+
+def test_kernel_sources_are_packaged():
+    for src, _, _ in kernels.KERNELS.values():
+        assert (kernels.CSRC / src).is_file()
+    assert (kernels.CSRC / "glm_common.h").is_file()
