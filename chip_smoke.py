@@ -8,10 +8,13 @@ Phases, each of which must pass:
                 (one nvcc per source, in parallel) and print ptxas's
                 register / shared-memory lines;
   2. parity   — hold each kernel against its plain PyTorch version on the
-                card at the main path's shapes and at small ragged shapes;
+                card at the main path's shapes and at small ragged shapes,
+                K1 on both of its routes ("row" and "tile"), and check that
+                two launches of K1 at the headline are bitwise equal;
   3. timing   — kernel, plain version and a library yardstick, with CUDA
                 events, beside the kernel's bound (bytes or operations over
-                the H100's published peaks);
+                the H100's published peaks); K1's launch plan (route, tile,
+                slots, ring stages, resident CTAs per SM, grid);
   4. GLMix    — a small-input check of the GLMix step on the card against
                 the port's plain path in float64 on the CPU, then two
                 coordinate-descent passes of ``glmix_train_step`` at the
@@ -88,7 +91,8 @@ def main() -> int:
     from photon_tpu_torch.data.synthetic import make_data
     from photon_tpu_torch.ops import kernels
     from photon_tpu_torch.ops.fused_glm import (
-        fused_hvp, fused_hvp_plain, fused_value_grad, fused_value_grad_plain)
+        fused_hvp, fused_hvp_plain, fused_value_grad, fused_value_grad_plain, value_grad_plan,
+        value_grad_route)
     from photon_tpu_torch.ops.fused_newton import newton_system, newton_system_plain
     from photon_tpu_torch.ops.losses import (
         LogisticLoss, PoissonLoss, SmoothedHingeLoss, SquaredLoss)
@@ -172,6 +176,26 @@ def main() -> int:
                    fused_value_grad(loss, ws, Xsd, ys, offs, wts, return_margins=True),
                    fused_value_grad_plain(loss, ws, Xsd, ys, offs, wts, return_margins=True))
         parity(f"K2 n={n_s} d={d_s} {dt}", [fused_hvp(ws, Xsd, wts)], [fused_hvp_plain(ws, Xsd, wts)])
+    # K1 off the row route: rows that are not whole 16-byte chunks (d = 37)
+    # and d above ROW_MAX_DIM (d = 2048) take the tile route.
+    n_t = 4099
+    wt_t = torch.rand(n_t, device=dev, generator=g)
+    for d_t in (37, 2048):
+        Xt = torch.randn(n_t, d_t, device=dev, generator=g)
+        wv = torch.randn(d_t, device=dev, generator=g) / d_t ** 0.5
+        for dt in (torch.float32, torch.bfloat16):
+            Xtd = Xt.to(dt)
+            route = value_grad_route(d_t, Xtd.element_size(), Xtd.data_ptr())
+            args = (LogisticLoss, wv, Xtd, y[:n_t], off[:n_t], wt_t)
+            parity(f"K1 logistic n={n_t} d={d_t} {dt} ({route} route)",
+                   fused_value_grad(*args, return_margins=True),
+                   fused_value_grad_plain(*args, return_margins=True))
+    del Xt, Xtd
+    first = fused_value_grad(LogisticLoss, w, Xb, y, off, wt, return_margins=True)
+    again = fused_value_grad(LogisticLoss, w, Xb, y, off, wt, return_margins=True)
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          "K1 N=2^21 d=256 bf16 margins: two launches give bitwise equal value, gradient and margins")
+    del first, again
     Eb, nb, db = block.features.shape
     rd2 = torch.rand(Eb, nb, device=dev, generator=g) * 0.25 * block.weight
     rdz = torch.randn(Eb, nb, device=dev, generator=g) * block.weight
@@ -204,11 +228,13 @@ def main() -> int:
             timings[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
 
     dz = torch.randn(N, device=dev, generator=g)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for Xk, tag in ((Xb, "bf16"), (Xf, "f32")):
+        log(f"  K1 N=2^21 d=256 {tag} launch plan on {sms} SMs: {value_grad_plan(Xk, LogisticLoss)}")
         es = Xk.element_size()
         vb = w.to(Xk.dtype)
         dzk = dz.to(Xk.dtype)
-        timed("fused_value_grad" if tag == "bf16" else None, f"K1 N=2^21 d=256 {tag} margins", Xk.dtype,
+        timed(f"fused_value_grad_{tag}", f"K1 N=2^21 d=256 {tag} margins", Xk.dtype,
               N * D_FIX * es + 3 * N * 4 + D_FIX * 4 + N * 4 + (D_FIX + 1) * 4, 4.0 * N * D_FIX,
               lambda: fused_value_grad(LogisticLoss, w, Xk, y, off, wt, return_margins=True),
               lambda: fused_value_grad_plain(LogisticLoss, w, Xk, y, off, wt, return_margins=True),
@@ -225,6 +251,11 @@ def main() -> int:
               float(Eb) * nb * (2 * db * db + 3 * db),
               lambda: newton_system(Xk, rd2, rdz), lambda: newton_system_plain(Xk, rd2, rdz),
               lambda: (torch.bmm(Xk.mT, Xk * rd2k), torch.bmm(Xk.mT, rdzk)))
+    # Does K1's loss math cost time? The same launch with the squared loss,
+    # which has no exp, log or division.
+    sq_ms = cuda_ms(lambda: fused_value_grad(SquaredLoss, w, Xb, y, off, wt, return_margins=True))
+    log(f"  K1 N=2^21 d=256 bf16 margins, squared loss: kernel {sq_ms:.4f} ms "
+        f"(logistic {timings['fused_value_grad_bf16']['ms']:.4f} ms)")
     del Xf, Xre_b
     torch.cuda.empty_cache()
 
@@ -341,6 +372,10 @@ def main() -> int:
         "fused_hvp": ("photon_tpu_torch/csrc/fused_hvp.cu", "photon_tpu/ops/pallas_glm.py:227"),
         "newton_system": ("photon_tpu_torch/csrc/newton_system.cu", "photon_tpu/ops/pallas_newton.py:150"),
     }
+    # K1's row is its bf16 timing; its f32 time and bound ride beside.
+    f32 = timings.pop("fused_value_grad_f32")
+    timings["fused_value_grad"] = dict(timings.pop("fused_value_grad_bf16"),
+                                       f32_ms=f32["ms"], f32_bound_ms=f32["bound_ms"])
     rows = []
     for name, (src, repl) in sources.items():
         rows.append(dict(name=name, route="cuda", source=src, replaces=repl,

@@ -1,7 +1,8 @@
 // Shared device helpers for the port's GLM kernels (fused_value_grad.cu,
 // fused_hvp.cu, newton_system.cu): element conversion, the four pointwise
-// losses, tile staging into shared memory and the deterministic
-// cross-block column reduction.
+// losses, tile staging into shared memory, the deterministic cross-block
+// column reduction (one level or a fixed two-level tree), and the sm_90
+// mbarrier and 1-D bulk-copy wrappers of an async tile ring.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -92,19 +93,22 @@ __device__ __forceinline__ void stage(T* dst, const T* __restrict__ src, long co
   for (long i = head + threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
 }
 
-// out[j] = sum over c < num_parts of parts[c * width + j]. Each block takes 32
-// columns; its 8 thread rows sum strided part subsets in a fixed order and
-// thread row 0 adds the 8 subtotals in order, so the result is reproducible
-// run to run (no atomics).
+// out[g * width + j] = sum over the parts c of group g (c in [g * group,
+// min(num_parts, (g + 1) * group))) of parts[c * width + j]; blockIdx.y is
+// the group. Each block takes 32 columns; its 8 thread rows sum strided part
+// subsets in a fixed order and thread row 0 adds the 8 subtotals in order, so
+// the result is reproducible run to run (no atomics).
 constexpr int kReduceRows = 8;
 
 __global__ void __launch_bounds__(32 * kReduceRows)
-    reduce_parts(const float* __restrict__ parts, int num_parts, int width, float* __restrict__ out) {
+    reduce_parts(const float* __restrict__ parts, int num_parts, int width, int group,
+                 float* __restrict__ out) {
   __shared__ float sub[kReduceRows][32];
   const int j = blockIdx.x * 32 + threadIdx.x;
+  const int c0 = blockIdx.y * group, c1 = min(num_parts, c0 + group);
   float acc = 0.f;
   if (j < width) {
-    for (int c = threadIdx.y; c < num_parts; c += kReduceRows) acc += parts[(long)c * width + j];
+    for (int c = c0 + threadIdx.y; c < c1; c += kReduceRows) acc += parts[(long)c * width + j];
   }
   sub[threadIdx.y][threadIdx.x] = acc;
   __syncthreads();
@@ -112,16 +116,99 @@ __global__ void __launch_bounds__(32 * kReduceRows)
     float s = 0.f;
 #pragma unroll
     for (int r = 0; r < kReduceRows; ++r) s += sub[r][threadIdx.x];
-    out[j] = s;
+    out[(long)blockIdx.y * width + j] = s;
   }
 }
 
+// out[j] = sum over all num_parts rows of parts, in one group.
 inline cudaError_t launch_reduce(const float* parts, int num_parts, int width, float* out,
                                  cudaStream_t stream) {
   dim3 block(32, kReduceRows);
   dim3 grid((width + 31) / 32);
-  reduce_parts<<<grid, block, 0, stream>>>(parts, num_parts, width, out);
+  reduce_parts<<<grid, block, 0, stream>>>(parts, num_parts, width, num_parts, out);
   return cudaGetLastError();
+}
+
+// The same sum as a fixed two-level tree, for thousands of parts: groups of
+// kTreeGroup consecutive parts into `mid` (ceil(num_parts / kTreeGroup) rows
+// of width), then the group sums into out. The tree depends only on
+// num_parts, so the result does too.
+constexpr int kTreeGroup = 64;
+
+inline int tree_groups(int num_parts) { return (num_parts + kTreeGroup - 1) / kTreeGroup; }
+
+inline cudaError_t launch_reduce_tree(const float* parts, int num_parts, int width, float* mid,
+                                      float* out, cudaStream_t stream) {
+  const int groups = tree_groups(num_parts);
+  if (groups == 1) return launch_reduce(parts, num_parts, width, out, stream);
+  dim3 block(32, kReduceRows);
+  dim3 grid((width + 31) / 32, groups);
+  reduce_parts<<<grid, block, 0, stream>>>(parts, num_parts, width, kTreeGroup, mid);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce(mid, groups, width, out, stream);
+}
+
+// ---- mbarriers and the 1-D bulk copy (TMA without a tensor map), sm_90 ----
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// Makes the initialised barriers visible to the async (copy) proxy.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(smem_addr(bar))
+      : "memory");
+}
+
+// One arrival that also adds `bytes` to the phase's expected transaction count.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "{\n .reg .b64 st;\n mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Blocks until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// Copies `bytes` (a multiple of 16; both addresses 16-byte aligned) from
+// global to shared memory; completion is counted on `bar`.
+__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32_t bytes,
+                                              uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Barrier over the first `threads` threads of the block (a multiple of 32),
+// leaving the others free to run on.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 template <typename K>

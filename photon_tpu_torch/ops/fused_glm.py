@@ -15,7 +15,8 @@ tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
-from typing import Tuple
+from dataclasses import asdict, dataclass
+from typing import Dict, Tuple
 
 import torch
 
@@ -51,6 +52,105 @@ def _geometry(X: Tensor) -> Tuple[int, int, int]:
     grid = min(_MAX_GRID, -(-n // tile))
     vec = int((d * X.element_size()) % 16 == 0 and X.data_ptr() % 16 == 0)
     return tile, grid, vec
+
+
+# The "row" route of fused_value_grad (csrc/fused_value_grad.cu): warps own
+# whole rows, each lane a row's 16-byte chunks, so a row must be a whole
+# number of chunks and start on a 16-byte boundary; a lane holds at most 8
+# chunks (d <= 1024). The tile is _ROW_WARPS warps times a few rows, about
+# _ROW_TILE_BYTES of X, at most 32 rows a warp. A slot is about
+# _ROW_SLOT_BYTES of consecutive tiles; each slot writes one partial sum.
+ROW_MAX_DIM = 1024
+_ROW_WARPS = 8
+_ROW_TILE_BYTES = 16 * 1024
+_ROW_SLOT_BYTES = 256 * 1024
+# Tiles in flight per CTA: the producer warp keeps this many bulk copies
+# ahead of the consumer warps (csrc/glm_common.h bulk_copy_g2s).
+RING_STAGES = 4
+# Partials summed per group in the first level of the reduction tree
+# (csrc/glm_common.h kTreeGroup).
+_TREE_GROUP = 64
+
+
+def value_grad_route(d: int, elem_size: int, data_ptr: int) -> str:
+    """"row" where a row is whole 16-byte chunks on a 16-byte boundary and
+    d <= ROW_MAX_DIM, else "tile" (PR 1's kernel, any d <= MAX_FUSED_DIM).
+    Both are CUDA kernels; the choice is by shape, not a fallback."""
+    row_bytes = d * elem_size
+    if d <= ROW_MAX_DIM and row_bytes % 16 == 0 and data_ptr % 16 == 0:
+        return "row"
+    return "tile"
+
+
+def row_tile_rows(d: int, elem_size: int) -> int:
+    """Rows in one tile of the row route: a multiple of _ROW_WARPS."""
+    rows = _ROW_TILE_BYTES // (d * elem_size) // _ROW_WARPS * _ROW_WARPS
+    return min(max(rows, _ROW_WARPS), 32 * _ROW_WARPS)
+
+
+@dataclass(frozen=True)
+class RowPlan:
+    """One launch of the row route. Tiles and slots follow from the shape
+    alone: slot s holds rows [s * slot_rows, (s + 1) * slot_rows), its
+    partial is summed in a fixed order whichever CTA computes it, and the
+    partials go through a fixed tree, so the result is bitwise the same on
+    any card. Only ``grid`` (resident CTAs, from the card) varies; CTA c
+    walks slots c, c + grid, ..."""
+
+    tile_rows: int
+    tiles_per_slot: int
+    slots: int
+    stages: int
+    grid: int
+    ctas_per_sm: int
+
+    @property
+    def slot_rows(self) -> int:
+        return self.tile_rows * self.tiles_per_slot
+
+    def cta_slots(self, cta: int) -> range:
+        return range(cta, self.slots, self.grid)
+
+    def scratch_rows(self) -> int:
+        """Rows of f32 scratch: the slots' partials, then the tree's group sums."""
+        return self.slots + -(-self.slots // _TREE_GROUP)
+
+
+def row_plan(n: int, d: int, elem_size: int, sm_count: int, ctas_per_sm: int) -> RowPlan:
+    tile = row_tile_rows(d, elem_size)
+    tiles_per_slot = max(1, _ROW_SLOT_BYTES // (tile * d * elem_size))
+    tiles = -(-n // tile)
+    slots = -(-tiles // tiles_per_slot)
+    return RowPlan(tile, tiles_per_slot, slots, RING_STAGES,
+                   min(slots, sm_count * ctas_per_sm), ctas_per_sm)
+
+
+_ROW_OCCUPANCY: Dict[tuple, int] = {}
+
+
+def _row_plan_on_card(X: Tensor, loss: PointwiseLoss) -> RowPlan:
+    n, d = X.shape
+    bf16, es = int(X.dtype == torch.bfloat16), X.element_size()
+    key = (X.device.index, bf16, d, loss.kernel_id)
+    if key not in _ROW_OCCUPANCY:
+        with torch.cuda.device(X.device):
+            ctas = kernels.query_int("fused_value_grad", "pt_fused_value_grad_occupancy", bf16, d,
+                                     row_tile_rows(d, es), RING_STAGES, loss.kernel_id)
+        if ctas < 1:
+            raise RuntimeError(f"fused_value_grad: the row kernel does not fit an SM at d={d}")
+        _ROW_OCCUPANCY[key] = ctas
+    sms = torch.cuda.get_device_properties(X.device).multi_processor_count
+    return row_plan(n, d, es, sms, _ROW_OCCUPANCY[key])
+
+
+def value_grad_plan(X: Tensor, loss: PointwiseLoss) -> dict:
+    """The route and launch geometry ``fused_value_grad`` uses for a CUDA X."""
+    n, d = X.shape
+    route = value_grad_route(d, X.element_size(), X.data_ptr())
+    if route == "row":
+        return dict(route=route, **asdict(_row_plan_on_card(X, loss)))
+    tile, grid, _ = _geometry(X)
+    return dict(route=route, tile_rows=tile, grid=grid)
 
 
 def _check_cuda_inputs(name: str, X: Tensor, *vecs: Tensor) -> None:
@@ -90,15 +190,23 @@ def fused_value_grad(loss: PointwiseLoss, w: Tensor, X: Tensor, label: Tensor,
     _check_cuda_inputs("fused_value_grad", X, w, label, offset, weight)
     if w.shape[0] != d or not (label.shape[0] == offset.shape[0] == weight.shape[0] == n):
         raise ValueError("fused_value_grad: shapes of w/label/offset/weight do not match X")
-    tile, grid, vec = _geometry(X)
-    parts = torch.empty((grid, d + 1), dtype=torch.float32, device=X.device)
+    # Route by shape (value_grad_route): both routes are CUDA kernels.
+    if value_grad_route(d, X.element_size(), X.data_ptr()) == "row":
+        plan = _row_plan_on_card(X, loss)
+        scratch = plan.scratch_rows()
+        geometry = (1, plan.tile_rows, plan.grid, plan.tiles_per_slot, plan.stages, loss.kernel_id, 1)
+    else:
+        tile, grid, vec = _geometry(X)
+        scratch = grid
+        geometry = (0, tile, grid, 0, 0, loss.kernel_id, vec)
+    parts = torch.empty((scratch, d + 1), dtype=torch.float32, device=X.device)
     out = torch.empty(d + 1, dtype=torch.float32, device=X.device)
     z = torch.empty(n, dtype=torch.float32, device=X.device) if return_margins else None
     kernels.launch(
         "fused_value_grad", kernels.ptr(X), int(X.dtype == torch.bfloat16), kernels.ptr(w),
         kernels.ptr(label), kernels.ptr(offset), kernels.ptr(weight),
         None if z is None else kernels.ptr(z), kernels.ptr(parts), kernels.ptr(out),
-        n, d, tile, grid, loss.kernel_id, vec,
+        n, d, *geometry,
     )
     value, grad = out[d], out[:d]
     return (value, grad, z) if return_margins else (value, grad)

@@ -36,7 +36,7 @@ _I = ctypes.c_int
 KERNELS: Dict[str, Tuple[str, str, list]] = {
     "fused_value_grad": (
         "fused_value_grad.cu", "pt_fused_value_grad",
-        [_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
+        [_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
     ),
     "fused_hvp": (
         "fused_hvp.cu", "pt_fused_hvp",
@@ -115,19 +115,35 @@ def build_all(names=None) -> Dict[str, dict]:
     return report
 
 
-def entry(name: str):
-    """The C entry point of kernel ``name``, built and loaded on first use."""
-    fn = _LOADED.get(name)
+def symbol(name: str, sym: str, argtypes: list):
+    """Function ``sym`` (returning an int) of kernel ``name``'s library,
+    built and loaded on first use."""
+    fn = _LOADED.get(sym)
     if fn is None:
         path = _library_path(name)
         if not path.exists():
             build_all([name])
-        lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, KERNELS[name][1])
-        fn.argtypes = KERNELS[name][2]
+        fn = getattr(ctypes.CDLL(str(path)), sym)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _LOADED[name] = fn
+        _LOADED[sym] = fn
     return fn
+
+
+def query_int(name: str, sym: str, *args: int) -> int:
+    """Call ``sym(*args, int* out)`` of kernel ``name``'s library, which
+    launches nothing, and return ``out``; raise if it returns an error."""
+    out = ctypes.c_int(0)
+    fn = symbol(name, sym, [_I] * len(args) + [ctypes.POINTER(ctypes.c_int)])
+    err = fn(*args, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"{name}: {sym} failed with cudaError_t {err}")
+    return out.value
+
+
+def entry(name: str):
+    """The C entry point of kernel ``name``, built and loaded on first use."""
+    return symbol(name, KERNELS[name][1], KERNELS[name][2])
 
 
 def launch(name: str, *args) -> None:

@@ -161,6 +161,52 @@ def test_cuda_kernel_refuses_cpu_tensors():
         kernels.require_cuda("fused_hvp", torch.zeros(3), torch.zeros(3))
 
 
+# Row-route geometry of fused_value_grad, which the wrapper computes in
+# Python: (n, d, element size), including the headline shape and shapes that
+# are no multiple of a tile or a slot.
+ROW_SHAPES = [
+    (1 << 21, 256, 2), (1 << 21, 256, 4), (3001, 40, 4), (3001, 40, 2),
+    (5, 40, 2), (100_003, 1024, 4), (777, 8, 2),
+]
+CARDS = [(132, 3), (132, 1), (114, 2), (16, 4), (1, 1)]  # (SMs, resident CTAs per SM)
+
+
+@pytest.mark.parametrize("n,d,es", ROW_SHAPES)
+def test_row_plan_puts_every_row_in_exactly_one_slot(n, d, es):
+    for sms, ctas in CARDS:
+        plan = fused_glm.row_plan(n, d, es, sms, ctas)
+        assert plan.tile_rows % 8 == 0 and plan.tile_rows <= 8 * 32
+        assert (plan.tile_rows * d * es) % 16 == 0  # a bulk copy moves whole 16-byte units
+        per_slot = np.bincount(np.arange(n) // plan.slot_rows)
+        assert len(per_slot) == plan.slots and per_slot.min() > 0 and per_slot.sum() == n
+        walked = sorted(s for cta in range(plan.grid) for s in plan.cta_slots(cta))
+        assert walked == list(range(plan.slots))  # each slot on exactly one CTA
+        assert plan.scratch_rows() == plan.slots + -(-plan.slots // 64)
+
+
+@pytest.mark.parametrize("n,d,es", ROW_SHAPES)
+def test_row_plan_slot_layout_does_not_depend_on_the_card(n, d, es):
+    plans = [fused_glm.row_plan(n, d, es, sms, ctas) for sms, ctas in CARDS]
+    assert len({(p.tile_rows, p.tiles_per_slot, p.slots, p.stages) for p in plans}) == 1
+    assert [p.grid for p in plans] == [min(plans[0].slots, s * c) for s, c in CARDS]
+
+
+def test_row_plan_at_the_headline_shape():
+    plan = fused_glm.row_plan(1 << 21, 256, 2, 132, 3)
+    assert (plan.tile_rows, plan.slot_rows, plan.slots, plan.grid) == (32, 512, 4096, 396)
+
+
+@pytest.mark.parametrize("d,es,ptr,route", [
+    (256, 2, 0, "row"), (256, 4, 256, "row"), (40, 4, 0, "row"), (40, 2, 16, "row"),
+    (8, 2, 0, "row"), (1024, 4, 0, "row"), (1024, 2, 0, "row"),
+    (37, 4, 0, "tile"), (37, 2, 0, "tile"), (12, 2, 0, "tile"),  # rows not whole 16-byte chunks
+    (1032, 2, 0, "tile"), (2048, 2, 0, "tile"), (4096, 4, 0, "tile"),  # wider than ROW_MAX_DIM
+    (256, 4, 4, "tile"), (40, 2, 8, "tile"),  # X off a 16-byte boundary
+])
+def test_value_grad_route_by_width_and_alignment(d, es, ptr, route):
+    assert fused_glm.value_grad_route(d, es, ptr) == route
+
+
 def test_kernel_sources_are_packaged():
     for src, _, _ in kernels.KERNELS.values():
         assert (kernels.CSRC / src).is_file()
