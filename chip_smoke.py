@@ -9,12 +9,16 @@ Phases, each of which must pass:
                 register / shared-memory lines;
   2. parity   — hold each kernel against its plain PyTorch version on the
                 card at the main path's shapes and at small ragged shapes,
-                K1 on both of its routes ("row" and "tile"), and check that
-                two launches of K1 at the headline are bitwise equal;
+                K1 and K2 on both of their routes ("row" and "tile"), K3 on
+                both of its routes ("bulk" and "direct") up to d = 64, and
+                check that two launches of K1 and of K2 at the headline are
+                bitwise equal;
   3. timing   — kernel, plain version and a library yardstick, with CUDA
                 events, beside the kernel's bound (bytes or operations over
-                the H100's published peaks); K1's launch plan (route, tile,
-                slots, ring stages, resident CTAs per SM, grid);
+                the H100's published peaks); the launch plans of K1 and K2
+                (route, tile, slots, ring stages, resident CTAs per SM, grid)
+                and of K3 (route, blocks, team warps, row groups, entities
+                per CTA, chunk rows, stages, grid);
   4. GLMix    — a small-input check of the GLMix step on the card against
                 the port's plain path in float64 on the CPU, then two
                 coordinate-descent passes of ``glmix_train_step`` at the
@@ -91,9 +95,9 @@ def main() -> int:
     from photon_tpu_torch.data.synthetic import make_data
     from photon_tpu_torch.ops import kernels
     from photon_tpu_torch.ops.fused_glm import (
-        fused_hvp, fused_hvp_plain, fused_value_grad, fused_value_grad_plain, value_grad_plan,
-        value_grad_route)
-    from photon_tpu_torch.ops.fused_newton import newton_system, newton_system_plain
+        fused_hvp, fused_hvp_plain, fused_value_grad, fused_value_grad_plain, hvp_plan,
+        value_grad_plan, value_grad_route)
+    from photon_tpu_torch.ops.fused_newton import newton_system, newton_system_plain, system_plan
     from photon_tpu_torch.ops.losses import (
         LogisticLoss, PoissonLoss, SmoothedHingeLoss, SquaredLoss)
     from photon_tpu_torch.ops.objective import GLMObjective
@@ -190,11 +194,15 @@ def main() -> int:
             parity(f"K1 logistic n={n_t} d={d_t} {dt} ({route} route)",
                    fused_value_grad(*args, return_margins=True),
                    fused_value_grad_plain(*args, return_margins=True))
+            parity(f"K2 n={n_t} d={d_t} {dt} ({hvp_plan(Xtd)['route']} route)",
+                   [fused_hvp(wv, Xtd, wt_t)], [fused_hvp_plain(wv, Xtd, wt_t)])
     del Xt, Xtd
     first = fused_value_grad(LogisticLoss, w, Xb, y, off, wt, return_margins=True)
     again = fused_value_grad(LogisticLoss, w, Xb, y, off, wt, return_margins=True)
     check(all(torch.equal(a, b) for a, b in zip(first, again)),
           "K1 N=2^21 d=256 bf16 margins: two launches give bitwise equal value, gradient and margins")
+    check(torch.equal(fused_hvp(w, Xb, d2), fused_hvp(w, Xb, d2)),
+          "K2 N=2^21 d=256 bf16: two launches give bitwise equal products")
     del first, again
     Eb, nb, db = block.features.shape
     rd2 = torch.rand(Eb, nb, device=dev, generator=g) * 0.25 * block.weight
@@ -204,11 +212,21 @@ def main() -> int:
            newton_system_plain(block.features, rd2, rdz), "newton_system")
     parity(f"K3 newton_system E={Eb} n_max={nb} d={db} bf16", newton_system(Xre_b, rd2, rdz),
            newton_system_plain(Xre_b, rd2, rdz))
-    Xn = torch.randn(37, 101, 13, device=dev, generator=g)
-    n2, nz = torch.rand(37, 101, device=dev, generator=g), torch.randn(37, 101, device=dev, generator=g)
-    parity("K3 newton_system E=37 n_max=101 d=13 f32", newton_system(Xn, n2, nz), newton_system_plain(Xn, n2, nz))
-    H, _ = newton_system(block.features, rd2, rdz)
-    check(bool((H == H.transpose(1, 2)).all()), "K3 H exactly symmetric")
+    # K3 off the headline: n_max = 101 takes the direct route, n_max = 100
+    # the bulk route with a ragged last chunk; d = 64 is the widest.
+    for En, nn, dn in ((37, 101, 13), (37, 100, 64), (37, 101, 64)):
+        Xn = torch.randn(En, nn, dn, device=dev, generator=g)
+        n2, nz = torch.rand(En, nn, device=dev, generator=g), torch.randn(En, nn, device=dev, generator=g)
+        for dt in (torch.float32, torch.bfloat16):
+            Xnd = Xn.to(dt)
+            Hn, gn = newton_system(Xnd, n2, nz)
+            parity(f"K3 newton_system E={En} n_max={nn} d={dn} {dt} ({system_plan(Xnd, n2, nz)['route']} route)",
+                   (Hn, gn), newton_system_plain(Xnd, n2, nz))
+            check(torch.equal(Hn, Hn.transpose(1, 2)), f"K3 E={En} n_max={nn} d={dn} {dt}: H exactly symmetric")
+    for Xk in (block.features, Xre_b):
+        H, _ = newton_system(Xk, rd2, rdz)
+        check(torch.equal(H, H.transpose(1, 2)), f"K3 E={Eb} n_max={nb} d={db} {Xk.dtype}: H exactly symmetric")
+    del Xn, Xnd, Hn, gn, H
     torch.cuda.synchronize()
 
     # ---------------- 3. timing ----------------
@@ -231,6 +249,7 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for Xk, tag in ((Xb, "bf16"), (Xf, "f32")):
         log(f"  K1 N=2^21 d=256 {tag} launch plan on {sms} SMs: {value_grad_plan(Xk, LogisticLoss)}")
+        log(f"  K2 N=2^21 d=256 {tag} launch plan on {sms} SMs: {hvp_plan(Xk)}")
         es = Xk.element_size()
         vb = w.to(Xk.dtype)
         dzk = dz.to(Xk.dtype)
@@ -239,14 +258,15 @@ def main() -> int:
               lambda: fused_value_grad(LogisticLoss, w, Xk, y, off, wt, return_margins=True),
               lambda: fused_value_grad_plain(LogisticLoss, w, Xk, y, off, wt, return_margins=True),
               lambda: (torch.mv(Xk, vb), torch.mv(Xk.t(), dzk)))
-        timed("fused_hvp" if tag == "bf16" else None, f"K2 N=2^21 d=256 {tag}", Xk.dtype,
+        timed(f"fused_hvp_{tag}", f"K2 N=2^21 d=256 {tag}", Xk.dtype,
               N * D_FIX * es + N * 4 + 2 * D_FIX * 4, 4.0 * N * D_FIX,
               lambda: fused_hvp(w, Xk, d2), lambda: fused_hvp_plain(w, Xk, d2),
               lambda: (torch.mv(Xk, vb), torch.mv(Xk.t(), dzk)))
     for Xk, tag in ((block.features, "f32"), (Xre_b, "bf16")):
+        log(f"  K3 E={Eb} n_max={nb} d={db} {tag} launch plan on {sms} SMs: {system_plan(Xk, rd2, rdz)}")
         rd2k = rd2.to(Xk.dtype)[..., None]
         rdzk = rdz.to(Xk.dtype)[..., None]
-        timed("newton_system" if tag == "f32" else None, f"K3 E={Eb} n_max={nb} d={db} {tag}", Xk.dtype,
+        timed(f"newton_system_{tag}", f"K3 E={Eb} n_max={nb} d={db} {tag}", Xk.dtype,
               Eb * nb * db * Xk.element_size() + 2 * Eb * nb * 4 + Eb * (db * db + db) * 4,
               float(Eb) * nb * (2 * db * db + 3 * db),
               lambda: newton_system(Xk, rd2, rdz), lambda: newton_system_plain(Xk, rd2, rdz),
@@ -345,6 +365,10 @@ def main() -> int:
             f"= {busy_us / 1e6 / wall:.1%}, idle {1 - busy_us / 1e6 / wall:.1%}; top device time:")
         for us, key, count in sorted(rows_dev, reverse=True)[:8]:
             log(f"    {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+        log("  the port's kernels in that pass:")
+        for us, key, count in sorted(rows_dev, reverse=True):
+            if key.startswith("void pt::") and "reduce_parts" not in key:
+                log(f"    {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
     else:
         log("  profiled pass: the profiler recorded no device time (device busy share not measured)")
 
@@ -372,10 +396,13 @@ def main() -> int:
         "fused_hvp": ("photon_tpu_torch/csrc/fused_hvp.cu", "photon_tpu/ops/pallas_glm.py:227"),
         "newton_system": ("photon_tpu_torch/csrc/newton_system.cu", "photon_tpu/ops/pallas_newton.py:150"),
     }
-    # K1's row is its bf16 timing; its f32 time and bound ride beside.
-    f32 = timings.pop("fused_value_grad_f32")
-    timings["fused_value_grad"] = dict(timings.pop("fused_value_grad_bf16"),
-                                       f32_ms=f32["ms"], f32_bound_ms=f32["bound_ms"])
+    # K1's and K2's rows are their bf16 timings, K3's its f32 timing (the
+    # types of the main path); the other type's time and bound ride beside.
+    for name, main, other in (("fused_value_grad", "bf16", "f32"), ("fused_hvp", "bf16", "f32"),
+                              ("newton_system", "f32", "bf16")):
+        o = timings.pop(f"{name}_{other}")
+        timings[name] = dict(timings.pop(f"{name}_{main}"),
+                             **{f"{other}_ms": o["ms"], f"{other}_bound_ms": o["bound_ms"]})
     rows = []
     for name, (src, repl) in sources.items():
         rows.append(dict(name=name, route="cuda", source=src, replaces=repl,

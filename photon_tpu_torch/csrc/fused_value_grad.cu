@@ -11,25 +11,11 @@
 //
 // Two routes, chosen by shape in ops/fused_glm.py:
 //
-// "row" (rows of a multiple of 16 bytes, d <= 1024):
-// - Loads: one producer warp keeps a ring of `stages` row tiles in flight
-//   with the 1-D bulk copy (a tile of row-major X is one contiguous span),
-//   each stage guarded by a "full" mbarrier (transaction bytes) and an
-//   "empty" one (one arrival per consumer warp).
-// - Compute: each of 8 consumer warps owns whole rows of a tile. Lane l
-//   holds the row's 16-byte chunks l, l+32, ... in registers, forms its part
-//   of x.w against round(w) held in registers, and a fixed butterfly gives
-//   every lane z. Every lane computes dz itself and adds x*dz into its own
-//   d/32 accumulators from the same registers: the tile is read from shared
-//   memory once, with 16-byte loads, and no lane waits on another. Lane k
-//   holds the vectors (y, off, wt) of the warp's k-th row, evaluates that
-//   row's loss and writes its margin.
-// - Schedule: the rows are cut into slots of a row count fixed by the shape
-//   (ops/fused_glm.py row_plan). The grid is the card's resident CTAs; CTA c
-//   walks slots c, c + grid, ... At a slot's end the warps' accumulators are
-//   summed in warp order into that slot's partial [grad(d), loss], so a
-//   partial does not depend on the CTA or the card, and the partials go
-//   through a fixed two-level tree (launch_reduce_tree).
+// "row" (rows of a multiple of 16 bytes, d <= 1024): the bulk-copy ring and
+// register row loop of row_ring.h, with ValueGradOp below as its per-row
+// operation. Every lane computes dz itself and adds x*dz into its own
+// accumulators; lane k evaluates the loss of the warp's k-th row and writes
+// its margin. A slot's partial is [grad(d), loss].
 //
 // "tile" (any other d <= 4096): PR 1's kernel. Each CTA walks a fixed set of
 // row tiles (tile t goes to CTA t % grid of a grid fixed by shape), stages
@@ -38,286 +24,43 @@
 // CTA, summed in a fixed order (reduce_parts).
 //
 // Both routes give results that are bitwise reproducible (no atomics).
-#include "glm_common.h"
+#include "row_ring.h"
 
 namespace pt {
 
 // ---------------------------------------------------------------- row route
 
-constexpr int kRowWarps = 8;
-constexpr int kRowThreads = kRowWarps * 32;
-// Rows of a warp processed together, so their butterflies and loss math
-// interleave.
-constexpr int kRowBatch = 2;
+// The per-row operation of the row route (row_ring.h): z = x.w + off, the
+// row's coefficient is dz = wt * loss'(z, y), and the extra value of a
+// partial is the weighted loss. Lane k holds (y, off, wt) of its row, keeps
+// that row's z and, after the tile, adds its loss and writes its margin.
+template <int L>
+struct ValueGradOp {
+  static constexpr int kExtra = 1;
+  struct Side {
+    float y, off, wt;
+  };
+  const float *y, *off, *wt;
+  float* z_out;  // may be null
 
-template <typename T>
-struct Chunk {
-  static constexpr int V = 16 / sizeof(T);  // values in a 16-byte chunk
+  __device__ __forceinline__ Side load(long i) const { return {y[i], off[i], wt[i]}; }
+
+  __device__ __forceinline__ float coef(float s, const Side& mine, int k, int lane,
+                                        float& own) const {
+    const float zi = s + __shfl_sync(0xffffffffu, mine.off, k);
+    const float yi = __shfl_sync(0xffffffffu, mine.y, k);
+    const float wi = __shfl_sync(0xffffffffu, mine.wt, k);
+    if (lane == k) own = zi;
+    return wi * loss_dz<L>(zi, yi);
+  }
+
+  __device__ __forceinline__ float end_rows(const Side& mine, float own, int lane, int rows,
+                                            long first_row) const {
+    if (lane >= rows) return 0.f;
+    if (z_out != nullptr) z_out[first_row + lane] = own;
+    return mine.wt * loss_value<L>(own, mine.y);
+  }
 };
-
-__device__ __forceinline__ void unpack(const uint4& q, float (&v)[4]) {
-  v[0] = __uint_as_float(q.x);
-  v[1] = __uint_as_float(q.y);
-  v[2] = __uint_as_float(q.z);
-  v[3] = __uint_as_float(q.w);
-}
-
-// bf16 is the top half of an f32: a shift or a mask converts it exactly.
-__device__ __forceinline__ void unpack(const uint4& q, float (&v)[8]) {
-  const uint32_t u[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[2 * i] = __uint_as_float(u[i] << 16);
-    v[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-  }
-}
-
-// The warp's rows [r_begin, r_end) of a tile staged at xs (row-major, d
-// columns, C chunks a row); row0 is the tile's first row in X. Lane k holds
-// yk, ok, wk of row r_begin + k.
-template <typename T, int L, int CPL>
-__device__ __forceinline__ void row_tile(const T* xs, int d, int C, int r_begin, int r_end,
-                                         long row0, float yk, float ok, float wk,
-                                         const float (&wr)[CPL][Chunk<T>::V],
-                                         float (&acc)[CPL][Chunk<T>::V], float& loss_acc,
-                                         float* __restrict__ z_out) {
-  constexpr int V = Chunk<T>::V;
-  const int lane = threadIdx.x % 32;
-  float zk = 0.f;
-  for (int r = r_begin; r < r_end; r += kRowBatch) {
-    uint4 raw[kRowBatch][CPL];
-    float z[kRowBatch];
-#pragma unroll
-    for (int b = 0; b < kRowBatch; ++b) {
-      const bool live = r + b < r_end;
-      const uint4* xr = reinterpret_cast<const uint4*>(xs + (long)(r + b) * d);
-      float s = 0.f;
-#pragma unroll
-      for (int k = 0; k < CPL; ++k) {
-        const int c = lane + 32 * k;
-        raw[b][k] = (live && c < C) ? xr[c] : make_uint4(0u, 0u, 0u, 0u);
-        float x[V];
-        unpack(raw[b][k], x);
-#pragma unroll
-        for (int e = 0; e < V; ++e) s = fmaf(x[e], wr[k][e], s);
-      }
-      z[b] = s;
-    }
-#pragma unroll
-    for (int b = 0; b < kRowBatch; ++b) z[b] = warp_sum(z[b]);
-#pragma unroll
-    for (int b = 0; b < kRowBatch; ++b) {
-      const int k = (r + b - r_begin) & 31;
-      const float zi = z[b] + __shfl_sync(0xffffffffu, ok, k);
-      const float yi = __shfl_sync(0xffffffffu, yk, k);
-      const float wi = __shfl_sync(0xffffffffu, wk, k);
-      if (r + b < r_end) {
-        if (lane == k) zk = zi;
-        const float dz = wi * loss_dz<L>(zi, yi);
-#pragma unroll
-        for (int c = 0; c < CPL; ++c) {
-          float x[V];
-          unpack(raw[b][c], x);
-#pragma unroll
-          for (int e = 0; e < V; ++e) acc[c][e] = fmaf(x[e], dz, acc[c][e]);
-        }
-      }
-    }
-  }
-  if (lane < r_end - r_begin) {
-    loss_acc += wk * loss_value<L>(zk, yk);
-    if (z_out != nullptr) z_out[row0 + r_begin + lane] = zk;
-  }
-}
-
-// Sums the warps' accumulators in warp order into one row [grad(d), loss]
-// at out. red: kRowWarps * (d + 1) floats of shared memory.
-template <typename T, int CPL>
-__device__ __forceinline__ void flush_partial(const float (&acc)[CPL][Chunk<T>::V], float loss_acc,
-                                              float* red, int d, int C, float* __restrict__ out) {
-  constexpr int V = Chunk<T>::V;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  named_sync(1, kRowThreads);  // earlier readers of red are done
-  float* mine = red + warp * (d + 1);
-#pragma unroll
-  for (int k = 0; k < CPL; ++k) {
-    const int c = lane + 32 * k;
-    if (c < C) {
-#pragma unroll
-      for (int e = 0; e < V; ++e) mine[c * V + e] = acc[k][e];
-    }
-  }
-  const float ls = warp_sum(loss_acc);
-  if (lane == 0) mine[d] = ls;
-  named_sync(1, kRowThreads);
-  for (int j = threadIdx.x; j <= d; j += kRowThreads) {
-    float s = 0.f;
-#pragma unroll
-    for (int v = 0; v < kRowWarps; ++v) s += red[v * (d + 1) + j];
-    out[j] = s;
-  }
-}
-
-// Shared memory of the row kernel: 2 * stages mbarriers in the first
-// kBarrierBytes, then the ring of stages (each 128-byte aligned), then the
-// warps' reduction rows.
-constexpr int kMaxStages = 8;
-constexpr size_t kBarrierBytes = 2 * kMaxStages * sizeof(uint64_t);
-
-__host__ __device__ __forceinline__ size_t align128(size_t b) { return (b + 127) & ~size_t(127); }
-
-template <typename T>
-__host__ __device__ __forceinline__ size_t row_stage_bytes(int d, int tile_n) {
-  return align128((size_t)tile_n * d * sizeof(T));
-}
-
-template <typename T>
-size_t row_smem_bytes(int d, int tile_n, int stages) {
-  return kBarrierBytes + stages * row_stage_bytes<T>(d, tile_n) +
-         (size_t)kRowWarps * (d + 1) * sizeof(float);
-}
-
-template <typename T, int L, int CPL>
-__global__ void __launch_bounds__(kRowThreads + 32)
-    row_value_grad_kernel(const T* __restrict__ X, const float* __restrict__ w,
-                          const float* __restrict__ y, const float* __restrict__ off,
-                          const float* __restrict__ wt, float* __restrict__ z_out,
-                          float* __restrict__ parts, int n, int d, int tile_n,
-                          int tiles_per_slot, int stages) {
-  constexpr int V = Chunk<T>::V;
-  extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
-  uint64_t* empty = full + stages;
-  unsigned char* ring = smem + kBarrierBytes;
-  const size_t stage_bytes = row_stage_bytes<T>(d, tile_n);
-  float* red = reinterpret_cast<float*>(ring + stages * stage_bytes);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int num_tiles = (n + tile_n - 1) / tile_n;
-  const int num_slots = (num_tiles + tiles_per_slot - 1) / tiles_per_slot;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < stages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kRowWarps);
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
-
-  if (warp == kRowWarps) {
-    // Producer: one lane keeps up to `stages` tiles in flight. A tile of a
-    // row-major X is one contiguous span, a multiple of 16 bytes.
-    if (lane == 0) {
-      int it = 0;
-      for (int slot = blockIdx.x; slot < num_slots; slot += gridDim.x) {
-        const int t1 = min(num_tiles, (slot + 1) * tiles_per_slot);
-        for (int t = slot * tiles_per_slot; t < t1; ++t, ++it) {
-          const int s = it % stages, round = it / stages;
-          if (round > 0) mbar_wait(&empty[s], (round - 1) & 1);
-          const long r0 = (long)t * tile_n;
-          const int rows = (int)min((long)tile_n, (long)n - r0);
-          const uint32_t bytes = (uint32_t)((size_t)rows * d * sizeof(T));
-          mbar_arrive_expect_tx(&full[s], bytes);
-          bulk_copy_g2s(ring + s * stage_bytes, X + r0 * d, bytes, &full[s]);
-        }
-      }
-    }
-    return;
-  }
-
-  const int C = d / V;
-  float wr[CPL][V];
-#pragma unroll
-  for (int k = 0; k < CPL; ++k) {
-    const int c = lane + 32 * k;
-#pragma unroll
-    for (int e = 0; e < V; ++e) wr[k][e] = c < C ? round_like<T>(w[c * V + e]) : 0.f;
-  }
-
-  // Consumers: a warp's rows of a tile are rows [warp * rpw, (warp + 1) * rpw).
-  const int rpw = tile_n / kRowWarps;
-  int it = 0;
-  for (int slot = blockIdx.x; slot < num_slots; slot += gridDim.x) {
-    float acc[CPL][V];
-#pragma unroll
-    for (int k = 0; k < CPL; ++k) {
-#pragma unroll
-      for (int e = 0; e < V; ++e) acc[k][e] = 0.f;
-    }
-    float loss_acc = 0.f;
-    const int t1 = min(num_tiles, (slot + 1) * tiles_per_slot);
-    for (int t = slot * tiles_per_slot; t < t1; ++t, ++it) {
-      const int s = it % stages, round = it / stages;
-      const long r0 = (long)t * tile_n;
-      const int rows = (int)min((long)tile_n, (long)n - r0);
-      const int rb = min(rows, warp * rpw), re = min(rows, rb + rpw);
-      float yk = 0.f, ok = 0.f, wk = 0.f;
-      if (lane < re - rb) {  // issued before the wait, so they overlap it
-        const long i = r0 + rb + lane;
-        yk = y[i];
-        ok = off[i];
-        wk = wt[i];
-      }
-      mbar_wait(&full[s], round & 1);
-      row_tile<T, L, CPL>(reinterpret_cast<const T*>(ring + s * stage_bytes), d, C, rb, re, r0,
-                          yk, ok, wk, wr, acc, loss_acc, z_out);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s]);
-    }
-    flush_partial<T, CPL>(acc, loss_acc, red, d, C, parts + (long)slot * (d + 1));
-  }
-}
-
-// Launch arguments, one struct for both routes (pointers are device memory).
-struct Args {
-  const void *X, *w, *y, *off, *wt;
-  void *z_out, *parts, *out;
-  int n, d, tile_n, grid, tiles_per_slot, stages, vec;
-  int* ctas_per_sm;  // if set, the row route reports its occupancy instead of launching
-};
-
-template <typename T, int L, int CPL>
-cudaError_t launch_row(const Args& a, cudaStream_t stream) {
-  if (a.stages < 2 || a.stages > kMaxStages) return cudaErrorInvalidValue;
-  const size_t smem = row_smem_bytes<T>(a.d, a.tile_n, a.stages);
-  auto kernel = row_value_grad_kernel<T, L, CPL>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  // Several CTAs of ~74 KiB share an SM only with the carveout at its most.
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return err;
-  if (a.ctas_per_sm != nullptr) {
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.ctas_per_sm, kernel, kRowThreads + 32,
-                                                         smem);
-  }
-  kernel<<<a.grid, kRowThreads + 32, smem, stream>>>(
-      static_cast<const T*>(a.X), static_cast<const float*>(a.w), static_cast<const float*>(a.y),
-      static_cast<const float*>(a.off), static_cast<const float*>(a.wt),
-      static_cast<float*>(a.z_out), static_cast<float*>(a.parts), a.n, a.d, a.tile_n,
-      a.tiles_per_slot, a.stages);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  // parts holds the slots' partials, then room for the tree's group sums.
-  const int num_tiles = (a.n + a.tile_n - 1) / a.tile_n;
-  const int num_slots = (num_tiles + a.tiles_per_slot - 1) / a.tiles_per_slot;
-  float* parts = static_cast<float*>(a.parts);
-  return launch_reduce_tree(parts, num_slots, a.d + 1, parts + (size_t)num_slots * (a.d + 1),
-                            static_cast<float*>(a.out), stream);
-}
-
-// Chunks per lane: the smallest of 1, 2, 4, 8 with 32 * CPL >= d / V.
-template <typename T, int L>
-cudaError_t dispatch_row(const Args& a, cudaStream_t s) {
-  const int C = a.d / Chunk<T>::V;
-  if (C <= 32) return launch_row<T, L, 1>(a, s);
-  if (C <= 64) return launch_row<T, L, 2>(a, s);
-  if (C <= 128) return launch_row<T, L, 4>(a, s);
-  if constexpr (sizeof(T) == 4) {
-    if (C <= 256) return launch_row<T, L, 8>(a, s);
-  }
-  return cudaErrorInvalidValue;
-}
 
 // --------------------------------------------------------------- tile route
 
@@ -386,6 +129,24 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) part[d] = loss_acc;
 }
 
+// Launch arguments, one struct for both routes (pointers are device memory).
+struct Args {
+  const void *X, *w, *y, *off, *wt;
+  void *z_out, *parts, *out;
+  int n, d, tile_n, grid, tiles_per_slot, stages, vec;
+  int* ctas_per_sm;  // if set, the row route reports its occupancy instead of launching
+};
+
+template <typename T, int L>
+cudaError_t launch_row(const Args& a, cudaStream_t s) {
+  const RowLaunch r{a.X,    static_cast<const float*>(a.w), static_cast<float*>(a.parts),
+                    static_cast<float*>(a.out), a.n, a.d, a.tile_n, a.grid, a.tiles_per_slot,
+                    a.stages, a.ctas_per_sm};
+  const ValueGradOp<L> op{static_cast<const float*>(a.y), static_cast<const float*>(a.off),
+                          static_cast<const float*>(a.wt), static_cast<float*>(a.z_out)};
+  return dispatch_row<T>(r, op, s);
+}
+
 template <typename T, int L>
 cudaError_t launch_tile(const Args& a, cudaStream_t stream) {
   const size_t smem =
@@ -405,7 +166,7 @@ cudaError_t launch_tile(const Args& a, cudaStream_t stream) {
 
 template <typename T, int L>
 cudaError_t dispatch_route(int route, const Args& a, cudaStream_t s) {
-  return route == 1 ? dispatch_row<T, L>(a, s) : launch_tile<T, L>(a, s);
+  return route == 1 ? launch_row<T, L>(a, s) : launch_tile<T, L>(a, s);
 }
 
 template <typename T>

@@ -5,7 +5,9 @@ photon_tpu/ops/pallas_glm.py).
 and optionally the margins z, from one read of X
 (csrc/fused_value_grad.cu). ``fused_hvp`` returns Xᵀ·diag(d2)·X·v from one
 read of X (csrc/fused_hvp.cu). Both are pure data terms: L2 and
-normalization are folded by the caller (ops/objective.py).
+normalization are folded by the caller (ops/objective.py). Both take the
+same two routes by shape: "row" (csrc/row_ring.h, one row kernel with a
+per-row operation each) and "tile" (the staged-tile kernels).
 
 X may be f32 or bfloat16. As in the reference, the vector is rounded to X's
 dtype before the dot and everything after is f32. On CPU tensors each
@@ -54,8 +56,8 @@ def _geometry(X: Tensor) -> Tuple[int, int, int]:
     return tile, grid, vec
 
 
-# The "row" route of fused_value_grad (csrc/fused_value_grad.cu): warps own
-# whole rows, each lane a row's 16-byte chunks, so a row must be a whole
+# The "row" route of fused_value_grad and fused_hvp (csrc/row_ring.h): warps
+# own whole rows, each lane a row's 16-byte chunks, so a row must be a whole
 # number of chunks and start on a 16-byte boundary; a lane holds at most 8
 # chunks (d <= 1024). The tile is _ROW_WARPS warps times a few rows, about
 # _ROW_TILE_BYTES of X, at most 32 rows a warp. A slot is about
@@ -80,6 +82,10 @@ def value_grad_route(d: int, elem_size: int, data_ptr: int) -> str:
     if d <= ROW_MAX_DIM and row_bytes % 16 == 0 and data_ptr % 16 == 0:
         return "row"
     return "tile"
+
+
+# fused_hvp takes the row route on the same shapes as fused_value_grad.
+hvp_route = value_grad_route
 
 
 def row_tile_rows(d: int, elem_size: int) -> int:
@@ -125,32 +131,55 @@ def row_plan(n: int, d: int, elem_size: int, sm_count: int, ctas_per_sm: int) ->
                    min(slots, sm_count * ctas_per_sm), ctas_per_sm)
 
 
+# Resident CTAs per SM of a row kernel, by (kernel, device, bf16, d, loss id).
 _ROW_OCCUPANCY: Dict[tuple, int] = {}
 
 
-def _row_plan_on_card(X: Tensor, loss: PointwiseLoss) -> RowPlan:
+def _row_plan_on_card(name: str, X: Tensor, loss_id: int) -> RowPlan:
+    """Row plan of kernel ``name`` ("fused_value_grad", whose row kernel
+    depends on the loss, or "fused_hvp", loss_id -1) for a CUDA X."""
     n, d = X.shape
     bf16, es = int(X.dtype == torch.bfloat16), X.element_size()
-    key = (X.device.index, bf16, d, loss.kernel_id)
+    key = (name, X.device.index, bf16, d, loss_id)
     if key not in _ROW_OCCUPANCY:
+        extra = () if loss_id < 0 else (loss_id,)
         with torch.cuda.device(X.device):
-            ctas = kernels.query_int("fused_value_grad", "pt_fused_value_grad_occupancy", bf16, d,
-                                     row_tile_rows(d, es), RING_STAGES, loss.kernel_id)
+            ctas = kernels.query_int(name, f"pt_{name}_occupancy", bf16, d, row_tile_rows(d, es),
+                                     RING_STAGES, *extra)
         if ctas < 1:
-            raise RuntimeError(f"fused_value_grad: the row kernel does not fit an SM at d={d}")
+            raise RuntimeError(f"{name}: the row kernel does not fit an SM at d={d}")
         _ROW_OCCUPANCY[key] = ctas
     sms = torch.cuda.get_device_properties(X.device).multi_processor_count
     return row_plan(n, d, es, sms, _ROW_OCCUPANCY[key])
 
 
-def value_grad_plan(X: Tensor, loss: PointwiseLoss) -> dict:
-    """The route and launch geometry ``fused_value_grad`` uses for a CUDA X."""
+def _plan(name: str, X: Tensor, loss_id: int) -> dict:
     n, d = X.shape
     route = value_grad_route(d, X.element_size(), X.data_ptr())
     if route == "row":
-        return dict(route=route, **asdict(_row_plan_on_card(X, loss)))
+        return dict(route=route, **asdict(_row_plan_on_card(name, X, loss_id)))
     tile, grid, _ = _geometry(X)
     return dict(route=route, tile_rows=tile, grid=grid)
+
+
+def value_grad_plan(X: Tensor, loss: PointwiseLoss) -> dict:
+    """The route and launch geometry ``fused_value_grad`` uses for a CUDA X."""
+    return _plan("fused_value_grad", X, loss.kernel_id)
+
+
+def hvp_plan(X: Tensor) -> dict:
+    """The route and launch geometry ``fused_hvp`` uses for a CUDA X."""
+    return _plan("fused_hvp", X, -1)
+
+
+def _launch_geometry(name: str, X: Tensor, loss_id: int) -> Tuple[int, tuple, int]:
+    """(scratch rows, (route, tile, grid, tiles_per_slot, stages), vec) of a
+    launch; vec matters to the tile route only."""
+    if value_grad_route(X.shape[1], X.element_size(), X.data_ptr()) == "row":
+        plan = _row_plan_on_card(name, X, loss_id)
+        return plan.scratch_rows(), (1, plan.tile_rows, plan.grid, plan.tiles_per_slot, plan.stages), 1
+    tile, grid, vec = _geometry(X)
+    return grid, (0, tile, grid, 0, 0), vec
 
 
 def _check_cuda_inputs(name: str, X: Tensor, *vecs: Tensor) -> None:
@@ -191,14 +220,7 @@ def fused_value_grad(loss: PointwiseLoss, w: Tensor, X: Tensor, label: Tensor,
     if w.shape[0] != d or not (label.shape[0] == offset.shape[0] == weight.shape[0] == n):
         raise ValueError("fused_value_grad: shapes of w/label/offset/weight do not match X")
     # Route by shape (value_grad_route): both routes are CUDA kernels.
-    if value_grad_route(d, X.element_size(), X.data_ptr()) == "row":
-        plan = _row_plan_on_card(X, loss)
-        scratch = plan.scratch_rows()
-        geometry = (1, plan.tile_rows, plan.grid, plan.tiles_per_slot, plan.stages, loss.kernel_id, 1)
-    else:
-        tile, grid, vec = _geometry(X)
-        scratch = grid
-        geometry = (0, tile, grid, 0, 0, loss.kernel_id, vec)
+    scratch, geometry, vec = _launch_geometry("fused_value_grad", X, loss.kernel_id)
     parts = torch.empty((scratch, d + 1), dtype=torch.float32, device=X.device)
     out = torch.empty(d + 1, dtype=torch.float32, device=X.device)
     z = torch.empty(n, dtype=torch.float32, device=X.device) if return_margins else None
@@ -206,7 +228,7 @@ def fused_value_grad(loss: PointwiseLoss, w: Tensor, X: Tensor, label: Tensor,
         "fused_value_grad", kernels.ptr(X), int(X.dtype == torch.bfloat16), kernels.ptr(w),
         kernels.ptr(label), kernels.ptr(offset), kernels.ptr(weight),
         None if z is None else kernels.ptr(z), kernels.ptr(parts), kernels.ptr(out),
-        n, d, *geometry,
+        n, d, *geometry, loss.kernel_id, vec,
     )
     value, grad = out[d], out[:d]
     return (value, grad, z) if return_margins else (value, grad)
@@ -229,11 +251,13 @@ def fused_hvp(v: Tensor, X: Tensor, d2: Tensor) -> Tensor:
     _check_cuda_inputs("fused_hvp", X, v, d2)
     if v.shape[0] != d or d2.shape[0] != n:
         raise ValueError("fused_hvp: shapes of v/d2 do not match X")
-    tile, grid, vec = _geometry(X)
-    parts = torch.empty((grid, d), dtype=torch.float32, device=X.device)
+    # Route by shape (hvp_route, the same as value_grad_route): both routes
+    # are CUDA kernels.
+    scratch, geometry, vec = _launch_geometry("fused_hvp", X, -1)
+    parts = torch.empty((scratch, d), dtype=torch.float32, device=X.device)
     out = torch.empty(d, dtype=torch.float32, device=X.device)
     kernels.launch(
         "fused_hvp", kernels.ptr(X), int(X.dtype == torch.bfloat16), kernels.ptr(v),
-        kernels.ptr(d2), kernels.ptr(parts), kernels.ptr(out), n, d, tile, grid, vec,
+        kernels.ptr(d2), kernels.ptr(parts), kernels.ptr(out), n, d, *geometry, vec,
     )
     return out

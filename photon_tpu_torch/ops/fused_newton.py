@@ -3,15 +3,23 @@ photon_tpu/ops/pallas_newton.py).
 
 ``newton_system(X, d2, dz)`` returns, for every entity e of a block,
 H_e = X_eᵀ·diag(d2_e)·X_e and g_e = X_eᵀ·dz_e from one read of the entity's
-(n_max, d) slab (csrc/newton_system.cu, one CTA per entity). X is f32, or a
-bfloat16 copy under ``re_kernel="cuda_bf16x"``; d2, dz and every sum are
-f32. On CPU tensors the wrapper computes the plain batched einsum; on CUDA
-tensors it launches the kernel or raises.
+(n_max, d) slab (csrc/newton_system.cu). X is f32, or a bfloat16 copy under
+``re_kernel="cuda_bf16x"``; d2, dz and every sum are f32. On CPU tensors the
+wrapper computes the plain batched einsum; on CUDA tensors it launches the
+kernel or raises.
+
+The kernel's launch plan (``newton_plan``) is computed here from the shape,
+plus the card's occupancy for the grid: lanes own 4×4 blocks of H on or
+above the diagonal, an entity's rows are split over a fixed number of row
+groups, an entity is worked by a team of whole warps, and a CTA holds
+several teams. Everything but the grid follows from the shape, so the sums
+are bitwise the same on any card.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from dataclasses import asdict, dataclass
+from typing import Dict, Tuple
 
 import torch
 
@@ -19,10 +27,25 @@ from photon_tpu_torch.ops import kernels
 
 Tensor = torch.Tensor
 
-# d*d Hessian entries over 256 threads, at most 16 per thread
-# (csrc/newton_system.cu kMaxDim). The random-effect solver is meant for
-# d of a few dozen (photon_tpu/optim/newton.py:9).
+# Lanes own 4×4 blocks of H (csrc/newton_system.cu kBlk); d <= 64 gives at
+# most 136 blocks on or above the diagonal. The random-effect solver is meant
+# for d of a few dozen (photon_tpu/optim/newton.py:9).
 NEWTON_MAX_DIM = 64
+_BLOCK = 4
+# A team (one entity at a time) is 1 to _CTA_WARPS whole warps; a CTA holds
+# _CTA_WARPS // team_warps teams. The team is the fewest warps whose lanes
+# are at least _MIN_LANE_USE busy (blocks × row groups of 32 × warps), else
+# the best use within _CTA_WARPS.
+_CTA_WARPS = 8
+_MIN_LANE_USE = 0.9
+# "bulk" route ring: about _STAGE_BYTES of X per stage, between
+# _MIN_CHUNK_ROWS and _MAX_CHUNK_ROWS rows, NEWTON_STAGES stages per team.
+# Chosen on the H100 at E=4096, n_max=768, d=16: 1 KiB stages spend more
+# on three bulk copies and a barrier round per chunk than on the rows, and
+# a third 4 KiB stage halves the resident CTAs (PERF.md, section 6).
+_STAGE_BYTES = 4096
+_MIN_CHUNK_ROWS, _MAX_CHUNK_ROWS = 16, 512
+NEWTON_STAGES = 2
 
 # Routing values for the random-effect Newton system:
 #   torch      — plain batched einsum/matmul (two reads of X per iteration)
@@ -42,6 +65,128 @@ def resolve_re_kernel(re_kernel: str, device) -> str:
     if re_kernel.startswith("cuda") and not is_cuda:
         raise ValueError(f"re_kernel={re_kernel!r} needs CUDA tensors, got device {device}")
     return re_kernel
+
+
+def upper_blocks(d: int) -> Tuple[int, int]:
+    """(blocks a side, blocks on or above the diagonal) of a d×d H."""
+    nb = -(-d // _BLOCK)
+    return nb, nb * (nb + 1) // 2
+
+
+def team_shape(d: int) -> Tuple[int, int]:
+    """(warps a team, row groups) for width d: lanes = blocks × row groups."""
+    _, blocks = upper_blocks(d)
+    best = None
+    for warps in range(-(-blocks // 32), _CTA_WARPS + 1):
+        groups = 32 * warps // blocks
+        use = blocks * groups / (32 * warps)
+        if use >= _MIN_LANE_USE:
+            return warps, groups
+        if best is None or use > best[0]:
+            best = (use, warps, groups)
+    return best[1], best[2]
+
+
+def newton_route(n_max: int, d: int, elem_size: int, *data_ptrs: int) -> str:
+    """"bulk" where every chunk of X, d2 and dz is a 16-byte-aligned span of
+    whole 16-byte units (n_max a multiple of 4, a row a multiple of 4 bytes,
+    arrays on a 16-byte boundary), else "direct" (element loads, any shape).
+    Both are the same CUDA kernel; the choice is by shape, not a fallback."""
+    if n_max % 4 == 0 and (d * elem_size) % 4 == 0 and all(p % 16 == 0 for p in data_ptrs):
+        return "bulk"
+    return "direct"
+
+
+def chunk_rows(n_max: int, d: int, elem_size: int) -> int:
+    """Rows in one ring stage of the bulk route: a multiple of 4."""
+    rows = _STAGE_BYTES // (d * elem_size) // 4 * 4
+    return min(n_max, max(_MIN_CHUNK_ROWS, min(_MAX_CHUNK_ROWS, rows)))
+
+
+@dataclass(frozen=True)
+class NewtonPlan:
+    """One launch of the Newton-system kernel. Lane t of a team owns upper
+    block t % blocks and row group t // blocks (rows i with i % row_groups
+    equal to it); a CTA holds teams_per_cta teams and walks entity groups
+    cta, cta + grid, ..., team j taking entity group * teams_per_cta + j.
+    Only ``grid`` and ``ctas_per_sm`` depend on the card."""
+
+    route: str
+    entities: int
+    block_side: int
+    blocks: int
+    team_warps: int
+    row_groups: int
+    teams_per_cta: int
+    chunk_rows: int
+    stages: int
+    grid: int
+    ctas_per_sm: int
+
+    @property
+    def threads(self) -> int:
+        return self.teams_per_cta * self.team_warps * 32
+
+    @property
+    def lanes_per_entity(self) -> int:
+        return self.blocks * self.row_groups
+
+    @property
+    def entity_groups(self) -> int:
+        return -(-self.entities // self.teams_per_cta)
+
+    def cta_entities(self, cta: int) -> list:
+        t = self.teams_per_cta
+        return [q * t + j for q in range(cta, self.entity_groups, self.grid) for j in range(t)
+                if q * t + j < self.entities]
+
+    def group_rows(self, group: int, n_max: int) -> range:
+        return range(group, n_max, self.row_groups)
+
+    def layout(self) -> tuple:
+        """Everything that decides the sums: the same on every card."""
+        return (self.route, self.block_side, self.blocks, self.team_warps, self.row_groups,
+                self.teams_per_cta, self.chunk_rows, self.stages)
+
+
+def newton_plan(E: int, n_max: int, d: int, elem_size: int, route: str, sm_count: int,
+                ctas_per_sm: int) -> NewtonPlan:
+    nb, blocks = upper_blocks(d)
+    warps, groups = team_shape(d)
+    teams = max(1, _CTA_WARPS // warps)
+    bulk = route == "bulk"
+    return NewtonPlan(route, E, nb, blocks, warps, groups, teams,
+                      chunk_rows(n_max, d, elem_size) if bulk else 0, NEWTON_STAGES if bulk else 0,
+                      min(-(-E // teams), sm_count * ctas_per_sm), ctas_per_sm)
+
+
+# Resident CTAs per SM of the kernel, by (device, bf16, layout).
+_OCCUPANCY: Dict[tuple, int] = {}
+
+
+def _plan_on_card(X: Tensor, d2: Tensor, dz: Tensor) -> NewtonPlan:
+    E, n_max, d = X.shape
+    bf16, es = int(X.dtype == torch.bfloat16), X.element_size()
+    route = newton_route(n_max, d, es, X.data_ptr(), d2.data_ptr(), dz.data_ptr())
+    shape = newton_plan(E, n_max, d, es, route, 1, 1)
+    key = (X.device.index, bf16, n_max, d, shape.layout())
+    if key not in _OCCUPANCY:
+        with torch.cuda.device(X.device):
+            ctas = kernels.query_int(
+                "newton_system", "pt_newton_system_occupancy", bf16, n_max, d,
+                int(route == "bulk"), shape.team_warps, shape.row_groups, shape.teams_per_cta,
+                shape.chunk_rows, shape.stages,
+            )
+        if ctas < 1:
+            raise RuntimeError(f"newton_system: the kernel does not fit an SM at d={d}")
+        _OCCUPANCY[key] = ctas
+    sms = torch.cuda.get_device_properties(X.device).multi_processor_count
+    return newton_plan(E, n_max, d, es, route, sms, _OCCUPANCY[key])
+
+
+def system_plan(X: Tensor, d2: Tensor, dz: Tensor) -> dict:
+    """The launch plan ``newton_system`` uses for CUDA tensors."""
+    return asdict(_plan_on_card(X, d2, dz))
 
 
 def newton_system_plain(X: Tensor, d2: Tensor, dz: Tensor) -> Tuple[Tensor, Tensor]:
@@ -70,8 +215,10 @@ def newton_system(X: Tensor, d2: Tensor, dz: Tensor) -> Tuple[Tensor, Tensor]:
     g = torch.empty((E, d), dtype=torch.float32, device=X.device)
     if E == 0 or n_max == 0:
         return H.zero_(), g.zero_()
+    p = _plan_on_card(X, d2, dz)
     kernels.launch(
         "newton_system", kernels.ptr(X), int(X.dtype == torch.bfloat16), kernels.ptr(d2),
-        kernels.ptr(dz), kernels.ptr(H), kernels.ptr(g), E, n_max, d,
+        kernels.ptr(dz), kernels.ptr(H), kernels.ptr(g), E, n_max, d, int(p.route == "bulk"),
+        p.team_warps, p.row_groups, p.teams_per_cta, p.chunk_rows, p.stages, p.grid,
     )
     return H, g

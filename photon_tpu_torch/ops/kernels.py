@@ -4,8 +4,8 @@ Each source in ``photon_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
 ``ctypes``. Libraries are built at first use (or all at once, in parallel,
 by ``build_all``) into ``build/torch_kernels/`` beside the package, under a
-name keyed by the hash of the source and the shared header, so an edited
-source is rebuilt and an unchanged one is reused.
+name keyed by the hash of the source and every header in ``csrc/``, so an
+edited source or header is rebuilt and an unchanged one is reused.
 
 Every wrapper that launches a kernel adds one to that kernel's entry in
 ``LAUNCHES``, where it launches and nowhere else: a run shows which kernels
@@ -40,11 +40,11 @@ KERNELS: Dict[str, Tuple[str, str, list]] = {
     ),
     "fused_hvp": (
         "fused_hvp.cu", "pt_fused_hvp",
-        [_VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+        [_VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
     ),
     "newton_system": (
         "newton_system.cu", "pt_newton_system",
-        [_VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+        [_VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
     ),
 }
 
@@ -69,8 +69,8 @@ def _nvcc() -> str:
 def _library_path(name: str) -> Path:
     src = KERNELS[name][0]
     h = hashlib.sha256()
-    for f in (src, "glm_common.h"):
-        h.update((CSRC / f).read_bytes())
+    for f in [CSRC / src, *sorted(CSRC.glob("*.h"))]:
+        h.update(f.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 

@@ -98,6 +98,50 @@ def test_fused_value_grad_is_bitwise_repeatable(cuda_device, dtype):
         assert torch.equal(a, b)
 
 
+# K2 takes the same routes as K1: d = 40 and 256 the row route, d = 37 and
+# 2048 the tile route.
+@pytest.mark.parametrize("n", [3001, 5])
+@pytest.mark.parametrize("d", [40, 256, 37, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_hvp_routes_match_plain(cuda_device, dtype, d, n):
+    X, v, _, _, d2 = _value_grad_problem(cuda_device, n, d, dtype, seed=2 * d + n)
+    want_route = "row" if d in (40, 256) else "tile"
+    assert fused_glm.hvp_route(d, X.element_size(), X.data_ptr()) == want_route
+    assert fused_glm.hvp_plan(X)["route"] == want_route
+    kernels.reset_launches()
+    torch.testing.assert_close(fused_glm.fused_hvp(v, X, d2), fused_glm.fused_hvp_plain(v, X, d2),
+                               rtol=RTOL, atol=ATOL)
+    assert kernels.LAUNCHES["fused_hvp"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_hvp_is_bitwise_repeatable(cuda_device, dtype):
+    X, v, _, _, d2 = _value_grad_problem(cuda_device, 100_003, 256, dtype, seed=8)
+    assert torch.equal(fused_glm.fused_hvp(v, X, d2), fused_glm.fused_hvp(v, X, d2))
+
+
+# K3 over the range of widths, E = 37 (no multiple of the entities per CTA),
+# n_max = 77 (the direct route) and 100 (the bulk route, a ragged last chunk).
+@pytest.mark.parametrize("n_max", [77, 100])
+@pytest.mark.parametrize("d", [1, 6, 13, 16, 33, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_newton_system_widths_match_plain(cuda_device, dtype, d, n_max):
+    g = torch.Generator(device=cuda_device).manual_seed(d + n_max)
+    E = 37
+    X = torch.randn(E, n_max, d, device=cuda_device, generator=g).to(dtype)
+    d2 = torch.rand(E, n_max, device=cuda_device, generator=g)
+    dz = torch.randn(E, n_max, device=cuda_device, generator=g)
+    plan = fused_newton.system_plan(X, d2, dz)
+    assert E % plan["teams_per_cta"] != 0 or plan["teams_per_cta"] == 1
+    kernels.reset_launches()
+    H, gv = fused_newton.newton_system(X, d2, dz)
+    H_want, g_want = fused_newton.newton_system_plain(X, d2, dz)
+    torch.testing.assert_close(H, H_want, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(gv, g_want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(H, H.transpose(1, 2))
+    assert kernels.LAUNCHES["newton_system"] == 1
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_newton_system_kernel_matches_plain(cuda_device, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(1)

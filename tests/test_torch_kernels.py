@@ -91,6 +91,19 @@ def test_hvp_plain_matches_pallas(dtype, monkeypatch):
     _close(got, want)
 
 
+# K2 at widths of its row route (d = 40, 256), with n no multiple of a tile.
+@pytest.mark.parametrize("n", [203, 37])
+@pytest.mark.parametrize("d", [40, 256])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_hvp_plain_matches_pallas_at_row_route_widths(dtype, d, n, monkeypatch):
+    monkeypatch.setattr(pallas_glm, "DEFAULT_TILE_N", 64)
+    X, _, wt, _, w = _problem(n=n, d=d, seed=d + n)
+    assert fused_glm.hvp_route(d, 2 if dtype == "bf16" else 4, 0) == "row"
+    want = fused_data_hvp(jnp.asarray(w), _jx(X, dtype), jnp.asarray(wt), interpret=True)
+    got = fused_glm.fused_hvp(torch.from_numpy(w), _tx(X, dtype), torch.from_numpy(wt))
+    _close(got, want)
+
+
 @pytest.mark.parametrize("padded", [False, True], ids=["whole_slab_3a", "row_tiled_3b"])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_newton_system_plain_matches_pallas(dtype, padded):
@@ -104,6 +117,26 @@ def test_newton_system_plain_matches_pallas(dtype, padded):
     H_want, g_want = jf(_jx(X, dtype), jnp.asarray(d2), jnp.asarray(dz))
     H, g = fused_newton.newton_system(_tx(X, dtype), torch.from_numpy(d2), torch.from_numpy(dz))
     assert H.shape == (E, d, d) and g.shape == (E, d)
+    _close(H, H_want)
+    _close(g, g_want)
+
+
+# K3 at the headline width (d = 16) with a ragged n_max and padding rows,
+# against both lowerings of the Pallas kernel.
+@pytest.mark.parametrize("padded", [False, True], ids=["whole_slab_3a", "row_tiled_3b"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_newton_system_plain_matches_pallas_at_d16(dtype, padded):
+    rng = np.random.default_rng(3)
+    E, n, d = 6, 45, 16
+    X = rng.normal(size=(E, n, d)).astype(np.float32)
+    X[:, :, 0] = 1.0
+    d2 = rng.uniform(0.0, 0.25, size=(E, n)).astype(np.float32)
+    dz = rng.normal(size=(E, n)).astype(np.float32)
+    X[:, -7:] = 0.0
+    d2[:, -7:] = dz[:, -7:] = 0.0  # padding rows
+    jf = jax.vmap(lambda x, a, b: fused_newton_system(x, a, b, interpret=True, padded=padded))
+    H_want, g_want = jf(_jx(X, dtype), jnp.asarray(d2), jnp.asarray(dz))
+    H, g = fused_newton.newton_system(_tx(X, dtype), torch.from_numpy(d2), torch.from_numpy(dz))
     _close(H, H_want)
     _close(g, g_want)
 
@@ -171,8 +204,14 @@ ROW_SHAPES = [
 CARDS = [(132, 3), (132, 1), (114, 2), (16, 4), (1, 1)]  # (SMs, resident CTAs per SM)
 
 
+# K1 and K2 take the row route on the same shapes, with the same plan.
+ROW_KERNELS = {"fused_value_grad": fused_glm.value_grad_route, "fused_hvp": fused_glm.hvp_route}
+
+
+@pytest.mark.parametrize("kernel", list(ROW_KERNELS))
 @pytest.mark.parametrize("n,d,es", ROW_SHAPES)
-def test_row_plan_puts_every_row_in_exactly_one_slot(n, d, es):
+def test_row_plan_puts_every_row_in_exactly_one_slot(n, d, es, kernel):
+    assert ROW_KERNELS[kernel](d, es, 0) == "row"
     for sms, ctas in CARDS:
         plan = fused_glm.row_plan(n, d, es, sms, ctas)
         assert plan.tile_rows % 8 == 0 and plan.tile_rows <= 8 * 32
@@ -184,8 +223,10 @@ def test_row_plan_puts_every_row_in_exactly_one_slot(n, d, es):
         assert plan.scratch_rows() == plan.slots + -(-plan.slots // 64)
 
 
+@pytest.mark.parametrize("kernel", list(ROW_KERNELS))
 @pytest.mark.parametrize("n,d,es", ROW_SHAPES)
-def test_row_plan_slot_layout_does_not_depend_on_the_card(n, d, es):
+def test_row_plan_slot_layout_does_not_depend_on_the_card(n, d, es, kernel):
+    assert ROW_KERNELS[kernel](d, es, 16) == "row"
     plans = [fused_glm.row_plan(n, d, es, sms, ctas) for sms, ctas in CARDS]
     assert len({(p.tile_rows, p.tiles_per_slot, p.slots, p.stages) for p in plans}) == 1
     assert [p.grid for p in plans] == [min(plans[0].slots, s * c) for s, c in CARDS]
@@ -203,11 +244,77 @@ def test_row_plan_at_the_headline_shape():
     (1032, 2, 0, "tile"), (2048, 2, 0, "tile"), (4096, 4, 0, "tile"),  # wider than ROW_MAX_DIM
     (256, 4, 4, "tile"), (40, 2, 8, "tile"),  # X off a 16-byte boundary
 ])
-def test_value_grad_route_by_width_and_alignment(d, es, ptr, route):
-    assert fused_glm.value_grad_route(d, es, ptr) == route
+@pytest.mark.parametrize("kernel", list(ROW_KERNELS))
+def test_row_route_by_width_and_alignment(d, es, ptr, route, kernel):
+    assert ROW_KERNELS[kernel](d, es, ptr) == route
+
+
+# K3's launch plan, which the wrapper computes in Python.
+BUCKET_DIMS = [1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64]  # data/random_effect.py bucket_dim
+NEWTON_SHAPES = [(4096, 768, 16), (37, 77, 13), (37, 100, 16), (5, 8, 64), (1, 4, 1), (300, 24, 33)]
+
+
+@pytest.mark.parametrize("d", BUCKET_DIMS)
+def test_newton_plan_takes_every_bucketed_width(d):
+    from photon_tpu_torch.data.random_effect import bucket_dim
+    assert bucket_dim(d) == d
+    for es in (4, 2):
+        for route in ("bulk", "direct"):
+            p = fused_newton.newton_plan(100, 96, d, es, route, 132, 4)
+            nb, blocks = fused_newton.upper_blocks(d)
+            assert 4 * nb >= d and blocks == nb * (nb + 1) // 2
+            assert 1 <= p.team_warps <= 8 and p.row_groups >= 1
+            assert p.lanes_per_entity <= 32 * p.team_warps and p.threads <= 256
+            if route == "bulk":
+                assert p.chunk_rows % 4 == 0 and 4 <= p.chunk_rows <= 96 and p.stages >= 1
+                assert (p.chunk_rows * d * es) % 16 == 0  # each chunk copy is whole 16-byte units
+
+
+@pytest.mark.parametrize("E,n_max,d", NEWTON_SHAPES)
+def test_newton_plan_puts_every_entity_on_one_cta_and_every_row_in_one_group(E, n_max, d):
+    for sms, ctas in CARDS:
+        p = fused_newton.newton_plan(E, n_max, d, 4, "bulk" if n_max % 4 == 0 else "direct", sms, ctas)
+        walked = sorted(e for cta in range(p.grid) for e in p.cta_entities(cta))
+        assert walked == list(range(E))
+        rows = sorted(r for g in range(p.row_groups) for r in p.group_rows(g, n_max))
+        assert rows == list(range(n_max))
+
+
+@pytest.mark.parametrize("E,n_max,d", NEWTON_SHAPES)
+def test_newton_plan_layout_does_not_depend_on_the_card(E, n_max, d):
+    plans = [fused_newton.newton_plan(E, n_max, d, 2, "bulk", sms, ctas) for sms, ctas in CARDS]
+    assert len({p.layout() for p in plans}) == 1
+    assert [p.grid for p in plans] == [min(plans[0].entity_groups, s * c) for s, c in CARDS]
+
+
+def test_newton_plan_at_the_headline_shape():
+    p = fused_newton.newton_plan(4096, 768, 16, 4, "bulk", 132, 4)
+    assert (p.blocks, p.team_warps, p.row_groups, p.teams_per_cta, p.chunk_rows) == (10, 1, 3, 8, 64)
+    assert (p.entity_groups, p.grid, p.threads) == (512, 512, 256)
+
+
+@pytest.mark.parametrize("n_max,d,es,ptr,route", [
+    (768, 16, 4, 0, "bulk"), (768, 16, 2, 0, "bulk"), (100, 13, 4, 16, "bulk"), (8, 6, 2, 0, "bulk"),
+    (77, 16, 4, 0, "direct"), (6, 16, 4, 0, "direct"),  # n_max not a multiple of 4
+    (768, 13, 2, 0, "direct"), (768, 1, 2, 0, "direct"),  # bf16 rows of an odd width
+    (768, 16, 4, 8, "direct"),  # an array off a 16-byte boundary
+])
+def test_newton_route_by_shape_and_alignment(n_max, d, es, ptr, route):
+    assert fused_newton.newton_route(n_max, d, es, 0, ptr, 0) == route
 
 
 def test_kernel_sources_are_packaged():
     for src, _, _ in kernels.KERNELS.values():
         assert (kernels.CSRC / src).is_file()
-    assert (kernels.CSRC / "glm_common.h").is_file()
+    for header in ("glm_common.h", "row_ring.h"):
+        assert (kernels.CSRC / header).is_file()
+
+
+def test_library_name_follows_every_header(tmp_path, monkeypatch):
+    for f in kernels.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    before = {name: kernels._library_path(name) for name in kernels.KERNELS}
+    (tmp_path / "row_ring.h").write_text((tmp_path / "row_ring.h").read_text() + "// edit\n")
+    after = {name: kernels._library_path(name) for name in kernels.KERNELS}
+    assert all(before[name] != after[name] for name in kernels.KERNELS)
