@@ -26,7 +26,15 @@ Phases, each of which must pass:
                 E = 4096, logistic), which must lower the training logloss
                 and launch kernels 1 and 3;
   5. TRON     — a fixed-effect TRON solve on the same batch, which must lower
-                the objective and launch kernels 1 and 2.
+                the objective and launch kernels 1 and 2;
+  6. train_glm — the legacy GLM driver: ``train_glm.main`` on a LIBSVM file
+                (2^14 rows) and an Avro file (2^12 rows) of 255 features with
+                validation files and λ = 10, 1, 0.1, whose model files must
+                be written and load back, with validation AUC > 0.7 and K1
+                launched; the driver's λ loop at N = 2^21, d = 256 (f32) with
+                L-BFGS (K1) and TRON (K1 and K2), per λ iterations, X passes,
+                wall time, host syncs, samples/s and AUC; and the λ loop on
+                the card against the port's float64 plain path on the CPU.
 It prints the card's name and power limit, a JSON line of per-kernel numbers,
 and last {"ok": true, "device": {...}}. It exits non-zero, printing no
 result, when there is no CUDA device or any phase fails. Float32 matrix
@@ -36,9 +44,11 @@ products run in full f32 (TF32 off).
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -46,6 +56,11 @@ import torch
 # Headline shape (bench.py:65-71).
 N, D_FIX, D_RE, E = 1 << 21, 256, 16, 4096
 FE_ITERS, RE_ITERS, CD_PASSES = 30, 8, 2
+# Phase 6 (train_glm): file sizes of 6a, the validation rows of 6b (whose
+# training batch is N rows); every file and batch has 255 features, which
+# the driver's intercept takes to d = 256.
+A_LIBSVM_ROWS, A_AVRO_ROWS, A_VALID_ROWS, A_FEATURES = 1 << 14, 1 << 12, 1 << 12, 255
+B_VALID_ROWS, B_FEATURES = 1 << 18, 255
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -83,6 +98,202 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def profiled(label: str, fn, indent: str = "  ") -> None:
+    """Run fn once under torch.profiler and print its wall time, the device's
+    busy and idle share, the top device time by kernel and the port's own
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # Device-side events only: an aten:: op row repeats its kernels' time.
+    rows_dev = [(e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(r[0] for r in rows_dev)
+    if busy_us <= 0:
+        log(f"{indent}{label}: the profiler recorded no device time (device busy share not measured)")
+        return
+    log(f"{indent}{label}: {wall * 1e3:.2f} ms wall (profiler on), device busy {busy_us / 1e3:.2f} ms "
+        f"= {busy_us / 1e6 / wall:.1%}, idle {1 - busy_us / 1e6 / wall:.1%}; top device time:")
+    for us, key, count in sorted(rows_dev, reverse=True)[:8]:
+        log(f"{indent}  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    log(f"{indent}the port's kernels in that run:")
+    for us, key, count in sorted(rows_dev, reverse=True):
+        if key.startswith("void pt::") and "reduce_parts" not in key:
+            log(f"{indent}  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+
+
+def _planted_logistic(n: int, d: int, seed: int):
+    """(X (n, d) with no intercept column, labels 0/1) of a planted logistic
+    model, from numpy; the driver adds the intercept."""
+    rng = np.random.default_rng(seed)
+    w_true = np.random.default_rng(1234).normal(size=d) * 2.0 / np.sqrt(d)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    y = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-(X @ w_true)))).astype(np.float32)
+    return X, y
+
+
+def _write_libsvm(path, X, y) -> None:
+    with open(path, "w") as f:
+        for row, label in zip(X, y):
+            f.write(("+1 " if label > 0 else "-1 ") + " ".join(f"{j + 1}:{v:.4f}" for j, v in enumerate(row)) + "\n")
+
+
+def _write_avro(path, X, y) -> None:
+    from photon_tpu_torch.io.avro import write_avro_records
+    from photon_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA
+
+    write_avro_records(str(path), TRAINING_EXAMPLE_SCHEMA, [
+        {"uid": str(i), "label": float(label), "metadataMap": None, "weight": None, "offset": None,
+         "features": [{"name": str(j + 1), "term": "", "value": float(v)} for j, v in enumerate(row)]}
+        for i, (row, label) in enumerate(zip(X, y))])
+
+
+def _text_coefficients(path, imap, device) -> torch.Tensor:
+    w = torch.zeros(len(imap), dtype=torch.float64)
+    with open(path) as f:
+        for line in f:
+            if not line.startswith("#"):
+                key, value = line.rstrip("\n").split("\t")
+                w[imap.get_index(key)] = float(value)
+    return w.to(device)
+
+
+def train_glm_phase(dev, smi: str, check) -> dict:
+    """Phase 6: the legacy GLM driver. (a) ``train_glm.main`` on a LIBSVM and
+    an Avro file on the card; (b) the driver's λ loop at full width with
+    L-BFGS and TRON; (c) the λ loop on the card against the CPU float64 plain
+    path on a small file. Returns the kernel launches of (a) and (b)."""
+    from photon_tpu_torch.cli import train_glm
+    from photon_tpu_torch.evaluation.metrics_map import AREA_UNDER_ROC, metrics_map
+    from photon_tpu_torch.io.model_io import load_game_model
+    from photon_tpu_torch.data.game_data import GameBatch
+    from photon_tpu_torch.ops import kernels
+    from photon_tpu_torch.optim.factory import OptimizerSpec
+    from photon_tpu_torch.types import OptimizerType, TaskType, VarianceComputationType
+
+    launches = {k: 0 for k in kernels.LAUNCHES}
+
+    def count(used: dict) -> None:
+        for k, v in used.items():
+            launches[k] += v
+
+    log("## phase 6: train_glm")
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_train_glm"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    lambdas = "10,1,0.1"
+
+    # 6a. End to end on files, through the entry point a user calls.
+    t0 = time.perf_counter()
+    files = {}
+    for fmt, n_train, n_valid, write, ext in (("libsvm", A_LIBSVM_ROWS, A_VALID_ROWS, _write_libsvm, "txt"),
+                                             ("avro", A_AVRO_ROWS, A_VALID_ROWS // 4, _write_avro, "avro")):
+        paths = []
+        for part, n, seed in (("train", n_train, 11), ("valid", n_valid, 12)):
+            paths.append(str(work / f"{fmt}-{part}.{ext}"))
+            write(paths[-1], *_planted_logistic(n, A_FEATURES, seed))
+        files[fmt] = paths
+    log(f"  wrote the LIBSVM ({A_LIBSVM_ROWS} rows) and Avro ({A_AVRO_ROWS} rows) files, {A_FEATURES} features, "
+        f"in {time.perf_counter() - t0:.1f} s")
+    for fmt, (train_path, valid_path) in files.items():
+        out = work / f"out-{fmt}"
+        argv = ["--training-data", train_path, "--validation-data", valid_path, "--format", fmt,
+                "--output-dir", str(out), "--regularization-weights", lambdas, "--device", "cuda"]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        summary = train_glm.main(argv)
+        wall = time.perf_counter() - t0
+        used = dict(kernels.LAUNCHES)
+        count(used)
+        written = [out / f"model-lambda-{lam:g}.txt" for lam in (10.0, 1.0, 0.1)] + [
+            out / "LATEST", out / "training-summary.json", out / "best" / "model-metadata.json"]
+        check(all(p.exists() for p in written), f"6a {fmt}: model files, LATEST and training-summary.json written")
+        best = next(m for m in summary["models"] if m["lambda"] == summary["best_lambda"])
+        auc = best["validation"][AREA_UNDER_ROC]
+        log(f"  6a {fmt}: {wall:.2f} s, best λ {summary['best_lambda']:g}, validation AUC {auc:.4f}; per λ "
+            + ", ".join(f"{m['lambda']:g}: {m['iterations']} it {m['reason']}" for m in summary["models"])
+            + f"; launches {used}")
+        check(auc > 0.7, f"6a {fmt}: validation AUC {auc:.4f} > 0.7")
+        check(used["fused_value_grad"] > 0, f"6a {fmt}: the driver launched K1")
+        args = train_glm.build_parser().parse_args(argv)
+        valid, imap = train_glm.load_data(args, valid_path, dev)
+        model = load_game_model(str(out / "best"), {"features": imap}, device=dev)
+        n = valid.label.shape[0]
+        scores = model.score(GameBatch(valid.label, valid.offset, valid.weight, {"features": valid.features}, {}))
+        w_text = _text_coefficients(out / f"model-lambda-{summary['best_lambda']:g}.txt", imap, dev)
+        _, r = rel_err(scores, valid.features.double() @ w_text)
+        check(len(imap) == A_FEATURES + 1 and scores.shape == (n,) and r <= 1e-5,
+              f"6a {fmt}: best/ loads back and scores the text model's margins (rel {r:.3e}, tolerance 1e-5)")
+
+    # 6b. Full width through the driver's λ loop: N = 2^21, d = 256, f32.
+    log(f"  6b: N=2^21 d={B_FEATURES + 1} f32 (intercept last), validation {B_VALID_ROWS} rows, λ = {lambdas}, "
+        f"SIMPLE variances; card {smi}")
+    g = torch.Generator(device=dev).manual_seed(6)
+    w_true = torch.randn(B_FEATURES, device=dev, generator=g) * 2.0 / B_FEATURES ** 0.5
+
+    def planted(n):
+        X = torch.ones(n, B_FEATURES + 1, device=dev)
+        X[:, :B_FEATURES] = torch.randn(n, B_FEATURES, device=dev, generator=g)
+        y = (torch.rand(n, device=dev, generator=g) < torch.sigmoid(X[:, :B_FEATURES] @ w_true)).float()
+        return X, y
+
+    from photon_tpu_torch.data.batch import LabeledBatch
+
+    Xt, yt = planted(N)
+    Xv, yv = planted(B_VALID_ROWS)
+    train, valid = LabeledBatch(yt, Xt), LabeledBatch(yv, Xv)
+    weights = [float(x) for x in lambdas.split(",")]
+    for opt, needs in ((OptimizerType.LBFGS, ("fused_value_grad",)),
+                       (OptimizerType.TRON, ("fused_value_grad", "fused_hvp"))):
+        kernels.reset_launches()
+        sweep = train_glm.train_lambda_sweep(train, weights, TaskType.LOGISTIC_REGRESSION, OptimizerSpec(opt),
+                                             intercept_index=B_FEATURES,
+                                             variance=VarianceComputationType.SIMPLE)
+        used = dict(kernels.LAUNCHES)
+        count(used)
+        for r in sweep:
+            passes = int(r.result.x_passes)
+            auc = metrics_map(TaskType.LOGISTIC_REGRESSION, valid.margins(r.w_model), yv)[AREA_UNDER_ROC]
+            value = float(r.result.value)
+            log(f"    {opt.name} λ={r.lam:g}: {int(r.result.iterations)} iterations, "
+                f"{r.result.convergence_reason.value}, {passes} X passes, {r.wall_s:.4f} s wall, "
+                f"{r.host_syncs} host syncs, {N * passes / r.wall_s:.4e} samples/s, objective {value:.6e}, "
+                f"validation AUC {auc:.4f}")
+            check(np.isfinite(value) and bool(torch.isfinite(r.variances).all()),
+                  f"6b {opt.name} λ={r.lam:g}: objective and variances finite")
+            check(auc > 0.6, f"6b {opt.name} λ={r.lam:g}: validation AUC {auc:.4f} > 0.6")
+        log(f"    {opt.name} sweep launches {used}")
+        check(all(used[k] > 0 for k in needs), f"6b {opt.name}: launched {', '.join(needs)}")
+        # The first λ once more, under the profiler (its launches are not counted).
+        profiled(f"{opt.name} λ={weights[0]:g} from zero, profiled", lambda: train_glm.train_lambda_sweep(
+            train, weights[:1], TaskType.LOGISTIC_REGRESSION, OptimizerSpec(opt), intercept_index=B_FEATURES),
+            indent="    ")
+    del Xt, Xv, train, valid
+    torch.cuda.empty_cache()
+
+    # 6c. The λ loop on the card (f32, kernels) against the CPU plain path in
+    # float64, on the 6a LIBSVM training file.
+    args = train_glm.build_parser().parse_args(
+        ["--training-data", files["libsvm"][0], "--format", "libsvm", "--output-dir", str(work)])
+    small, imap = train_glm.load_data(args, files["libsvm"][0], "cpu")
+    icpt = imap.get_index(imap.INTERCEPT)
+    spec = OptimizerSpec(OptimizerType.LBFGS)
+    card = train_glm.train_lambda_sweep(LabeledBatch(small.label.to(dev), small.features.to(dev)), weights,
+                                        TaskType.LOGISTIC_REGRESSION, spec, intercept_index=icpt)
+    plain = train_glm.train_lambda_sweep(LabeledBatch(small.label.double(), small.features.double()), weights,
+                                         TaskType.LOGISTIC_REGRESSION, spec, intercept_index=icpt)
+    for rc, rp in zip(card, plain):
+        _, r = rel_err(rc.w_model.cpu(), rp.w_model)
+        check(r <= REFERENCE_TOL, f"6c λ={rc.lam:g}: coefficients on the card (f32) vs float64 plain path on the CPU: "
+                                  f"rel {r:.3e} (tolerance {REFERENCE_TOL:g})")
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
 
 
 def main() -> int:
@@ -349,28 +560,7 @@ def main() -> int:
           "GLMix path launched K1 and K3")
 
     # 4c. one more pass under torch.profiler: device busy share, time by kernel.
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(w_fixed, re_coefs, fe_batch, block, Xr, users)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # Device-side events only: an aten:: op row repeats its kernels' time.
-    rows_dev = [(e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(r[0] for r in rows_dev)
-    if busy_us > 0:
-        log(f"  profiled pass: {wall * 1e3:.2f} ms wall (profiler on), device busy {busy_us / 1e3:.2f} ms "
-            f"= {busy_us / 1e6 / wall:.1%}, idle {1 - busy_us / 1e6 / wall:.1%}; top device time:")
-        for us, key, count in sorted(rows_dev, reverse=True)[:8]:
-            log(f"    {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
-        log("  the port's kernels in that pass:")
-        for us, key, count in sorted(rows_dev, reverse=True):
-            if key.startswith("void pt::") and "reduce_parts" not in key:
-                log(f"    {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
-    else:
-        log("  profiled pass: the profiler recorded no device time (device busy share not measured)")
+    profiled("profiled pass", lambda: step(w_fixed, re_coefs, fe_batch, block, Xr, users))
 
     # ---------------- 5. TRON ----------------
     log("## phase 5: fixed-effect TRON (hvp_factory = linearized_hvp)")
@@ -390,6 +580,11 @@ def main() -> int:
     check(float(res.value) < f0 and np.isfinite(float(res.value)), "TRON lowered the objective")
     check(tron_launches["fused_value_grad"] > 0 and tron_launches["fused_hvp"] > 0, "TRON path launched K1 and K2")
 
+    # ---------------- 6. train_glm ----------------
+    del fe_batch, Xb, Xr, block, ds
+    torch.cuda.empty_cache()
+    glm_launches = train_glm_phase(dev, smi, check)
+
     # ---------------- report ----------------
     sources = {
         "fused_value_grad": ("photon_tpu_torch/csrc/fused_value_grad.cu", "photon_tpu/ops/pallas_glm.py:345"),
@@ -406,7 +601,7 @@ def main() -> int:
     rows = []
     for name, (src, repl) in sources.items():
         rows.append(dict(name=name, route="cuda", source=src, replaces=repl,
-                         launches=glmix_launches[name] + tron_launches[name],
+                         launches=glmix_launches[name] + tron_launches[name] + glm_launches[name],
                          max_abs_err=headline_err[name], **timings[name]))
     if failures:
         log(f"chip_smoke: {len(failures)} check(s) failed: {failures}")

@@ -26,10 +26,11 @@ def coefficients(w_fixed: np.ndarray, re_coefs: np.ndarray, device="cuda") -> Tu
 
 
 def normalization(factors: Optional[np.ndarray], shifts: Optional[np.ndarray],
-                  device="cuda") -> NormalizationContext:
+                  intercept_index: Optional[int] = None, device="cuda") -> NormalizationContext:
     return NormalizationContext(
         None if factors is None else _t(factors, device),
         None if shifts is None else _t(shifts, device),
+        intercept_index,
     )
 
 

@@ -13,6 +13,8 @@ from typing import Callable
 
 import torch
 
+from photon_tpu_torch.types import TaskType
+
 Tensor = torch.Tensor
 
 
@@ -96,3 +98,16 @@ SmoothedHingeLoss = PointwiseLoss(
     mean=lambda z: z,
     kernel_id=3,
 )
+
+
+_TASK_LOSSES = {
+    TaskType.LOGISTIC_REGRESSION: LogisticLoss,
+    TaskType.LINEAR_REGRESSION: SquaredLoss,
+    TaskType.POISSON_REGRESSION: PoissonLoss,
+    TaskType.SMOOTHED_HINGE_LOSS_LINEAR_SVM: SmoothedHingeLoss,
+}
+
+
+def loss_for_task(task: TaskType) -> PointwiseLoss:
+    """Task → loss (reference ObjectiveFunctionHelper.scala:40-70)."""
+    return _TASK_LOSSES[task]

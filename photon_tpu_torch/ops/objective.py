@@ -9,13 +9,14 @@ gradient is Aᵀ·dz = f∘(Xᵀ·dz − s·Σdz).
 
 With ``use_fused`` (and a batch ``_can_fuse`` accepts) ``value_and_grad``
 and ``linearized_hvp`` run the fused kernels of ops/fused_glm.py.
-``hessian_diagonal`` and ``hessian_matrix`` are not ported yet.
+``hessian_diagonal`` and ``hessian_matrix`` (for coefficient variances)
+work through row chunks of X, so no temporary of X's full size is held.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 
@@ -25,6 +26,9 @@ from photon_tpu_torch.ops.fused_glm import MAX_FUSED_DIM, fused_hvp, fused_value
 from photon_tpu_torch.ops.losses import PointwiseLoss
 
 Tensor = torch.Tensor
+
+# Rows per chunk of the Hessian diagonal and matrix.
+_CHUNK_ROWS = 1 << 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +86,19 @@ class GLMObjective:
         wm = self._l2_mask(w)
         return 0.5 * self.l2_weight * torch.dot(wm, wm)
 
+    def l1_term(self, w: Tensor) -> Tensor:
+        """Nonsmooth term, for reporting and OWL-QN only."""
+        if self.l1_weight == 0.0:
+            return torch.zeros((), dtype=w.dtype, device=w.device)
+        return self.l1_weight * torch.sum(torch.abs(self._l2_mask(w)))
+
+    def _l2_diag(self, d: int, dtype, device) -> Tensor:
+        """λ on the diagonal, 0 at the intercept."""
+        lam = torch.full((d,), self.l2_weight, dtype=dtype, device=device)
+        if self.intercept_index is not None:
+            lam[self.intercept_index] = 0.0
+        return lam
+
     # ----- value / gradient -----
 
     def value(self, w: Tensor, batch: LabeledBatch) -> Tensor:
@@ -120,12 +137,31 @@ class GLMObjective:
 
     # ----- Hessian-vector products -----
 
+    def _curvature(self, w: Tensor, batch: LabeledBatch) -> Tensor:
+        """d2 = weight·loss''(margins): the Hessian's per-sample multiplier."""
+        return batch.weight * self.loss.dzz(self.margins(w, batch), batch.label)
+
+    def _plain_hvp(self, d2: Tensor, batch: LabeledBatch) -> Callable[[Tensor], Tensor]:
+        lam = self.l2_weight
+
+        def hv(v: Tensor) -> Tensor:
+            out = self._transpose(d2 * self._forward(v, batch), batch)
+            if lam != 0.0:
+                out = out + lam * self._l2_mask(v)
+            return out.to(v.dtype)
+
+        return hv
+
+    def hvp(self, w: Tensor, v: Tensor, batch: LabeledBatch) -> Tensor:
+        """H(w)·v without materializing H (the reference's jvp of the
+        gradient): one forward and one transpose pass."""
+        return self._plain_hvp(self._curvature(w, batch), batch)(v)
+
     def linearized_hvp(self, w: Tensor, batch: LabeledBatch) -> Callable[[Tensor], Tensor]:
         """Build v → H(w)·v with the w-dependent state (margins, d2) computed
         once; each product is then one fused pass (or a forward and a
         transpose pass)."""
-        z = self.margins(w, batch)
-        d2 = batch.weight * self.loss.dzz(z, batch.label)
+        d2 = self._curvature(w, batch)
         lam = self.l2_weight
 
         if self._can_fuse(batch):
@@ -142,10 +178,63 @@ class GLMObjective:
 
             return hv_fused
 
-        def hv(v: Tensor) -> Tensor:
-            out = self._transpose(d2 * self._forward(v, batch), batch)
-            if lam != 0.0:
-                out = out + lam * self._l2_mask(v)
-            return out.to(v.dtype)
+        return self._plain_hvp(d2, batch)
 
-        return hv
+    # ----- Hessian diagonal and matrix (coefficient variances) -----
+
+    def _effective_chunks(self, batch: LabeledBatch, d2: Tensor) -> Iterator[Tuple[Tensor, Tensor]]:
+        """(rows of the effective features, their d2), chunk by chunk: with
+        factors f and shifts s the effective feature is x∘f − s∘f, and the
+        intercept column is reset to 1 after shifting."""
+        X = batch.features
+        dt = torch.promote_types(X.dtype, d2.dtype)
+        norm = self.normalization
+        f = s = None
+        if norm is not None and not norm.is_identity:
+            f = norm.factors
+            s = None if norm.shifts is None else (norm.shifts if f is None else norm.shifts * f)
+        for i in range(0, X.shape[0], _CHUNK_ROWS):
+            Xc = X[i:i + _CHUNK_ROWS].to(dt)
+            if f is not None:
+                Xc = Xc * f[None, :]
+            if s is not None:
+                Xc = Xc - s[None, :]
+                if norm.intercept_index is not None:
+                    Xc[:, norm.intercept_index] = 1.0
+            yield Xc, d2[i:i + _CHUNK_ROWS].to(dt)
+
+    def hessian_diagonal(self, w: Tensor, batch: LabeledBatch) -> Tensor:
+        """diag(H) = Σ_i weight_i · loss''_i · x_ij² (+λ off the intercept),
+        normalization folded into the effective features."""
+        d2 = self._curvature(w, batch)
+        diag = None
+        for Xc, dc in self._effective_chunks(batch, d2):
+            part = dc @ (Xc * Xc)
+            diag = part if diag is None else diag + part
+        if self.l2_weight != 0.0:
+            diag = diag + self._l2_diag(diag.shape[0], diag.dtype, diag.device)
+        return diag
+
+    def hessian_matrix(self, w: Tensor, batch: LabeledBatch) -> Tensor:
+        """H = Xᵀ·diag(d2)·X + λ·I (intercept unpenalized), over effective
+        features; for variances at the widths they are computed for."""
+        d2 = self._curvature(w, batch)
+        H = None
+        for Xc, dc in self._effective_chunks(batch, d2):
+            part = Xc.T @ (dc[:, None] * Xc)
+            H = part if H is None else H + part
+        if self.l2_weight != 0.0:
+            H = H + torch.diag(self._l2_diag(H.shape[0], H.dtype, H.device))
+        return H
+
+    # ----- convenience -----
+
+    def full_value(self, w: Tensor, batch: LabeledBatch) -> Tensor:
+        """Smooth value + L1 term (the quantity OWL-QN minimizes)."""
+        return self.value(w, batch) + self.l1_term(w)
+
+    def with_l2(self, l2_weight: float) -> "GLMObjective":
+        return dataclasses.replace(self, l2_weight=l2_weight)
+
+    def with_l1(self, l1_weight: float) -> "GLMObjective":
+        return dataclasses.replace(self, l1_weight=l1_weight)

@@ -8,6 +8,7 @@ port runs Python loops, so every loop condition is a device-to-host read.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,6 +84,11 @@ class OptimizeResult:
     eval_unit: str = "objective_evals"
 
     @property
+    def x_passes(self) -> Tensor:
+        """``evals`` in feature-matrix passes (the reference's work unit)."""
+        return self.evals * (2 if self.eval_unit == "objective_evals" else 1)
+
+    @property
     def convergence_reason(self) -> ConvergenceReason:
         return _REASONS[int(self.reason_code)]
 
@@ -104,3 +110,26 @@ def check_convergence(value, prev_value, grad_norm, init_grad_norm, tol: float,
         ),
     )
     return code.to(torch.int32)
+
+
+def project_to_box(w: Tensor, box: Optional[Tuple[Tensor, Tensor]]) -> Tensor:
+    """Clip coefficients into a (lower, upper) box; None is no box."""
+    return w if box is None else torch.clamp(w, box[0], box[1])
+
+
+def finish_result(w, f, grad_norm, it, reason, loss_hist, gnorm_hist, final_loss, final_gnorm,
+                  evals, eval_unit="objective_evals") -> OptimizeResult:
+    """OptimizeResult with the histories padded past the last iteration by
+    the final values and NOT_CONVERGED turned into MAX_ITERATIONS."""
+    idx = np.arange(loss_hist.shape[0])
+    loss_hist = np.where(idx <= it, loss_hist, final_loss)
+    gnorm_hist = np.where(idx <= it, gnorm_hist, final_gnorm)
+    if reason == REASON_NOT_CONVERGED:
+        reason = REASON_MAX_ITERATIONS
+    dtype, device = w.dtype, w.device
+    as_t = lambda a, dt=dtype: torch.as_tensor(a, dtype=dt, device=device)  # noqa: E731
+    return OptimizeResult(
+        w=w, value=f, grad_norm=grad_norm, iterations=as_t(it, torch.int32),
+        reason_code=as_t(reason, torch.int32), loss_history=as_t(loss_hist),
+        grad_norm_history=as_t(gnorm_hist), evals=as_t(evals, torch.int32), eval_unit=eval_unit,
+    )

@@ -22,11 +22,11 @@ from photon_tpu_torch.optim.common import (
     HOST_READS,
     OptimizeResult,
     OptimizerConfig,
-    REASON_MAX_ITERATIONS,
     REASON_NOT_CONVERGED,
     check_convergence,
+    finish_result,
 )
-from photon_tpu_torch.optim.lbfgs import two_loop_direction
+from photon_tpu_torch.optim.lbfgs import CurvatureHistory
 from photon_tpu_torch.optim.linesearch import strong_wolfe
 
 Tensor = torch.Tensor
@@ -113,13 +113,11 @@ def minimize_lbfgs_margin(
     hist_len = config.history_len
     loss_hist = np.full(hist_len, f_host)
     gnorm_hist = np.full(hist_len, g0n_host)
-    s_hist = torch.zeros((m, d), dtype=dtype, device=device)
-    y_hist = torch.zeros((m, d), dtype=dtype, device=device)
-    rho_hist = torch.zeros((m,), dtype=dtype, device=device)
-    num_stored, head, it, reason = 0, 0, 0, REASON_NOT_CONVERGED
+    hist = CurvatureHistory(m, d, dtype, device)
+    it, reason = 0, REASON_NOT_CONVERGED
 
     while reason == REASON_NOT_CONVERGED and it < max_iter:
-        p = two_loop_direction(g, s_hist, y_hist, rho_hist, num_stored, head)
+        p = hist.direction(g)
         dg0 = torch.dot(p, g)
         bad_dir = dg0 >= 0
         p = torch.where(bad_dir, -g, p)
@@ -143,7 +141,7 @@ def minimize_lbfgs_margin(
 
         dg0_host, gnorm_host = HOST_READS.read(dg0, torch.linalg.norm(g))
         dt = dg0_host.dtype.type
-        init_alpha = dt(min(1.0, 1.0 / max(gnorm_host, 1e-12))) if num_stored == 0 else dt(1.0)
+        init_alpha = dt(min(1.0, 1.0 / max(gnorm_host, 1e-12))) if hist.num_stored == 0 else dt(1.0)
         ls = strong_wolfe(ls_fg, f_host, dg0_host, init_alpha,
                           max_evals=config.max_line_search_evals)
 
@@ -168,28 +166,12 @@ def minimize_lbfgs_margin(
         sy_host, f_host, gn_host, reason_host = HOST_READS.read(sy, f_new, gn, reason_t.to(dtype))
         reason = int(reason_host)
         if sy_host > 1e-12:
-            slot = (head + 1) % m
-            s_hist[slot] = s
-            y_hist[slot] = y
-            rho_hist[slot] = 1.0 / torch.clamp(sy, min=1e-30)
-            head = slot
-            num_stored = min(num_stored + 1, m)
+            hist.push(s, y, sy)
 
         w, z, f, g = w_new, z_new, f_new, g_new
         evals += 2
         loss_hist[min(it, hist_len - 1)] = f_host
         gnorm_hist[min(it, hist_len - 1)] = gn_host
 
-    final_gnorm = torch.linalg.norm(g)
-    idx = np.arange(hist_len)
-    loss_hist = np.where(idx <= it, loss_hist, f_host)
-    gnorm_hist = np.where(idx <= it, gnorm_hist, gn_host if it > 0 else g0n_host)
-    if reason == REASON_NOT_CONVERGED:
-        reason = REASON_MAX_ITERATIONS
-    as_t = lambda a, dt=dtype: torch.as_tensor(a, dtype=dt, device=device)  # noqa: E731
-    return OptimizeResult(
-        w=w, value=f, grad_norm=final_gnorm, iterations=as_t(it, torch.int32),
-        reason_code=as_t(reason, torch.int32), loss_history=as_t(loss_hist),
-        grad_norm_history=as_t(gnorm_hist), evals=as_t(evals, torch.int32),
-        eval_unit="x_passes",
-    )
+    return finish_result(w, f, torch.linalg.norm(g), it, reason, loss_hist, gnorm_hist, f_host,
+                         gn_host if it > 0 else g0n_host, evals, eval_unit="x_passes")

@@ -3,7 +3,8 @@ photon_tpu/optim/tron.py::minimize_tron).
 
 The same outer trust-region loop, radius update and Steihaug CG. The
 reference runs both loops as ``lax.while_loop``s; here they are host loops,
-one device read per CG step and one per outer iteration. With
+one device read per CG step and one per outer iteration. A coefficient
+``box`` is applied by projection to the start and to every trial point. With
 ``hvp_factory=objective.linearized_hvp`` the Hessian state is built once
 per outer iteration and each CG product is one fused pass
 (csrc/fused_hvp.cu) when the objective fuses.
@@ -23,6 +24,8 @@ from photon_tpu_torch.optim.common import (
     REASON_MAX_ITERATIONS,
     REASON_NOT_CONVERGED,
     check_convergence,
+    finish_result,
+    project_to_box,
 )
 
 Tensor = torch.Tensor
@@ -70,19 +73,20 @@ def minimize_tron(
     w0: Tensor,
     config: OptimizerConfig = TRON_DEFAULT_CONFIG,
     max_cg_iter: int = 20,
+    box: Optional[Tuple[Tensor, Tensor]] = None,
     hvp_factory: Optional[Callable[[Tensor], Callable[[Tensor], Tensor]]] = None,
 ) -> OptimizeResult:
     """Trust-region Newton minimization. ``hvp_factory`` (w → (v → H(w)·v))
-    is preferred over ``hvp``: it is built once per outer iteration. The
-    reference's coefficient ``box`` is not ported yet."""
+    is preferred over ``hvp``: it is built once per outer iteration.
+    ``box`` (lower, upper) bounds the coefficients by projection."""
     if hvp_factory is None:
         if hvp is None:
             raise ValueError("minimize_tron needs hvp or hvp_factory")
         hvp_factory = lambda w: (lambda v: hvp(w, v))  # noqa: E731
     max_iter, tol = config.max_iter, config.tol
-    dtype, device = w0.dtype, w0.device
+    dtype = w0.dtype
 
-    w = w0
+    w = project_to_box(w0, box)
     f, g = value_and_grad(w)
     g0_norm = torch.linalg.norm(g)
     delta = g0_norm
@@ -97,7 +101,7 @@ def minimize_tron(
         hv = hvp_factory(w)
         s, _hit, cg_iters = _truncated_cg(hv, g, delta, max_cg_iter, cg_tol)
 
-        w_trial = w + s
+        w_trial = project_to_box(w + s, box)
         s_eff = w_trial - w
         f_trial, g_trial = value_and_grad(w_trial)
 
@@ -131,14 +135,4 @@ def minimize_tron(
         loss_hist[min(it, hist_len - 1)] = f_host
         gnorm_hist[min(it, hist_len - 1)] = gn_host
 
-    idx = np.arange(hist_len)
-    loss_hist = np.where(idx <= it, loss_hist, f_host)
-    gnorm_hist = np.where(idx <= it, gnorm_hist, gn_host)
-    if reason == REASON_NOT_CONVERGED:
-        reason = REASON_MAX_ITERATIONS
-    as_t = lambda a, dt=dtype: torch.as_tensor(a, dtype=dt, device=device)  # noqa: E731
-    return OptimizeResult(
-        w=w, value=f, grad_norm=torch.linalg.norm(g), iterations=as_t(it, torch.int32),
-        reason_code=as_t(reason, torch.int32), loss_history=as_t(loss_hist),
-        grad_norm_history=as_t(gnorm_hist), evals=as_t(evals, torch.int32),
-    )
+    return finish_result(w, f, torch.linalg.norm(g), it, reason, loss_hist, gnorm_hist, f_host, gn_host, evals)

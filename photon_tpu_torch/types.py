@@ -24,3 +24,33 @@ class ConvergenceReason(enum.Enum):
     NOT_CONVERGED = "NOT_CONVERGED"
     # The solve hit a non-finite iterate and kept the last finite point.
     DIVERGED = "DIVERGED"
+
+
+class NormalizationType(enum.Enum):
+    """Feature normalization schemes (reference NormalizationType.scala:20)."""
+
+    NONE = "NONE"
+    SCALE_WITH_STANDARD_DEVIATION = "SCALE_WITH_STANDARD_DEVIATION"
+    SCALE_WITH_MAX_MAGNITUDE = "SCALE_WITH_MAX_MAGNITUDE"
+    STANDARDIZATION = "STANDARDIZATION"
+
+
+class VarianceComputationType(enum.Enum):
+    """Coefficient variances: SIMPLE = inverse Hessian diagonal, FULL =
+    diagonal of the inverse Hessian (Cholesky)."""
+
+    NONE = "NONE"
+    SIMPLE = "SIMPLE"
+    FULL = "FULL"
+
+
+class OptimizerType(enum.Enum):
+    """Optimizer selection (reference OptimizerType / OptimizerFactory)."""
+
+    LBFGS = "LBFGS"
+    OWLQN = "OWLQN"
+    LBFGSB = "LBFGSB"
+    TRON = "TRON"
+    # Batched damped Newton for the per-entity random-effect solves
+    # (optim/newton.py).
+    NEWTON = "NEWTON"

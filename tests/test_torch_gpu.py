@@ -164,3 +164,41 @@ def test_kernels_refuse_bad_inputs(cuda_device):
         fused_glm.fused_hvp(v, torch.zeros(4, 8, device=cuda_device).t(), torch.zeros(8, device=cuda_device))
     with pytest.raises(ValueError, match="tensors on"):
         fused_glm.fused_hvp(v.cpu(), X.float(), torch.zeros(8, device=cuda_device))
+
+
+def _planted_glm(n, d, seed):
+    g = torch.Generator().manual_seed(seed)
+    X = torch.ones(n, d)
+    X[:, :-1] = torch.randn(n, d - 1, generator=g)
+    w = torch.randn(d, generator=g) * 2.0 / d ** 0.5
+    y = (torch.rand(n, generator=g) < torch.sigmoid(X @ w)).float()
+    return X, y
+
+
+@pytest.mark.parametrize("optimizer", ["LBFGS", "TRON"])
+def test_train_glm_lambda_sweep_on_card_matches_cpu_plain_path(cuda_device, optimizer):
+    """The driver's λ loop on the card (f32, the fused kernels) against the
+    same loop on the CPU in float64 (plain versions): coefficients within
+    2e-3 of max |w|, the smoke's tolerance. L-BFGS launches K1 and TRON
+    launches K1 and K2."""
+    from photon_tpu_torch.cli.train_glm import train_lambda_sweep
+    from photon_tpu_torch.data.batch import LabeledBatch
+    from photon_tpu_torch.optim.factory import OptimizerSpec
+    from photon_tpu_torch.types import OptimizerType, TaskType, VarianceComputationType
+
+    X, y = _planted_glm(4000, 40, seed=3)
+    spec = OptimizerSpec(OptimizerType[optimizer])
+    args = dict(intercept_index=39, variance=VarianceComputationType.SIMPLE)
+    kernels.reset_launches()
+    card = train_lambda_sweep(LabeledBatch(y.to(cuda_device), X.to(cuda_device)), [10.0, 1.0, 0.1],
+                              TaskType.LOGISTIC_REGRESSION, spec, **args)
+    used = dict(kernels.LAUNCHES)
+    plain = train_lambda_sweep(LabeledBatch(y.double(), X.double()), [10.0, 1.0, 0.1],
+                               TaskType.LOGISTIC_REGRESSION, spec, **args)
+    for rc, rp in zip(card, plain):
+        assert rc.w_model.is_cuda
+        err = float((rc.w_model.cpu().double() - rp.w_model).abs().max())
+        assert err <= 2e-3 * max(1.0, float(rp.w_model.abs().max())), (rc.lam, err)
+        torch.testing.assert_close(rc.variances.cpu().double(), rp.variances, rtol=1e-2, atol=0.0)
+    assert used["fused_value_grad"] > 0
+    assert (used["fused_hvp"] > 0) == (optimizer == "TRON")
