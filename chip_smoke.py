@@ -10,12 +10,14 @@ Phases, each of which must pass:
   2. parity   — hold each kernel against its plain PyTorch version on the
                 card at the main path's shapes and at small ragged shapes,
                 K1 and K2 on both of their routes ("row" and "tile"), K3 on
-                both of its routes ("bulk" and "direct") up to d = 64, and
+                both of its routes ("bulk" and "direct") up to d = 64 and at
+                d = 96, 128 and 192 (where it works H in panels), and
                 check that two launches of K1 and of K2 at the headline are
                 bitwise equal;
   3. timing   — kernel, plain version and a library yardstick, with CUDA
                 events, beside the kernel's bound (bytes or operations over
-                the H100's published peaks); the launch plans of K1 and K2
+                the H100's published peaks), K3 also at d = 96 and 128
+                (E = 1024, n_max = 768); the launch plans of K1 and K2
                 (route, tile, slots, ring stages, resident CTAs per SM, grid)
                 and of K3 (route, blocks, team warps, row groups, entities
                 per CTA, chunk rows, stages, grid);
@@ -35,6 +37,18 @@ Phases, each of which must pass:
                 L-BFGS (K1) and TRON (K1 and K2), per λ iterations, X passes,
                 wall time, host syncs, samples/s and AUC; and the λ loop on
                 the card against the port's float64 plain path on the CPU.
+  7. GAME     — ``GameEstimator.fit`` then ``GameTransformer.transform`` with
+                three coordinates over phase 4's N = 2^21 rows: the fixed
+                effect (d = 256, bf16 X, L-BFGS, K1), per user (E = 4096,
+                d = 16, Newton, K3) and per item (E = 1024 Zipf-like items,
+                d = 128, at most 4096 samples an item, 4 sample-count blocks,
+                Newton, K3 at d = 128); two passes with the active set and a
+                2^18-row validation batch. First a small input on the card
+                against the float64 plain path on the CPU; then per pass the
+                wall time, host syncs, samples/s, each coordinate's wall, K1
+                and K3 launches by width, entities skipped, training logloss
+                (must fall) and validation AUC (GLMix must reach fixed-only);
+                then one pass under the profiler.
 It prints the card's name and power limit, a JSON line of per-kernel numbers,
 and last {"ok": true, "device": {...}}. It exits non-zero, printing no
 result, when there is no CUDA device or any phase fails. Float32 matrix
@@ -43,6 +57,7 @@ products run in full f32 (TF32 off).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -61,6 +76,10 @@ FE_ITERS, RE_ITERS, CD_PASSES = 30, 8, 2
 # the driver's intercept takes to d = 256.
 A_LIBSVM_ROWS, A_AVRO_ROWS, A_VALID_ROWS, A_FEATURES = 1 << 14, 1 << 12, 1 << 12, 255
 B_VALID_ROWS, B_FEATURES = 1 << 18, 255
+# Phase 7 (GAME): items, their width and sample cap, validation rows, passes;
+# K3's shapes at the per-item widths (E = 1024 items, n_max = 768).
+G_ITEMS, G_D_ITEM, G_ITEM_CAP, G_VALID_ROWS, G_PASSES = 1024, 128, 4096, 1 << 18, 2
+K3_WIDE = ((1024, 768, 96), (1024, 768, 128), (256, 768, 192))
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -296,6 +315,216 @@ def train_glm_phase(dev, smi: str, check) -> dict:
     return launches
 
 
+def _game_batch(dev, Xf, Xu, users, Xi, items, w_fe, W_u, W_i, g):
+    """A GameBatch of the planted GLMix model: fixed effect over Xf (f32 or
+    bf16), per-user effects over Xu, per-item effects over Xi."""
+    from photon_tpu_torch.data.batch import matvec
+    from photon_tpu_torch.data.game_data import GameBatch
+
+    logits = (matvec(Xf, w_fe) + torch.sum(Xu * W_u[users.long()], dim=-1)
+              + torch.sum(Xi * W_i[items.long()], dim=-1))
+    y = (torch.rand(Xf.shape[0], device=dev, generator=g, dtype=logits.dtype) < torch.sigmoid(logits))
+    n = Xf.shape[0]
+    return GameBatch(label=y.to(w_fe.dtype), offset=torch.zeros(n, dtype=w_fe.dtype, device=dev),
+                     weight=torch.ones(n, dtype=w_fe.dtype, device=dev),
+                     features={"global": Xf, "user": Xu, "item": Xi},
+                     entity_ids={"userId": users, "itemId": items})
+
+
+def _zipf_items(n, n_items, dev, g):
+    p = 1.0 / torch.arange(1, n_items + 1, device=dev, dtype=torch.float64) ** 1.1
+    return torch.multinomial(p, n, replacement=True, generator=g).to(torch.int32)
+
+
+def _game_estimator(n_users, n_items, item_cap, passes, fixed_only=False):
+    from photon_tpu_torch.estimators import config
+    from photon_tpu_torch.estimators.game_estimator import GameEstimator
+    from photon_tpu_torch.types import TaskType
+
+    cfgs = [config.FixedEffectCoordinateConfig("global", "global"),
+            config.RandomEffectCoordinateConfig("per_user", "userId", "user"),
+            config.RandomEffectCoordinateConfig("per_item", "itemId", "item", active_upper_bound=item_cap)]
+    if fixed_only:
+        cfgs = cfgs[:1]
+    reg = config.GameOptimizationConfig({c.coordinate_id: config.RegularizationConfig(1.0) for c in cfgs})
+    est = GameEstimator(TaskType.LOGISTIC_REGRESSION, cfgs, num_iterations=passes,
+                        intercept_indices={"global": 0, "user": 0, "item": 0},
+                        num_entities={"userId": n_users, "itemId": n_items}, re_active_set=True)
+    return est, reg
+
+
+def game_phase(dev, smi: str, check, Xb, Xr, users, n_users: int) -> dict:
+    """Phase 7: the GAME core. (a) A small input on the card (f32, kernels)
+    against the float64 plain path on the CPU; (b) ``GameEstimator.fit`` and
+    ``GameTransformer.transform`` at full width over phase 4's X (bf16), per
+    user features and ids, with per-item features and planted labels made
+    here; (c) one more pass under the profiler. Returns the kernel launches
+    of (b), with K3's by width under "newton_system_d<d>"."""
+    from photon_tpu_torch.estimators.game_transformer import GameTransformer
+    from photon_tpu_torch.evaluation.suite import EvaluationSuite, EvaluatorSpec
+    from photon_tpu_torch.ops import fused_newton, kernels
+    from photon_tpu_torch.ops.losses import LogisticLoss
+    from photon_tpu_torch.optim.common import HOST_READS
+
+    log("## phase 7: GAME core (GameEstimator.fit, GameTransformer.transform)")
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    # 7a. Small input: f32 on the card (K1, K3 at d = 16 and 128) against the
+    # float64 plain path on the CPU, same numpy data.
+    rng = np.random.default_rng(70)
+    sn, sd, sdu, sdi, sE, sI = 1 << 14, 32, 8, G_D_ITEM, 64, 32
+    cols = lambda k: np.concatenate([np.ones((sn, 1)), rng.normal(size=(sn, k - 1))], axis=1)  # noqa: E731
+    small = dict(Xf=cols(sd), Xu=cols(sdu), Xi=cols(sdi), users=rng.integers(0, sE, size=sn),
+                 w_fe=rng.normal(size=sd) / sd ** 0.5, W_u=rng.normal(size=(sE, sdu)) * 0.5,
+                 W_i=rng.normal(size=(sI, sdi)) * 0.1)
+    p = 1.0 / np.arange(1, sI + 1) ** 1.1
+    small["items"] = rng.choice(sI, size=sn, p=p / p.sum())
+
+    def small_scores(device, dtype, labels=None):
+        t = {k: torch.as_tensor(v, device=device, dtype=torch.int32 if k in ("users", "items") else dtype)
+             for k, v in small.items()}
+        gs = torch.Generator(device=device).manual_seed(71)
+        batch = _game_batch(device, t["Xf"], t["Xu"], t["users"], t["Xi"], t["items"], t["w_fe"], t["W_u"],
+                            t["W_i"], gs)
+        if labels is not None:  # the same labels on both sides
+            batch = dataclasses.replace(batch, label=labels.to(device=device, dtype=dtype))
+        est, reg = _game_estimator(sE, sI, 256, G_PASSES)
+        (res,) = est.fit(batch, optimization_configs=[reg])
+        return GameTransformer(res.model).transform(batch), batch.label
+
+    ref, small_labels = small_scores("cpu", torch.float64)
+    kernels.reset_launches()
+    fused_newton.LAUNCHES_BY_WIDTH.clear()
+    card, _ = small_scores(dev, torch.float32, small_labels)
+    torch.cuda.synchronize()
+    used = dict(kernels.LAUNCHES, by_width=dict(fused_newton.LAUNCHES_BY_WIDTH))
+    _, r = rel_err(card.cpu(), ref)
+    check(r <= REFERENCE_TOL and used["fused_value_grad"] > 0 and used["by_width"].get(G_D_ITEM, 0) > 0,
+          f"7a small GAME fit (n={sn}, 3 coordinates, d_item={sdi}) on the card vs float64 plain path on the "
+          f"CPU: scores rel {r:.3e} (tolerance {REFERENCE_TOL:g}); launches {used}")
+
+    # 7b. Full width.
+    t0 = time.perf_counter()
+    N = Xb.shape[0]
+    d_fix, d_user = Xb.shape[1], Xr.shape[1]
+    w_fe = torch.randn(d_fix, device=dev, generator=g) / d_fix ** 0.5
+    W_u = torch.randn(n_users, d_user, device=dev, generator=g) * 0.5
+    W_i = torch.randn(G_ITEMS, G_D_ITEM, device=dev, generator=g) * 0.1
+
+    def item_features(n):
+        X = torch.randn(n, G_D_ITEM, device=dev, generator=g)
+        X[:, 0] = 1.0
+        return X
+
+    train = _game_batch(dev, Xb, Xr, users, item_features(N), _zipf_items(N, G_ITEMS, dev, g), w_fe, W_u, W_i, g)
+    nv = G_VALID_ROWS
+    Xv = torch.randn(nv, d_fix, device=dev, generator=g)
+    Xv[:, 0] = 1.0
+    Xuv = torch.randn(nv, d_user, device=dev, generator=g)
+    Xuv[:, 0] = 1.0
+    valid = _game_batch(dev, Xv.to(torch.bfloat16), Xuv,
+                        torch.randint(0, n_users, (nv,), device=dev, generator=g, dtype=torch.int32),
+                        item_features(nv), _zipf_items(nv, G_ITEMS, dev, g), w_fe, W_u, W_i, g)
+    del Xv
+    counts = torch.bincount(train.entity_ids["itemId"].long(), minlength=G_ITEMS)
+    log(f"  data {time.perf_counter() - t0:.1f} s: N=2^21, global d={d_fix} bf16, per_user E={n_users} "
+        f"d={d_user}, per_item E={G_ITEMS} d={G_D_ITEM} (samples an item: max {int(counts.max())}, median "
+        f"{int(counts.median())}, min {int(counts.min())}; cap {G_ITEM_CAP}); validation {nv} rows; card {smi}")
+
+    def logloss(model, batch):
+        return float(torch.mean(LogisticLoss.value(model.score_with_offset(batch), batch.label)))
+
+    history = []
+
+    class Suite(EvaluationSuite):
+        """Validation AUC (the primary metric), and the training logloss, of
+        each pass's model."""
+
+        def evaluate_model(self, model, batch):
+            out = dict(super().evaluate_model(model, batch), train_logloss=logloss(model, train))
+            history.append(out)
+            return out
+
+    est, reg = _game_estimator(n_users, G_ITEMS, G_ITEM_CAP, G_PASSES)
+    t0 = time.perf_counter()
+    est._prepare_datasets(train)
+    torch.cuda.synchronize()
+    for cid, ds in est._re_datasets.items():
+        log(f"  {cid}: {len(ds.blocks)} blocks {[tuple(b.features.shape) for b in ds.blocks]}, "
+            f"{ds.num_active_samples} active samples")
+    log(f"  random-effect blocks built in {time.perf_counter() - t0:.1f} s (host grouping, once per batch)")
+
+    marks = []
+
+    def on_coordinate(it, cid, coord, wall):
+        stats = getattr(coord, "last_active_set_stats", None)
+        marks.append(dict(it=it, cid=cid, wall=wall, reads=HOST_READS.count, launches=dict(kernels.LAUNCHES),
+                          by_width=dict(fused_newton.LAUNCHES_BY_WIDTH),
+                          skipped=None if stats is None else stats["entities_skipped"]))
+
+    kernels.reset_launches()
+    fused_newton.LAUNCHES_BY_WIDTH.clear()
+    torch.cuda.synchronize()
+    reads0 = HOST_READS.count
+    (res,) = est.fit(train, validation_batch=valid, evaluation_suite=Suite([EvaluatorSpec.parse("AUC")]),
+                     optimization_configs=[reg], on_coordinate=on_coordinate)
+    transformer = GameTransformer(res.model, EvaluationSuite([EvaluatorSpec.parse("AUC")]))
+    scores = transformer.transform(valid)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    launches.update({f"newton_system_d{d}": c for d, c in fused_newton.LAUNCHES_BY_WIDTH.items()})
+
+    losses = [float(np.log(2.0))]  # every score is 0 before the first pass
+    prev = dict(reads=reads0, launches={k: 0 for k in kernels.LAUNCHES}, by_width={})
+    total_visits, total_s = 0, 0.0
+    for it in range(G_PASSES):
+        pm = [m for m in marks if m["it"] == it]
+        fe = res.tracker["global"][it]
+        visits = N * int(fe.x_passes) + sum(int(res.tracker[c][it].sample_visits) for c in ("per_user", "per_item"))
+        wall = sum(m["wall"] for m in pm)
+        total_visits, total_s = total_visits + visits, total_s + wall
+        end = pm[-1]
+        k1 = end["launches"]["fused_value_grad"] - prev["launches"]["fused_value_grad"]
+        k3 = {d: c - prev["by_width"].get(d, 0) for d, c in end["by_width"].items()}
+        losses.append(history[it]["train_logloss"])
+        auc = history[it]["AUC"]
+        log(f"  pass {it + 1}: {wall:.3f} s wall, {end['reads'] - prev['reads']} host syncs, "
+            f"{visits / wall:.4e} samples/s ({visits} visits; fixed effect {int(fe.x_passes)} X passes, "
+            f"{int(fe.iterations)} iterations), coordinates "
+            + ", ".join(f"{m['cid']} {m['wall']:.3f} s" for m in pm)
+            + f"; K1 launches {k1}, K3 launches by width {k3}; entities skipped "
+            + ", ".join(f"{m['cid']} {m['skipped']}" for m in pm if m["skipped"] is not None)
+            + f"; training logloss {losses[-1]:.6f}, validation AUC {auc:.4f}")
+        for cid in ("per_user", "per_item"):
+            log(f"    {cid}: {res.tracker[cid][it].summary()}")
+        check(losses[-1] < losses[-2], f"7b pass {it + 1}: training logloss fell ({losses[-2]:.6f} -> {losses[-1]:.6f})")
+        check(np.isfinite(auc), f"7b pass {it + 1}: validation AUC {auc:.4f} finite")
+        prev = end
+    log(f"  GAME {G_PASSES} passes: {total_s:.3f} s, {marks[-1]['reads'] - reads0} host syncs, "
+        f"{total_visits / total_s:.4e} samples/s (bench.py visit accounting) on {smi}; launches {launches}")
+    check(launches["fused_value_grad"] > 0 and launches.get(f"newton_system_d{Xr.shape[1]}", 0) > 0
+          and launches.get(f"newton_system_d{G_D_ITEM}", 0) > 0,
+          f"GAME path launched K1, and K3 at d = {Xr.shape[1]} and d = {G_D_ITEM}")
+    glmix_auc = max(h["AUC"] for h in history)  # the fit returns the best pass's model
+    check(bool(torch.isfinite(scores).all()) and scores.shape == (nv,)
+          and abs(transformer.last_metrics["AUC"] - glmix_auc) <= 1e-6,
+          f"GameTransformer.transform of the fit's model: {nv} finite scores, validation AUC "
+          f"{transformer.last_metrics['AUC']:.4f} (the fit's best pass {glmix_auc:.4f})")
+
+    fe_est, fe_reg = _game_estimator(n_users, G_ITEMS, G_ITEM_CAP, 1, fixed_only=True)
+    (fe_res,) = fe_est.fit(train, validation_batch=valid, evaluation_suite=EvaluationSuite(
+        [EvaluatorSpec.parse("AUC")]), optimization_configs=[fe_reg])
+    check(glmix_auc >= fe_res.metrics["AUC"],
+          f"7b GLMix validation AUC {glmix_auc:.4f} >= fixed-only {fe_res.metrics['AUC']:.4f}")
+
+    # 7c. One more pass from the trained model under the profiler (its
+    # launches are not counted).
+    est.num_iterations = 1
+    profiled("GAME pass from the trained model, profiled",
+             lambda: est.fit(train, optimization_configs=[reg], initial_model=res.model))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs only on a GPU", file=sys.stderr)
@@ -437,6 +666,21 @@ def main() -> int:
     for Xk in (block.features, Xre_b):
         H, _ = newton_system(Xk, rd2, rdz)
         check(torch.equal(H, H.transpose(1, 2)), f"K3 E={Eb} n_max={nb} d={db} {Xk.dtype}: H exactly symmetric")
+    # K3 at the per-item widths, where it works H in panels (bucket_dim takes
+    # 65-128 to 96 or 128; an explicit NEWTON spec takes any width, 192 here).
+    wide = {}
+    for En, nn, dn in K3_WIDE:
+        Xn = torch.randn(En, nn, dn, device=dev, generator=g)
+        Xn[:, :, 0] = 1.0
+        n2, nz = torch.rand(En, nn, device=dev, generator=g) * 0.25, torch.randn(En, nn, device=dev, generator=g)
+        wide[dn] = (Xn, n2, nz)
+        for dt in (torch.float32, torch.bfloat16):
+            Xnd = Xn.to(dt)
+            Hn, gn = newton_system(Xnd, n2, nz)
+            plan = system_plan(Xnd, n2, nz)
+            parity(f"K3 newton_system E={En} n_max={nn} d={dn} {dt} ({plan['route']} route, {plan['panels']} panels)",
+                   (Hn, gn), newton_system_plain(Xnd, n2, nz), f"newton_system_d{dn}" if dt == torch.float32 else None)
+            check(torch.equal(Hn, Hn.transpose(1, 2)), f"K3 E={En} n_max={nn} d={dn} {dt}: H exactly symmetric")
     del Xn, Xnd, Hn, gn, H
     torch.cuda.synchronize()
 
@@ -482,6 +726,19 @@ def main() -> int:
               float(Eb) * nb * (2 * db * db + 3 * db),
               lambda: newton_system(Xk, rd2, rdz), lambda: newton_system_plain(Xk, rd2, rdz),
               lambda: (torch.bmm(Xk.mT, Xk * rd2k), torch.bmm(Xk.mT, rdzk)))
+    for dn in (96, 128, 192):
+        Xn, n2, nz = wide[dn]
+        En, nn, _ = Xn.shape
+        for Xk, tag in ((Xn, "f32"), (Xn.to(torch.bfloat16), "bf16")):
+            log(f"  K3 E={En} n_max={nn} d={dn} {tag} launch plan on {sms} SMs: {system_plan(Xk, n2, nz)}")
+            n2k, nzk = n2.to(Xk.dtype)[..., None], nz.to(Xk.dtype)[..., None]
+            # The upper triangle of H and g: d(d+1) + 2d flops a row.
+            timed(f"newton_system_d{dn}_{tag}", f"K3 E={En} n_max={nn} d={dn} {tag}", Xk.dtype,
+                  En * nn * dn * Xk.element_size() + 2 * En * nn * 4 + En * (dn * dn + dn) * 4,
+                  float(En) * nn * (dn * (dn + 1) + 2 * dn),
+                  lambda: newton_system(Xk, n2, nz), lambda: newton_system_plain(Xk, n2, nz),
+                  lambda: (torch.bmm(Xk.mT, Xk * n2k), torch.bmm(Xk.mT, nzk)))
+    del wide, Xn, Xk
     # Does K1's loss math cost time? The same launch with the squared loss,
     # which has no exp, log or division.
     sq_ms = cuda_ms(lambda: fused_value_grad(SquaredLoss, w, Xb, y, off, wt, return_margins=True))
@@ -581,9 +838,14 @@ def main() -> int:
     check(tron_launches["fused_value_grad"] > 0 and tron_launches["fused_hvp"] > 0, "TRON path launched K1 and K2")
 
     # ---------------- 6. train_glm ----------------
-    del fe_batch, Xb, Xr, block, ds
+    del fe_batch, block, ds
     torch.cuda.empty_cache()
     glm_launches = train_glm_phase(dev, smi, check)
+
+    # ---------------- 7. GAME ----------------
+    torch.cuda.empty_cache()
+    game_launches = game_phase(dev, smi, check, Xb, Xr, users, E)
+    del Xb, Xr, users, y
 
     # ---------------- report ----------------
     sources = {
@@ -591,17 +853,26 @@ def main() -> int:
         "fused_hvp": ("photon_tpu_torch/csrc/fused_hvp.cu", "photon_tpu/ops/pallas_glm.py:227"),
         "newton_system": ("photon_tpu_torch/csrc/newton_system.cu", "photon_tpu/ops/pallas_newton.py:150"),
     }
+    # K3 at the per-item width (d = 128, which phase 7 runs) is a row of its
+    # own, its launches those at that width. No main path runs d = 96, so
+    # its numbers ride in the d = 128 row (a row of its own would show no
+    # launch); d = 192 is in the log.
+    sources["newton_system_d128"] = sources["newton_system"]
     # K1's and K2's rows are their bf16 timings, K3's its f32 timing (the
     # types of the main path); the other type's time and bound ride beside.
     for name, main, other in (("fused_value_grad", "bf16", "f32"), ("fused_hvp", "bf16", "f32"),
-                              ("newton_system", "f32", "bf16")):
+                              ("newton_system", "f32", "bf16"), ("newton_system_d128", "f32", "bf16"),
+                              ("newton_system_d96", "f32", "bf16")):
         o = timings.pop(f"{name}_{other}")
         timings[name] = dict(timings.pop(f"{name}_{main}"),
                              **{f"{other}_ms": o["ms"], f"{other}_bound_ms": o["bound_ms"]})
+    timings["newton_system_d128"].update({f"d96_{k}": v for k, v in timings.pop("newton_system_d96").items()},
+                                         d96_max_abs_err=headline_err["newton_system_d96"])
     rows = []
     for name, (src, repl) in sources.items():
         rows.append(dict(name=name, route="cuda", source=src, replaces=repl,
-                         launches=glmix_launches[name] + tron_launches[name] + glm_launches[name],
+                         launches=(glmix_launches.get(name, 0) + tron_launches.get(name, 0)
+                                   + glm_launches.get(name, 0) + game_launches.get(name, 0)),
                          max_abs_err=headline_err[name], **timings[name]))
     if failures:
         log(f"chip_smoke: {len(failures)} check(s) failed: {failures}")

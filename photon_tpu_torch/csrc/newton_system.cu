@@ -6,26 +6,35 @@
 // bodies _system_kernel and _system_kernel_tiled, vmapped over entities),
 // run once per random-effect Newton iteration.
 //
-// Bound on the H100: bytes. Each slab element is read once; the work is
-// 2*d*d + 3*d flops per row, which at d <= 64 stays below the ridge. What
-// keeps a simple kernel from that bound is instruction issue: one FMA per
-// shared-memory load if each thread owns one entry of H.
+// Bound on the H100: bytes up to d = 64 (each slab element is read once;
+// the work is 2*d*d + 3*d flops per row, below the ridge), operations above:
+// at d = 128 the upper triangle costs ~d*(d+1) flops per row against 4*d
+// bytes, past the f32 ridge of ~20 flops a byte. What keeps a simple kernel
+// from either bound is instruction issue: one FMA per shared-memory load if
+// each thread owns one entry of H.
 //
 // Design (the launch plan is computed in ops/fused_newton.py newton_plan):
 // - Register blocks. H is formed in 4x4 blocks; a lane owns one block on or
-//   above the diagonal and keeps it in registers. Per row, two 4-wide loads
+//   above the diagonal at a time and keeps it in registers. Per row, two 4-wide loads
 //   x[a0:a0+4], x[b0:b0+4] and one of d2 feed 16 FMAs. Columns past d are
 //   zeros in registers. The lower triangle is written as the mirror of the
 //   upper (and a diagonal block uses its entries i <= j only), so H is
 //   exactly symmetric. The owners of diagonal blocks also form g[a0:a0+4].
-// - Row groups. An entity's lanes are blocks x row_groups: group r takes the
+// - Panels. Above 32 * 8 upper blocks (d > 88) the blocks are cut into
+//   `panels` runs of `panel_blocks` consecutive blocks, and the unit of work
+//   is (entity, panel): unit u is panel u % panels of entity u / panels. A
+//   panel reads the entity's whole slab, so a wide entity is read once per
+//   panel; consecutive units, which run at about the same time on
+//   neighbouring CTAs, read the same slab, so the re-reads mostly come from
+//   L2. A block's sums do not depend on its panel or on the team that
+//   computes it.
+// - Row groups. A panel's lanes are panel_blocks x row_groups: group r takes the
 //   rows i with i % row_groups == r. At the entity's end the groups' partial
 //   blocks are summed in group order through shared memory, so the sum
 //   order depends only on the shape.
-// - Teams. An entity is worked by a team of whole warps (one warp at
-//   d <= 16); a CTA holds several teams, one entity each at a time, and CTA
-//   c walks entity groups c, c + grid, ... (grid from the card's occupancy;
-//   an entity's sums do not depend on which team computes it).
+// - Teams. A unit is worked by a team of whole warps (one warp at
+//   d <= 16); a CTA holds several teams, one unit each at a time, and CTA
+//   c walks unit groups c, c + grid, ... (grid from the card's occupancy).
 // - Loads ("bulk" route: n_max a multiple of 4, rows of a multiple of 4
 //   bytes, 16-byte aligned arrays). Each team keeps a ring of `stages`
 //   chunks of its slab in flight: lane 0 issues three 1-D bulk copies per
@@ -41,7 +50,6 @@
 
 namespace pt {
 
-constexpr int kMaxDim = 64;
 constexpr int kBlk = 4;
 constexpr int kPart = kBlk * kBlk + kBlk;  // a lane's block of H, then its piece of g
 constexpr int kMaxStagesN = 4;
@@ -50,6 +58,7 @@ constexpr int kMaxThreadsN = 256;
 struct Geometry {
   int E, n_max, d;
   int nb, blocks;  // blocks a side, blocks on or above the diagonal
+  int panels, panel_blocks;  // a unit of work is (entity, panel)
   int team_warps, row_groups, teams;
   int chunk_rows, stages;  // bulk route only
 };
@@ -67,8 +76,8 @@ __host__ __device__ __forceinline__ size_t stage_bytes(const Geometry& g) {
 }
 
 // Shared memory: the teams' mbarriers, their rings, then their reduction
-// areas (blocks * (row_groups - 1) * kPart floats each: group 0 keeps its
-// partial in registers).
+// areas (panel_blocks * (row_groups - 1) * kPart floats each: group 0 keeps
+// its partial in registers).
 __host__ __device__ __forceinline__ size_t barrier_bytes(const Geometry& g, bool bulk) {
   return bulk ? align128n((size_t)g.teams * 2 * g.stages * sizeof(uint64_t)) : 0;
 }
@@ -81,7 +90,7 @@ __host__ __device__ __forceinline__ size_t red_offset(const Geometry& g, bool bu
 template <typename T>
 size_t smem_bytes(const Geometry& g, bool bulk) {
   return red_offset<T>(g, bulk) +
-         (size_t)g.teams * g.blocks * (g.row_groups - 1) * kPart * sizeof(float);
+         (size_t)g.teams * g.panel_blocks * (g.row_groups - 1) * kPart * sizeof(float);
 }
 
 // x[a0:a0+4] of a row as f32; columns past d are zero.
@@ -141,24 +150,31 @@ __global__ void __launch_bounds__(kMaxThreadsN)
                          const float* __restrict__ dz, float* __restrict__ H,
                          float* __restrict__ g, const Geometry geo) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int d = geo.d, n_max = geo.n_max, G = geo.row_groups, blocks = geo.blocks;
+  const int d = geo.d, n_max = geo.n_max, G = geo.row_groups, P = geo.panel_blocks;
   const int team_threads = geo.team_warps * 32;
   const int team = threadIdx.x / team_threads, t = threadIdx.x % team_threads;
   const int lane = threadIdx.x % 32;
+  const int grp = t / P;
 
-  // The lane's block: upper blocks in row-major order, then its row group.
-  const bool active = t < blocks * G;
-  const int grp = t / blocks;
-  int bi = 0, rem = t % blocks;
-  while (rem >= geo.nb - bi) {
-    rem -= geo.nb - bi;
-    ++bi;
-  }
-  const int a0 = kBlk * bi, b0 = kBlk * (bi + rem);
-  const bool diag = rem == 0;
+  // The lane's block in a unit's panel: upper blocks in row-major order,
+  // panel p holding blocks p * P ... p * P + P - 1; then its row group.
+  bool active = false, diag = false;
+  int a0 = 0, b0 = 0;
+  auto setup = [&](long u) {
+    const int blk = (int)(u % geo.panels) * P + t % P;
+    active = t < P * G && blk < geo.blocks;
+    int bi = 0, rem = active ? blk : 0;
+    while (rem >= geo.nb - bi) {
+      rem -= geo.nb - bi;
+      ++bi;
+    }
+    a0 = kBlk * bi;
+    b0 = kBlk * (bi + rem);
+    diag = rem == 0;
+  };
 
   float* red = reinterpret_cast<float*>(smem + red_offset<T>(geo, kBulk)) +
-               (size_t)team * blocks * (G - 1) * kPart;
+               (size_t)team * P * (G - 1) * kPart;
   auto team_sync = [&]() {
     if (geo.team_warps == 1) {
       __syncwarp();
@@ -176,11 +192,13 @@ __global__ void __launch_bounds__(kMaxThreadsN)
       for (int k = 0; k < kBlk; ++k) h[i][k] = 0.f;
     }
   };
-  // Sums the row groups' blocks in group order and writes entity e's H and g.
-  auto finish = [&](long e) {
+  // Sums the row groups' blocks in group order and writes the unit's part of
+  // its entity's H and g.
+  auto finish = [&](long u) {
+    const long e = u / geo.panels;
     team_sync();  // earlier readers of red are done
     if (active && grp > 0) {
-      float* mine = red + (t - blocks) * kPart;
+      float* mine = red + (t - P) * kPart;
 #pragma unroll
       for (int i = 0; i < kBlk; ++i) {
 #pragma unroll
@@ -199,7 +217,7 @@ __global__ void __launch_bounds__(kMaxThreadsN)
       }
       for (int q = 1; q < G; ++q) {
 #pragma unroll
-        for (int k = 0; k < kPart; ++k) v[k] += red[(t + (q - 1) * blocks) * kPart + k];
+        for (int k = 0; k < kPart; ++k) v[k] += red[(t + (q - 1) * P) * kPart + k];
       }
       float* He = H + e * d * d;
 #pragma unroll
@@ -218,26 +236,28 @@ __global__ void __launch_bounds__(kMaxThreadsN)
     zero();
   };
 
-  // This team's entities: (q * teams + team) for groups q = blockIdx.x,
-  // blockIdx.x + gridDim.x, ... below E.
+  // This team's units: (q * teams + team) for groups q = blockIdx.x,
+  // blockIdx.x + gridDim.x, ... below E * panels.
+  const long units = (long)geo.E * geo.panels;
   int count = 0;
-  if (team < geo.E) {
-    const int q_last = (geo.E - 1 - team) / geo.teams;
-    if ((int)blockIdx.x <= q_last) count = (q_last - blockIdx.x) / gridDim.x + 1;
+  if (team < units) {
+    const long q_last = (units - 1 - team) / geo.teams;
+    if ((long)blockIdx.x <= q_last) count = (int)((q_last - blockIdx.x) / gridDim.x + 1);
   }
-  auto entity = [&](int k) {
+  auto unit = [&](int k) {
     return ((long)blockIdx.x + (long)k * gridDim.x) * geo.teams + team;
   };
   zero();
 
   if constexpr (!kBulk) {
     for (int k = 0; k < count; ++k) {
-      const long e = entity(k);
+      const long u = unit(k), e = u / geo.panels;
+      setup(u);
       if (active) {
         add_rows<T, false>(X + e * n_max * d, d2 + e * n_max, dz + e * n_max, d, grp, n_max, G,
                            a0, b0, diag, h, gv);
       }
-      finish(e);
+      finish(u);
     }
   } else {
     const int S = geo.stages, R = geo.chunk_rows;
@@ -259,10 +279,10 @@ __global__ void __launch_bounds__(kMaxThreadsN)
     }
     __syncthreads();
 
-    // Item i is chunk i % per_entity of the team's (i / per_entity)-th entity.
+    // Item i is chunk i % per_entity of the team's (i / per_entity)-th unit.
     auto issue = [&](int i) {
       const int s = i % S, c = i % per_entity;
-      const long base = entity(i / per_entity) * n_max + (long)c * R;
+      const long base = unit(i / per_entity) / geo.panels * n_max + (long)c * R;
       const int rows = min(R, n_max - c * R);
       const uint32_t bx = (uint32_t)((size_t)rows * d * sizeof(T)), bv = rows * sizeof(float);
       unsigned char* st = ring + s * sb;
@@ -278,6 +298,7 @@ __global__ void __launch_bounds__(kMaxThreadsN)
     for (int i = 0; i < items; ++i) {
       const int s = i % S, round = i / S, c = i % per_entity;
       const int r0 = c * R, rows = min(R, n_max - r0);
+      if (c == 0) setup(unit(i / per_entity));
       mbar_wait(&full[s], round & 1);
       if (active) {
         const unsigned char* st = ring + s * sb;
@@ -292,7 +313,7 @@ __global__ void __launch_bounds__(kMaxThreadsN)
         issue(i + S);
       }
       __syncwarp();  // the producer lane rejoins its warp before the next chunk
-      if (c == per_entity - 1) finish(entity(i / per_entity));
+      if (c == per_entity - 1) finish(unit(i / per_entity));
     }
   }
 }
@@ -335,16 +356,18 @@ cudaError_t dispatch(int route, const Args& a, const Geometry& geo, cudaStream_t
   return launch<T, true, false>(a, geo, s);
 }
 
-inline cudaError_t make_geometry(int E, int n_max, int d, int team_warps, int row_groups,
-                                 int teams, int chunk_rows, int stages, Geometry* geo) {
-  if (d < 1 || d > kMaxDim || team_warps < 1 || row_groups < 1 || teams < 1 ||
+inline cudaError_t make_geometry(int E, int n_max, int d, int panels, int team_warps,
+                                 int row_groups, int teams, int chunk_rows, int stages,
+                                 Geometry* geo) {
+  if (d < 1 || panels < 1 || team_warps < 1 || row_groups < 1 || teams < 1 ||
       teams * team_warps * 32 > kMaxThreadsN) {
     return cudaErrorInvalidValue;
   }
-  const int nb = (d + kBlk - 1) / kBlk;
-  *geo = Geometry{E, n_max, d, nb, nb * (nb + 1) / 2, team_warps, row_groups, teams, chunk_rows,
-                  stages};
-  if (geo->blocks * row_groups > team_warps * 32) return cudaErrorInvalidValue;
+  const int nb = (d + kBlk - 1) / kBlk, blocks = nb * (nb + 1) / 2;
+  const int panel_blocks = (blocks + panels - 1) / panels;
+  *geo = Geometry{E, n_max, d, nb, blocks, panels, panel_blocks, team_warps, row_groups, teams,
+                  chunk_rows, stages};
+  if (panel_blocks * row_groups > team_warps * 32) return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
@@ -353,12 +376,12 @@ inline cudaError_t make_geometry(int E, int n_max, int d, int team_warps, int ro
 // X: (E, n_max, d) f32 or bf16; d2, dz: (E, n_max) f32; H: (E, d, d); g:
 // (E, d). route 1 = bulk, 0 = direct; the rest is newton_plan's geometry.
 extern "C" int pt_newton_system(const void* X, int x_is_bf16, const void* d2, const void* dz,
-                                void* H, void* g, int E, int n_max, int d, int route,
+                                void* H, void* g, int E, int n_max, int d, int route, int panels,
                                 int team_warps, int row_groups, int teams, int chunk_rows,
                                 int stages, int grid, void* stream) {
   pt::Geometry geo;
-  cudaError_t err = pt::make_geometry(E, n_max, d, team_warps, row_groups, teams, chunk_rows,
-                                      stages, &geo);
+  cudaError_t err = pt::make_geometry(E, n_max, d, panels, team_warps, row_groups, teams,
+                                      chunk_rows, stages, &geo);
   if (err != cudaSuccess) return (int)err;
   const pt::Args a{X, d2, dz, H, g, grid, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -368,12 +391,12 @@ extern "C" int pt_newton_system(const void* X, int x_is_bf16, const void* d2, co
 
 // Resident CTAs per SM of the kernel at this geometry, into *ctas_per_sm.
 // Launches nothing.
-extern "C" int pt_newton_system_occupancy(int x_is_bf16, int n_max, int d, int route,
+extern "C" int pt_newton_system_occupancy(int x_is_bf16, int n_max, int d, int route, int panels,
                                           int team_warps, int row_groups, int teams,
                                           int chunk_rows, int stages, int* ctas_per_sm) {
   pt::Geometry geo;
-  cudaError_t err =
-      pt::make_geometry(1, n_max, d, team_warps, row_groups, teams, chunk_rows, stages, &geo);
+  cudaError_t err = pt::make_geometry(1, n_max, d, panels, team_warps, row_groups, teams,
+                                      chunk_rows, stages, &geo);
   if (err != cudaSuccess) return (int)err;
   const pt::Args a{nullptr, nullptr, nullptr, nullptr, nullptr, 0, ctas_per_sm};
   if (x_is_bf16) return (int)pt::dispatch<__nv_bfloat16>(route, a, geo, nullptr);

@@ -30,10 +30,11 @@ class NormalizationContext:
         return self.factors is None and self.shifts is None
 
     def effective(self, w: Tensor) -> Tuple[Tensor, Tensor]:
-        """(ew, es): effective coefficients and total scalar shift."""
+        """(ew, es): effective coefficients and total scalar shift. Here and
+        in the space conversions w may carry leading (entity) axes."""
         ew = w if self.factors is None else w * self.factors
-        es = torch.zeros((), dtype=w.dtype, device=w.device) if self.shifts is None \
-            else -torch.dot(self.shifts, ew)
+        es = torch.zeros(w.shape[:-1], dtype=w.dtype, device=w.device) if self.shifts is None \
+            else -(ew @ self.shifts)
         return ew, es
 
     def transformed_to_model_space(self, w: Tensor) -> Tensor:
@@ -42,14 +43,14 @@ class NormalizationContext:
         ew, es = self.effective(w)
         if self.intercept_index is not None and self.shifts is not None:
             ew = ew.clone()
-            ew[self.intercept_index] += es
+            ew[..., self.intercept_index] += es
         return ew
 
     def model_to_transformed_space(self, w: Tensor) -> Tensor:
         out = w
         if self.intercept_index is not None and self.shifts is not None:
             out = out.clone()
-            out[self.intercept_index] += torch.dot(self.shifts, w)
+            out[..., self.intercept_index] += w @ self.shifts
         if self.factors is not None:
             out = out / self.factors
         return out

@@ -6,7 +6,9 @@ are handled exactly as the reference does: samples with equal scores form
 one tie group, AUC-ROC counts a tied negative as half, and AUC-PR and peak
 F1 take cut points only at the ends of tie groups. Group sums are read off
 one cumulative sum at the group ends, so they do not depend on the order of
-atomic adds. The grouped ("multi") evaluators come with the GAME slice.
+atomic adds. The grouped ("multi") evaluators average a metric over the
+groups of an id column (samples with an id < 0 or ≥ the group count are
+left out).
 """
 
 from __future__ import annotations
@@ -148,6 +150,72 @@ def precision_at_k(scores: Tensor, labels: Tensor, k: int) -> Tensor:
     k = min(k, scores.shape[0])
     top = torch.topk(scores, k).indices
     return torch.mean((labels[top] > 0).to(torch.float32))
+
+
+def _group_sorted(scores: Tensor, group_ids: Tensor, descending: bool) -> Tensor:
+    """Order by (group ascending, score ascending or descending), stable."""
+    order1 = torch.argsort(-scores if descending else scores, stable=True)
+    return order1[torch.argsort(group_ids[order1], stable=True)]
+
+
+def _sums_at_ends(values: Tensor, ends: Tensor) -> Tensor:
+    """Sums of ``values`` over the runs that end where ``ends`` is True."""
+    at_end = torch.cumsum(values, 0)[ends]
+    return at_end - torch.cat([at_end.new_zeros(1), at_end[:-1]])
+
+
+def grouped_auc(scores: Tensor, labels: Tensor, group_ids: Tensor, num_groups: int,
+                weight: Optional[Tensor] = None) -> Tensor:
+    """Mean weighted AUC over the groups that hold both classes."""
+    keep = (group_ids >= 0) & (group_ids < num_groups)
+    w = torch.where(keep, _default_weight(scores, weight), 0.0)
+    gids = torch.where(keep, group_ids, 0)
+    order = _group_sorted(scores, gids, descending=False)
+    s, y, ww, g = scores[order], labels[order], w[order], gids[order]
+    pos_w = torch.where(y > 0, ww, torch.zeros_like(ww))
+    neg_w = torch.where(y > 0, torch.zeros_like(ww), ww)
+    # Tie groups are runs of equal (group, score); the negatives below an
+    # element are those of the earlier tie groups of its own group.
+    tie_end = torch.ones_like(s, dtype=torch.bool)
+    tie_end[:-1] = (s[1:] != s[:-1]) | (g[1:] != g[:-1])
+    grp_end = torch.ones_like(s, dtype=torch.bool)
+    grp_end[:-1] = g[1:] != g[:-1]
+    tid = torch.cumsum(tie_end.long(), 0) - tie_end.long()
+    grp = torch.cumsum(grp_end.long(), 0) - grp_end.long()
+    cum_tie = torch.cumsum(neg_w, 0)[tie_end]
+    tie_neg = cum_tie - torch.cat([cum_tie.new_zeros(1), cum_tie[:-1]])
+    cum_grp = torch.cumsum(neg_w, 0)[grp_end]
+    grp_start = torch.cat([cum_grp.new_zeros(1), cum_grp[:-1]])
+    below = (cum_tie - tie_neg)[tid] - grp_start[grp]
+    frac = below + 0.5 * tie_neg[tid]
+    num = _sums_at_ends(pos_w * frac, grp_end)
+    Wp, Wn = _sums_at_ends(pos_w, grp_end), _sums_at_ends(neg_w, grp_end)
+    valid = (Wp > 0) & (Wn > 0)
+    auc_g = torch.where(valid, num / torch.clamp(Wp * Wn, min=1e-30), 0.0)
+    return torch.sum(auc_g) / torch.clamp(torch.sum(valid), min=1)
+
+
+def grouped_precision_at_k(scores: Tensor, labels: Tensor, group_ids: Tensor, num_groups: int,
+                           k: int) -> Tensor:
+    """Mean unweighted P@k over the groups present (a group smaller than k
+    uses all its samples)."""
+    keep = (group_ids >= 0) & (group_ids < num_groups)
+    scores, labels, group_ids = scores[keep], labels[keep], group_ids[keep]
+    if scores.shape[0] == 0:
+        return torch.zeros((), dtype=scores.dtype, device=scores.device)
+    order = _group_sorted(scores, group_ids, descending=True)
+    y, g = labels[order], group_ids[order]
+    n = g.shape[0]
+    idx = torch.arange(n, device=g.device)
+    is_start = torch.ones(n, dtype=torch.bool, device=g.device)
+    is_start[1:] = g[1:] != g[:-1]
+    grp_end = torch.ones(n, dtype=torch.bool, device=g.device)
+    grp_end[:-1] = is_start[1:]
+    start = torch.cummax(torch.where(is_start, idx, torch.full_like(idx, -1)), 0).values
+    in_top = (idx - start) < k
+    hits = _sums_at_ends((in_top & (y > 0)).to(scores.dtype), grp_end)
+    cnt = _sums_at_ends(in_top.to(scores.dtype), grp_end)
+    return torch.sum(hits / cnt) / cnt.shape[0]
 
 
 def evaluate(

@@ -1,8 +1,9 @@
 """Carry the JAX package's training state into the port.
 
 Every function takes host numpy arrays (``np.asarray`` of the reference's
-arrays) and returns the port's tensors on ``device``, so both packages can
-start from the same state.
+arrays), or a reference object whose arrays it reads that way, and returns
+the port's tensors on ``device``, so both packages can start from, or
+score, the same state. Nothing of the reference is imported.
 """
 
 from __future__ import annotations
@@ -14,6 +15,15 @@ import torch
 
 from photon_tpu_torch.data.normalization import NormalizationContext
 from photon_tpu_torch.data.random_effect import EntityBlock
+from photon_tpu_torch.models.coefficients import Coefficients
+from photon_tpu_torch.models.game import (
+    FixedEffectModel,
+    GameModel,
+    ProjectedRandomEffectModel,
+    RandomEffectModel,
+)
+from photon_tpu_torch.models.glm import GeneralizedLinearModel
+from photon_tpu_torch.types import TaskType
 
 
 def _t(a, device) -> torch.Tensor:
@@ -39,3 +49,38 @@ def entity_block(entity_idx, features, label, weight, sample_index, train_mask,
     """An EntityBlock from the arrays of a reference block."""
     return EntityBlock(*(_t(a, device) for a in (
         entity_idx, features, label, weight, sample_index, train_mask)))
+
+
+def _opt(a, device):
+    return None if a is None else _t(a, device)
+
+
+def game_model(ref_model, device="cuda") -> GameModel:
+    """The port's GameModel holding the coefficients (and variances) of a
+    reference GameModel: fixed-effect, dense random-effect and projected
+    random-effect submodels."""
+    models = {}
+    for cid, sub in ref_model.models.items():
+        if hasattr(sub, "block_coefs"):
+            models[cid] = ProjectedRandomEffectModel(
+                block_coefs=[_t(b, device) for b in sub.block_coefs],
+                col_maps=[_t(c, device) for c in sub.col_maps],
+                inv_maps=[_t(c, device) for c in sub.inv_maps],
+                entity_block=_t(sub.entity_block, device), entity_row=_t(sub.entity_row, device),
+                d_full=int(sub.d_full), re_type=sub.re_type, feature_shard=sub.feature_shard,
+                task=TaskType(sub.task.value),
+                block_variances=None if sub.block_variances is None
+                else [_t(v, device) for v in sub.block_variances],
+            )
+        elif hasattr(sub, "re_type"):
+            models[cid] = RandomEffectModel(
+                _t(sub.coefficients, device), sub.re_type, sub.feature_shard, TaskType(sub.task.value),
+                _opt(sub.variances, device), _opt(sub.present_entities, device))
+        else:
+            glm = sub.model
+            models[cid] = FixedEffectModel(
+                GeneralizedLinearModel(Coefficients(_t(glm.coefficients.means, device),
+                                                    _opt(glm.coefficients.variances, device)),
+                                       TaskType(glm.task.value)),
+                sub.feature_shard)
+    return GameModel(models)

@@ -24,6 +24,10 @@ class GeneralizedLinearModel:
     coefficients: Coefficients
     task: TaskType
 
+    @staticmethod
+    def zeros(dim: int, task: TaskType, dtype=torch.float32, device="cpu") -> "GeneralizedLinearModel":
+        return GeneralizedLinearModel(Coefficients(torch.zeros(dim, dtype=dtype, device=device)), task)
+
     def compute_score(self, features: Tensor) -> Tensor:
         """Raw margin x·w."""
         return self.coefficients.compute_score(features)

@@ -12,8 +12,10 @@ The kernel's launch plan (``newton_plan``) is computed here from the shape,
 plus the card's occupancy for the grid: lanes own 4×4 blocks of H on or
 above the diagonal, an entity's rows are split over a fixed number of row
 groups, an entity is worked by a team of whole warps, and a CTA holds
-several teams. Everything but the grid follows from the shape, so the sums
-are bitwise the same on any card.
+several teams. Past 256 upper blocks (d > 88) the blocks are cut into
+panels and a team works one (entity, panel) at a time, reading the slab once
+per panel, so every width is taken. Everything but the grid follows from
+the shape, so the sums are bitwise the same on any card.
 """
 
 from __future__ import annotations
@@ -27,24 +29,29 @@ from photon_tpu_torch.ops import kernels
 
 Tensor = torch.Tensor
 
-# Lanes own 4×4 blocks of H (csrc/newton_system.cu kBlk); d <= 64 gives at
-# most 136 blocks on or above the diagonal. The random-effect solver is meant
-# for d of a few dozen (photon_tpu/optim/newton.py:9).
-NEWTON_MAX_DIM = 64
+# Lanes own 4×4 blocks of H (csrc/newton_system.cu kBlk).
 _BLOCK = 4
-# A team (one entity at a time) is 1 to _CTA_WARPS whole warps; a CTA holds
-# _CTA_WARPS // team_warps teams. The team is the fewest warps whose lanes
-# are at least _MIN_LANE_USE busy (blocks × row groups of 32 × warps), else
-# the best use within _CTA_WARPS.
+# A team (one unit at a time) is 1 to _CTA_WARPS whole warps; a CTA holds
+# _CTA_WARPS // team_warps teams. Up to 32 × _CTA_WARPS upper blocks (d <= 88)
+# a unit is a whole entity and the team is the fewest warps whose lanes are
+# at least _MIN_LANE_USE busy (blocks × row groups of 32 × warps), else the
+# best use within _CTA_WARPS. Wider, the blocks are cut into the fewest
+# panels of at most 32 × _CTA_WARPS blocks, and the team is the fewest warps
+# that hold a panel.
 _CTA_WARPS = 8
 _MIN_LANE_USE = 0.9
-# "bulk" route ring: about _STAGE_BYTES of X per stage, between
-# _MIN_CHUNK_ROWS and _MAX_CHUNK_ROWS rows, NEWTON_STAGES stages per team.
-# Chosen on the H100 at E=4096, n_max=768, d=16: 1 KiB stages spend more
-# on three bulk copies and a barrier round per chunk than on the rows, and
-# a third 4 KiB stage halves the resident CTAs (PERF.md, section 6).
-_STAGE_BYTES = 4096
+# "bulk" route ring: about _STAGE_BYTES of X per stage (_WIDE_STAGE_BYTES
+# when H is cut into panels), between _MIN_CHUNK_ROWS and _MAX_CHUNK_ROWS
+# rows, NEWTON_STAGES stages per team. Chosen on the H100: at E=4096,
+# n_max=768, d=16, 1 KiB stages spend more on three bulk copies and a
+# barrier round per chunk than on the rows, and a third 4 KiB stage halves
+# the resident CTAs (PERF.md, section 6); at E=1024, n_max=768, d=96 and
+# 128 the panels' 16-row chunks leave the team waiting on its copies, and
+# 32 KiB stages (2 of them, 3 CTAs an SM) were the fastest of 4-32 KiB with
+# 2-4 stages.
+_STAGE_BYTES, _WIDE_STAGE_BYTES = 4096, 32768
 _MIN_CHUNK_ROWS, _MAX_CHUNK_ROWS = 16, 512
+_MAX_STAGE_BYTES = 32768
 NEWTON_STAGES = 2
 
 # Routing values for the random-effect Newton system:
@@ -73,9 +80,19 @@ def upper_blocks(d: int) -> Tuple[int, int]:
     return nb, nb * (nb + 1) // 2
 
 
-def team_shape(d: int) -> Tuple[int, int]:
-    """(warps a team, row groups) for width d: lanes = blocks × row groups."""
+def panel_shape(d: int) -> Tuple[int, int]:
+    """(panels, blocks a panel) for width d."""
     _, blocks = upper_blocks(d)
+    panels = -(-blocks // (32 * _CTA_WARPS))
+    return panels, -(-blocks // panels)
+
+
+def team_shape(d: int) -> Tuple[int, int]:
+    """(warps a team, row groups) for width d: lanes = panel blocks × row
+    groups."""
+    panels, blocks = panel_shape(d)
+    if panels > 1:
+        return -(-blocks // 32), 1
     best = None
     for warps in range(-(-blocks // 32), _CTA_WARPS + 1):
         groups = 32 * warps // blocks
@@ -98,23 +115,32 @@ def newton_route(n_max: int, d: int, elem_size: int, *data_ptrs: int) -> str:
 
 
 def chunk_rows(n_max: int, d: int, elem_size: int) -> int:
-    """Rows in one ring stage of the bulk route: a multiple of 4."""
-    rows = _STAGE_BYTES // (d * elem_size) // 4 * 4
-    return min(n_max, max(_MIN_CHUNK_ROWS, min(_MAX_CHUNK_ROWS, rows)))
+    """Rows in one ring stage of the bulk route: a multiple of 4, at least
+    _MIN_CHUNK_ROWS unless a row is so wide that a stage would pass
+    _MAX_STAGE_BYTES."""
+    row = d * elem_size
+    lo = min(_MIN_CHUNK_ROWS, max(4, _MAX_STAGE_BYTES // row // 4 * 4))
+    stage = _STAGE_BYTES if panel_shape(d)[0] == 1 else _WIDE_STAGE_BYTES
+    rows = stage // row // 4 * 4
+    return min(n_max, max(lo, min(_MAX_CHUNK_ROWS, rows)))
 
 
 @dataclass(frozen=True)
 class NewtonPlan:
-    """One launch of the Newton-system kernel. Lane t of a team owns upper
-    block t % blocks and row group t // blocks (rows i with i % row_groups
-    equal to it); a CTA holds teams_per_cta teams and walks entity groups
-    cta, cta + grid, ..., team j taking entity group * teams_per_cta + j.
-    Only ``grid`` and ``ctas_per_sm`` depend on the card."""
+    """One launch of the Newton-system kernel. A unit of work is (entity,
+    panel): unit u is panel u % panels of entity u // panels. Lane t of a
+    team owns upper block panel * panel_blocks + t % panel_blocks and row
+    group t // panel_blocks (rows i with i % row_groups equal to it); a CTA
+    holds teams_per_cta teams and walks unit groups cta, cta + grid, ...,
+    team j taking unit group * teams_per_cta + j. Only ``grid`` and
+    ``ctas_per_sm`` depend on the card."""
 
     route: str
     entities: int
     block_side: int
     blocks: int
+    panels: int
+    panel_blocks: int
     team_warps: int
     row_groups: int
     teams_per_cta: int
@@ -128,36 +154,46 @@ class NewtonPlan:
         return self.teams_per_cta * self.team_warps * 32
 
     @property
-    def lanes_per_entity(self) -> int:
-        return self.blocks * self.row_groups
+    def lanes_per_unit(self) -> int:
+        return self.panel_blocks * self.row_groups
 
     @property
-    def entity_groups(self) -> int:
-        return -(-self.entities // self.teams_per_cta)
+    def units(self) -> int:
+        return self.entities * self.panels
 
-    def cta_entities(self, cta: int) -> list:
+    @property
+    def unit_groups(self) -> int:
+        return -(-self.units // self.teams_per_cta)
+
+    def cta_units(self, cta: int) -> list:
         t = self.teams_per_cta
-        return [q * t + j for q in range(cta, self.entity_groups, self.grid) for j in range(t)
-                if q * t + j < self.entities]
+        return [q * t + j for q in range(cta, self.unit_groups, self.grid) for j in range(t)
+                if q * t + j < self.units]
+
+    def unit_blocks(self, unit: int) -> range:
+        """The upper blocks a unit computes."""
+        p = unit % self.panels
+        return range(p * self.panel_blocks, min(self.blocks, (p + 1) * self.panel_blocks))
 
     def group_rows(self, group: int, n_max: int) -> range:
         return range(group, n_max, self.row_groups)
 
     def layout(self) -> tuple:
         """Everything that decides the sums: the same on every card."""
-        return (self.route, self.block_side, self.blocks, self.team_warps, self.row_groups,
-                self.teams_per_cta, self.chunk_rows, self.stages)
+        return (self.route, self.block_side, self.blocks, self.panels, self.panel_blocks,
+                self.team_warps, self.row_groups, self.teams_per_cta, self.chunk_rows, self.stages)
 
 
 def newton_plan(E: int, n_max: int, d: int, elem_size: int, route: str, sm_count: int,
                 ctas_per_sm: int) -> NewtonPlan:
     nb, blocks = upper_blocks(d)
+    panels, panel_blocks = panel_shape(d)
     warps, groups = team_shape(d)
     teams = max(1, _CTA_WARPS // warps)
     bulk = route == "bulk"
-    return NewtonPlan(route, E, nb, blocks, warps, groups, teams,
+    return NewtonPlan(route, E, nb, blocks, panels, panel_blocks, warps, groups, teams,
                       chunk_rows(n_max, d, elem_size) if bulk else 0, NEWTON_STAGES if bulk else 0,
-                      min(-(-E // teams), sm_count * ctas_per_sm), ctas_per_sm)
+                      min(-(-E * panels // teams), sm_count * ctas_per_sm), ctas_per_sm)
 
 
 # Resident CTAs per SM of the kernel, by (device, bf16, layout).
@@ -174,8 +210,8 @@ def _plan_on_card(X: Tensor, d2: Tensor, dz: Tensor) -> NewtonPlan:
         with torch.cuda.device(X.device):
             ctas = kernels.query_int(
                 "newton_system", "pt_newton_system_occupancy", bf16, n_max, d,
-                int(route == "bulk"), shape.team_warps, shape.row_groups, shape.teams_per_cta,
-                shape.chunk_rows, shape.stages,
+                int(route == "bulk"), shape.panels, shape.team_warps, shape.row_groups,
+                shape.teams_per_cta, shape.chunk_rows, shape.stages,
             )
         if ctas < 1:
             raise RuntimeError(f"newton_system: the kernel does not fit an SM at d={d}")
@@ -198,11 +234,14 @@ def newton_system_plain(X: Tensor, d2: Tensor, dz: Tensor) -> Tuple[Tensor, Tens
     return H, g
 
 
+# Launches of the kernel by width d, counted where ``kernels.LAUNCHES`` is.
+LAUNCHES_BY_WIDTH: Dict[int, int] = {}
+
+
 def newton_system(X: Tensor, d2: Tensor, dz: Tensor) -> Tuple[Tensor, Tensor]:
-    """(H (E, d, d), g (E, d)) for X (E, n_max, d), d2 and dz (E, n_max)."""
+    """(H (E, d, d), g (E, d)) for X (E, n_max, d), d2 and dz (E, n_max),
+    at any width d."""
     E, n_max, d = X.shape
-    if d > NEWTON_MAX_DIM:
-        raise ValueError(f"newton_system supports d <= {NEWTON_MAX_DIM} (got d={d})")
     if X.device.type == "cpu":
         return newton_system_plain(X, d2, dz)
     kernels.require_cuda("newton_system", X, d2, dz)
@@ -219,6 +258,7 @@ def newton_system(X: Tensor, d2: Tensor, dz: Tensor) -> Tuple[Tensor, Tensor]:
     kernels.launch(
         "newton_system", kernels.ptr(X), int(X.dtype == torch.bfloat16), kernels.ptr(d2),
         kernels.ptr(dz), kernels.ptr(H), kernels.ptr(g), E, n_max, d, int(p.route == "bulk"),
-        p.team_warps, p.row_groups, p.teams_per_cta, p.chunk_rows, p.stages, p.grid,
+        p.panels, p.team_warps, p.row_groups, p.teams_per_cta, p.chunk_rows, p.stages, p.grid,
     )
+    LAUNCHES_BY_WIDTH[d] = LAUNCHES_BY_WIDTH.get(d, 0) + 1
     return H, g

@@ -44,7 +44,7 @@ KERNELS: Dict[str, Tuple[str, str, list]] = {
     ),
     "newton_system": (
         "newton_system.cu", "pt_newton_system",
-        [_VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
+        [_VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
     ),
 }
 

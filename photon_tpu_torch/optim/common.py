@@ -92,6 +92,19 @@ class OptimizeResult:
     def convergence_reason(self) -> ConvergenceReason:
         return _REASONS[int(self.reason_code)]
 
+    def summary(self) -> str:
+        """Per-iteration table of a single solve (reads the history back)."""
+        n = int(self.iterations)
+        if self.loss_history.shape[0] < n + 1:
+            return (f"iterations={n} value={float(self.value):.6e} |grad|={float(self.grad_norm):.6e} "
+                    f"reason: {self.convergence_reason.value} (history not tracked)")
+        lines = ["iter    loss           |grad|"]
+        for i in range(n + 1):
+            lines.append(f"{i:4d}    {float(self.loss_history[i]):.6e}   "
+                         f"{float(self.grad_norm_history[i]):.6e}")
+        lines.append(f"reason: {self.convergence_reason.value}")
+        return "\n".join(lines)
+
 
 def check_convergence(value, prev_value, grad_norm, init_grad_norm, tol: float,
                       iteration, max_iter: int) -> Tensor:

@@ -121,9 +121,10 @@ def test_fused_hvp_is_bitwise_repeatable(cuda_device, dtype):
 
 
 # K3 over the range of widths, E = 37 (no multiple of the entities per CTA),
-# n_max = 77 (the direct route) and 100 (the bulk route, a ragged last chunk).
+# n_max = 77 (the direct route) and 100 (the bulk route, a ragged last chunk);
+# past d = 88 the kernel works H in panels.
 @pytest.mark.parametrize("n_max", [77, 100])
-@pytest.mark.parametrize("d", [1, 6, 13, 16, 33, 64])
+@pytest.mark.parametrize("d", [1, 6, 13, 16, 33, 64, 88, 89, 96, 128, 192])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_newton_system_widths_match_plain(cuda_device, dtype, d, n_max):
     g = torch.Generator(device=cuda_device).manual_seed(d + n_max)
@@ -202,3 +203,61 @@ def test_train_glm_lambda_sweep_on_card_matches_cpu_plain_path(cuda_device, opti
         torch.testing.assert_close(rc.variances.cpu().double(), rp.variances, rtol=1e-2, atol=0.0)
     assert used["fused_value_grad"] > 0
     assert (used["fused_hvp"] > 0) == (optimizer == "TRON")
+
+
+def _game_fit(device, dtype, ratio=None, labels=None):
+    """A three-coordinate GAME fit (fixed, per user d = 8, per item d = 128)
+    on planted data made on the CPU; returns (validation scores, labels)."""
+    from photon_tpu_torch.data.game_data import GameBatch
+    from photon_tpu_torch.estimators import config
+    from photon_tpu_torch.estimators.game_estimator import GameEstimator
+    from photon_tpu_torch.estimators.game_transformer import GameTransformer
+    from photon_tpu_torch.types import TaskType
+
+    g = torch.Generator().manual_seed(5)
+    n, E_u, E_i = 8192, 48, 24
+
+    def cols(k):
+        X = torch.randn(n, k, generator=g, dtype=torch.float64)
+        X[:, 0] = 1.0
+        return X
+
+    Xf, Xu, Xi = cols(24), cols(8), cols(128)
+    users = torch.randint(0, E_u, (n,), generator=g, dtype=torch.int32)
+    items = torch.multinomial(1.0 / torch.arange(1, E_i + 1, dtype=torch.float64) ** 1.1, n,
+                              replacement=True, generator=g).to(torch.int32)
+    logits = (Xf @ torch.randn(24, generator=g, dtype=torch.float64) / 5
+              + torch.sum(Xu * torch.randn(E_u, 8, generator=g, dtype=torch.float64)[users.long()], 1)
+              + torch.sum(Xi * torch.randn(E_i, 128, generator=g, dtype=torch.float64)[items.long()] * 0.1, 1))
+    y = (torch.rand(n, generator=g, dtype=torch.float64) < torch.sigmoid(logits)).to(torch.float64)
+    t = lambda a: a.to(device=device, dtype=dtype if a.is_floating_point() else a.dtype)  # noqa: E731
+    batch = GameBatch(t(y), t(torch.zeros(n)), t(torch.ones(n)), {"global": t(Xf), "user": t(Xu), "item": t(Xi)},
+                      {"userId": t(users), "itemId": t(items)})
+    cfgs = [config.FixedEffectCoordinateConfig("global", "global"),
+            config.RandomEffectCoordinateConfig("per_user", "userId", "user", features_to_samples_ratio=ratio),
+            config.RandomEffectCoordinateConfig("per_item", "itemId", "item", active_upper_bound=512)]
+    est = GameEstimator(TaskType.LOGISTIC_REGRESSION, cfgs, num_iterations=2, re_active_set=True,
+                        intercept_indices={"global": 0, "user": 0, "item": 0},
+                        num_entities={"userId": E_u, "itemId": E_i})
+    reg = config.GameOptimizationConfig({c.coordinate_id: config.RegularizationConfig(1.0) for c in cfgs})
+    (res,) = est.fit(batch, optimization_configs=[reg])
+    return GameTransformer(res.model).transform(batch)
+
+
+@pytest.mark.parametrize("route", ["newton", "pearson"])
+def test_game_fit_on_card_matches_cpu_plain_path(cuda_device, route):
+    """GameEstimator.fit on the card (f32; K1, K3 at d = 8 and 128, or the
+    batched margin L-BFGS under a Pearson mask) against the same fit on the
+    CPU in float64: scores within 2e-3 of max |score|, the smoke's
+    tolerance."""
+    ratio = 0.02 if route == "pearson" else None
+    kernels.reset_launches()
+    fused_newton.LAUNCHES_BY_WIDTH.clear()
+    card = _game_fit(cuda_device, torch.float32, ratio)
+    torch.cuda.synchronize()
+    used, by_width = dict(kernels.LAUNCHES), dict(fused_newton.LAUNCHES_BY_WIDTH)
+    plain = _game_fit("cpu", torch.float64, ratio)
+    err = float((card.cpu().double() - plain).abs().max())
+    assert err <= 2e-3 * max(1.0, float(plain.abs().max())), err
+    assert used["fused_value_grad"] > 0 and by_width.get(128, 0) > 0
+    assert (by_width.get(8, 0) > 0) == (route == "newton")

@@ -141,6 +141,30 @@ def test_newton_system_plain_matches_pallas_at_d16(dtype, padded):
     _close(g, g_want)
 
 
+# K3 at the widths the reference sends to Newton past d = 64 (bucket_dim
+# rounds 65-128 to 96 or 128; an explicit NEWTON spec takes any width, 192
+# here), where the kernel cuts H into panels, against both Pallas lowerings.
+@pytest.mark.parametrize("padded", [False, True], ids=["whole_slab_3a", "row_tiled_3b"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [96, 128, 192])
+def test_newton_system_plain_matches_pallas_at_wide_widths(d, dtype, padded):
+    rng = np.random.default_rng(d)
+    E, n = 3, 21
+    X = rng.normal(size=(E, n, d)).astype(np.float32)
+    X[:, :, 0] = 1.0
+    d2 = rng.uniform(0.0, 0.25, size=(E, n)).astype(np.float32)
+    dz = rng.normal(size=(E, n)).astype(np.float32)
+    X[:, -5:] = 0.0
+    d2[:, -5:] = dz[:, -5:] = 0.0  # padding rows
+    assert fused_newton.newton_plan(E, n, d, 4, "direct", 132, 1).panels > 1
+    jf = jax.vmap(lambda x, a, b: fused_newton_system(x, a, b, interpret=True, padded=padded))
+    H_want, g_want = jf(_jx(X, dtype), jnp.asarray(d2), jnp.asarray(dz))
+    H, g = fused_newton.newton_system(_tx(X, dtype), torch.from_numpy(d2), torch.from_numpy(dz))
+    assert H.shape == (E, d, d) and g.shape == (E, d)
+    _close(H, H_want)
+    _close(g, g_want)
+
+
 @pytest.mark.parametrize("loss", list(LOSSES))
 def test_losses_match_reference(loss):
     jl, tl = LOSSES[loss]
@@ -173,9 +197,6 @@ def test_width_limits_raise():
         fused_glm.fused_value_grad(tlosses.LogisticLoss, v, Xw, r, r, r)
     with pytest.raises(ValueError, match=str(fused_glm.MAX_FUSED_DIM)):
         fused_glm.fused_hvp(v, Xw, r)
-    d = fused_newton.NEWTON_MAX_DIM + 1
-    with pytest.raises(ValueError, match=str(fused_newton.NEWTON_MAX_DIM)):
-        fused_newton.newton_system(torch.zeros(1, 2, d), torch.zeros(1, 2), torch.zeros(1, 2))
 
 
 def test_resolve_re_kernel_routes_and_refuses_cuda_on_cpu():
@@ -250,8 +271,9 @@ def test_row_route_by_width_and_alignment(d, es, ptr, route, kernel):
 
 
 # K3's launch plan, which the wrapper computes in Python.
-BUCKET_DIMS = [1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64]  # data/random_effect.py bucket_dim
-NEWTON_SHAPES = [(4096, 768, 16), (37, 77, 13), (37, 100, 16), (5, 8, 64), (1, 4, 1), (300, 24, 33)]
+BUCKET_DIMS = [1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256]  # bucket_dim's grid
+NEWTON_SHAPES = [(4096, 768, 16), (37, 77, 13), (37, 100, 16), (5, 8, 64), (1, 4, 1), (300, 24, 33),
+                 (1024, 768, 128), (37, 100, 96), (7, 77, 192)]
 
 
 @pytest.mark.parametrize("d", BUCKET_DIMS)
@@ -264,7 +286,10 @@ def test_newton_plan_takes_every_bucketed_width(d):
             nb, blocks = fused_newton.upper_blocks(d)
             assert 4 * nb >= d and blocks == nb * (nb + 1) // 2
             assert 1 <= p.team_warps <= 8 and p.row_groups >= 1
-            assert p.lanes_per_entity <= 32 * p.team_warps and p.threads <= 256
+            assert p.lanes_per_unit <= 32 * p.team_warps and p.threads <= 256
+            # Panels: one up to 256 blocks (d <= 88), and together they hold every block once.
+            assert (p.panels == 1) == (d <= 88)
+            assert p.panels * p.panel_blocks >= blocks > (p.panels - 1) * p.panel_blocks
             if route == "bulk":
                 assert p.chunk_rows % 4 == 0 and 4 <= p.chunk_rows <= 96 and p.stages >= 1
                 assert (p.chunk_rows * d * es) % 16 == 0  # each chunk copy is whole 16-byte units
@@ -274,23 +299,32 @@ def test_newton_plan_takes_every_bucketed_width(d):
 def test_newton_plan_puts_every_entity_on_one_cta_and_every_row_in_one_group(E, n_max, d):
     for sms, ctas in CARDS:
         p = fused_newton.newton_plan(E, n_max, d, 4, "bulk" if n_max % 4 == 0 else "direct", sms, ctas)
-        walked = sorted(e for cta in range(p.grid) for e in p.cta_entities(cta))
-        assert walked == list(range(E))
+        walked = sorted(u for cta in range(p.grid) for u in p.cta_units(cta))
+        assert walked == list(range(E * p.panels))
         rows = sorted(r for g in range(p.row_groups) for r in p.group_rows(g, n_max))
         assert rows == list(range(n_max))
+        # Each (entity, upper block) is computed by exactly one unit.
+        blocks = sorted(b for u in range(p.panels) for b in p.unit_blocks(u))
+        assert blocks == list(range(p.blocks))
 
 
 @pytest.mark.parametrize("E,n_max,d", NEWTON_SHAPES)
 def test_newton_plan_layout_does_not_depend_on_the_card(E, n_max, d):
     plans = [fused_newton.newton_plan(E, n_max, d, 2, "bulk", sms, ctas) for sms, ctas in CARDS]
     assert len({p.layout() for p in plans}) == 1
-    assert [p.grid for p in plans] == [min(plans[0].entity_groups, s * c) for s, c in CARDS]
+    assert [p.grid for p in plans] == [min(plans[0].unit_groups, s * c) for s, c in CARDS]
 
 
 def test_newton_plan_at_the_headline_shape():
     p = fused_newton.newton_plan(4096, 768, 16, 4, "bulk", 132, 4)
     assert (p.blocks, p.team_warps, p.row_groups, p.teams_per_cta, p.chunk_rows) == (10, 1, 3, 8, 64)
-    assert (p.entity_groups, p.grid, p.threads) == (512, 512, 256)
+    assert (p.unit_groups, p.grid, p.threads, p.panels) == (512, 512, 256, 1)
+
+
+def test_newton_plan_at_the_per_item_width():
+    p = fused_newton.newton_plan(1024, 768, 128, 4, "bulk", 132, 3)
+    assert (p.blocks, p.panels, p.panel_blocks, p.team_warps, p.row_groups) == (528, 3, 176, 6, 1)
+    assert (p.teams_per_cta, p.chunk_rows, p.unit_groups, p.grid) == (1, 64, 3072, 396)
 
 
 @pytest.mark.parametrize("n_max,d,es,ptr,route", [
