@@ -49,6 +49,20 @@ Phases, each of which must pass:
                 and K3 launches by width, entities skipped, training logloss
                 (must fall) and validation AUC (GLMix must reach fixed-only);
                 then one pass under the profiler.
+  8. GAME drivers — ``feature_indexing.main``, ``game_training.main`` and
+                ``game_scoring.main`` on Avro files written here (2^13
+                training and 2^12 validation rows; bags of 255, 15 and 127
+                values, which the intercepts take to d = 256, 16 and 128; 256
+                users and 256 Zipf-like items in metadataMap): fixed + per
+                user + per item, λ = 1|10 on the fixed effect, 2 passes with
+                the active set, SIMPLE variances, AUC. The files, LATEST and
+                the summary must be written, K1 and K3 at d = 16 and 128
+                launched, the best AUC above 0.7, every score of scores.avro
+                the in-process score of best/ loaded back (1e-5 relative), the
+                scoring AUC the training one (1e-5); and on a 2^10-row file
+                of 16 users and 16 items the driver on the card must give
+                the CPU run's coefficients (2e-3 relative). Each driver's wall time by stage, host syncs
+                and launches by width are logged.
 It prints the card's name and power limit, a JSON line of per-kernel numbers,
 and last {"ok": true, "device": {...}}. It exits non-zero, printing no
 result, when there is no CUDA device or any phase fails. Float32 matrix
@@ -80,6 +94,18 @@ B_VALID_ROWS, B_FEATURES = 1 << 18, 255
 # K3's shapes at the per-item widths (E = 1024 items, n_max = 768).
 G_ITEMS, G_D_ITEM, G_ITEM_CAP, G_VALID_ROWS, G_PASSES = 1024, 128, 4096, 1 << 18, 2
 K3_WIDE = ((1024, 768, 96), (1024, 768, 128), (256, 768, 192))
+# Phase 8 (GAME drivers): rows of the training, validation and card-vs-CPU
+# files, users and items. Phase 7's 2^21 rows, 4096 users and 1024 items are
+# cut because the port parses Avro in pure Python (the native columnar
+# decoder is not ported); the widths are phase 7's, not cut.
+H_TRAIN_ROWS, H_VALID_ROWS, H_USERS, H_ITEMS = 1 << 13, 1 << 12, 256, 256
+# The card-vs-CPU file: 2^10 rows over 16 users and 16 items. Spread over
+# 256 of each, a user or item has ~4 rows, many with one label only; their
+# unregularized intercepts then diverge until the solver stops, so their
+# coefficients are not determined and no two runs need agree.
+H_SMALL_ROWS, H_SMALL_ENTITIES = 1 << 10, 16
+H_BAGS = (("features", "globalShard", D_FIX - 1), ("userFeatures", "userShard", D_RE - 1),
+          ("itemFeatures", "itemShard", G_D_ITEM - 1))
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -525,6 +551,159 @@ def game_phase(dev, smi: str, check, Xb, Xr, users, n_users: int) -> dict:
     return launches
 
 
+def _driver_records(n: int, seed: int, n_users: int = H_USERS, n_items: int = H_ITEMS) -> list:
+    """TrainingExampleAvro rows with three bags (H_BAGS) and the ids of
+    ``n_users`` users and ``n_items`` Zipf-like items in metadataMap; labels
+    planted from a fixed, a per-user and a per-item effect. The planted model
+    comes from one seed, the rows from ``seed``."""
+    model = np.random.default_rng(80)
+    w_fe = model.normal(size=D_FIX - 1) * 3.0 / np.sqrt(D_FIX - 1)
+    W_u = model.normal(size=(H_USERS, D_RE)) * 0.4
+    W_i = model.normal(size=(H_ITEMS, G_D_ITEM)) * 0.05
+    rng = np.random.default_rng(seed)
+    X = {bag: rng.normal(size=(n, k)) for bag, _, k in H_BAGS}
+    users = rng.integers(0, n_users, size=n)
+    p = 1.0 / np.arange(1, n_items + 1) ** 1.1
+    items = rng.choice(n_items, size=n, p=p / p.sum())
+    logits = (X["features"] @ w_fe + np.sum(X["userFeatures"] * W_u[users, 1:], 1) + W_u[users, 0]
+              + np.sum(X["itemFeatures"] * W_i[items, 1:], 1) + W_i[items, 0])
+    y = rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-logits))
+    return [{"uid": str(i), "label": float(y[i]), "weight": None, "offset": None,
+             "metadataMap": {"userId": f"user{users[i]}", "itemId": f"item{items[i]}"},
+             **{bag: [{"name": f"{bag[0]}{j}", "term": "", "value": float(v)} for j, v in enumerate(X[bag][i])]
+                for bag, _, _ in H_BAGS}}
+            for i in range(n)]
+
+
+def game_drivers_phase(dev, smi: str, check) -> dict:
+    """Phase 8: the GAME drivers end to end on files: feature_indexing,
+    game_training and game_scoring, as a user calls them. Returns the kernel
+    launches of that run, K3's by width under "newton_system_d<d>"."""
+    import copy
+
+    from photon_tpu_torch.cli import feature_indexing, game_scoring, game_training
+    from photon_tpu_torch.cli.common import parse_feature_shard_config
+    from photon_tpu_torch.data.index_map import EntityIndex, IndexMap
+    from photon_tpu_torch.io.avro import write_avro_records
+    from photon_tpu_torch.io.data_reader import read_merged
+    from photon_tpu_torch.io.model_io import load_game_model
+    from photon_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA
+    from photon_tpu_torch.io.scores import load_scores
+    from photon_tpu_torch.ops import fused_newton, kernels
+    from photon_tpu_torch.optim.common import HOST_READS
+    from photon_tpu_torch.utils.timed import Timed
+
+    log("## phase 8: GAME drivers (feature_indexing, game_training, game_scoring)")
+    log(f"  cut from phase 7: {H_TRAIN_ROWS} training rows (not 2^21), {H_USERS} users (not {E}), "
+        f"{H_ITEMS} items (not {G_ITEMS}), {H_VALID_ROWS} validation rows (not {G_VALID_ROWS}): the port parses "
+        f"Avro in pure Python; widths not cut (d = {D_FIX}, {D_RE}, {G_D_ITEM})")
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_game_drivers"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    schema = copy.deepcopy(TRAINING_EXAMPLE_SCHEMA)
+    schema["fields"] += [{"name": bag, "type": {"type": "array", "items": "FeatureAvro"}}
+                         for bag, _, _ in H_BAGS[1:]]
+    t0 = time.perf_counter()
+    train_recs = _driver_records(H_TRAIN_ROWS, 81)
+    paths = {"train": work / "train.avro", "valid": work / "valid.avro", "small": work / "small.avro"}
+    write_avro_records(str(paths["train"]), schema, train_recs)
+    write_avro_records(str(paths["valid"]), schema, _driver_records(H_VALID_ROWS, 82))
+    write_avro_records(str(paths["small"]), schema,
+                       _driver_records(H_SMALL_ROWS, 83, H_SMALL_ENTITIES, H_SMALL_ENTITIES))
+    paths = {k: str(v) for k, v in paths.items()}
+    log(f"  wrote the Avro files in {time.perf_counter() - t0:.1f} s")
+    shards = ["--feature-shard-configurations"] + [f"name={shard},feature.bags={bag}" for bag, shard, _ in H_BAGS]
+    coords = ["--coordinate-configurations",
+              "name=global,feature.shard=globalShard,optimizer=LBFGS,reg.weights=1|10",
+              "name=perUser,feature.shard=userShard,random.effect.type=userId,reg.weights=1",
+              "name=perItem,feature.shard=itemShard,random.effect.type=itemId,reg.weights=1",
+              "--update-sequence", "global,perUser,perItem", "--coordinate-descent-iterations", "2",
+              "--re-active-set", "--evaluators", "AUC", "--variance-computation", "SIMPLE"]
+    out, idx, scored = work / "out", work / "index", work / "scores"
+
+    def stages(label, wall, reads):
+        by_stage = ", ".join(f"{k[len('driver/'):]} {v:.2f} s" for k, v in Timed.records.items()
+                             if k.startswith("driver/"))
+        log(f"  {label}: {wall:.2f} s wall, {reads} host syncs" + (f"; by stage {by_stage}" if by_stage else ""))
+
+    # The main path, counted: the three drivers, in the order a user runs them.
+    kernels.reset_launches()
+    fused_newton.LAUNCHES_BY_WIDTH.clear()
+    Timed.reset()
+    t0 = time.perf_counter()
+    sizes = feature_indexing.main(["--input-paths", paths["train"], "--output-dir", str(idx)] + shards)
+    stages(f"feature_indexing {sizes}", time.perf_counter() - t0, 0)
+    Timed.reset()
+    reads0, t0 = HOST_READS.count, time.perf_counter()
+    summary = game_training.main(["--input-paths", paths["train"], "--validation-paths", paths["valid"],
+                                  "--output-dir", str(out), "--feature-index-dir", str(idx), "--device", "cuda"]
+                                 + shards + coords)
+    torch.cuda.synchronize()
+    stages("game_training", time.perf_counter() - t0, HOST_READS.count - reads0)
+    trained = dict(kernels.LAUNCHES, by_width=dict(fused_newton.LAUNCHES_BY_WIDTH))
+    Timed.reset()
+    reads0, t0 = HOST_READS.count, time.perf_counter()
+    result = game_scoring.main(["--input-paths", paths["valid"], "--output-dir", str(scored), "--model-input-dir",
+                                str(out / "best"), "--evaluators", "AUC", "--device", "cuda"] + shards)
+    torch.cuda.synchronize()
+    stages("game_scoring", time.perf_counter() - t0, HOST_READS.count - reads0)
+    launches = dict(kernels.LAUNCHES)
+    launches.update({f"newton_system_d{d}": c for d, c in fused_newton.LAUNCHES_BY_WIDTH.items()})
+    log(f"  launches: training {trained}; all three drivers {launches}")
+
+    written = [out / "best" / "model-metadata.json", out / "LATEST", out / "training-summary.json",
+               out / "entity-index-userId.json", out / "entity-index-itemId.json"] + [
+        out / f"index-map-{shard}.json" for _, shard, _ in H_BAGS]
+    check(all(p.exists() for p in written) and (out / "LATEST").read_text().strip() == "best"
+          and len(summary["configs"]) == 2,
+          "8 game_training: best/, index maps, entity indexes, LATEST = best and a 2-config training-summary.json")
+    for c in summary["configs"]:
+        log(f"    {c['config']}: validation AUC {c['metrics']['AUC']:.4f}")
+    check(trained["fused_value_grad"] > 0 and trained["by_width"].get(D_RE, 0) > 0
+          and trained["by_width"].get(G_D_ITEM, 0) > 0,
+          f"8 game_training launched K1, and K3 at d = {D_RE} and d = {G_D_ITEM}")
+    best_auc = summary["best"]["metrics"]["AUC"]
+    check(best_auc > 0.7, f"8 best validation AUC {best_auc:.4f} > 0.7 ({summary['best']['config']})")
+    check(result["numScored"] == H_VALID_ROWS, f"8 game_scoring scored {result['numScored']} rows")
+
+    # best/ loaded back and scored in process against scores.avro.
+    imaps = {shard: IndexMap.load(str(out / f"index-map-{shard}.json")) for _, shard, _ in H_BAGS}
+    eidx = {rt: EntityIndex.load(str(out / f"entity-index-{rt}.json")) for rt in ("userId", "itemId")}
+    model = load_game_model(str(out / "best"), imaps, eidx, device=dev)
+    shard_cfgs = {}
+    for bag, shard, _ in H_BAGS:
+        shard_cfgs.update(parse_feature_shard_config(f"name={shard},feature.bags={bag}"))
+    valid, _, _ = read_merged([paths["valid"]], shard_cfgs, imaps, {"userId": "userId", "itemId": "itemId"},
+                              eidx, intern_new_entities=False, device=dev)
+    want = model.score_with_offset(valid).double().cpu()
+    got = torch.tensor([r["predictionScore"] for r in load_scores(str(scored / "scores.avro"))], dtype=torch.float64)
+    _, r = rel_err(got, want)
+    check(got.shape == want.shape and r <= 1e-5,
+          f"8 scores.avro vs GameModel.score_with_offset of best/ loaded back: rel {r:.3e} (tolerance 1e-5)")
+    check(abs(result["metrics"]["AUC"] - best_auc) <= 1e-5,
+          f"8 scoring AUC {result['metrics']['AUC']:.6f} = training summary's best {best_auc:.6f} (tolerance 1e-5)")
+
+    # Card against CPU on the small file (not counted).
+    small = {}
+    for device in ("cuda", "cpu"):
+        o = work / f"small-{device}"
+        game_training.main(["--input-paths", paths["small"], "--output-dir", str(o), "--device", device]
+                           + shards + coords)
+        maps = {shard: IndexMap.load(str(o / f"index-map-{shard}.json")) for _, shard, _ in H_BAGS}
+        ents = {rt: EntityIndex.load(str(o / f"entity-index-{rt}.json")) for rt in ("userId", "itemId")}
+        small[device] = load_game_model(str(o / "best"), maps, ents, device="cpu").models
+    worst = 0.0
+    for cid, m in small["cpu"].items():
+        a = small["cuda"][cid]
+        wa, wb = ((x.model.coefficients.means if cid == "global" else x.coefficients) for x in (a, m))
+        worst = max(worst, rel_err(wa, wb)[1])
+    check(worst <= REFERENCE_TOL, f"8 game_training on {H_SMALL_ROWS} rows of {H_SMALL_ENTITIES} users and items, "
+                                  f"--device cuda vs --device cpu: best/ coefficients rel {worst:.3e} "
+                                  f"(tolerance {REFERENCE_TOL:g})")
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs only on a GPU", file=sys.stderr)
@@ -847,6 +1026,10 @@ def main() -> int:
     game_launches = game_phase(dev, smi, check, Xb, Xr, users, E)
     del Xb, Xr, users, y
 
+    # ---------------- 8. GAME drivers ----------------
+    torch.cuda.empty_cache()
+    driver_launches = game_drivers_phase(dev, smi, check)
+
     # ---------------- report ----------------
     sources = {
         "fused_value_grad": ("photon_tpu_torch/csrc/fused_value_grad.cu", "photon_tpu/ops/pallas_glm.py:345"),
@@ -872,7 +1055,8 @@ def main() -> int:
     for name, (src, repl) in sources.items():
         rows.append(dict(name=name, route="cuda", source=src, replaces=repl,
                          launches=(glmix_launches.get(name, 0) + tron_launches.get(name, 0)
-                                   + glm_launches.get(name, 0) + game_launches.get(name, 0)),
+                                   + glm_launches.get(name, 0) + game_launches.get(name, 0)
+                                   + driver_launches.get(name, 0)),
                          max_abs_err=headline_err[name], **timings[name]))
     if failures:
         log(f"chip_smoke: {len(failures)} check(s) failed: {failures}")

@@ -1,0 +1,269 @@
+"""GAME training driver (port of photon_tpu/cli/game_training.py).
+
+    python -m photon_tpu_torch.cli.game_training \\
+      --input-paths train/ --validation-paths valid/ --output-dir out/ \\
+      --feature-shard-configurations name=globalShard \\
+      --coordinate-configurations \\
+        name=global,feature.shard=globalShard,optimizer=LBFGS,reg.weights=0.1|1|10 \\
+        name=perUser,feature.shard=globalShard,random.effect.type=userId,reg.weights=1 \\
+      --update-sequence global,perUser --evaluators AUC [--device cpu]
+
+The reference's steps, in its order: the output directory; the index maps
+of ``--feature-index-dir``; read the training data (a random effect's id
+column is its type); validate; read the validation data, looking entities
+up without interning new ones; feature statistics, normalization and
+``--summarization-output-dir``; the warm-start model, loaded after both
+reads so that its entities extend the run's entity indexes; the
+evaluation suite; ``GameEstimator.fit`` over the cross product of the
+regularization weights; selection by ``--output-mode``; ``best/`` (and
+``models/configs-<i>/`` under ALL), the index maps and entity indexes,
+then ``LATEST``; and ``training-summary.json``.
+
+The data and the solves live on ``--device`` (default cuda; without a card
+the driver exits non-zero rather than run on the CPU). Flags whose
+machinery is not ported exit non-zero with "not ported yet".
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from typing import Dict
+
+from photon_tpu_torch.cli.common import (
+    add_active_set_args,
+    add_common_args,
+    add_device_arg,
+    add_out_of_core_args,
+    add_validation_arg,
+    parse_coordinate_config,
+    parse_feature_shard_config,
+    parse_input_column_names,
+    refuse_unported,
+    resolve_device,
+    resolve_input_paths,
+    setup_logging,
+    task_of,
+)
+from photon_tpu_torch.data.index_map import IndexMap
+from photon_tpu_torch.data.normalization import build_normalization_context
+from photon_tpu_torch.data.stats import compute_feature_stats
+from photon_tpu_torch.data.validators import DataValidationType, validate_game_batch
+from photon_tpu_torch.estimators.game_estimator import GameEstimator
+from photon_tpu_torch.evaluation.metrics_map import sanitize_for_json
+from photon_tpu_torch.evaluation.suite import EvaluationSuite, EvaluatorSpec
+from photon_tpu_torch.io.data_reader import read_merged
+from photon_tpu_torch.io.model_io import (
+    load_game_model,
+    publish_latest_pointer,
+    save_game_model,
+    write_basic_statistics,
+)
+from photon_tpu_torch.types import NormalizationType
+from photon_tpu_torch.utils.io_utils import process_output_dir
+from photon_tpu_torch.utils.timed import Timed
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("game-training")
+    add_common_args(p)
+    add_validation_arg(p)
+    add_active_set_args(p)
+    add_out_of_core_args(p)
+    p.add_argument("--validation-paths", nargs="*", default=None)
+    p.add_argument("--coordinate-configurations", nargs="+", required=True)
+    p.add_argument("--update-sequence", required=True, help="comma-separated coordinate ids")
+    p.add_argument("--coordinate-descent-iterations", type=int, default=1)
+    p.add_argument("--evaluators", nargs="*", default=["AUC"])
+    p.add_argument("--normalization", default="NONE", choices=[t.name for t in NormalizationType])
+    p.add_argument("--model-input-dir", default=None, help="warm-start model dir")
+    p.add_argument("--locked-coordinates", default="",
+                   help="comma-separated coordinate ids to keep fixed (partial retrain)")
+    p.add_argument("--coordinate-constraints", default=None, help="not ported yet")
+    p.add_argument("--output-mode", default="BEST", choices=["BEST", "ALL", "NONE", "EXPLICIT", "TUNED"],
+                   help="reference ModelOutputMode: BEST = best model overall, ALL = every trained "
+                        "model, EXPLICIT = best of the explicit λ grid, NONE = no model output "
+                        "(TUNED is not ported yet)")
+    p.add_argument("--hyper-parameter-tuning", default="NONE", choices=["NONE", "RANDOM", "BAYESIAN"],
+                   help="not ported yet (NONE only)")
+    p.add_argument("--hyper-parameter-tuning-iter", type=int, default=10)
+    p.add_argument("--hyper-parameter-batch-size", type=int, default=1)
+    p.add_argument("--hyper-parameter-tuner", default="ATLAS", choices=["DUMMY", "ATLAS"])
+    p.add_argument("--variance-computation", nargs="?", const="SIMPLE", default="NONE",
+                   choices=["NONE", "SIMPLE", "FULL"],
+                   help="coefficient variances: SIMPLE = inverse diagonal Hessian, FULL = diagonal of "
+                        "the Cholesky-inverted Hessian; bare flag = SIMPLE")
+    p.add_argument("--model-sparsity-threshold", type=float, default=1e-4,
+                   help="coefficients whose magnitude is not above it are not written")
+    p.add_argument("--ignore-threshold-for-new-models", action="store_true",
+                   help="during warm start, entities without an existing model bypass the "
+                        "random-effect active-data lower bound (requires --model-input-dir)")
+    p.add_argument("--checkpoint-dir", default=None, help="not ported yet")
+    p.add_argument("--checkpoint-every", type=int, default=1, help="with --checkpoint-dir only")
+    p.add_argument("--checkpoint-keep-last", type=int, default=None, help="not ported yet")
+    p.add_argument("--resume", action="store_true", help="not ported yet")
+    p.add_argument("--event-listeners", nargs="*", default=[], help="not ported yet")
+    p.add_argument("--event-listener", action="append", default=[], dest="event_listener",
+                   help="not ported yet")
+    p.add_argument("--telemetry-out", default=None, help="not ported yet")
+    p.add_argument("--otlp-endpoint", default=None, help="not ported yet")
+    p.add_argument("--otlp-metrics-interval", type=float, default=15.0, help="with --otlp-endpoint only")
+    p.add_argument("--summarization-output-dir", default=None,
+                   help="write per-feature summary statistics as FeatureSummarizationResultAvro, "
+                        "one file per shard")
+    p.add_argument("--feature-index-dir", default=None,
+                   help="directory of index-map-<shard>.json files written by the feature-indexing "
+                        "driver; skips the distinct scan")
+    p.add_argument("--stream-ingest-chunk-rows", type=int, default=0, help="not ported yet")
+    add_device_arg(p)
+    return p
+
+
+def _refuse_unported(args) -> None:
+    refuse_unported("game_training", {
+        "--hyper-parameter-tuning": args.hyper_parameter_tuning != "NONE",
+        "--output-mode TUNED": args.output_mode == "TUNED",
+        "--checkpoint-dir": args.checkpoint_dir is not None,
+        "--resume": args.resume,
+        "--checkpoint-keep-last": args.checkpoint_keep_last is not None,
+        "--event-listeners": bool(args.event_listeners),
+        "--event-listener": bool(args.event_listener),
+        "--telemetry-out": args.telemetry_out is not None,
+        "--otlp-endpoint": args.otlp_endpoint is not None,
+        "--stream-ingest-chunk-rows": args.stream_ingest_chunk_rows > 0,
+        "--coordinate-constraints": args.coordinate_constraints is not None,
+        "--re-device-budget-mb": args.re_device_budget_mb is not None,
+        "--re-spill-dir": args.re_spill_dir is not None,
+        "--re-spill-member": args.re_spill_member is not None,
+    })
+
+
+def run(args) -> Dict:
+    setup_logging(args.verbose)
+    _refuse_unported(args)
+    device = resolve_device(args.device)
+    task = task_of(args)
+
+    shard_configs: Dict = {}
+    for spec in args.feature_shard_configurations:
+        shard_configs.update(parse_feature_shard_config(spec))
+    coord_configs = [parse_coordinate_config(s) for s in args.coordinate_configurations]
+    update_sequence = [s.strip() for s in args.update_sequence.split(",") if s.strip()]
+    by_id = {c.coordinate_id: c for c in coord_configs}
+    coord_configs = [by_id[cid] for cid in update_sequence]  # order = sequence
+    entity_id_columns = {c.re_type: c.re_type for c in coord_configs if hasattr(c, "re_type")}
+    column_names = parse_input_column_names(args.input_column_names)
+    process_output_dir(args.output_dir, args.override_output_dir)
+
+    preloaded_maps = None
+    if args.feature_index_dir:
+        preloaded_maps = {}
+        for shard in shard_configs:
+            path = os.path.join(args.feature_index_dir, f"index-map-{shard}.json")
+            try:
+                preloaded_maps[shard] = IndexMap.load(path)
+            except OSError as exc:
+                raise SystemExit(
+                    f"--feature-index-dir: cannot read {path} ({exc}); expected index-map-<shard>.json "
+                    f"files as written by the feature-indexing driver, one per configured feature shard "
+                    f"({sorted(shard_configs)})"
+                ) from exc
+
+    def read(paths, index_maps, entity_indexes, intern_new):
+        return read_merged(paths, shard_configs, index_maps=index_maps, entity_id_columns=entity_id_columns,
+                           entity_indexes=entity_indexes, intern_new_entities=intern_new,
+                           column_names=column_names, device=device)
+
+    with Timed("driver/read-train"):
+        batch, index_maps, entity_indexes = read(resolve_input_paths(args), preloaded_maps, None, True)
+    validation_mode = DataValidationType[args.data_validation]
+    with Timed("driver/validate"):
+        validate_game_batch(batch, task, validation_mode)
+    valid_batch = None
+    if args.validation_paths:
+        with Timed("driver/read-validation"):
+            valid_batch, _, _ = read(args.validation_paths, index_maps, entity_indexes, False)
+        with Timed("driver/validate-validation"):
+            validate_game_batch(valid_batch, task, validation_mode)
+
+    intercept_indices = {
+        shard: index_maps[shard].get_index(IndexMap.INTERCEPT)
+        for shard in shard_configs
+        if index_maps[shard].get_index(IndexMap.INTERCEPT) >= 0
+    }
+    normalization = {}
+    norm_type = NormalizationType[args.normalization]
+    if norm_type != NormalizationType.NONE or args.summarization_output_dir:
+        for shard in shard_configs:
+            stats = compute_feature_stats(batch.labeled_batch(shard), intercept_indices.get(shard))
+            if norm_type != NormalizationType.NONE:
+                normalization[shard] = build_normalization_context(
+                    norm_type, stats.mean, stats.std, stats.abs_max, intercept_indices.get(shard))
+            if args.summarization_output_dir:
+                write_basic_statistics(stats, index_maps[shard],
+                                       os.path.join(args.summarization_output_dir, shard, "part-00000.avro"))
+
+    warm = None
+    if args.model_input_dir:
+        warm = load_game_model(args.model_input_dir, index_maps, entity_indexes, device=device)
+
+    num_entities = {k: len(v) for k, v in entity_indexes.items()}
+    suite = EvaluationSuite([EvaluatorSpec.parse(e) for e in args.evaluators],
+                            num_entities) if args.evaluators else None
+
+    estimator = GameEstimator(
+        task=task,
+        coordinate_configs=coord_configs,
+        num_iterations=args.coordinate_descent_iterations,
+        intercept_indices=intercept_indices,
+        normalization=normalization,
+        num_entities=num_entities,
+        locked_coordinates=[s for s in args.locked_coordinates.split(",") if s],
+        variance_computation=args.variance_computation,
+        ignore_threshold_for_new_models=args.ignore_threshold_for_new_models,
+        warm_start_model=warm,
+        re_active_set=args.re_active_set,
+        re_convergence_tol=args.re_convergence_tol,
+    )
+    with Timed("driver/fit"):
+        results = estimator.fit(batch, validation_batch=valid_batch,
+                                evaluation_suite=suite if valid_batch is not None else None,
+                                initial_model=warm)
+
+    if suite is not None and valid_batch is not None:
+        best = estimator.select_best(results, suite)
+    else:
+        best = results[-1]
+    summary = {"configs": [], "tuned_configs": [], "best": None}
+    with Timed("driver/write"):
+        for i, r in enumerate(results):
+            summary["configs"].append({"config": r.config.describe(), "metrics": r.metrics})
+            if args.output_mode == "ALL":
+                save_game_model(r.model, os.path.join(args.output_dir, "models", f"configs-{i}"), index_maps,
+                                entity_indexes, sparsity_threshold=args.model_sparsity_threshold)
+        if args.output_mode != "NONE":
+            save_game_model(best.model, os.path.join(args.output_dir, "best"), index_maps, entity_indexes,
+                            sparsity_threshold=args.model_sparsity_threshold,
+                            extra_metadata={"config": best.config.describe()})
+            for shard, imap in index_maps.items():
+                imap.save(os.path.join(args.output_dir, f"index-map-{shard}.json"))
+            for re_type, eidx in entity_indexes.items():
+                eidx.save(os.path.join(args.output_dir, f"entity-index-{re_type}.json"))
+            # Everything is on disk: only now flip LATEST, so a reader that
+            # follows it never finds a half-written model.
+            publish_latest_pointer(args.output_dir, "best")
+        summary["best"] = {"config": best.config.describe(), "metrics": best.metrics}
+        with open(os.path.join(args.output_dir, "training-summary.json"), "w") as f:
+            json.dump(sanitize_for_json(summary), f, indent=2)
+    return summary
+
+
+def main(argv=None) -> Dict:
+    summary = run(build_parser().parse_args(argv))
+    print(json.dumps(summary["best"]))
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -36,6 +36,7 @@ from photon_tpu_torch.cli.common import (
     add_device_arg,
     add_out_of_core_args,
     add_validation_arg,
+    refuse_unported,
     resolve_device,
     setup_logging,
     task_of,
@@ -127,7 +128,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     """Exit non-zero on a flag whose machinery the port does not have."""
-    unported = {
+    refuse_unported("train_glm", {
         "--stream-ingest-chunk-rows": args.stream_ingest_chunk_rows > 0,
         "--replay-cache-mb": args.replay_cache_mb != _REPLAY_CACHE_MB,
         "--checkpoint-dir": args.checkpoint_dir is not None,
@@ -139,10 +140,7 @@ def _refuse_unported(args) -> None:
         "--summarization-output-dir": args.summarization_output_dir is not None,
         "--constraint-string": args.constraint_string is not None,
         "--selected-features-file": args.selected_features_file is not None,
-    }
-    named = [flag for flag, given in unported.items() if given]
-    if named:
-        raise SystemExit(f"train_glm: {', '.join(named)}: not ported yet")
+    })
 
 
 def load_data(args, path: Optional[str], device, index_map: Optional[IndexMap] = None):

@@ -1,5 +1,6 @@
 """Row-level training-data sanity checks (port of
-photon_tpu/data/validators.py::validate_labeled_batch).
+photon_tpu/data/validators.py: ``validate_labeled_batch`` and
+``validate_game_batch``).
 
 Finite features, labels in the task's domain, non-negative finite weights,
 finite offsets; VALIDATE_SAMPLE checks a deterministic stride subsample.
@@ -10,11 +11,12 @@ the host.
 from __future__ import annotations
 
 import enum
-from typing import List
+from typing import List, Optional
 
 import torch
 
 from photon_tpu_torch.data.batch import LabeledBatch
+from photon_tpu_torch.data.game_data import GameBatch
 from photon_tpu_torch.types import TaskType
 
 
@@ -57,6 +59,20 @@ def _check_labels(task: TaskType, y: torch.Tensor, errors: List[str]) -> None:
         _check_finite("labels", y, errors)
 
 
+def _check_common(label, weight, offset, task: TaskType, mode: DataValidationType, errors: List[str]) -> None:
+    """Labels finite and in the task's domain, weights finite and
+    non-negative, offsets finite."""
+    y = _subsample(label, mode)
+    _check_finite("labels", y, errors)
+    if not errors:
+        _check_labels(task, y, errors)
+    w = _subsample(weight, mode)
+    _check_finite("weights", w, errors)
+    if not bool((w >= 0.0).all()):
+        errors.append("weights must be non-negative")
+    _check_finite("offsets", _subsample(offset, mode), errors)
+
+
 def validate_labeled_batch(
     batch: LabeledBatch,
     task: TaskType,
@@ -66,15 +82,28 @@ def validate_labeled_batch(
     if mode == DataValidationType.VALIDATE_DISABLED:
         return
     errors: List[str] = []
-    y = _subsample(batch.label, mode)
-    _check_finite("labels", y, errors)
-    if not errors:
-        _check_labels(task, y, errors)
-    w = _subsample(batch.weight, mode)
-    _check_finite("weights", w, errors)
-    if not bool((w >= 0.0).all()):
-        errors.append("weights must be non-negative")
-    _check_finite("offsets", _subsample(batch.offset, mode), errors)
+    _check_common(batch.label, batch.weight, batch.offset, task, mode, errors)
     _check_finite("features", _subsample(batch.features, mode), errors)
+    if errors:
+        raise DataValidationError("; ".join(errors))
+
+
+def validate_game_batch(
+    batch: GameBatch,
+    task: TaskType,
+    mode: DataValidationType = DataValidationType.VALIDATE_FULL,
+    feature_shards: Optional[List[str]] = None,
+) -> None:
+    """Sanity-check a GAME batch across all (or the given) feature shards;
+    raises DataValidationError. A sparse shard is not ported yet."""
+    if mode == DataValidationType.VALIDATE_DISABLED:
+        return
+    errors: List[str] = []
+    _check_common(batch.label, batch.weight, batch.offset, task, mode, errors)
+    for shard in feature_shards or list(batch.features):
+        feats = batch.features[shard]
+        if not isinstance(feats, torch.Tensor):
+            raise NotImplementedError(f"feature shard {shard!r}: sparse features are not ported yet")
+        _check_finite(f"features[{shard}]", _subsample(feats, mode), errors)
     if errors:
         raise DataValidationError("; ".join(errors))

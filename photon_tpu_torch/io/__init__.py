@@ -1,1 +1,1 @@
-"""Avro and LIBSVM input, the reference schemas, model files."""
+"""Avro and LIBSVM input, the reference schemas, model and score files."""

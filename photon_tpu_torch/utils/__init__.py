@@ -1,1 +1,1 @@
-"""Small helpers shared by the GAME path."""
+"""Small helpers shared by the GAME path and the drivers."""

@@ -261,3 +261,80 @@ def test_game_fit_on_card_matches_cpu_plain_path(cuda_device, route):
     assert err <= 2e-3 * max(1.0, float(plain.abs().max())), err
     assert used["fused_value_grad"] > 0 and by_width.get(128, 0) > 0
     assert (by_width.get(8, 0) > 0) == (route == "newton")
+
+
+def _write_driver_file(path, n, seed):
+    """TrainingExampleAvro rows with three bags (7, 31 and 127 values: d = 8,
+    32 and 128 with the intercepts), 32 users and 16 Zipf-like items, labels
+    planted from a fixed, a per-user and a per-item effect."""
+    import copy
+
+    import numpy as np
+
+    from photon_tpu_torch.io.avro import write_avro_records
+    from photon_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA
+
+    bags = {"features": 31, "userFeatures": 7, "itemFeatures": 127}
+    model = np.random.default_rng(9)
+    w = {b: model.normal(size=(1 if b == "features" else 32 if b == "userFeatures" else 16, k)) / k ** 0.5
+         for b, k in bags.items()}
+    rng = np.random.default_rng(seed)
+    users, items = rng.integers(0, 32, n), rng.choice(16, n, p=(p := 1 / np.arange(1, 17) ** 1.1) / p.sum())
+    X = {b: rng.normal(size=(n, k)) for b, k in bags.items()}
+    logits = (X["features"] @ w["features"][0] + np.sum(X["userFeatures"] * w["userFeatures"][users], 1)
+              + 0.5 * np.sum(X["itemFeatures"] * w["itemFeatures"][items], 1))
+    y = rng.uniform(size=n) < 1 / (1 + np.exp(-logits))
+    schema = copy.deepcopy(TRAINING_EXAMPLE_SCHEMA)
+    schema["fields"] += [{"name": b, "type": {"type": "array", "items": "FeatureAvro"}}
+                         for b in ("userFeatures", "itemFeatures")]
+    write_avro_records(str(path), schema, [
+        {"uid": str(i), "label": float(y[i]), "weight": None, "offset": None,
+         "metadataMap": {"userId": f"u{users[i]}", "itemId": f"i{items[i]}"},
+         **{b: [{"name": f"{b}{j}", "term": "", "value": float(v)} for j, v in enumerate(X[b][i])] for b in bags}}
+        for i in range(n)])
+    return str(path)
+
+
+def test_game_drivers_on_card_match_cpu(cuda_device, tmp_path):
+    """game_training and game_scoring with --device cuda against --device cpu
+    on the same files (both f32): best/ coefficients and scores within 2e-3
+    of their largest magnitude, the smoke's tolerance; the training run on
+    the card launches K1, and K3 at d = 8 and 128."""
+    from photon_tpu_torch.cli import game_scoring, game_training
+    from photon_tpu_torch.io.avro import read_avro_records
+    from photon_tpu_torch.io.scores import load_scores
+
+    train, valid = _write_driver_file(tmp_path / "t.avro", 2048, 1), _write_driver_file(tmp_path / "v.avro", 512, 2)
+    shards = ["--feature-shard-configurations", "name=g,feature.bags=features", "name=u,feature.bags=userFeatures",
+              "name=i,feature.bags=itemFeatures"]
+    argv = ["--input-paths", train, "--validation-paths", valid, *shards, "--coordinate-configurations",
+            "name=global,feature.shard=g,reg.weights=1|10", "name=perUser,feature.shard=u,random.effect.type=userId,reg.weights=1",
+            "name=perItem,feature.shard=i,random.effect.type=itemId,reg.weights=1", "--update-sequence",
+            "global,perUser,perItem", "--coordinate-descent-iterations", "2", "--evaluators", "AUC"]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        kernels.reset_launches()
+        fused_newton.LAUNCHES_BY_WIDTH.clear()
+        summary = game_training.main(argv + ["--output-dir", str(tmp_path / device), "--device", device])
+        used = dict(kernels.LAUNCHES, by_width=dict(fused_newton.LAUNCHES_BY_WIDTH))
+        scored = game_scoring.main(["--input-paths", valid, *shards, "--output-dir", str(tmp_path / f"s-{device}"),
+                                    "--model-input-dir", str(tmp_path / device / "best"), "--evaluators", "AUC",
+                                    "--device", device])
+        runs[device] = summary, used, scored
+    assert runs["cuda"][1]["fused_value_grad"] > 0
+    assert runs["cuda"][1]["by_width"].get(8, 0) > 0 and runs["cuda"][1]["by_width"].get(128, 0) > 0
+    assert runs["cpu"][1]["fused_value_grad"] == 0 and runs["cpu"][1]["newton_system"] == 0
+    assert runs["cuda"][0]["best"]["config"] == runs["cpu"][0]["best"]["config"]
+    assert abs(runs["cuda"][2]["metrics"]["AUC"] - runs["cpu"][2]["metrics"]["AUC"]) <= 2e-3
+    for part in sorted((tmp_path / "cpu" / "best").rglob("*.avro")):
+        want = read_avro_records(str(part))
+        got = read_avro_records(str(tmp_path / "cuda" / "best" / part.relative_to(tmp_path / "cpu" / "best")))
+        assert [r["modelId"] for r in got] == [r["modelId"] for r in want]
+        scale = max([1.0] + [abs(m["value"]) for r in want for m in r["means"]])
+        for g, w in zip(got, want):
+            gm, wm = ({(m["name"], m["term"]): m["value"] for m in r["means"]} for r in (g, w))
+            for key in set(gm) | set(wm):
+                assert abs(gm.get(key, 0.0) - wm.get(key, 0.0)) <= 2e-3 * scale, (part.name, w["modelId"], key)
+    got, want = (torch.tensor([r["predictionScore"] for r in load_scores(str(tmp_path / f"s-{d}" / "scores.avro"))])
+                 for d in ("cuda", "cpu"))
+    assert float((got - want).abs().max()) <= 2e-3 * max(1.0, float(want.abs().max()))
