@@ -35,7 +35,7 @@ Phases, each of which must pass:
                 be written and load back, with validation AUC > 0.7 and K1
                 launched; the driver's λ loop at N = 2^21, d = 256 (f32) with
                 L-BFGS (K1) and TRON (K1 and K2), per λ iterations, X passes,
-                wall time, host syncs, samples/s and AUC; and the λ loop on
+                wall time, host reads, samples/s and AUC; and the λ loop on
                 the card against the port's float64 plain path on the CPU.
   7. GAME     — ``GameEstimator.fit`` then ``GameTransformer.transform`` with
                 three coordinates over phase 4's N = 2^21 rows: the fixed
@@ -45,7 +45,7 @@ Phases, each of which must pass:
                 Newton, K3 at d = 128); two passes with the active set and a
                 2^18-row validation batch. First a small input on the card
                 against the float64 plain path on the CPU; then per pass the
-                wall time, host syncs, samples/s, each coordinate's wall, K1
+                wall time, host reads, samples/s, each coordinate's wall, K1
                 and K3 launches by width, entities skipped, training logloss
                 (must fall) and validation AUC (GLMix must reach fixed-only);
                 then one pass under the profiler.
@@ -61,8 +61,19 @@ Phases, each of which must pass:
                 the in-process score of best/ loaded back (1e-5 relative), the
                 scoring AUC the training one (1e-5); and on a 2^10-row file
                 of 16 users and 16 items the driver on the card must give
-                the CPU run's coefficients (2e-3 relative). Each driver's wall time by stage, host syncs
+                the CPU run's coefficients (2e-3 relative). Each driver's wall time by stage, host reads
                 and launches by width are logged.
+Phases 4, 6b, 7b and 8 print, per pass, λ or driver, the host reads (every
+device-to-host read of the path, through ``HOST_READS``; validation apart),
+the solve cache's captures (programs; the keys, which count each λ, apart),
+hits, replays, X passes run (masked steps included) and bytes copied into
+its static buffers, and the peak memory; once, the guard (mask) and K; per
+capture, its seconds and the chunk graph's node count. 7b also runs the
+fixed-effect solve and a block of each random effect eagerly and captured
+at K = 1, 2, 4 and 8, and fails at any K unless iterations and reasons are
+equal and coefficients within 1e-6; it fails if pass 2 captures anything or
+the two passes' coordinate updates make more than 60 host reads; 6b fails
+above 6 reads for an L-BFGS λ solve.
 It prints the card's name and power limit, a JSON line of per-kernel numbers,
 and last {"ok": true, "device": {...}}. It exits non-zero, printing no
 result, when there is no CUDA device or any phase fails. Float32 matrix
@@ -119,6 +130,38 @@ REFERENCE_TOL = 2e-3
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def cache_text(d: dict) -> str:
+    """A ``SolveCacheStats.since`` delta of the solve cache, as printed."""
+    return (f"solve cache: captures {d['captures']} (keys {d['traces']}), hits {d['hits']}, replays {d['replays']}, "
+            f"{d['x_passes_run']} X passes run, {d['copied_bytes'] / 1e6:.1f} MB copied into static buffers")
+
+
+def peak_text() -> str:
+    return f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB"
+
+
+def cache_setup(label: str, cache=None) -> int:
+    """Print how captured solves run; returns the count of programs built
+    so far in ``cache`` (default: the shared one), for ``cache_entries``."""
+    from photon_tpu_torch.algorithm import solve_cache
+
+    cache = cache if cache is not None else solve_cache.default_cache()
+    log(f"  {label}: solve cache guard = mask (torch {torch.__version__} has no capture into CUDA graph "
+        f"conditional nodes), K = {solve_cache.FE_CHUNK} fixed-effect and {solve_cache.BLOCK_CHUNK} block steps "
+        "per host read")
+    return len(cache.entry_info())
+
+
+def cache_entries(since: int, cache=None) -> None:
+    """Print the captures made in ``cache`` (default: the shared one) since
+    ``cache_setup``: key, K, capture time, node count of the chunk graph."""
+    from photon_tpu_torch.algorithm.solve_cache import default_cache
+
+    for info in (cache if cache is not None else default_cache()).entry_info()[since:]:
+        log(f"    captured {tuple(info['key'])}: K = {info['chunk']}, {info.get('capture_s', 0.0):.3f} s, "
+            f"chunk graph {info.get('chunk_nodes')} nodes")
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor):
@@ -214,6 +257,7 @@ def train_glm_phase(dev, smi: str, check) -> dict:
     an Avro file on the card; (b) the driver's λ loop at full width with
     L-BFGS and TRON; (c) the λ loop on the card against the CPU float64 plain
     path on a small file. Returns the kernel launches of (a) and (b)."""
+    from photon_tpu_torch.algorithm.solve_cache import SolveCache
     from photon_tpu_torch.cli import train_glm
     from photon_tpu_torch.evaluation.metrics_map import AREA_UNDER_ROC, metrics_map
     from photon_tpu_torch.io.model_io import load_game_model
@@ -296,11 +340,16 @@ def train_glm_phase(dev, smi: str, check) -> dict:
     weights = [float(x) for x in lambdas.split(",")]
     for opt, needs in ((OptimizerType.LBFGS, ("fused_value_grad",)),
                        (OptimizerType.TRON, ("fused_value_grad", "fused_hvp"))):
+        # A cache of the sweep's own, so that the profiled λ below hits it.
+        sweep_cache = SolveCache()
+        built0 = cache_setup("6b λ sweep", sweep_cache)
         kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
         sweep = train_glm.train_lambda_sweep(train, weights, TaskType.LOGISTIC_REGRESSION, OptimizerSpec(opt),
                                              intercept_index=B_FEATURES,
-                                             variance=VarianceComputationType.SIMPLE)
+                                             variance=VarianceComputationType.SIMPLE, solve_cache=sweep_cache)
         used = dict(kernels.LAUNCHES)
+        log(f"    {opt.name} sweep: {peak_text()}")
         count(used)
         for r in sweep:
             passes = int(r.result.x_passes)
@@ -308,17 +357,21 @@ def train_glm_phase(dev, smi: str, check) -> dict:
             value = float(r.result.value)
             log(f"    {opt.name} λ={r.lam:g}: {int(r.result.iterations)} iterations, "
                 f"{r.result.convergence_reason.value}, {passes} X passes, {r.wall_s:.4f} s wall, "
-                f"{r.host_syncs} host syncs, {N * passes / r.wall_s:.4e} samples/s, objective {value:.6e}, "
-                f"validation AUC {auc:.4f}")
+                f"{r.host_syncs} host reads, {N * passes / r.wall_s:.4e} samples/s, objective {value:.6e}, "
+                f"validation AUC {auc:.4f}; {cache_text(r.cache)}")
+            if opt == OptimizerType.LBFGS:
+                check(r.host_syncs <= 6, f"6b LBFGS λ={r.lam:g}: {r.host_syncs} host reads <= 6")
             check(np.isfinite(value) and bool(torch.isfinite(r.variances).all()),
                   f"6b {opt.name} λ={r.lam:g}: objective and variances finite")
             check(auc > 0.6, f"6b {opt.name} λ={r.lam:g}: validation AUC {auc:.4f} > 0.6")
         log(f"    {opt.name} sweep launches {used}")
+        if opt == OptimizerType.LBFGS:
+            cache_entries(built0, sweep_cache)
         check(all(used[k] > 0 for k in needs), f"6b {opt.name}: launched {', '.join(needs)}")
         # The first λ once more, under the profiler (its launches are not counted).
         profiled(f"{opt.name} λ={weights[0]:g} from zero, profiled", lambda: train_glm.train_lambda_sweep(
-            train, weights[:1], TaskType.LOGISTIC_REGRESSION, OptimizerSpec(opt), intercept_index=B_FEATURES),
-            indent="    ")
+            train, weights[:1], TaskType.LOGISTIC_REGRESSION, OptimizerSpec(opt), intercept_index=B_FEATURES,
+            solve_cache=sweep_cache), indent="    ")
     del Xt, Xv, train, valid
     torch.cuda.empty_cache()
 
@@ -386,6 +439,7 @@ def game_phase(dev, smi: str, check, Xb, Xr, users, n_users: int) -> dict:
     user features and ids, with per-item features and planted labels made
     here; (c) one more pass under the profiler. Returns the kernel launches
     of (b), with K3's by width under "newton_system_d<d>"."""
+    from photon_tpu_torch.algorithm.solve_cache import SolveCache
     from photon_tpu_torch.estimators.game_transformer import GameTransformer
     from photon_tpu_torch.evaluation.suite import EvaluationSuite, EvaluatorSpec
     from photon_tpu_torch.ops import fused_newton, kernels
@@ -458,20 +512,27 @@ def game_phase(dev, smi: str, check, Xb, Xr, users, n_users: int) -> dict:
         f"{int(counts.median())}, min {int(counts.min())}; cap {G_ITEM_CAP}); validation {nv} rows; card {smi}")
 
     def logloss(model, batch):
-        return float(torch.mean(LogisticLoss.value(model.score_with_offset(batch), batch.label)))
+        return float(HOST_READS.fetch(torch.mean(LogisticLoss.value(model.score_with_offset(batch), batch.label)))[0])
 
     history = []
 
     class Suite(EvaluationSuite):
         """Validation AUC (the primary metric), and the training logloss, of
-        each pass's model."""
+        each pass's model, with the host reads of the validation and the
+        pass's peak memory (the peak is reset for the next pass)."""
 
         def evaluate_model(self, model, batch):
+            r0 = HOST_READS.count
             out = dict(super().evaluate_model(model, batch), train_logloss=logloss(model, train))
-            history.append(out)
+            history.append(dict(out, validation_reads=HOST_READS.count - r0,
+                                peak=torch.cuda.max_memory_allocated()))
+            torch.cuda.reset_peak_memory_stats()
             return out
 
     est, reg = _game_estimator(n_users, G_ITEMS, G_ITEM_CAP, G_PASSES)
+    # A cache of the phase's own (the shared one is released when a fit
+    # returns), so that the profiled pass of 7c replays 7b's captures.
+    cache = est.solve_cache = SolveCache()
     t0 = time.perf_counter()
     est._prepare_datasets(train)
     torch.cuda.synchronize()
@@ -485,13 +546,15 @@ def game_phase(dev, smi: str, check, Xb, Xr, users, n_users: int) -> dict:
     def on_coordinate(it, cid, coord, wall):
         stats = getattr(coord, "last_active_set_stats", None)
         marks.append(dict(it=it, cid=cid, wall=wall, reads=HOST_READS.count, launches=dict(kernels.LAUNCHES),
-                          by_width=dict(fused_newton.LAUNCHES_BY_WIDTH),
+                          by_width=dict(fused_newton.LAUNCHES_BY_WIDTH), cache=cache.stats.counts(),
                           skipped=None if stats is None else stats["entities_skipped"]))
 
+    built0 = cache_setup("7b GAME", cache)
     kernels.reset_launches()
     fused_newton.LAUNCHES_BY_WIDTH.clear()
     torch.cuda.synchronize()
-    reads0 = HOST_READS.count
+    torch.cuda.reset_peak_memory_stats()
+    reads0, counts0 = HOST_READS.count, cache.stats.counts()
     (res,) = est.fit(train, validation_batch=valid, evaluation_suite=Suite([EvaluatorSpec.parse("AUC")]),
                      optimization_configs=[reg], on_coordinate=on_coordinate)
     transformer = GameTransformer(res.model, EvaluationSuite([EvaluatorSpec.parse("AUC")]))
@@ -501,8 +564,8 @@ def game_phase(dev, smi: str, check, Xb, Xr, users, n_users: int) -> dict:
     launches.update({f"newton_system_d{d}": c for d, c in fused_newton.LAUNCHES_BY_WIDTH.items()})
 
     losses = [float(np.log(2.0))]  # every score is 0 before the first pass
-    prev = dict(reads=reads0, launches={k: 0 for k in kernels.LAUNCHES}, by_width={})
-    total_visits, total_s = 0, 0.0
+    prev = dict(reads=reads0, launches={k: 0 for k in kernels.LAUNCHES}, by_width={}, cache=counts0)
+    total_visits, total_s, coordinate_reads = 0, 0.0, 0
     for it in range(G_PASSES):
         pm = [m for m in marks if m["it"] == it]
         fe = res.tracker["global"][it]
@@ -514,20 +577,34 @@ def game_phase(dev, smi: str, check, Xb, Xr, users, n_users: int) -> dict:
         k3 = {d: c - prev["by_width"].get(d, 0) for d, c in end["by_width"].items()}
         losses.append(history[it]["train_logloss"])
         auc = history[it]["AUC"]
-        log(f"  pass {it + 1}: {wall:.3f} s wall, {end['reads'] - prev['reads']} host syncs, "
-            f"{visits / wall:.4e} samples/s ({visits} visits; fixed effect {int(fe.x_passes)} X passes, "
-            f"{int(fe.iterations)} iterations), coordinates "
+        # The pass's coordinate updates: from the end of the last validation
+        # (or the fit's start) to the last update; validation comes after.
+        reads = end["reads"] - prev["reads"] - (history[it - 1]["validation_reads"] if it else 0)
+        coordinate_reads += reads
+        delta = {k: end["cache"][k] - prev["cache"][k] for k in end["cache"]}
+        assert pm[0]["cid"] == "global"
+        fe_run = pm[0]["cache"]["x_passes_run"] - prev["cache"]["x_passes_run"]
+        log(f"  pass {it + 1}: {wall:.3f} s wall, {reads} host reads in the coordinate updates (validation "
+            f"{history[it]['validation_reads']} more), {visits / wall:.4e} samples/s ({visits} visits; fixed effect "
+            f"{int(fe.x_passes)} X passes of its iterations, {fe_run} run on the card with masked steps and "
+            f"capture warm-ups, {int(fe.iterations)} iterations), coordinates "
             + ", ".join(f"{m['cid']} {m['wall']:.3f} s" for m in pm)
             + f"; K1 launches {k1}, K3 launches by width {k3}; entities skipped "
             + ", ".join(f"{m['cid']} {m['skipped']}" for m in pm if m["skipped"] is not None)
-            + f"; training logloss {losses[-1]:.6f}, validation AUC {auc:.4f}")
+            + f"; training logloss {losses[-1]:.6f}, validation AUC {auc:.4f}; {cache_text(delta)}; "
+            f"peak memory {history[it]['peak'] / 2 ** 30:.2f} GiB")
         for cid in ("per_user", "per_item"):
             log(f"    {cid}: {res.tracker[cid][it].summary()}")
         check(losses[-1] < losses[-2], f"7b pass {it + 1}: training logloss fell ({losses[-2]:.6f} -> {losses[-1]:.6f})")
         check(np.isfinite(auc), f"7b pass {it + 1}: validation AUC {auc:.4f} finite")
+        if it > 0:
+            check(delta["captures"] == 0 and delta["traces"] == 0,
+                  f"7b pass {it + 1}: no new capture ({delta['captures']}) or key ({delta['traces']})")
         prev = end
-    log(f"  GAME {G_PASSES} passes: {total_s:.3f} s, {marks[-1]['reads'] - reads0} host syncs, "
+    cache_entries(built0, cache)
+    log(f"  GAME {G_PASSES} passes: {total_s:.3f} s, {coordinate_reads} host reads in the coordinate updates, "
         f"{total_visits / total_s:.4e} samples/s (bench.py visit accounting) on {smi}; launches {launches}")
+    check(coordinate_reads <= 60, f"7b: {coordinate_reads} host reads in the coordinate updates of both passes <= 60")
     check(launches["fused_value_grad"] > 0 and launches.get(f"newton_system_d{Xr.shape[1]}", 0) > 0
           and launches.get(f"newton_system_d{G_D_ITEM}", 0) > 0,
           f"GAME path launched K1, and K3 at d = {Xr.shape[1]} and d = {G_D_ITEM}")
@@ -543,12 +620,73 @@ def game_phase(dev, smi: str, check, Xb, Xr, users, n_users: int) -> dict:
     check(glmix_auc >= fe_res.metrics["AUC"],
           f"7b GLMix validation AUC {glmix_auc:.4f} >= fixed-only {fe_res.metrics['AUC']:.4f}")
 
+    captured_solves(dev, est, train, check)
+
     # 7c. One more pass from the trained model under the profiler (its
     # launches are not counted).
     est.num_iterations = 1
     profiled("GAME pass from the trained model, profiled",
              lambda: est.fit(train, optimization_configs=[reg], initial_model=res.model))
     return launches
+
+
+def captured_solves(dev, est, train, check) -> None:
+    """7b, after the fit: the fixed-effect solve and the first block of each
+    random effect of the fit's configuration (from zero, no offsets), run
+    eagerly on the card and through a solve cache at K = 1, 2, 4 and 8 steps
+    per host read (the cache's FE_CHUNK and BLOCK_CHUNK, set for the sweep).
+    At every K, iterations and reasons must equal the eager ones and
+    coefficients agree within 1e-6 relative; per K, the wall and host reads
+    of a solve replayed after its capture."""
+    from photon_tpu_torch.algorithm import solve_cache
+    from photon_tpu_torch.algorithm.random_effect import _solve_block
+    from photon_tpu_torch.ops.losses import LogisticLoss
+    from photon_tpu_torch.ops.objective import GLMObjective
+    from photon_tpu_torch.optim.common import HOST_READS
+    from photon_tpu_torch.optim.factory import OptimizerSpec
+    from photon_tpu_torch.optim.margin_lbfgs import minimize_lbfgs_margin
+
+    spec = OptimizerSpec()  # the coordinates' default: margin L-BFGS, and Newton up to d = 128
+    cfg = dataclasses.replace(spec.config(), track_history=False)
+    fe_obj = GLMObjective(LogisticLoss, l2_weight=1.0, intercept_index=0, use_fused=True)
+    re_obj = GLMObjective(LogisticLoss, l2_weight=1.0, intercept_index=0)
+    lb = train.labeled_batch("global")
+    fe_w0 = torch.zeros(lb.features.shape[1], device=dev)
+    blocks = {cid: est._re_datasets[cid].blocks[0] for cid in ("per_user", "per_item")}
+    eager = minimize_lbfgs_margin(fe_obj, lb, fe_w0, spec.config())
+    solves = {"fixed effect": (lambda cache: cache.fe_solver(fe_obj, spec), (fe_w0, lb),
+                               (eager.w, eager.iterations, eager.reason_code))}
+    for cid, b in blocks.items():
+        args = (b, torch.zeros_like(b.label), torch.zeros(b.num_entities, b.dim, device=dev))
+        solves[f"{cid} block {tuple(b.features.shape)}"] = (
+            lambda cache: cache.block_solver(re_obj, spec, cfg, has_mask=False, re_kernel="cuda"), args,
+            _solve_block(*args, re_obj, spec, cfg, re_kernel="cuda")[:3])
+    chunks = solve_cache.FE_CHUNK, solve_cache.BLOCK_CHUNK
+    try:
+        for K in (1, 2, 4, 8):
+            solve_cache.FE_CHUNK = solve_cache.BLOCK_CHUNK = K
+            cache = solve_cache.SolveCache()
+            parts = []
+            for label, (make, args, want) in solves.items():
+                solve = make(cache)
+                got = solve(*args)  # captures
+                torch.cuda.synchronize()
+                r0, t0 = HOST_READS.count, time.perf_counter()
+                solve(*args)
+                torch.cuda.synchronize()
+                wall, reads = time.perf_counter() - t0, HOST_READS.count - r0
+                w, it, reason = (got.w, got.iterations, got.reason_code) if label == "fixed effect" else got[:3]
+                parts.append(f"{label} {wall * 1e3:.2f} ms, {reads} reads, {int(it.max())} iterations")
+                _, r = rel_err(w, want[0])
+                check(torch.equal(it, want[1]) and torch.equal(reason, want[2]) and r <= 1e-6,
+                      f"7b {label}: captured (K = {K}) vs eager on the card: iterations and reasons equal, "
+                      f"coefficients rel {r:.3e} (tolerance 1e-6)")
+            info = cache.entry_info()
+            log(f"  K = {K}: " + "; ".join(parts) + "; captures " + ", ".join(
+                f"{i.get('capture_s', 0.0):.3f} s {i.get('chunk_nodes')} nodes" for i in info))
+            del cache, solve
+    finally:
+        solve_cache.FE_CHUNK, solve_cache.BLOCK_CHUNK = chunks
 
 
 def _driver_records(n: int, seed: int, n_users: int = H_USERS, n_items: int = H_ITEMS) -> list:
@@ -581,6 +719,7 @@ def game_drivers_phase(dev, smi: str, check) -> dict:
     launches of that run, K3's by width under "newton_system_d<d>"."""
     import copy
 
+    from photon_tpu_torch.algorithm.solve_cache import default_cache
     from photon_tpu_torch.cli import feature_indexing, game_scoring, game_training
     from photon_tpu_torch.cli.common import parse_feature_shard_config
     from photon_tpu_torch.data.index_map import EntityIndex, IndexMap
@@ -621,32 +760,37 @@ def game_drivers_phase(dev, smi: str, check) -> dict:
               "--re-active-set", "--evaluators", "AUC", "--variance-computation", "SIMPLE"]
     out, idx, scored = work / "out", work / "index", work / "scores"
 
-    def stages(label, wall, reads):
+    def stages(label, wall, reads, counts0):
         by_stage = ", ".join(f"{k[len('driver/'):]} {v:.2f} s" for k, v in Timed.records.items()
                              if k.startswith("driver/"))
-        log(f"  {label}: {wall:.2f} s wall, {reads} host syncs" + (f"; by stage {by_stage}" if by_stage else ""))
+        log(f"  {label}: {wall:.2f} s wall, {reads} host reads" + (f"; by stage {by_stage}" if by_stage else "")
+            + f"; {cache_text(default_cache().stats.since(counts0))}; {peak_text()}")
+        torch.cuda.reset_peak_memory_stats()
 
     # The main path, counted: the three drivers, in the order a user runs them.
+    built0 = cache_setup("8 drivers")
     kernels.reset_launches()
     fused_newton.LAUNCHES_BY_WIDTH.clear()
     Timed.reset()
-    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    counts0, t0 = default_cache().stats.counts(), time.perf_counter()
     sizes = feature_indexing.main(["--input-paths", paths["train"], "--output-dir", str(idx)] + shards)
-    stages(f"feature_indexing {sizes}", time.perf_counter() - t0, 0)
+    stages(f"feature_indexing {sizes}", time.perf_counter() - t0, 0, counts0)
     Timed.reset()
-    reads0, t0 = HOST_READS.count, time.perf_counter()
+    reads0, counts0, t0 = HOST_READS.count, default_cache().stats.counts(), time.perf_counter()
     summary = game_training.main(["--input-paths", paths["train"], "--validation-paths", paths["valid"],
                                   "--output-dir", str(out), "--feature-index-dir", str(idx), "--device", "cuda"]
                                  + shards + coords)
     torch.cuda.synchronize()
-    stages("game_training", time.perf_counter() - t0, HOST_READS.count - reads0)
+    stages("game_training", time.perf_counter() - t0, HOST_READS.count - reads0, counts0)
+    cache_entries(built0)
     trained = dict(kernels.LAUNCHES, by_width=dict(fused_newton.LAUNCHES_BY_WIDTH))
     Timed.reset()
-    reads0, t0 = HOST_READS.count, time.perf_counter()
+    reads0, counts0, t0 = HOST_READS.count, default_cache().stats.counts(), time.perf_counter()
     result = game_scoring.main(["--input-paths", paths["valid"], "--output-dir", str(scored), "--model-input-dir",
                                 str(out / "best"), "--evaluators", "AUC", "--device", "cuda"] + shards)
     torch.cuda.synchronize()
-    stages("game_scoring", time.perf_counter() - t0, HOST_READS.count - reads0)
+    stages("game_scoring", time.perf_counter() - t0, HOST_READS.count - reads0, counts0)
     launches = dict(kernels.LAUNCHES)
     launches.update({f"newton_system_d{d}": c for d, c in fused_newton.LAUNCHES_BY_WIDTH.items()})
     log(f"  launches: training {trained}; all three drivers {launches}")
@@ -709,6 +853,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke runs only on a GPU", file=sys.stderr)
         return 1
 
+    from photon_tpu_torch.algorithm.solve_cache import default_cache
     from photon_tpu_torch.data.batch import LabeledBatch
     from photon_tpu_torch.data.random_effect import RandomEffectDataConfig, build_random_effect_dataset
     from photon_tpu_torch.data.synthetic import make_data
@@ -973,24 +1118,29 @@ def main() -> int:
     losses = [logloss(s0)]
     log(f"  pass 0 (initial point): training logloss {losses[0]:.6f}")
     kernels.reset_launches()
+    built0 = cache_setup("GLMix step")
     reads0, total_visits, total_s = HOST_READS.count, 0, 0.0
     for p in range(1, CD_PASSES + 1):
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts0 = default_cache().stats.counts()
         r0, t0 = HOST_READS.count, time.perf_counter()
         w_fixed, re_coefs, scores, fe_evals, re_visits = step(w_fixed, re_coefs, fe_batch, block, Xr, users)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        reads = HOST_READS.count - r0
         visits = N * int(fe_evals) + int(re_visits)
         total_visits, total_s = total_visits + visits, total_s + dt
         losses.append(logloss(scores))
         fe_obj = GLMObjective(**obj).value(w_fixed, fe_batch.add_scores_to_offsets(scores - fe_batch.margins(w_fixed)))
-        log(f"  pass {p}: {dt:.3f} s wall, {HOST_READS.count - r0} host syncs, fe X passes {int(fe_evals)}, "
+        log(f"  pass {p}: {dt:.3f} s wall, {reads} host reads, fe X passes {int(fe_evals)}, "
             f"re visits {int(re_visits)}, {visits / dt:.4e} samples/s, training logloss {losses[-1]:.6f}, "
-            f"FE objective {float(fe_obj):.6e}")
+            f"FE objective {float(fe_obj):.6e}; {cache_text(default_cache().stats.since(counts0))}; {peak_text()}")
         check(bool(torch.isfinite(scores).all()) and np.isfinite(float(fe_obj)), f"pass {p}: scores and objective finite")
         check(losses[-1] < losses[-2], f"pass {p}: training logloss fell ({losses[-2]:.6f} -> {losses[-1]:.6f})")
     glmix_launches = dict(kernels.LAUNCHES)
-    log(f"  GLMix {CD_PASSES} passes: {total_s:.3f} s, {HOST_READS.count - reads0} host syncs, "
+    cache_entries(built0)
+    log(f"  GLMix {CD_PASSES} passes: {total_s:.3f} s, {HOST_READS.count - reads0} host reads, "
         f"{total_visits / total_s:.4e} samples/s (bench.py visit accounting) on {smi}; launches {glmix_launches}")
     check(glmix_launches["fused_value_grad"] > 0 and glmix_launches["newton_system"] > 0,
           "GLMix path launched K1 and K3")
@@ -1011,13 +1161,15 @@ def main() -> int:
                         hvp_factory=lambda v: tron_obj.linearized_hvp(v, fe_batch))
     torch.cuda.synchronize()
     tron_launches = dict(kernels.LAUNCHES)
-    log(f"  {time.perf_counter() - t0:.3f} s, {int(res.iterations)} iterations, {HOST_READS.count - r0} host syncs, "
+    log(f"  {time.perf_counter() - t0:.3f} s, {int(res.iterations)} iterations, {HOST_READS.count - r0} host reads "
+        "(TRON keeps its host loop), "
         f"objective {f0:.6e} -> {float(res.value):.6e}; launches {tron_launches}")
     check(float(res.value) < f0 and np.isfinite(float(res.value)), "TRON lowered the objective")
     check(tron_launches["fused_value_grad"] > 0 and tron_launches["fused_hvp"] > 0, "TRON path launched K1 and K2")
 
     # ---------------- 6. train_glm ----------------
     del fe_batch, block, ds
+    default_cache().release()  # the GLMix step's entries (a step has no end of its own to release them at)
     torch.cuda.empty_cache()
     glm_launches = train_glm_phase(dev, smi, check)
 

@@ -5,8 +5,9 @@ Each coordinate trains against the running residual, the sum of the other
 coordinates' scores (total − its own), and the total is updated
 incrementally; locked coordinates are scored from a pretrained model and
 never retrained; with validation data the best model by the primary metric
-is kept. The reference's spans, metrics registry and trace export, its
-checkpointing and its event emitter are not ported yet.
+is kept. The trackers are read back (through ``HOST_READS``) only for the
+logged summary. The reference's spans, metrics registry and trace export,
+its checkpointing and its event emitter are not ported yet.
 """
 
 from __future__ import annotations
@@ -156,7 +157,8 @@ class CoordinateDescent:
         result = CoordinateDescentResult(
             model=final, best_model=final if best_model is None else best_model, best_metric=best_metric,
             metric_history=metric_history, tracker=tracker, wall_times=wall_times)
-        summary = result.summary()
-        if summary:
-            logger.info("optimization summary:\n%s", summary)
+        if logger.isEnabledFor(logging.INFO):  # the summary reads the trackers back
+            summary = result.summary()
+            if summary:
+                logger.info("optimization summary:\n%s", summary)
         return result

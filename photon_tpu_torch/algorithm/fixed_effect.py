@@ -6,7 +6,9 @@ On the card the objective's value and gradient go through the fused kernel
 the ``train_glm`` driver does; on the CPU they are the plain path.
 Down-sampling is a weight mask. Variances are computed at the transformed
 optimum and taken to model space by the factors², as the reference
-coordinate does (unlike the reference's ``train_glm`` driver).
+coordinate does (unlike the reference's ``train_glm`` driver). The solve
+goes through the solve cache (``solve_cache``, else the shared
+``default_cache()``), as the reference's does.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from photon_tpu_torch.algorithm.coordinate import Coordinate
-from photon_tpu_torch.algorithm.solve_cache import fe_solver
+from photon_tpu_torch.algorithm.solve_cache import SolveCache, default_cache
 from photon_tpu_torch.data.game_data import GameBatch
 from photon_tpu_torch.models.coefficients import Coefficients
 from photon_tpu_torch.models.game import FixedEffectModel
@@ -42,6 +44,8 @@ class FixedEffectCoordinate(Coordinate):
     down_sampler: Optional[DownSampler] = None
     compute_variance: object = VarianceComputationType.NONE
     dim: Optional[int] = None  # for zero_model
+    solve_cache: Optional[SolveCache] = None
+    device: Optional[object] = None  # of zero_model (the batch's)
 
     def __post_init__(self):
         self.compute_variance = normalize_variance_type(self.compute_variance)
@@ -61,7 +65,8 @@ class FixedEffectCoordinate(Coordinate):
         folded = norm is not None and not norm.is_identity
         if folded:
             w0 = norm.model_to_transformed_space(w0)
-        result = fe_solver(objective, self.optimizer_spec)(w0, lb)
+        cache = self.solve_cache if self.solve_cache is not None else default_cache()
+        result = cache.fe_solver(objective, self.optimizer_spec)(w0, lb)
         variances = coefficient_variances(objective, result.w, lb, self.compute_variance)
         w_model = norm.transformed_to_model_space(result.w) if folded else result.w
         if folded and variances is not None and norm.factors is not None:
@@ -75,4 +80,5 @@ class FixedEffectCoordinate(Coordinate):
 
     def zero_model(self) -> FixedEffectModel:
         assert self.dim is not None, "dim required for zero_model"
-        return FixedEffectModel(GeneralizedLinearModel.zeros(self.dim, self.task), self.feature_shard)
+        device = self.device if self.device is not None else "cpu"
+        return FixedEffectModel(GeneralizedLinearModel.zeros(self.dim, self.task, device=device), self.feature_shard)

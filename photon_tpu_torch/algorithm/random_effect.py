@@ -12,10 +12,14 @@ reason. Batched OWL-QN (an L1 weight) and TRON (an explicit TRON spec) are
 not ported yet, nor the out-of-core store or per-device placement: a
 coordinate that would need one raises.
 
-The active-set gate is the reference's: from the second pass, only entities
-whose coefficients still moved more than ``convergence_tol`` are solved,
-repacked onto blocks of the sizes the full pass used; the masks are read
-back to the host at the pass boundary. The coefficient write-back drops the
+Every block solve goes through the solve cache (``solve_cache``, else the
+shared ``default_cache()``): the Newton route as captured CUDA graphs on the
+card. The active-set gate is the reference's: from the second pass, only
+entities whose coefficients still moved more than ``convergence_tol`` are
+solved, repacked onto blocks of the sizes the full pass used (inside
+``expect_cached``: no new capture); the masks of all blocks are read back to
+the host in one transfer at the pass boundary. Every host read of the module
+goes through ``HOST_READS``. The coefficient write-back drops the
 shape-bucket padding rows (entity_idx -1) instead of scattering them.
 """
 
@@ -28,7 +32,7 @@ import numpy as np
 import torch
 
 from photon_tpu_torch.algorithm.coordinate import Coordinate
-from photon_tpu_torch.algorithm.solve_cache import block_solver
+from photon_tpu_torch.algorithm.solve_cache import SolveCache, default_cache
 from photon_tpu_torch.data.batch import LabeledBatch
 from photon_tpu_torch.data.game_data import GameBatch
 from photon_tpu_torch.data.normalization import NormalizationContext
@@ -45,6 +49,7 @@ from photon_tpu_torch.ops.objective import GLMObjective
 from photon_tpu_torch.ops.variance import full_hessian_variances, normalize_variance_type
 from photon_tpu_torch.optim import batched
 from photon_tpu_torch.optim.common import (
+    HOST_READS,
     OptimizerConfig,
     REASON_DIVERGED,
     REASON_FUNCTION_VALUES_CONVERGED,
@@ -52,7 +57,8 @@ from photon_tpu_torch.optim.common import (
     REASON_MAX_ITERATIONS,
 )
 from photon_tpu_torch.optim.factory import OptimizerSpec
-from photon_tpu_torch.optim.newton import minimize_newton
+from photon_tpu_torch.optim.newton import EAGER_CHUNK, Newton
+from photon_tpu_torch.optim.program import run_chunked
 from photon_tpu_torch.types import OptimizerType, TaskType, VarianceComputationType
 
 Tensor = torch.Tensor
@@ -80,42 +86,50 @@ class RandomEffectTrackerStats:
         z = torch.zeros(0, dtype=torch.int32)
         return RandomEffectTrackerStats(z, z, torch.zeros(0, dtype=torch.bool), torch.zeros((), dtype=torch.long))
 
-    def _count(self, mask: Tensor) -> int:
-        return int(torch.sum(mask & self.valid))
+    def _counts(self) -> Dict[str, float]:
+        """Every aggregate, in one host read."""
+        v, r = self.valid, self.reasons
+        its = torch.where(v, self.iterations, 0)
+        count = lambda m: torch.sum(m & v)  # noqa: E731
+        names = ("entities", "converged", "max_iter", "quarantined", "iterations", "max_iterations")
+        values = HOST_READS.fetch(
+            count(torch.ones_like(v)),
+            count((r == REASON_FUNCTION_VALUES_CONVERGED) | (r == REASON_GRADIENT_CONVERGED)),
+            count(r == REASON_MAX_ITERATIONS), count(r == REASON_DIVERGED), torch.sum(its.long()),
+            torch.max(its) if its.shape[0] else torch.zeros((), dtype=its.dtype, device=its.device))
+        return dict(zip(names, (float(x) for x in values)))
 
     @property
     def num_entities(self) -> int:
-        return int(torch.sum(self.valid))
+        return int(self._counts()["entities"])
 
     @property
     def num_converged(self) -> int:
-        return self._count((self.reasons == REASON_FUNCTION_VALUES_CONVERGED)
-                           | (self.reasons == REASON_GRADIENT_CONVERGED))
+        return int(self._counts()["converged"])
 
     @property
     def num_max_iter(self) -> int:
-        return self._count(self.reasons == REASON_MAX_ITERATIONS)
+        return int(self._counts()["max_iter"])
 
     @property
     def num_quarantined(self) -> int:
         """Entities whose solve diverged and kept their warm start."""
-        return self._count(self.reasons == REASON_DIVERGED)
+        return int(self._counts()["quarantined"])
 
     @property
     def mean_iterations(self) -> float:
-        n = max(self.num_entities, 1)
-        return float(torch.sum(torch.where(self.valid, self.iterations, 0).float())) / n
+        c = self._counts()
+        return c["iterations"] / max(c["entities"], 1)
 
     @property
     def max_iterations(self) -> int:
-        if self.iterations.shape[0] == 0:
-            return 0
-        return int(torch.max(torch.where(self.valid, self.iterations, 0)))
+        return int(self._counts()["max_iterations"])
 
     def summary(self) -> str:
-        return (f"entities={self.num_entities} converged={self.num_converged} "
-                f"hit_max_iter={self.num_max_iter} quarantined={self.num_quarantined} "
-                f"iters(mean={self.mean_iterations:.1f}, max={self.max_iterations})")
+        c = self._counts()
+        return (f"entities={int(c['entities'])} converged={int(c['converged'])} "
+                f"hit_max_iter={int(c['max_iter'])} quarantined={int(c['quarantined'])} "
+                f"iters(mean={c['iterations'] / max(c['entities'], 1):.1f}, max={int(c['max_iterations'])})")
 
 
 def _has_shifts(objective: GLMObjective) -> bool:
@@ -140,20 +154,45 @@ def _block_problem(objective: GLMObjective, features: Tensor, block: EntityBlock
         objective.intercept_index, norm.factors if folded else None, norm.shifts if folded else None)
 
 
+def _block_start(w0: Tensor, objective: GLMObjective) -> Tensor:
+    """The solver's start: the model-space warm start in transformed space."""
+    norm = objective.normalization
+    return norm.model_to_transformed_space(w0) if norm is not None and not norm.is_identity else w0
+
+
+def _block_end(w: Tensor, w0: Tensor, block: EntityBlock, objective: GLMObjective,
+               feature_mask: Optional[Tensor]) -> Tensor:
+    """The solver's end point in model space; entities under the lower bound
+    keep their warm start."""
+    norm = objective.normalization
+    w_out = w * feature_mask if feature_mask is not None else w
+    if norm is not None and not norm.is_identity:
+        w_out = norm.transformed_to_model_space(w_out)
+    return torch.where(block.train_mask[:, None], w_out, w0)
+
+
+def block_newton(objective: GLMObjective, block: EntityBlock, offsets: Tensor, w_start: Tensor,
+                 config: OptimizerConfig, re_kernel: str) -> Newton:
+    """The batched Newton state machine of a block, from the transformed
+    start ``w_start``."""
+    return Newton(objective, LabeledBatch(block.label, block.features, offsets, block.weight), w_start,
+                  config, kernel=re_kernel)
+
+
 def _solve_block(block: EntityBlock, offsets: Tensor, w0: Tensor, objective: GLMObjective,
                  spec: OptimizerSpec, config: OptimizerConfig,
                  feature_mask: Optional[Tensor] = None, re_kernel: str = "torch"):
     """Solve every entity of a block from the model-space warm start w0
-    (E, d); returns (w (E, d) in model space, iterations, reasons, X
-    passes), each per entity."""
+    (E, d), eagerly; returns (w (E, d) in model space, iterations, reasons,
+    X passes), each per entity. The solve cache runs the Newton route as a
+    captured state machine (``block_newton``) between the same two ends."""
     if objective.l1_weight > 0.0:
         raise NotImplementedError("batched OWL-QN for random effects under L1 is not ported yet")
-    norm = objective.normalization
-    folded = norm is not None and not norm.is_identity
-    w_start = norm.model_to_transformed_space(w0) if folded else w0
+    w_start = _block_start(w0, objective)
     if newton_eligible(objective, spec, block.dim, feature_mask is not None):
-        res = minimize_newton(objective, LabeledBatch(block.label, block.features, offsets, block.weight),
-                              w_start, config, kernel=re_kernel)
+        prog = block_newton(objective, block, offsets, w_start, config, re_kernel)
+        run_chunked(prog, EAGER_CHUNK)
+        res = prog.result()
     elif spec.optimizer == OptimizerType.TRON:
         raise NotImplementedError("batched TRON for random effects is not ported yet")
     elif feature_mask is not None and _has_shifts(objective):
@@ -169,12 +208,7 @@ def _solve_block(block: EntityBlock, offsets: Tensor, w0: Tensor, objective: GLM
     else:
         X = block.features if feature_mask is None else block.features * feature_mask[:, None, :]
         res = batched.minimize_lbfgs_margin(_block_problem(objective, X, block, offsets), w_start, config)
-    w_out = res.w * feature_mask if feature_mask is not None else res.w
-    if folded:
-        w_out = norm.transformed_to_model_space(w_out)
-    # Entities under the lower bound keep their warm start.
-    w_out = torch.where(block.train_mask[:, None], w_out, w0)
-    return w_out, res.iterations, res.reason_code, res.x_passes
+    return _block_end(res.w, w0, block, objective, feature_mask), res.iterations, res.reason_code, res.x_passes
 
 
 def _block_variances_of(objective: GLMObjective, block: EntityBlock, offsets: Tensor, w: Tensor,
@@ -236,6 +270,7 @@ class RandomEffectCoordinate(Coordinate):
     # Newton-system routing (ops.fused_newton.RE_KERNELS), resolved against
     # the blocks' device: "auto" is the K3 kernel on the card.
     re_kernel: str = "auto"
+    solve_cache: Optional[SolveCache] = None
 
     def __post_init__(self):
         self.compute_variance = normalize_variance_type(self.compute_variance)
@@ -252,6 +287,12 @@ class RandomEffectCoordinate(Coordinate):
             raise NotImplementedError("per-device placement of random-effect blocks is not ported yet")
         blocks = self.dataset.blocks
         self._device = blocks[0].features.device if blocks else torch.device("cpu")
+        # Every block's entity rows and column map, in one host read.
+        fetched = HOST_READS.fetch(*[b.entity_idx for b in blocks],
+                                   *[b.col_map for b in blocks if b.col_map is not None]) if blocks else []
+        self._block_valid_rows = [e >= 0 for e in fetched[:len(blocks)]]
+        col_maps = iter(fetched[len(blocks):])
+        self._host_col_maps = [None if b.col_map is None else next(col_maps) for b in blocks]
         self._re_kernel = resolve_re_kernel(self.re_kernel, self._device)
         self._config = dataclasses.replace(self.optimizer_spec.config(), track_history=False)
         self._feature_masks: Dict[int, Tensor] = {}
@@ -261,27 +302,25 @@ class RandomEffectCoordinate(Coordinate):
                 counts = torch.sum(block.weight > 0, dim=1)
                 # k_e = ratio × the entity's sample count, in f32 as the reference takes it.
                 k_e = torch.clamp(torch.ceil(counts.to(torch.float32) * ratio).to(torch.int32), 1, block.dim)
-                self._feature_masks[i] = pearson_feature_mask(block, k_e,
-                                                              always_keep=self._block_intercept(block))
-        self._block_objectives = [self._block_objective(b) for b in blocks]
-        self._block_valid_rows = [b.entity_idx.cpu().numpy() >= 0 for b in blocks]
+                self._feature_masks[i] = pearson_feature_mask(block, k_e, always_keep=self._block_intercept(i))
+        self._block_objectives = [self._block_objective(i, b) for i, b in enumerate(blocks)]
         self._block_valid_counts = [int(np.sum(v)) for v in self._block_valid_rows]
         self._total_valid_entities = int(sum(self._block_valid_counts))
         self._reset_active_set()
 
-    def _block_intercept(self, block: EntityBlock) -> Optional[int]:
-        """The intercept column in the block's own columns."""
-        g = self.objective.intercept_index
-        if g is None or block.col_map is None:
+    def _block_intercept(self, i: int) -> Optional[int]:
+        """The intercept column in block i's own columns."""
+        g, col_map = self.objective.intercept_index, self._host_col_maps[i]
+        if g is None or col_map is None:
             return g
-        pos = np.flatnonzero(block.col_map.cpu().numpy() == g)
+        pos = np.flatnonzero(col_map == g)
         return int(pos[0]) if pos.size else None
 
-    def _block_objective(self, block: EntityBlock) -> GLMObjective:
+    def _block_objective(self, i: int, block: EntityBlock) -> GLMObjective:
         """The objective with its intercept and normalization vectors in the
         block's columns (projected, or padded to a bucketed width with
         identity entries)."""
-        local = self._block_intercept(block)
+        local = self._block_intercept(i)
         norm = self.objective.normalization
         if norm is not None and not norm.is_identity:
             if block.col_map is not None:
@@ -315,16 +354,20 @@ class RandomEffectCoordinate(Coordinate):
             self._reset_active_set()
 
     def _fetch_active_masks(self) -> List[np.ndarray]:
-        """Read the previous pass's per-entity active masks to the host (one
-        read per dispatched block); entities not dispatched stay retired."""
+        """Read the previous pass's per-entity active and quarantined masks
+        of every dispatched block to the host in one transfer (the
+        reference's pass-boundary fetch); entities not dispatched stay
+        retired."""
         active = [np.zeros((b.num_entities,), bool) for b in self.dataset.blocks]
+        pending = self._pending_masks
+        fetched = HOST_READS.fetch(*[t for mask_dev, quar_dev, _sb, _sr in pending for t in (mask_dev, quar_dev)])
         quarantined = 0
-        for mask_dev, quar_dev, sb, sr in self._pending_masks:
+        for (_m, _q, sb, sr), m, q in zip(pending, fetched[0::2], fetched[1::2]):
             valid = sr >= 0
-            m = mask_dev.cpu().numpy() & valid
+            m = m & valid
             for b in np.unique(sb[m]):
                 active[b][sr[m & (sb == b)]] = True
-            quarantined += int(np.sum(quar_dev.cpu().numpy() & valid))
+            quarantined += int(np.sum(q & valid))
         self._fetched_quarantined = quarantined
         return active
 
@@ -396,9 +439,12 @@ class RandomEffectCoordinate(Coordinate):
             return self._train_projected(total_offset, initial_model)
         return self._train_dense(batch, total_offset, initial_model)
 
-    def _solver(self, objective: GLMObjective, tol: Optional[float]):
-        return block_solver(objective, self.optimizer_spec, self._config, convergence_tol=tol,
-                            re_kernel=self._re_kernel)
+    def _cache(self) -> SolveCache:
+        return self.solve_cache if self.solve_cache is not None else default_cache()
+
+    def _solver(self, objective: GLMObjective, tol: Optional[float], has_mask: bool):
+        return self._cache().block_solver(objective, self.optimizer_spec, self._config, has_mask, convergence_tol=tol,
+                                  re_kernel=self._re_kernel)
 
     def _train_dense(self, batch: GameBatch, total_offset: Tensor,
                      initial_model) -> Tuple[RandomEffectModel, RandomEffectTrackerStats]:
@@ -418,9 +464,18 @@ class RandomEffectCoordinate(Coordinate):
         # Every block solves from the pass's warm start; the write-back comes
         # after all of them.
         results, pending = [], []
+        cache = self._cache()
         for block, obj, mask, sb, sr in entries:
             offs = block.gather_offsets(total_offset)
-            out = self._solver(obj, tol)(block, offs, self._dense_warm_start(coefs, block, d), mask)
+            solver = self._solver(obj, tol, mask is not None)
+            if gated and cache.max_entries is None:
+                # The repacked shapes were all captured in the full first
+                # pass: a capture here is a bug. (With a bounded cache the
+                # entry may have been evicted, and a rebuild is legitimate.)
+                with cache.expect_cached(f"active-set dispatch {tuple(block.features.shape)}"):
+                    out = solver(block, offs, self._dense_warm_start(coefs, block, d), mask)
+            else:
+                out = solver(block, offs, self._dense_warm_start(coefs, block, d), mask)
             w, iters, reasons, passes = out[:4]
             if tol is not None:
                 pending.append((*out[4:], sb, sr))
@@ -472,7 +527,8 @@ class RandomEffectCoordinate(Coordinate):
                     block_coefs.append(prev)
                     continue
             w0 = self._initial_block_coefs(block, i, initial_model, total_offset.dtype)
-            out = self._solver(self._block_objectives[i], tol)(block, offs, w0, self._feature_masks.get(i))
+            mask = self._feature_masks.get(i)
+            out = self._solver(self._block_objectives[i], tol, mask is not None)(block, offs, w0, mask)
             w_new, iters, reasons, passes = out[:4]
             if tol is not None:
                 pending.append((*out[4:], np.full((block.num_entities,), i, np.int32),

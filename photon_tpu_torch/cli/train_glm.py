@@ -31,6 +31,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from photon_tpu_torch.algorithm.solve_cache import SolveCache, default_cache
 from photon_tpu_torch.cli.common import (
     add_active_set_args,
     add_device_arg,
@@ -180,6 +181,10 @@ class LambdaResult:
     variances: Optional[torch.Tensor]
     wall_s: float
     host_syncs: int
+    # What the solve added to the shared solve cache's counts
+    # (SolveCacheStats.counts: builds, i.e. captures on the card, hits,
+    # graph replays, bytes copied into the entry's buffers).
+    cache: Dict[str, int]
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -196,12 +201,14 @@ def train_lambda_sweep(
     intercept_index: Optional[int] = None,
     normalization: Optional[NormalizationContext] = None,
     variance: VarianceComputationType = VarianceComputationType.NONE,
+    solve_cache: Optional[SolveCache] = None,
 ) -> List[LambdaResult]:
     """Solve for every λ in ``weights``, in the order given (the driver
     passes them strongest first), each from the previous solution, and
     compute the variances at each optimum. The variances are taken in the
     transformed space and not rescaled by factors², as the reference driver
-    does."""
+    does. The solves dispatch through ``solve_cache``; without one, through
+    the shared cache, released when the sweep returns."""
     loss = loss_for_task(task)
     # A routing choice, not a feature: on the card the fused kernels (K1 for
     # value and gradient, K2 for TRON's products) are how the port computes
@@ -211,25 +218,36 @@ def train_lambda_sweep(
     use_fused = train.features.is_cuda
     w = torch.zeros(train.features.shape[1], dtype=train.label.dtype, device=train.label.device)
     out: List[LambdaResult] = []
-    for lam in weights:
-        objective = GLMObjective(
-            loss=loss,
-            l2_weight=(1.0 - elastic_net_alpha) * lam,
-            l1_weight=elastic_net_alpha * lam,
-            intercept_index=intercept_index,
-            normalization=normalization,
-            use_fused=use_fused,
-        )
-        _sync(w)
-        reads0, t0 = HOST_READS.count, time.perf_counter()
-        result = make_optimizer(objective, spec)(w, train)
-        _sync(result.w)
-        wall = time.perf_counter() - t0
-        host_syncs = HOST_READS.count - reads0
-        w0, w = w, result.w  # warm start toward weaker regularization
-        w_model = w if normalization is None else normalization.transformed_to_model_space(w)
-        out.append(LambdaResult(lam, objective, spec, w0, result, w_model,
-                                coefficient_variances(objective, w, train, variance), wall, host_syncs))
+    cache = solve_cache if solve_cache is not None else default_cache()
+    try:
+        for lam in weights:
+            objective = GLMObjective(
+                loss=loss,
+                l2_weight=(1.0 - elastic_net_alpha) * lam,
+                l1_weight=elastic_net_alpha * lam,
+                intercept_index=intercept_index,
+                normalization=normalization,
+                use_fused=use_fused,
+            )
+            _sync(w)
+            reads0, t0 = HOST_READS.count, time.perf_counter()
+            # λ solves route through the solve cache, as in the reference:
+            # one entry per λ; margin L-BFGS is captured once on the card and
+            # reads λ as an input.
+            counts0 = cache.stats.counts()
+            result = cache.fe_solver(objective, spec)(w, train)
+            _sync(result.w)
+            wall = time.perf_counter() - t0
+            host_syncs = HOST_READS.count - reads0
+            counted = cache.stats.since(counts0)
+            w0, w = w, result.w  # warm start toward weaker regularization
+            w_model = w if normalization is None else normalization.transformed_to_model_space(w)
+            out.append(LambdaResult(lam, objective, spec, w0, result, w_model,
+                                    coefficient_variances(objective, w, train, variance), wall, host_syncs,
+                                    counted))
+    finally:
+        if solve_cache is None:
+            cache.release()
     return out
 
 

@@ -248,13 +248,12 @@ def _host(t: Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def _pad_rows(field: str, block: EntityBlock, pad: int) -> np.ndarray:
+def _pad_rows(field: str, block: EntityBlock, pad: int) -> Tensor:
     """``pad`` inert rows of a block field: zeros, or -1 for the indices."""
     like = getattr(block, field)
     shape = (pad,) + tuple(like.shape[1:])
-    if field in ("entity_idx", "sample_index"):
-        return np.full(shape, -1, np.int32)
-    return np.zeros(shape, _host(like[:0]).dtype)
+    fill = -1 if field in ("entity_idx", "sample_index") else 0
+    return torch.full(shape, fill, dtype=like.dtype, device=like.device)
 
 
 _ROW_FIELDS = ("entity_idx", "features", "label", "weight", "sample_index", "train_mask")
@@ -314,8 +313,8 @@ def compact_entity_blocks(
     """Repack the kept rows of same-geometry dense blocks into blocks of the
     allowed sizes. Returns ``[(block, src_block, src_row), ...]``: for each
     row of a repacked block the (source block, row) it came from, (-1, -1) on
-    its padding rows. The gather is on the host; the blocks go back to the
-    sources' device."""
+    its padding rows. The gather runs on the sources' device (nothing is read
+    back)."""
     if not blocks:
         return []
     geom = {(b.n_max, b.dim, b.col_map is None) for b in blocks}
@@ -327,7 +326,6 @@ def compact_entity_blocks(
         return []
     if allowed_sizes is None:
         allowed_sizes = [b.num_entities for b in blocks]
-    host = [{f: _host(getattr(b, f)) for f in _ROW_FIELDS} for b in blocks]
     device = blocks[0].features.device
     out = []
     start = 0
@@ -335,14 +333,15 @@ def compact_entity_blocks(
         sb, sr = src_block[start:start + size], src_row[start:start + size]
         start += sb.size
         pad = size - sb.size
+        rows = {b: torch.as_tensor(sr[sb == b], device=device).long() for b in np.unique(sb)}
         fields = []
         for f in _ROW_FIELDS:
             # Sources are in (block, row) order, so per-block gathers
             # concatenated in block order keep the row order.
-            parts = [host[b][f][sr[sb == b]] for b in np.unique(sb)]
+            parts = [getattr(blocks[b], f)[r] for b, r in rows.items()]
             if pad:
                 parts.append(_pad_rows(f, blocks[0], pad))
-            fields.append(torch.as_tensor(np.concatenate(parts), device=device))
+            fields.append(torch.cat(parts))
         fill = np.full((pad,), -1, np.int32)
         out.append((EntityBlock(*fields), np.concatenate([sb, fill]), np.concatenate([sr, fill])))
     return out

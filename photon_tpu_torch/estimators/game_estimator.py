@@ -5,6 +5,9 @@ The random-effect datasets are grouped once per batch on the host and their
 blocks placed on the batch's device; each optimization configuration (a
 point of the regularization grid) builds its coordinates and runs
 coordinate descent, warm-started from the previous configuration's model.
+Every solve dispatches through ``solve_cache`` (algorithm/solve_cache.py);
+without one, the shared ``default_cache()``, whose entries (graphs, static
+buffers, the pinned fixed-effect features) ``fit`` releases when it returns.
 The out-of-core store and checkpointing are not ported yet.
 """
 
@@ -20,6 +23,7 @@ from photon_tpu_torch.algorithm.coordinate import Coordinate
 from photon_tpu_torch.algorithm.coordinate_descent import CoordinateDescent
 from photon_tpu_torch.algorithm.fixed_effect import FixedEffectCoordinate
 from photon_tpu_torch.algorithm.random_effect import RandomEffectCoordinate
+from photon_tpu_torch.algorithm.solve_cache import SolveCache, default_cache
 from photon_tpu_torch.data.game_data import GameBatch
 from photon_tpu_torch.data.normalization import NormalizationContext
 from photon_tpu_torch.data.random_effect import RandomEffectDataConfig, build_random_effect_dataset
@@ -34,6 +38,7 @@ from photon_tpu_torch.models.game import GameModel, ProjectedRandomEffectModel, 
 from photon_tpu_torch.ops.losses import loss_for_task
 from photon_tpu_torch.ops.objective import GLMObjective
 from photon_tpu_torch.ops.variance import normalize_variance_type
+from photon_tpu_torch.optim.common import HOST_READS
 from photon_tpu_torch.sampling.down_sampler import down_sampler_for_task
 from photon_tpu_torch.types import TaskType, VarianceComputationType
 from photon_tpu_torch.utils.timed import Timed
@@ -49,9 +54,9 @@ def _existing_entity_mask(prev_model) -> np.ndarray:
     block; every row of a dense model)."""
     pm = getattr(prev_model, "present_entities", None)
     if pm is not None:
-        return pm.cpu().numpy().astype(bool)
+        return HOST_READS.fetch(pm)[0].astype(bool)
     if isinstance(prev_model, ProjectedRandomEffectModel):
-        return prev_model.entity_block.cpu().numpy() >= 0
+        return HOST_READS.fetch(prev_model.entity_block)[0] >= 0
     if isinstance(prev_model, RandomEffectModel):
         return np.ones((prev_model.num_entities,), bool)
     raise TypeError("warm-start model for a random-effect coordinate must be a RandomEffectModel or "
@@ -71,7 +76,9 @@ class GameEstimator:
     """Trains GAME models over a list of optimization configurations.
 
     ``intercept_indices`` and ``normalization`` are per feature shard;
-    ``num_entities`` per random-effect type."""
+    ``num_entities`` per random-effect type. ``solve_cache`` is the cache
+    every coordinate dispatches through (None: the shared one, released at
+    the end of each ``fit``)."""
 
     def __init__(
         self,
@@ -88,6 +95,7 @@ class GameEstimator:
         re_active_set: bool = False,
         re_convergence_tol: float = 1e-4,
         re_device_budget_mb: Optional[float] = None,
+        solve_cache: Optional[SolveCache] = None,
     ):
         if re_device_budget_mb:
             raise NotImplementedError("the out-of-core random-effect store is not ported yet")
@@ -103,6 +111,7 @@ class GameEstimator:
         self.warm_start_model = warm_start_model
         self.re_active_set = bool(re_active_set)
         self.re_convergence_tol = float(re_convergence_tol)
+        self.solve_cache = solve_cache
         if self.ignore_threshold_for_new_models and warm_start_model is None:
             raise ValueError("'Ignore threshold for new models' flag set but no initial model provided "
                              "for warm-start")
@@ -128,7 +137,8 @@ class GameEstimator:
                     objective=objective, optimizer_spec=cfg.optimizer_spec(),
                     down_sampler=down_sampler_for_task(self.task, rate) if rate is not None and rate < 1.0 else None,
                     compute_variance=self._variance_type(cfg),
-                    dim=batch.features[cfg.feature_shard].shape[1],
+                    dim=batch.features[cfg.feature_shard].shape[1], device=batch.label.device,
+                    solve_cache=self.solve_cache,
                 )
             elif isinstance(cfg, RandomEffectCoordinateConfig):
                 coords[cfg.coordinate_id] = RandomEffectCoordinate(
@@ -138,6 +148,7 @@ class GameEstimator:
                     active_set=bool(cfg.active_set or self.re_active_set),
                     convergence_tol=(cfg.convergence_tol if cfg.convergence_tol is not None
                                      else self.re_convergence_tol),
+                    solve_cache=self.solve_cache,
                 )
             else:
                 raise TypeError(f"unknown coordinate config {type(cfg)}")
@@ -148,12 +159,16 @@ class GameEstimator:
         if getattr(self, "_prepared_for", None) is batch:
             return
         self._re_datasets = {}
-        host = lambda t: t.cpu().numpy()  # noqa: E731
-        label_np, weight_np = host(batch.label), host(batch.weight)
-        for cfg in self.coordinate_configs:
-            if not isinstance(cfg, RandomEffectCoordinateConfig):
-                continue
-            eids = host(batch.entity_ids[cfg.re_type])
+        re_cfgs = [c for c in self.coordinate_configs if isinstance(c, RandomEffectCoordinateConfig)]
+        # The columns the host grouping needs, in one read per batch.
+        names = ["label", "weight"] + (["uid"] if batch.uid is not None else [])
+        tensors = [batch.label, batch.weight] + ([batch.uid] if batch.uid is not None else [])
+        for cfg in re_cfgs:
+            names += [f"ids:{cfg.re_type}", f"x:{cfg.feature_shard}"]
+            tensors += [batch.entity_ids[cfg.re_type], batch.features[cfg.feature_shard]]
+        host = dict(zip(names, HOST_READS.fetch(*tensors))) if re_cfgs else {}
+        for cfg in re_cfgs:
+            eids = host[f"ids:{cfg.re_type}"]
             E = self.num_entities.get(cfg.re_type, int(eids.max()) + 1 if eids.size else 0)
             existing = None
             if self.ignore_threshold_for_new_models:
@@ -164,12 +179,12 @@ class GameEstimator:
                     k = min(E, src.shape[0])
                     existing[:k] = src[:k]
             self._re_datasets[cfg.coordinate_id] = build_random_effect_dataset(
-                eids, host(batch.features[cfg.feature_shard]), label_np, weight_np, E,
+                eids, host[f"x:{cfg.feature_shard}"], host["label"], host["weight"], E,
                 RandomEffectDataConfig(
                     re_type=cfg.re_type, feature_shard=cfg.feature_shard,
                     active_upper_bound=cfg.active_upper_bound, active_lower_bound=cfg.active_lower_bound,
                     features_to_samples_ratio=cfg.features_to_samples_ratio),
-                uid=None if batch.uid is None else host(batch.uid),
+                uid=host.get("uid"),
                 existing_model_mask=existing, device=batch.label.device,
             )
         self._prepared_for = batch
@@ -197,6 +212,15 @@ class GameEstimator:
         if evaluation_suite is not None and validation_batch is not None:
             validation_fn = evaluation_suite.validation_fn()
             better = evaluation_suite.primary.better()
+        try:
+            return self._fit_configs(batch, configs, validation_batch, validation_fn, better, initial_model,
+                                     on_coordinate)
+        finally:
+            if self.solve_cache is None:
+                default_cache().release()
+
+    def _fit_configs(self, batch, configs, validation_batch, validation_fn, better, initial_model,
+                     on_coordinate) -> List[GameResult]:
         results: List[GameResult] = []
         warm = initial_model
         for opt_config in configs:

@@ -19,6 +19,7 @@ from photon_tpu_torch.evaluation.evaluators import (
     metric_is_better,
 )
 from photon_tpu_torch.models.game import GameModel
+from photon_tpu_torch.optim.common import HOST_READS
 
 Tensor = torch.Tensor
 
@@ -64,21 +65,25 @@ class EvaluationSuite:
         return self.specs[0]
 
     def evaluate_scores(self, scores: Tensor, batch: GameBatch) -> Dict[str, float]:
-        out: Dict[str, float] = {}
+        """Every metric, read to the host together (``HOST_READS``)."""
+        out: Dict[str, object] = {}
         for spec in self.specs:
             if spec.group_by is not None:
                 gids = batch.entity_ids[spec.group_by]
                 n_groups = self.num_entities.get(spec.group_by)
                 if n_groups is None:
-                    n_groups = int(torch.max(gids)) + 1
+                    n_groups = int(HOST_READS.fetch(torch.max(gids))[0]) + 1
                 if spec.etype == EvaluatorType.AUC:
                     v = grouped_auc(scores, batch.label, gids, n_groups, batch.weight)
                 else:
                     v = grouped_precision_at_k(scores, batch.label, gids, n_groups, spec.k)
             else:
                 v = evaluate(spec.etype, scores, batch.label, batch.weight, spec.k)
-            out[spec.name] = float(v)
-        return out
+            out[spec.name] = v
+        on_device = [k for k, v in out.items() if isinstance(v, torch.Tensor)]
+        for k, v in zip(on_device, HOST_READS.fetch(*(out[k] for k in on_device)) if on_device else []):
+            out[k] = v
+        return {k: float(v) for k, v in out.items()}
 
     def evaluate_model(self, model: GameModel, batch: GameBatch) -> Dict[str, float]:
         return self.evaluate_scores(model.score_with_offset(batch), batch)

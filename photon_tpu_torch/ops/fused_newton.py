@@ -236,6 +236,7 @@ def newton_system_plain(X: Tensor, d2: Tensor, dz: Tensor) -> Tuple[Tensor, Tens
 
 # Launches of the kernel by width d, counted where ``kernels.LAUNCHES`` is.
 LAUNCHES_BY_WIDTH: Dict[int, int] = {}
+kernels.register_counts(LAUNCHES_BY_WIDTH)
 
 
 def newton_system(X: Tensor, d2: Tensor, dz: Tensor) -> Tuple[Tensor, Tensor]:

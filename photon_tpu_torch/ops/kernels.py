@@ -10,7 +10,11 @@ edited source or header is rebuilt and an unchanged one is reused.
 Every wrapper that launches a kernel adds one to that kernel's entry in
 ``LAUNCHES``, where it launches and nowhere else: a run shows which kernels
 its path went through by resetting the counts before and reading them
-after.
+after. A launch made while a CUDA graph is being captured runs only when
+the graph is replayed, so the solve cache (algorithm/solve_cache.py) takes
+the capture's counts back (``snapshot``, ``restore``) and adds them on every
+replay that ran them (``add``); the counts stay the launches the card ran.
+Wrappers may keep finer counts of their own (``register_counts``).
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -49,6 +53,8 @@ KERNELS: Dict[str, Tuple[str, str, list]] = {
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# Every launch count: LAUNCHES and the finer ones of register_counts.
+_COUNTS: List[Dict] = [LAUNCHES]
 
 _LOADED: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -56,6 +62,34 @@ _LOADED: Dict[str, ctypes._CFuncPtr] = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def register_counts(counts: Dict) -> None:
+    """Have the solve cache keep ``counts`` (a wrapper's own launch counts,
+    by any key) through capture and replay, as it keeps LAUNCHES."""
+    _COUNTS.append(counts)
+
+
+def snapshot() -> List[Dict]:
+    return [dict(c) for c in _COUNTS]
+
+
+def restore(snap: List[Dict]) -> None:
+    for c, s in zip(_COUNTS, snap):
+        c.clear()
+        c.update(s)
+
+
+def counted_since(snap: List[Dict]) -> List[Dict]:
+    """The launches counted since ``snap``, per count and key."""
+    return [{k: v - s.get(k, 0) for k, v in c.items() if v != s.get(k, 0)} for c, s in zip(_COUNTS, snap)]
+
+
+def add(counted: List[Dict], times: int = 1) -> None:
+    """Count ``counted`` (from ``counted_since``) ``times`` more times."""
+    for c, d in zip(_COUNTS, counted):
+        for k, v in d.items():
+            c[k] = c.get(k, 0) + v * times
 
 
 def _nvcc() -> str:

@@ -77,7 +77,7 @@ class GLMObjective:
         if self.intercept_index is None:
             return w
         m = w.clone()
-        m[self.intercept_index] = 0.0
+        m.select(-1, self.intercept_index).zero_()  # a fill: no host scalar copied under capture
         return m
 
     def l2_term(self, w: Tensor) -> Tensor:

@@ -9,7 +9,9 @@ state carries the leading entity axis E and an ``active`` mask does the
 freezing, for the outer L-BFGS loop and for the strong-Wolfe line search
 inside it, so every lane follows its own unbatched trajectory: the same
 iterates, iteration count and reason. Each loop step reads one flag back to
-the host (``HOST_READS``), however many entities the block holds.
+the host (``HOST_READS``), however many entities the block holds. The
+line-search arithmetic is optim/linesearch.py's and the history ring
+optim/lbfgs.py's, with a lane axis.
 
 ``BlockGLM`` is the GLM objective of every entity of a block at once:
 X (E, n, d), label/weight/offset (E, n), coefficients (E, d).
@@ -32,11 +34,11 @@ from photon_tpu_torch.optim.common import (
     REASON_NOT_CONVERGED,
     check_convergence,
 )
+from photon_tpu_torch.optim.lbfgs import CurvatureHistory
+from photon_tpu_torch.optim.linesearch import strong_wolfe
 
 Tensor = torch.Tensor
 BatchedValueAndGrad = Callable[[Tensor], Tuple[Tensor, Tensor]]
-
-_BRACKET, _ZOOM, _DONE = 0, 1, 2
 
 
 def _dot(a: Tensor, b: Tensor) -> Tensor:
@@ -102,159 +104,7 @@ class BlockGLM:
         return self.data_value(z) + self.l2_value(w), self.grad_from_margins(z, w)
 
 
-def two_loop_direction(g: Tensor, S: Tensor, Y: Tensor, rho: Tensor, num_stored: Tensor,
-                       head: Tensor) -> Tensor:
-    """−H·g per lane from circular (E, m, d) histories; ``head`` (E,) is the
-    slot of each lane's newest pair, ``num_stored`` (E,) its filled count."""
-    E, m, _ = S.shape
-    lanes = torch.arange(E, device=g.device)
-    q = g
-    alphas = torch.zeros((E, m), dtype=g.dtype, device=g.device)
-    for i in range(m):
-        slot = (head - i) % m
-        alpha = torch.where(i < num_stored, rho[lanes, slot] * _dot(S[lanes, slot], q), 0.0)
-        q = q - alpha[:, None] * Y[lanes, slot]
-        alphas[lanes, slot] = alpha
-    recent = head % m
-    sy = _dot(S[lanes, recent], Y[lanes, recent])
-    yy = _dot(Y[lanes, recent], Y[lanes, recent])
-    gamma = torch.where((num_stored > 0) & (yy > 0), sy / torch.clamp(yy, min=1e-30),
-                        torch.ones_like(yy))
-    r = gamma[:, None] * q
-    for i in range(m):
-        slot = (head - (num_stored - 1 - i)) % m
-        beta = rho[lanes, slot] * _dot(Y[lanes, slot], r)
-        upd = (alphas[lanes, slot] - beta)[:, None] * S[lanes, slot]
-        r = r + (i < num_stored).to(r.dtype)[:, None] * upd
-    return -r
-
-
-def _interp(a_lo, f_lo, g_lo, a_hi, f_hi):
-    """Safeguarded quadratic interpolation for the zoom trial point."""
-    d = a_hi - a_lo
-    denom = f_hi - f_lo - g_lo * d
-    a_q = a_lo - 0.5 * g_lo * d * d / torch.where(torch.abs(denom) > 1e-20, denom, 1.0)
-    lo, hi = torch.minimum(a_lo, a_hi), torch.maximum(a_lo, a_hi)
-    margin = 0.1 * (hi - lo)
-    bad = torch.isnan(a_q) | (torch.abs(denom) <= 1e-20) | (a_q < lo + margin) | (a_q > hi - margin)
-    return torch.where(bad, 0.5 * (a_lo + a_hi), a_q)
-
-
-@dataclasses.dataclass(frozen=True)
-class LineSearchResult:
-    alpha: Tensor
-    value: Tensor
-    deriv: Tensor
-    evals: Tensor
-    success: Tensor
-
-
-def strong_wolfe(fg: Callable[[Tensor], Tuple[Tensor, Tensor]], f0: Tensor, dg0: Tensor,
-                 init_alpha: Tensor, lanes: Tensor, c1: float = 1e-4, c2: float = 0.9,
-                 max_evals: int = 20, max_alpha: float = 1e10) -> LineSearchResult:
-    """The reference's bracket/zoom strong-Wolfe search (Nocedal & Wright
-    alg. 3.5/3.6) on every lane in ``lanes`` (E,) bool at once.
-    ``fg(alpha (E,))`` returns (f, directional derivative), each (E,)."""
-    zero = torch.zeros_like(f0)
-    phase = torch.where(lanes, _BRACKET, _DONE)
-    a_prev, f_prev, g_prev = zero, f0, dg0
-    a_lo, f_lo, g_lo = zero, f0, dg0
-    a_hi, f_hi = zero, f0
-    a_cur = init_alpha
-    evals = torch.zeros_like(phase)
-    a_best, f_best, g_best = zero, f0, dg0
-    success = torch.zeros_like(lanes)
-
-    while True:
-        run = (phase != _DONE) & (evals < max_evals)
-        if not bool(HOST_READS.read(run.any())[0]):
-            break
-        f, g = fg(a_cur)
-        evals_n = evals + 1
-        ok = f <= f0 + c1 * a_cur * dg0
-        curv = torch.abs(g) <= -c2 * dg0
-        better = ok & (f < f_best)
-        b_a = torch.where(better, a_cur, a_best)
-        b_f = torch.where(better, f, f_best)
-        b_g = torch.where(better, g, g_best)
-
-        # Bracket phase: zoom(lo=prev, hi=cur) on a failure, zoom(lo=cur,
-        # hi=prev) on a rise, else double the step.
-        fail_b = (~ok) | ((evals_n > 1) & (f >= f_prev))
-        wolfe_b = ok & curv
-        zoom_b = fail_b | (ok & (g >= 0))
-        lo_b = [torch.where(fail_b, x, y) for x, y in ((a_prev, a_cur), (f_prev, f), (g_prev, g))]
-        hi_b = [torch.where(fail_b, x, y) for x, y in ((a_cur, a_prev), (f, f_prev))]
-        phase_b = torch.where(wolfe_b, _DONE, torch.where(zoom_b, _ZOOM, _BRACKET))
-        trial_b = torch.where(zoom_b, _interp(*lo_b, *hi_b), torch.clamp(2.0 * a_cur, max=max_alpha))
-
-        # Zoom phase: hi ← cur on a failure, else lo ← cur (and hi ← old lo
-        # when the slope says the minimum is on the other side).
-        fail_z = (~ok) | (f >= f_lo)
-        wolfe_z = (~fail_z) & curv
-        flip = (~fail_z) & (g * (a_hi - a_lo) >= 0)
-        hi_z = [torch.where(fail_z, c, torch.where(flip, lo, hi)) for c, lo, hi in ((a_cur, a_lo, a_hi),
-                                                                                     (f, f_lo, f_hi))]
-        lo_z = [torch.where(fail_z, x, y) for x, y in ((a_lo, a_cur), (f_lo, f), (g_lo, g))]
-        dead = torch.abs(hi_z[0] - lo_z[0]) <= 1e-12 * torch.clamp(hi_z[0], min=1.0)
-        phase_z = torch.where(wolfe_z | dead, _DONE, _ZOOM)
-        trial_z = _interp(*lo_z, *hi_z)
-
-        br = phase == _BRACKET
-        sel = lambda x, y: torch.where(br, x, y)  # noqa: E731
-        wolfe = sel(wolfe_b, wolfe_z)
-        new = dict(
-            phase=sel(phase_b, phase_z),
-            a_prev=a_cur, f_prev=f, g_prev=g,
-            a_lo=sel(lo_b[0], lo_z[0]), f_lo=sel(lo_b[1], lo_z[1]), g_lo=sel(lo_b[2], lo_z[2]),
-            a_hi=sel(hi_b[0], hi_z[0]), f_hi=sel(hi_b[1], hi_z[1]),
-            a_cur=sel(trial_b, trial_z).to(a_cur.dtype), evals=evals_n,
-            a_best=torch.where(wolfe, a_cur, b_a), f_best=torch.where(wolfe, f, b_f),
-            g_best=torch.where(wolfe, g, b_g), success=success | wolfe,
-        )
-        keep = lambda name, old: torch.where(run, new[name], old)  # noqa: E731
-        phase, evals, success = keep("phase", phase), keep("evals", evals), keep("success", success)
-        a_prev, f_prev, g_prev = keep("a_prev", a_prev), keep("f_prev", f_prev), keep("g_prev", g_prev)
-        a_lo, f_lo, g_lo = keep("a_lo", a_lo), keep("f_lo", f_lo), keep("g_lo", g_lo)
-        a_hi, f_hi, a_cur = keep("a_hi", a_hi), keep("f_hi", f_hi), keep("a_cur", a_cur)
-        a_best, f_best, g_best = keep("a_best", a_best), keep("f_best", f_best), keep("g_best", g_best)
-
-    # Best Wolfe point, else the best sufficient-decrease point, else lo.
-    take = success | (f_best < f0)
-    return LineSearchResult(
-        alpha=torch.where(take, a_best, a_lo), value=torch.where(take, f_best, f_lo),
-        deriv=torch.where(take, g_best, g_lo), evals=evals, success=success,
-    )
-
-
-class _History:
-    """Per-lane circular (s, y, ρ) history."""
-
-    def __init__(self, E: int, m: int, d: int, dtype, device):
-        self.m = m
-        self.S = torch.zeros((E, m, d), dtype=dtype, device=device)
-        self.Y = torch.zeros((E, m, d), dtype=dtype, device=device)
-        self.rho = torch.zeros((E, m), dtype=dtype, device=device)
-        self.num_stored = torch.zeros(E, dtype=torch.long, device=device)
-        self.head = torch.zeros(E, dtype=torch.long, device=device)
-
-    def direction(self, g: Tensor) -> Tensor:
-        return two_loop_direction(g, self.S, self.Y, self.rho, self.num_stored, self.head)
-
-    def push(self, s: Tensor, y: Tensor, sy: Tensor, lanes: Tensor) -> None:
-        """Store the pair of every lane in ``lanes`` with s·y > 1e-12."""
-        store = lanes & (sy > 1e-12)
-        idx = torch.arange(s.shape[0], device=s.device)
-        slot = (self.head + 1) % self.m
-        self.S[idx, slot] = torch.where(store[:, None], s, self.S[idx, slot])
-        self.Y[idx, slot] = torch.where(store[:, None], y, self.Y[idx, slot])
-        self.rho[idx, slot] = torch.where(store, 1.0 / torch.clamp(sy, min=1e-30), self.rho[idx, slot])
-        self.head = torch.where(store, slot, self.head)
-        self.num_stored = torch.where(store, torch.clamp(self.num_stored + 1, max=self.m),
-                                      self.num_stored)
-
-
-def _init_alpha(g: Tensor, hist: _History) -> Tensor:
+def _init_alpha(g: Tensor, hist: CurvatureHistory) -> Tensor:
     gn = torch.linalg.norm(g, dim=-1)
     first = torch.clamp(1.0 / torch.clamp(gn, min=1e-12), max=1.0)
     return torch.where(hist.num_stored == 0, first, torch.ones_like(gn))
@@ -295,7 +145,7 @@ def minimize_lbfgs_margin(problem: BlockGLM, w0: Tensor,
     it = torch.zeros(E, dtype=torch.long, device=w0.device)
     reason = torch.full((E,), REASON_NOT_CONVERGED, dtype=torch.int32, device=w0.device)
     evals = torch.full((E,), 2, dtype=torch.long, device=w0.device)
-    hist = _History(E, m, d, w0.dtype, w0.device)
+    hist = CurvatureHistory(m, d, w0.dtype, w0.device, lanes=(E,))
 
     while True:
         lanes = (reason == REASON_NOT_CONVERGED) & (it < max_iter)
@@ -351,7 +201,7 @@ def minimize_lbfgs(value_and_grad: BatchedValueAndGrad, w0: Tensor,
     it = torch.zeros(E, dtype=torch.long, device=w0.device)
     reason = torch.full((E,), REASON_NOT_CONVERGED, dtype=torch.int32, device=w0.device)
     evals = torch.ones(E, dtype=torch.long, device=w0.device)
-    hist = _History(E, m, d, w0.dtype, w0.device)
+    hist = CurvatureHistory(m, d, w0.dtype, w0.device, lanes=(E,))
 
     while True:
         lanes = (reason == REASON_NOT_CONVERGED) & (it < max_iter)

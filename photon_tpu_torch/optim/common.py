@@ -1,8 +1,12 @@
 """Shared optimizer plumbing (port of photon_tpu/optim/common.py).
 
 The reference runs each solver as one ``lax.while_loop`` on the device. The
-port runs Python loops, so every loop condition is a device-to-host read.
-``HOST_READS`` counts them, so a caller can report the syncs per step.
+port's margin L-BFGS and Newton run as device-side state machines
+(optim/program.py) whose loop test is read back once per chunk of
+iterations; the other solvers keep host loops with a read per loop test.
+``HOST_READS`` counts every device-to-host read of the solvers and of the
+GAME coordinates, so a caller can report the syncs per step. Histories are
+device tensors written by index, read only by whoever reports them.
 """
 
 from __future__ import annotations
@@ -46,6 +50,15 @@ class HostReads:
         scalars of their dtype."""
         self.count += 1
         return torch.stack([t.reshape(()) for t in tensors]).cpu().numpy()
+
+    def fetch(self, *tensors: Tensor) -> list:
+        """One transfer of tensors of any shapes and dtypes to the host (one
+        synchronization), as numpy arrays of their own shapes and dtypes."""
+        self.count += 1
+        host = [t.detach().to("cpu", non_blocking=True) for t in tensors]
+        if any(t.is_cuda for t in tensors):
+            torch.cuda.synchronize()
+        return [h.numpy().copy() if t.device.type == "cpu" else h.numpy() for t, h in zip(tensors, host)]
 
 
 HOST_READS = HostReads()
@@ -93,16 +106,18 @@ class OptimizeResult:
         return _REASONS[int(self.reason_code)]
 
     def summary(self) -> str:
-        """Per-iteration table of a single solve (reads the history back)."""
-        n = int(self.iterations)
-        if self.loss_history.shape[0] < n + 1:
-            return (f"iterations={n} value={float(self.value):.6e} |grad|={float(self.grad_norm):.6e} "
-                    f"reason: {self.convergence_reason.value} (history not tracked)")
+        """Per-iteration table of a single solve (one read of the result)."""
+        it, value, gnorm, reason, losses, gnorms = HOST_READS.fetch(
+            self.iterations, self.value, self.grad_norm, self.reason_code, self.loss_history,
+            self.grad_norm_history)
+        n, why = int(it), _REASONS[int(reason)].value
+        if losses.shape[0] < n + 1:
+            return (f"iterations={n} value={float(value):.6e} |grad|={float(gnorm):.6e} "
+                    f"reason: {why} (history not tracked)")
         lines = ["iter    loss           |grad|"]
         for i in range(n + 1):
-            lines.append(f"{i:4d}    {float(self.loss_history[i]):.6e}   "
-                         f"{float(self.grad_norm_history[i]):.6e}")
-        lines.append(f"reason: {self.convergence_reason.value}")
+            lines.append(f"{i:4d}    {float(losses[i]):.6e}   {float(gnorms[i]):.6e}")
+        lines.append(f"reason: {why}")
         return "\n".join(lines)
 
 
@@ -130,19 +145,32 @@ def project_to_box(w: Tensor, box: Optional[Tuple[Tensor, Tensor]]) -> Tensor:
     return w if box is None else torch.clamp(w, box[0], box[1])
 
 
-def finish_result(w, f, grad_norm, it, reason, loss_hist, gnorm_hist, final_loss, final_gnorm,
-                  evals, eval_unit="objective_evals") -> OptimizeResult:
+def new_history(config: OptimizerConfig, value: Tensor) -> Tensor:
+    """A (history_len,) device history filled with ``value`` (the reference's
+    ``jnp.full``); slot min(it, len - 1) holds iteration it's value."""
+    return value.reshape(1).repeat(config.history_len)
+
+
+def record(hist: Tensor, it, value: Tensor) -> Tensor:
+    """``hist`` with slot min(it, len - 1) set to ``value``; ``it`` may be a
+    host int or a device int (then no host read)."""
+    slot = torch.clamp(torch.as_tensor(it, device=hist.device).reshape(1).long(), max=hist.shape[0] - 1)
+    return hist.index_copy(0, slot, value.reshape(1).to(hist.dtype))
+
+
+def finish_result(w, f, grad_norm, it, reason, loss_hist, gnorm_hist, evals,
+                  eval_unit="objective_evals") -> OptimizeResult:
     """OptimizeResult with the histories padded past the last iteration by
-    the final values and NOT_CONVERGED turned into MAX_ITERATIONS."""
-    idx = np.arange(loss_hist.shape[0])
-    loss_hist = np.where(idx <= it, loss_hist, final_loss)
-    gnorm_hist = np.where(idx <= it, gnorm_hist, final_gnorm)
-    if reason == REASON_NOT_CONVERGED:
-        reason = REASON_MAX_ITERATIONS
+    the final values and NOT_CONVERGED turned into MAX_ITERATIONS. Every
+    argument may be a device tensor or a host number; nothing is read back."""
     dtype, device = w.dtype, w.device
-    as_t = lambda a, dt=dtype: torch.as_tensor(a, dtype=dt, device=device)  # noqa: E731
+    as_t = lambda a, dt: torch.as_tensor(a, device=device).to(dt)  # noqa: E731
+    it, reason = as_t(it, torch.int32), as_t(reason, torch.int32)
+    f, grad_norm = as_t(f, dtype), as_t(grad_norm, dtype)
+    idx = torch.arange(loss_hist.shape[0], device=device)
+    reason = torch.where(reason == REASON_NOT_CONVERGED, REASON_MAX_ITERATIONS, reason).to(torch.int32)
     return OptimizeResult(
-        w=w, value=f, grad_norm=grad_norm, iterations=as_t(it, torch.int32),
-        reason_code=as_t(reason, torch.int32), loss_history=as_t(loss_hist),
-        grad_norm_history=as_t(gnorm_hist), evals=as_t(evals, torch.int32), eval_unit=eval_unit,
+        w=w, value=f, grad_norm=grad_norm, iterations=it, reason_code=reason,
+        loss_history=torch.where(idx <= it, loss_hist, f), grad_norm_history=torch.where(idx <= it, gnorm_hist, grad_norm),
+        evals=as_t(evals, torch.int32), eval_unit=eval_unit,
     )

@@ -2,9 +2,12 @@
 
 The same two-loop recursion, strong-Wolfe line search, curvature test,
 divergence rollback and tracker as the reference. The reference runs the
-solve as one ``lax.while_loop``; here it is a host loop with one device read
-per line-search trial and one per iteration (``HOST_READS``). Every trial is
-one ``value_and_grad``, so with a fused objective each is one K1 launch.
+solve as one ``lax.while_loop``; ``minimize_lbfgs`` is a host loop with one
+device read per line-search trial and one per iteration (``HOST_READS``),
+its state (history ring, tracker) on the device. Every trial is one
+``value_and_grad``, so with a fused objective each is one K1 launch.
+``two_loop_direction`` and ``CurvatureHistory`` serve every L-BFGS of the
+port, batched (optim/batched.py) and captured (optim/margin_lbfgs.py) too.
 
 Box constraints use projected line search: trial points are clipped to the
 box before evaluation, and coordinates on a bound whose gradient pushes
@@ -15,7 +18,6 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
-import numpy as np
 import torch
 
 from photon_tpu_torch.optim.common import (
@@ -26,7 +28,9 @@ from photon_tpu_torch.optim.common import (
     REASON_NOT_CONVERGED,
     check_convergence,
     finish_result,
+    new_history,
     project_to_box,
+    record,
 )
 from photon_tpu_torch.optim.linesearch import strong_wolfe
 
@@ -35,57 +39,80 @@ ValueAndGrad = Callable[[Tensor], Tuple[Tensor, Tensor]]
 Box = Optional[Tuple[Tensor, Tensor]]
 
 
-def two_loop_direction(grad: Tensor, s_hist: Tensor, y_hist: Tensor, rho_hist: Tensor,
-                       num_stored: int, head: int) -> Tensor:
-    """Search direction −H·grad from a circular (m, d) history; ``head`` is
-    the slot of the most recent pair and ``num_stored`` the filled count
-    (both host ints, so unfilled slots are simply skipped)."""
-    m = s_hist.shape[0]
-    q = grad
-    alphas = [None] * m
-    for i in range(num_stored):
-        slot = (head - i) % m
-        alphas[slot] = rho_hist[slot] * torch.dot(s_hist[slot], q)
-        q = q - alphas[slot] * y_hist[slot]
+def _dot(a: Tensor, b: Tensor) -> Tensor:
+    return torch.sum(a * b, dim=-1)
 
+
+def _at(H: Tensor, slot: Tensor) -> Tensor:
+    """Slot ``slot`` (...) of a history H (..., m[, d])."""
+    if H.dim() == slot.dim() + 1:
+        return torch.take_along_dim(H, slot[..., None], dim=-1)[..., 0]
+    return torch.take_along_dim(H, slot[..., None, None], dim=-2)[..., 0, :]
+
+
+def two_loop_direction(grad: Tensor, s_hist: Tensor, y_hist: Tensor, rho_hist: Tensor,
+                       num_stored, head) -> Tensor:
+    """Search direction −H·grad from circular histories: grad (..., d),
+    s_hist/y_hist (..., m, d), rho_hist (..., m); ``head`` (...) is the slot
+    of the most recent pair and ``num_stored`` (...) the filled count, host
+    or device ints. As in the reference, every one of the m slots is
+    visited and the unfilled ones are masked, so nothing is read back."""
+    m = s_hist.shape[-2]
+    device = grad.device
+    lead = grad.shape[:-1]
+    head = torch.as_tensor(head, device=device).long().expand(lead)
+    num_stored = torch.as_tensor(num_stored, device=device).long().expand(lead)
+    q = grad
+    alphas = torch.zeros_like(rho_hist)
+    for i in range(m):
+        slot = (head - i) % m
+        alpha = torch.where(i < num_stored, _at(rho_hist, slot) * _dot(_at(s_hist, slot), q), 0.0)
+        q = q - alpha[..., None] * _at(y_hist, slot)
+        alphas = alphas.scatter(-1, slot[..., None], alpha[..., None])
     # Initial Hessian scaling gamma = s·y / y·y from the most recent pair.
     recent = head % m
-    sy = torch.dot(s_hist[recent], y_hist[recent])
-    yy = torch.dot(y_hist[recent], y_hist[recent])
-    if num_stored > 0:
-        gamma = torch.where(yy > 0, sy / torch.clamp(yy, min=1e-30), torch.ones_like(yy))
-    else:
-        gamma = torch.ones_like(yy)
-    r = gamma * q
-
-    for i in range(num_stored):
+    sy = _dot(_at(s_hist, recent), _at(y_hist, recent))
+    yy = _dot(_at(y_hist, recent), _at(y_hist, recent))
+    gamma = torch.where((num_stored > 0) & (yy > 0), sy / torch.clamp(yy, min=1e-30), torch.ones_like(yy))
+    r = gamma[..., None] * q
+    for i in range(m):
         slot = (head - (num_stored - 1 - i)) % m
-        beta = rho_hist[slot] * torch.dot(y_hist[slot], r)
-        r = r + (alphas[slot] - beta) * s_hist[slot]
+        beta = _at(rho_hist, slot) * _dot(_at(y_hist, slot), r)
+        r = r + torch.where(i < num_stored, _at(alphas, slot) - beta, 0.0)[..., None] * _at(s_hist, slot)
     return -r
 
 
 class CurvatureHistory:
-    """The circular (s, y, ρ) history of an L-BFGS solve."""
+    """The circular (s, y, ρ) history of an L-BFGS solve, one per lane of
+    ``lanes`` (() for a single solve, (E,) for an entity block), kept as the
+    reference keeps it: a masked ring whose head and fill count are device
+    ints, updated in place (so a captured step can hold it)."""
 
-    def __init__(self, m: int, d: int, dtype, device):
+    def __init__(self, m: int, d: int, dtype, device, lanes: tuple = ()):
         self.m = m
-        self.s = torch.zeros((m, d), dtype=dtype, device=device)
-        self.y = torch.zeros((m, d), dtype=dtype, device=device)
-        self.rho = torch.zeros((m,), dtype=dtype, device=device)
-        self.num_stored, self.head = 0, 0
+        self.s = torch.zeros((*lanes, m, d), dtype=dtype, device=device)
+        self.y = torch.zeros((*lanes, m, d), dtype=dtype, device=device)
+        self.rho = torch.zeros((*lanes, m), dtype=dtype, device=device)
+        self.num_stored = torch.zeros(lanes, dtype=torch.long, device=device)
+        self.head = torch.zeros(lanes, dtype=torch.long, device=device)
+
+    def reset(self) -> None:
+        for t in (self.s, self.y, self.rho, self.num_stored, self.head):
+            t.zero_()
 
     def direction(self, g: Tensor) -> Tensor:
         return two_loop_direction(g, self.s, self.y, self.rho, self.num_stored, self.head)
 
-    def push(self, s: Tensor, y: Tensor, sy: Tensor) -> None:
-        """Store a pair (the caller has checked s·y > 1e-12 on the host)."""
+    def push(self, s: Tensor, y: Tensor, sy: Tensor, lanes=True) -> None:
+        """Store the pair of every lane in ``lanes`` whose s·y > 1e-12."""
+        store = (sy > 1e-12) & torch.as_tensor(lanes, device=sy.device)
         slot = (self.head + 1) % self.m
-        self.s[slot] = s
-        self.y[slot] = y
-        self.rho[slot] = 1.0 / torch.clamp(sy, min=1e-30)
-        self.head = slot
-        self.num_stored = min(self.num_stored + 1, self.m)
+        at = (torch.arange(self.m, device=sy.device) == slot[..., None]) & store[..., None]
+        self.s.copy_(torch.where(at[..., None], s[..., None, :], self.s))
+        self.y.copy_(torch.where(at[..., None], y[..., None, :], self.y))
+        self.rho.copy_(torch.where(at, (1.0 / torch.clamp(sy, min=1e-30))[..., None], self.rho))
+        self.head.copy_(torch.where(store, slot, self.head))
+        self.num_stored.copy_(torch.where(store, torch.clamp(self.num_stored + 1, max=self.m), self.num_stored))
 
 
 def minimize_lbfgs(
@@ -110,12 +137,9 @@ def minimize_lbfgs(
     w = proj(w0)
     f, g = value_and_grad(w)
     g0_norm = opt_gnorm(w, g)
-    f_host, g0n_host = HOST_READS.read(f, g0_norm)
-    hist_len = config.history_len
-    loss_hist = np.full(hist_len, f_host)
-    gnorm_hist = np.full(hist_len, g0n_host)
+    loss_hist, gnorm_hist = new_history(config, f), new_history(config, g0_norm)
     hist = CurvatureHistory(m, d, dtype, device)
-    it, reason, evals = 0, REASON_NOT_CONVERGED, 1
+    it, reason, evals = 0, REASON_NOT_CONVERGED, torch.ones((), dtype=torch.int32, device=device)
 
     while reason == REASON_NOT_CONVERGED and it < max_iter:
         if box is None:
@@ -136,21 +160,20 @@ def minimize_lbfgs(
         dg0 = torch.where(bad_dir, -torch.dot(g_dir, g_dir), dg0)
 
         def ls_fg(a, w=w, p=p):
-            a = float(a)
             if box is None:
                 ft, gt = value_and_grad(w + a * p)
                 return ft, torch.dot(gt, p)
             wt = proj(w + a * p)
             ft, gt = value_and_grad(wt)
             # Derivative along the projected path.
-            return ft, torch.dot(gt, (wt - w) / max(a, 1e-30))
+            return ft, torch.dot(gt, (wt - w) / torch.clamp(a, min=1e-30))
 
-        dg0_host, gn_host = HOST_READS.read(dg0, torch.linalg.norm(g))
-        dt = dg0_host.dtype.type
-        init_alpha = dt(min(1.0, 1.0 / max(gn_host, 1e-12))) if hist.num_stored == 0 else dt(1.0)
-        ls = strong_wolfe(ls_fg, f_host, dg0_host, init_alpha, max_evals=config.max_line_search_evals)
+        init_alpha = torch.where(hist.num_stored == 0,
+                                 torch.clamp(1.0 / torch.clamp(torch.linalg.norm(g), min=1e-12), max=1.0),
+                                 1.0).to(dtype)
+        ls = strong_wolfe(ls_fg, f, dg0, init_alpha, max_evals=config.max_line_search_evals)
 
-        w_new = proj(w + float(ls.alpha) * p)
+        w_new = proj(w + ls.alpha * p)
         f_new, g_new = value_and_grad(w_new)
         # Divergence rollback: a non-finite trial state never replaces the
         # last finite iterate, and no curvature pair is stored from it.
@@ -160,24 +183,17 @@ def minimize_lbfgs(
         g_new = torch.where(finite, g_new, g)
 
         s, y = w_new - w, g_new - g
-        sy = torch.dot(s, y)
+        hist.push(s, y, torch.dot(s, y))
         it += 1
         gn = opt_gnorm(w_new, g_new)
         reason_t = check_convergence(f_new, f, gn, g0_norm, tol, it, max_iter)
         reason_t = torch.where(finite, reason_t, REASON_DIVERGED)
-        sy_host, f_host, gn_host, reason_host = HOST_READS.read(sy, f_new, gn, reason_t.to(dtype))
-        reason = int(reason_host)
-        if sy_host > 1e-12:
-            hist.push(s, y, sy)
+        reason = int(HOST_READS.read(reason_t)[0])
         w, f, g = w_new, f_new, g_new
-        evals += ls.evals + 1
-        loss_hist[min(it, hist_len - 1)] = f_host
-        gnorm_hist[min(it, hist_len - 1)] = gn_host
+        evals = evals + ls.evals + 1
+        loss_hist, gnorm_hist = record(loss_hist, it, f), record(gnorm_hist, it, gn)
 
-    final_gnorm = opt_gnorm(w, g)
-    (final_gn_host,) = HOST_READS.read(final_gnorm)
-    return finish_result(w, f, final_gnorm, it, reason, loss_hist, gnorm_hist, f_host,
-                         final_gn_host, evals)
+    return finish_result(w, f, opt_gnorm(w, g), it, reason, loss_hist, gnorm_hist, evals)
 
 
 def minimize_lbfgsb(

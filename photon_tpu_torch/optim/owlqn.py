@@ -14,7 +14,6 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
-import numpy as np
 import torch
 
 from photon_tpu_torch.optim.common import (
@@ -24,6 +23,8 @@ from photon_tpu_torch.optim.common import (
     REASON_NOT_CONVERGED,
     check_convergence,
     finish_result,
+    new_history,
+    record,
 )
 from photon_tpu_torch.optim.lbfgs import CurvatureHistory
 
@@ -66,10 +67,7 @@ def minimize_owlqn(
     w = w0
     F, g = full_value(w)
     pg0_norm = torch.linalg.norm(_pseudo_gradient(w, g, l1))
-    F_host, pg0n_host = HOST_READS.read(F, pg0_norm)
-    hist_len = config.history_len
-    loss_hist = np.full(hist_len, F_host)
-    gnorm_hist = np.full(hist_len, pg0n_host)
+    loss_hist, gnorm_hist = new_history(config, F), new_history(config, pg0_norm)
     hist = CurvatureHistory(m, d, dtype, device)
     it, reason, evals = 0, REASON_NOT_CONVERGED, 1
 
@@ -82,8 +80,8 @@ def minimize_owlqn(
         # Orthant: sign(w), or sign(−pg) where w == 0.
         xi = torch.where(w != 0, torch.sign(w), torch.sign(-pg))
         dirderiv = torch.dot(pg, p)
-        one = torch.ones((), dtype=dtype, device=device)
-        alpha = one / torch.clamp(torch.linalg.norm(p), min=1e-12) if hist.num_stored == 0 else one
+        alpha = torch.where(hist.num_stored == 0, 1.0 / torch.clamp(torch.linalg.norm(p), min=1e-12),
+                            1.0).to(dtype)
 
         # Backtracking Armijo on the regularized objective, orthant-projected.
         bt_evals = 0
@@ -98,20 +96,14 @@ def minimize_owlqn(
             alpha = alpha * 0.5
 
         s, y = w_new - w, g_new - g  # curvature from the SMOOTH gradient
-        sy = torch.dot(s, y)
+        hist.push(s, y, torch.dot(s, y))
         it += 1
         pgn = torch.linalg.norm(_pseudo_gradient(w_new, g_new, l1))
         reason_t = check_convergence(F_new, F, pgn, pg0_norm, tol, it, max_iter)
-        sy_host, F_host, pgn_host, reason_host = HOST_READS.read(sy, F_new, pgn, reason_t.to(dtype))
-        reason = int(reason_host)
-        if sy_host > 1e-12:
-            hist.push(s, y, sy)
+        reason = int(HOST_READS.read(reason_t)[0])
         w, F, g = w_new, F_new, g_new
         evals += bt_evals
-        loss_hist[min(it, hist_len - 1)] = F_host
-        gnorm_hist[min(it, hist_len - 1)] = pgn_host
+        loss_hist, gnorm_hist = record(loss_hist, it, F), record(gnorm_hist, it, pgn)
 
     final_pgn = torch.linalg.norm(_pseudo_gradient(w, g, l1))
-    (final_pgn_host,) = HOST_READS.read(final_pgn)
-    return finish_result(w, F, final_pgn, it, reason, loss_hist, gnorm_hist, F_host,
-                         final_pgn_host, evals)
+    return finish_result(w, F, final_pgn, it, reason, loss_hist, gnorm_hist, evals)

@@ -14,7 +14,6 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
-import numpy as np
 import torch
 
 from photon_tpu_torch.optim.common import (
@@ -25,6 +24,8 @@ from photon_tpu_torch.optim.common import (
     REASON_NOT_CONVERGED,
     check_convergence,
     finish_result,
+    new_history,
+    record,
     project_to_box,
 )
 
@@ -90,10 +91,8 @@ def minimize_tron(
     f, g = value_and_grad(w)
     g0_norm = torch.linalg.norm(g)
     delta = g0_norm
-    f_host, gn_host = HOST_READS.read(f, g0_norm)
-    hist_len = config.history_len
-    loss_hist = np.full(hist_len, f_host)
-    gnorm_hist = np.full(hist_len, gn_host)
+    (gn_host,) = HOST_READS.read(g0_norm)
+    loss_hist, gnorm_hist = new_history(config, f), new_history(config, g0_norm)
     it, reason, evals = 0, REASON_NOT_CONVERGED, 1
 
     while reason == REASON_NOT_CONVERGED and it < max_iter:
@@ -129,10 +128,9 @@ def minimize_tron(
             check_convergence(f, f_prev, gn, g0_norm, tol, it, max_iter),
             torch.where(delta <= 1e-10, REASON_MAX_ITERATIONS, REASON_NOT_CONVERGED),
         )
-        f_host, gn_host, reason_host = HOST_READS.read(f, gn, reason_t.to(dtype))
+        gn_host, reason_host = HOST_READS.read(gn, reason_t.to(dtype))
         reason = int(reason_host)
         evals += 2 + cg_iters
-        loss_hist[min(it, hist_len - 1)] = f_host
-        gnorm_hist[min(it, hist_len - 1)] = gn_host
+        loss_hist, gnorm_hist = record(loss_hist, it, f), record(gnorm_hist, it, gn)
 
-    return finish_result(w, f, torch.linalg.norm(g), it, reason, loss_hist, gnorm_hist, f_host, gn_host, evals)
+    return finish_result(w, f, torch.linalg.norm(g), it, reason, loss_hist, gnorm_hist, evals)

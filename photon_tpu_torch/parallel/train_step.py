@@ -5,8 +5,10 @@ The fixed effect trains by margin-space L-BFGS against the random-effect
 scores (its gradient pass in csrc/fused_value_grad.cu when the objective
 fuses); the random effects then train by the batched damped Newton solve
 over the entity block, with every Newton system from csrc/newton_system.cu
-on the card. The sharded steps and the l2-override sweep hook are not
-ported yet.
+on the card. Both solves go through the solve cache
+(algorithm/solve_cache.py: captured CUDA graphs on the card), as the
+reference's step is one jitted program. The sharded steps and the
+l2-override sweep hook are not ported yet.
 
 Unlike the reference, the coefficient write-back drops shape-bucket padding
 rows (entity_idx -1). The reference writes ``re_coefs.at[entity_idx]`` and
@@ -18,13 +20,16 @@ from __future__ import annotations
 
 import torch
 
+from typing import Optional
+
+from photon_tpu_torch.algorithm.solve_cache import SolveCache, default_cache
 from photon_tpu_torch.data.batch import LabeledBatch
 from photon_tpu_torch.data.random_effect import EntityBlock
 from photon_tpu_torch.ops.fused_newton import resolve_re_kernel
 from photon_tpu_torch.ops.objective import GLMObjective
 from photon_tpu_torch.optim.common import OptimizerConfig
-from photon_tpu_torch.optim.margin_lbfgs import minimize_lbfgs_margin
-from photon_tpu_torch.optim.newton import minimize_newton
+from photon_tpu_torch.optim.factory import OptimizerSpec
+from photon_tpu_torch.types import OptimizerType
 
 Tensor = torch.Tensor
 
@@ -41,6 +46,7 @@ def glmix_train_step(
     fe_config: OptimizerConfig,
     re_config: OptimizerConfig,
     re_kernel: str = "auto",
+    solve_cache: Optional[SolveCache] = None,
 ):
     """Build ``step(w_fixed, re_coefs, fe_batch, re_block, re_features_flat,
     re_entity_ids) → (w_fixed', re_coefs', scores, fe_evals,
@@ -52,13 +58,23 @@ def glmix_train_step(
     "auto" takes the CUDA kernel for a block on the card. Smooth objectives
     only. The random effects always use the Newton solver (the reference's
     ``re_solver="lbfgs"`` is not ported yet). Sets f32 matmuls to full
-    precision (no TF32).
+    precision (no TF32). The solves go through ``solve_cache`` (default:
+    the shared one); a step has no end of its own, so the caller releases
+    the cache (``SolveCache.release``) when its training loop is done.
     """
     if fixed_objective.l1_weight > 0.0 or re_objective.l1_weight > 0.0:
         raise ValueError(
             "glmix_train_step solves smooth objectives; L1/elastic-net needs OWL-QN"
         )
     full_precision_matmuls()
+    cache = solve_cache if solve_cache is not None else default_cache()
+    fe_spec = OptimizerSpec(OptimizerType.LBFGS, fe_config.max_iter, fe_config.tol, fe_config.memory,
+                            track_history=fe_config.track_history)
+    if fe_spec.config() != fe_config:
+        raise ValueError(f"glmix_train_step: fe_config {fe_config} is not an L-BFGS spec's ({fe_spec.config()})")
+    fe_solve = cache.fe_solver(fixed_objective, fe_spec)
+    re_spec = OptimizerSpec(OptimizerType.NEWTON, re_config.max_iter, re_config.tol, re_config.memory,
+                            track_history=re_config.track_history)
 
     def step(w_fixed: Tensor, re_coefs: Tensor, fe_batch: LabeledBatch, re_block: EntityBlock,
              re_features_flat: Tensor, re_entity_ids: Tensor):
@@ -68,10 +84,7 @@ def glmix_train_step(
             return torch.where(valid, torch.sum(re_features_flat * w, dim=-1), 0.0)
 
         # --- fixed effect against the random-effect residuals ---
-        fe_res = minimize_lbfgs_margin(
-            fixed_objective, fe_batch.add_scores_to_offsets(re_scores_of(re_coefs)),
-            w_fixed, fe_config,
-        )
+        fe_res = fe_solve(w_fixed, fe_batch.add_scores_to_offsets(re_scores_of(re_coefs)))
         w_fixed_new = fe_res.w
 
         # --- fixed scores as offsets for the per-entity solves ---
@@ -80,16 +93,12 @@ def glmix_train_step(
         eidx = re_block.entity_idx.long()
         w_init = re_coefs[torch.clamp(eidx, min=0)]
         kernel = resolve_re_kernel(re_kernel, re_block.features.device)
-        res = minimize_newton(
-            re_objective,
-            LabeledBatch(re_block.label, re_block.features, offs, re_block.weight),
-            w_init, re_config, kernel=kernel,
-        )
-        w_new = torch.where(re_block.train_mask[:, None], res.w, w_init)
+        re_solve = cache.block_solver(re_objective, re_spec, re_config, has_mask=False, re_kernel=kernel)
+        w_new, _iterations, _reasons, passes = re_solve(re_block, offs, w_init)
         real = eidx >= 0  # padding rows carry no entity: drop them
         re_coefs_new = re_coefs.clone()
         re_coefs_new[eidx[real]] = w_new[real]
-        re_sample_visits = torch.sum(res.evals * torch.sum(re_block.weight > 0, dim=1))
+        re_sample_visits = torch.sum(passes * torch.sum(re_block.weight > 0, dim=1))
 
         total_scores = fe_scores + re_scores_of(re_coefs_new)
         return w_fixed_new, re_coefs_new, total_scores, fe_res.evals, re_sample_visits

@@ -9,6 +9,8 @@ Tolerance: f32 sums in another order over up to 1000 terms, rtol 1e-5 with
 atol 1e-4.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -338,3 +340,103 @@ def test_game_drivers_on_card_match_cpu(cuda_device, tmp_path):
     got, want = (torch.tensor([r["predictionScore"] for r in load_scores(str(tmp_path / f"s-{d}" / "scores.avro"))])
                  for d in ("cuda", "cpu"))
     assert float((got - want).abs().max()) <= 2e-3 * max(1.0, float(want.abs().max()))
+
+
+def _logistic_block(E, n_max, d, seed, device):
+    """An EntityBlock of E entities with 16..n_max samples each (ones
+    column first), labels planted per entity."""
+    from photon_tpu_torch.data.random_effect import EntityBlock
+
+    g = torch.Generator().manual_seed(seed)
+    X = torch.randn(E, n_max, d, generator=g)
+    X[:, :, 0] = 1.0
+    counts = torch.randint(16, n_max + 1, (E,), generator=g)
+    wt = (torch.arange(n_max)[None, :] < counts[:, None]).float()
+    W = torch.randn(E, d, generator=g) / d ** 0.5
+    y = (torch.rand(E, n_max, generator=g) < torch.sigmoid(torch.einsum("end,ed->en", X, W))).float() * wt
+    X = X * wt[..., None]
+    sidx = torch.where(wt > 0, torch.arange(E * n_max).reshape(E, n_max), -1).int()
+    return EntityBlock(torch.arange(E, dtype=torch.int32).to(device), X.to(device), y.to(device), wt.to(device),
+                       sidx.to(device), torch.ones(E, dtype=torch.bool, device=device))
+
+
+def test_captured_margin_lbfgs_matches_eager(cuda_device):
+    """Margin L-BFGS through the solve cache (a captured CUDA graph, K1 in
+    it) against the same state machine run eagerly on the card, N = 2^16:
+    equal iterations and reason, coefficients within 1e-6 relative; a second
+    solve on the key captures nothing new, and LAUNCHES rises by the launches
+    the replays (and the capture's warm-up) ran. Another λ runs the same
+    program (λ is its input) and matches its own eager solve."""
+    from photon_tpu_torch.algorithm import solve_cache as sc
+    from photon_tpu_torch.algorithm.solve_cache import SolveCache
+    from photon_tpu_torch.data.batch import LabeledBatch
+    from photon_tpu_torch.ops.objective import GLMObjective
+    from photon_tpu_torch.optim.factory import OptimizerSpec
+    from photon_tpu_torch.optim.margin_lbfgs import minimize_lbfgs_margin
+
+    X, y = _planted_glm(1 << 16, 64, seed=21)
+    batch = LabeledBatch(y.to(cuda_device), X.to(cuda_device))
+    obj = GLMObjective(LogisticLoss, l2_weight=1.0, intercept_index=63, use_fused=True)
+    spec = OptimizerSpec(max_iter=40)
+    w0 = torch.zeros(64, device=cuda_device)
+    eager = minimize_lbfgs_margin(obj, batch, w0, spec.config())
+    cache = SolveCache()
+    solve = cache.fe_solver(obj, spec)
+    for start in (w0, 0.5 * eager.w):
+        ref = eager if start is w0 else minimize_lbfgs_margin(obj, batch, start, spec.config())
+        k1, replays, captures = kernels.LAUNCHES["fused_value_grad"], cache.stats.replays, cache.stats.captures
+        got = solve(start, batch)
+        torch.cuda.synchronize()
+        it = int(got.iterations)
+        assert (it, int(got.reason_code)) == (int(ref.iterations), int(ref.reason_code))
+        torch.testing.assert_close(got.w, ref.w, rtol=1e-6, atol=1e-6 * float(ref.w.abs().max()))
+        ran = kernels.LAUNCHES["fused_value_grad"] - k1
+        chunks = cache.stats.replays - replays - 1
+        assert chunks <= -(-it // sc.FE_CHUNK) + 2  # a long line search spans steps
+        # init and every step of every chunk (masked ones too); a capture's
+        # warm-up runs init and one chunk eagerly
+        warm = (1 + sc.FE_CHUNK) * (cache.stats.captures - captures)
+        assert ran == 1 + sc.FE_CHUNK * chunks + warm
+    assert (cache.stats.traces, cache.stats.calls, cache.stats.hits) == (1, 2, 1)
+    assert start.data_ptr() != got.w.data_ptr()
+    obj4 = dataclasses.replace(obj, l2_weight=4.0)
+    ref = minimize_lbfgs_margin(obj4, batch, w0, spec.config())
+    got = cache.fe_solver(obj4, spec)(w0, batch)
+    assert (int(got.iterations), int(got.reason_code)) == (int(ref.iterations), int(ref.reason_code))
+    torch.testing.assert_close(got.w, ref.w, rtol=1e-6, atol=1e-6 * float(ref.w.abs().max()))
+    assert (cache.stats.traces, cache.stats.captures) == (2, 1)
+
+
+@pytest.mark.parametrize("d", [16, 128])
+def test_captured_newton_matches_eager(cuda_device, d):
+    """Batched Newton through the solve cache (captured, K3 in it) against
+    the eager block solve on the card: equal per-entity iterations and
+    reasons, coefficients within 1e-6 relative; the second solve is a hit and
+    LAUNCHES counts the K3 launches the replays ran."""
+    from photon_tpu_torch.algorithm import solve_cache as sc
+    from photon_tpu_torch.algorithm.random_effect import _solve_block
+    from photon_tpu_torch.algorithm.solve_cache import SolveCache
+    from photon_tpu_torch.ops.objective import GLMObjective
+    from photon_tpu_torch.optim.factory import OptimizerSpec
+    from photon_tpu_torch.types import OptimizerType
+
+    block = _logistic_block(256, 96, d, seed=d, device=cuda_device)
+    obj = GLMObjective(LogisticLoss, l2_weight=1.0, intercept_index=0)
+    spec = OptimizerSpec(OptimizerType.NEWTON, max_iter=25, tol=1e-7)
+    cfg = spec.config()
+    cache = SolveCache()
+    solve = cache.block_solver(obj, spec, cfg, has_mask=False, re_kernel="cuda")
+    offs = torch.zeros_like(block.label)
+    for w0 in (torch.zeros(256, d, device=cuda_device), torch.full((256, d), 0.01, device=cuda_device)):
+        ref = _solve_block(block, offs, w0, obj, spec, cfg, re_kernel="cuda")
+        k3, replays, captures = kernels.LAUNCHES["newton_system"], cache.stats.replays, cache.stats.captures
+        w, it, reasons, passes = solve(block, offs, w0.clone())
+        torch.cuda.synchronize()
+        assert torch.equal(it, ref[1]) and torch.equal(reasons, ref[2]) and torch.equal(passes, ref[3])
+        torch.testing.assert_close(w, ref[0], rtol=1e-6, atol=1e-6 * float(ref[0].abs().max()))
+        ran = kernels.LAUNCHES["newton_system"] - k3
+        chunks = cache.stats.replays - replays - 1
+        steps = int(it.max())
+        assert chunks == min(-(-steps // sc.BLOCK_CHUNK), -(-cfg.max_iter // sc.BLOCK_CHUNK))
+        assert ran == sc.BLOCK_CHUNK * (chunks + cache.stats.captures - captures)  # and the warm-up's chunk
+    assert (cache.stats.traces, cache.stats.calls, cache.stats.hits) == (1, 2, 1)
