@@ -13,7 +13,10 @@ Phases, each of which must pass:
                 both of its routes ("bulk" and "direct") up to d = 64 and at
                 d = 96, 128 and 192 (where it works H in panels), and
                 check that two launches of K1 and of K2 at the headline are
-                bitwise equal;
+                bitwise equal, and that there, in bf16 and f32, a launch
+                with its launch flag on is bitwise the launch without it
+                and one with the flag off leaves its zeroed outputs zero
+                and is not counted as run;
   3. timing   — kernel, plain version and a library yardstick, with CUDA
                 events, beside the kernel's bound (bytes or operations over
                 the H100's published peaks), K3 also at d = 96 and 128
@@ -27,16 +30,24 @@ Phases, each of which must pass:
                 headline width (N = 2^21, d_fix = 256 in bf16, d_re = 16,
                 E = 4096, logistic), which must lower the training logloss
                 and launch kernels 1 and 3;
-  5. TRON     — a fixed-effect TRON solve on the same batch, which must lower
-                the objective and launch kernels 1 and 2;
+  5. TRON     — a fixed-effect TRON solve on the same batch through the solve
+                cache (captured: K1 trials and K2 products, each with its
+                launch flag), which must lower the objective, run kernels
+                1 and 2 (launches whose flag was on, counted on the card:
+                ``kernels.ran``) and equal the same program run eagerly (iterations,
+                reason, coefficients within 1e-6); it prints host reads,
+                captures, X passes run and the masked cost and graph nodes of
+                a step;
   6. train_glm — the legacy GLM driver: ``train_glm.main`` on a LIBSVM file
                 (2^14 rows) and an Avro file (2^12 rows) of 255 features with
                 validation files and λ = 10, 1, 0.1, whose model files must
                 be written and load back, with validation AUC > 0.7 and K1
                 launched; the driver's λ loop at N = 2^21, d = 256 (f32) with
-                L-BFGS (K1) and TRON (K1 and K2), per λ iterations, X passes,
-                wall time, host reads, samples/s and AUC; and the λ loop on
-                the card against the port's float64 plain path on the CPU.
+                L-BFGS (K1), TRON (K1 and K2) and ELASTIC_NET α = 0.5
+                (OWL-QN, K1), per λ iterations, X passes, wall time, host
+                reads (at most SWEEP_READS a λ), samples/s and AUC, one
+                capture a sweep; and the λ loop on the card against the
+                port's float64 plain path on the CPU.
   7. GAME     — ``GameEstimator.fit`` then ``GameTransformer.transform`` with
                 three coordinates over phase 4's N = 2^21 rows: the fixed
                 effect (d = 256, bf16 X, L-BFGS, K1), per user (E = 4096,
@@ -63,7 +74,17 @@ Phases, each of which must pass:
                 of 16 users and 16 items the driver on the card must give
                 the CPU run's coefficients (2e-3 relative). Each driver's wall time by stage, host reads
                 and launches by width are logged.
-Phases 4, 6b, 7b and 8 print, per pass, λ or driver, the host reads (every
+  9. GAME solvers — phase 7's data and widths with the other solvers, two
+                passes with the active set: 9a TRON on the fixed effect (K1,
+                K2), elastic net per user (batched OWL-QN) and TRON per item
+                (batched TRON at d = 128); 9b Pearson caps per user under
+                standardization (gradient-form L-BFGS) and per item (margin
+                L-BFGS at d = 128). Each first a small input on the card
+                against the float64 plain path on the CPU; per pass as 7b;
+                fails unless the logloss falls, GLMix reaches the fixed-only
+                AUC, pass 2 captures nothing, K1 (and for 9a K2) run, and
+                captured equals eager per route at each K of PHASE9_CHUNKS.
+Phases 4, 6b, 7b, 8 and 9 print, per pass, λ or driver, the host reads (every
 device-to-host read of the path, through ``HOST_READS``; validation apart),
 the solve cache's captures (programs; the keys, which count each λ, apart),
 hits, replays, X passes run (masked steps included) and bytes copied into
@@ -73,9 +94,10 @@ fixed-effect solve and a block of each random effect eagerly and captured
 at K = 1, 2, 4 and 8, and fails at any K unless iterations and reasons are
 equal and coefficients within 1e-6; it fails if pass 2 captures anything or
 the two passes' coordinate updates make more than 60 host reads; 6b fails
-above 6 reads for an L-BFGS λ solve.
-It prints the card's name and power limit, a JSON line of per-kernel numbers,
-and last {"ok": true, "device": {...}}. It exits non-zero, printing no
+above SWEEP_READS reads for a λ solve. The order of the run is 1-7, 9, 8.
+It prints the card's name and power limit, a JSON line of per-kernel numbers
+("launches" and "ran": the launches of the main paths, and those of them
+that did their work; a K1 or K2 launch whose flag was off does not), and last {"ok": true, "device": {...}}. It exits non-zero, printing no
 result, when there is no CUDA device or any phase fails. Float32 matrix
 products run in full f32 (TF32 off).
 """
@@ -101,10 +123,27 @@ FE_ITERS, RE_ITERS, CD_PASSES = 30, 8, 2
 # the driver's intercept takes to d = 256.
 A_LIBSVM_ROWS, A_AVRO_ROWS, A_VALID_ROWS, A_FEATURES = 1 << 14, 1 << 12, 1 << 12, 255
 B_VALID_ROWS, B_FEATURES = 1 << 18, 255
+# Phase 6b: host reads a λ solve may take, by sweep. On an NVIDIA H100 80GB
+# HBM3 at 700 W the captured programs read 6, 4, 4 a λ for TRON at K = 8
+# (11, 7, 7 at its K = 4) and 3 a λ for ELASTIC_NET (OWL-QN, K = 4).
+SWEEP_READS = {"LBFGS": 6, "TRON": 16, "ELASTIC_NET": 8}
 # Phase 7 (GAME): items, their width and sample cap, validation rows, passes;
 # K3's shapes at the per-item widths (E = 1024 items, n_max = 768).
 G_ITEMS, G_D_ITEM, G_ITEM_CAP, G_VALID_ROWS, G_PASSES = 1024, 128, 4096, 1 << 18, 2
 K3_WIDE = ((1024, 768, 96), (1024, 768, 128), (256, 768, 192))
+# Phase 9 (GAME with the other solvers, on phase 7's data): each route's
+# coordinate options (estimators/config.py fields; reg_alpha: the elastic-net
+# alpha of λ = 1) and the shards standardized. A Pearson cap keeps
+# ceil(ratio × samples) of an entity's columns: per user ~512 samples of
+# d = 16, per item a median of ~395 of d = 128.
+# K swept by phase 9's captured-vs-eager solves (all of solve_cache's K set
+# to each; None: the defaults).
+PHASE9_CHUNKS = (None, 2, 4, 8, 16)
+SOLVER_ROUTES = {
+    "9a": {"global": dict(optimizer="TRON"), "per_user": dict(reg_alpha=0.5), "per_item": dict(optimizer="TRON")},
+    "9b": {"per_user": dict(features_to_samples_ratio=0.02), "per_item": dict(features_to_samples_ratio=0.1),
+           "standardize": ("user",)},
+}
 # Phase 8 (GAME drivers): rows of the training, validation and card-vs-CPU
 # files, users and items. Phase 7's 2^21 rows, 4096 users and 1024 items are
 # cut because the port parses Avro in pure Python (the native columnar
@@ -149,8 +188,8 @@ def cache_setup(label: str, cache=None) -> int:
 
     cache = cache if cache is not None else solve_cache.default_cache()
     log(f"  {label}: solve cache guard = mask (torch {torch.__version__} has no capture into CUDA graph "
-        f"conditional nodes), K = {solve_cache.FE_CHUNK} fixed-effect and {solve_cache.BLOCK_CHUNK} block steps "
-        "per host read")
+        f"conditional nodes); steps per host read K = {solve_cache.FE_CHUNK} fixed-effect margin L-BFGS, "
+        f"{solve_cache.CHUNK} every other program")
     return len(cache.entry_info())
 
 
@@ -162,6 +201,21 @@ def cache_entries(since: int, cache=None) -> None:
     for info in (cache if cache is not None else default_cache()).entry_info()[since:]:
         log(f"    captured {tuple(info['key'])}: K = {info['chunk']}, {info.get('capture_s', 0.0):.3f} s, "
             f"chunk graph {info.get('chunk_nodes')} nodes")
+
+
+def launch_counts() -> dict:
+    """The launches counted since the last ``kernels.reset_launches``, and
+    per kernel "<name>_ran": those that did their work (a K1 or K2 launch
+    whose launch flag was off does not; one read of the card's counters)."""
+    from photon_tpu_torch.ops import kernels
+
+    return dict(kernels.LAUNCHES, **{f"{k}_ran": v for k, v in kernels.ran().items()})
+
+
+def ran(counts: dict, name: str) -> int:
+    """The launches of ``name`` in ``counts`` that ran (K3's by width, which
+    has no flag: its launches)."""
+    return counts.get(f"{name}_ran", counts.get(name, 0))
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor):
@@ -266,11 +320,11 @@ def train_glm_phase(dev, smi: str, check) -> dict:
     from photon_tpu_torch.optim.factory import OptimizerSpec
     from photon_tpu_torch.types import OptimizerType, TaskType, VarianceComputationType
 
-    launches = {k: 0 for k in kernels.LAUNCHES}
+    launches = {}
 
     def count(used: dict) -> None:
         for k, v in used.items():
-            launches[k] += v
+            launches[k] = launches.get(k, 0) + v
 
     log("## phase 6: train_glm")
     work = Path(__file__).resolve().parent / "build" / "chip_smoke_train_glm"
@@ -298,7 +352,7 @@ def train_glm_phase(dev, smi: str, check) -> dict:
         t0 = time.perf_counter()
         summary = train_glm.main(argv)
         wall = time.perf_counter() - t0
-        used = dict(kernels.LAUNCHES)
+        used = launch_counts()
         count(used)
         written = [out / f"model-lambda-{lam:g}.txt" for lam in (10.0, 1.0, 0.1)] + [
             out / "LATEST", out / "training-summary.json", out / "best" / "model-metadata.json"]
@@ -338,40 +392,46 @@ def train_glm_phase(dev, smi: str, check) -> dict:
     Xv, yv = planted(B_VALID_ROWS)
     train, valid = LabeledBatch(yt, Xt), LabeledBatch(yv, Xv)
     weights = [float(x) for x in lambdas.split(",")]
-    for opt, needs in ((OptimizerType.LBFGS, ("fused_value_grad",)),
-                       (OptimizerType.TRON, ("fused_value_grad", "fused_hvp"))):
+    # (label, optimizer, elastic-net alpha, kernels it must launch, host reads a λ at most: SWEEP_READS)
+    for label, opt, alpha, needs in (("LBFGS", OptimizerType.LBFGS, 0.0, ("fused_value_grad",)),
+                                     ("TRON", OptimizerType.TRON, 0.0, ("fused_value_grad", "fused_hvp")),
+                                     ("ELASTIC_NET", OptimizerType.LBFGS, 0.5, ("fused_value_grad",))):
         # A cache of the sweep's own, so that the profiled λ below hits it.
         sweep_cache = SolveCache()
         built0 = cache_setup("6b λ sweep", sweep_cache)
         kernels.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         sweep = train_glm.train_lambda_sweep(train, weights, TaskType.LOGISTIC_REGRESSION, OptimizerSpec(opt),
-                                             intercept_index=B_FEATURES,
+                                             elastic_net_alpha=alpha, intercept_index=B_FEATURES,
                                              variance=VarianceComputationType.SIMPLE, solve_cache=sweep_cache)
-        used = dict(kernels.LAUNCHES)
-        log(f"    {opt.name} sweep: {peak_text()}")
+        used = launch_counts()
+        log(f"    {label} sweep: {peak_text()}")
         count(used)
         for r in sweep:
             passes = int(r.result.x_passes)
             auc = metrics_map(TaskType.LOGISTIC_REGRESSION, valid.margins(r.w_model), yv)[AREA_UNDER_ROC]
             value = float(r.result.value)
-            log(f"    {opt.name} λ={r.lam:g}: {int(r.result.iterations)} iterations, "
+            log(f"    {label} λ={r.lam:g}: {int(r.result.iterations)} iterations, "
                 f"{r.result.convergence_reason.value}, {passes} X passes, {r.wall_s:.4f} s wall, "
                 f"{r.host_syncs} host reads, {N * passes / r.wall_s:.4e} samples/s, objective {value:.6e}, "
-                f"validation AUC {auc:.4f}; {cache_text(r.cache)}")
-            if opt == OptimizerType.LBFGS:
-                check(r.host_syncs <= 6, f"6b LBFGS λ={r.lam:g}: {r.host_syncs} host reads <= 6")
+                f"{int((r.w_model == 0).sum())} zero coefficients, validation AUC {auc:.4f}; {cache_text(r.cache)}")
+            check(r.host_syncs <= SWEEP_READS[label],
+                  f"6b {label} λ={r.lam:g}: {r.host_syncs} host reads <= {SWEEP_READS[label]}")
             check(np.isfinite(value) and bool(torch.isfinite(r.variances).all()),
-                  f"6b {opt.name} λ={r.lam:g}: objective and variances finite")
-            check(auc > 0.6, f"6b {opt.name} λ={r.lam:g}: validation AUC {auc:.4f} > 0.6")
-        log(f"    {opt.name} sweep launches {used}")
-        if opt == OptimizerType.LBFGS:
-            cache_entries(built0, sweep_cache)
-        check(all(used[k] > 0 for k in needs), f"6b {opt.name}: launched {', '.join(needs)}")
+                  f"6b {label} λ={r.lam:g}: objective and variances finite")
+            check(auc > 0.6, f"6b {label} λ={r.lam:g}: validation AUC {auc:.4f} > 0.6")
+        log(f"    {label} sweep launches {used}")
+        cache_entries(built0, sweep_cache)
+        for info, (ms, nodes) in zip(sweep_cache.entry_info(), masked_steps(sweep_cache)):
+            log(f"    masked step of {info['key']}: {ms:.4f} ms, {nodes} graph nodes a step")
+        check(all(ran(used, k) > 0 for k in needs), f"6b {label}: ran {', '.join(needs)}")
+        check(sweep_cache.stats.captures == 1 and sweep_cache.stats.traces == len(weights),
+              f"6b {label}: one capture for the sweep ({sweep_cache.stats.captures}), one key a λ "
+              f"({sweep_cache.stats.traces})")
         # The first λ once more, under the profiler (its launches are not counted).
-        profiled(f"{opt.name} λ={weights[0]:g} from zero, profiled", lambda: train_glm.train_lambda_sweep(
-            train, weights[:1], TaskType.LOGISTIC_REGRESSION, OptimizerSpec(opt), intercept_index=B_FEATURES,
-            solve_cache=sweep_cache), indent="    ")
+        profiled(f"{label} λ={weights[0]:g} from zero, profiled", lambda: train_glm.train_lambda_sweep(
+            train, weights[:1], TaskType.LOGISTIC_REGRESSION, OptimizerSpec(opt), elastic_net_alpha=alpha,
+            intercept_index=B_FEATURES, solve_cache=sweep_cache), indent="    ")
     del Xt, Xv, train, valid
     torch.cuda.empty_cache()
 
@@ -415,42 +475,56 @@ def _zipf_items(n, n_items, dev, g):
     return torch.multinomial(p, n, replacement=True, generator=g).to(torch.int32)
 
 
-def _game_estimator(n_users, n_items, item_cap, passes, fixed_only=False):
+def _standardization(X: torch.Tensor):
+    """STANDARDIZATION of a shard whose column 0 is the intercept (factor 1,
+    shift 0 there), from its rows."""
+    from photon_tpu_torch.data.normalization import NormalizationContext
+
+    mean, std = X.mean(0), X.std(0)
+    mean[0], std[0] = 0.0, 1.0
+    std = torch.where(std > 0, std, torch.ones_like(std))
+    return NormalizationContext(1.0 / std, mean, 0)
+
+
+def _game_estimator(n_users, n_items, item_cap, passes, fixed_only=False, route=None, batch=None):
+    """The GAME estimator of phases 7 and 9 (fixed + per user + per item,
+    λ = 1, active set) and its regularization; ``route`` names phase 9's
+    solver options (SOLVER_ROUTES), whose standardized shards take their
+    statistics from ``batch``."""
     from photon_tpu_torch.estimators import config
     from photon_tpu_torch.estimators.game_estimator import GameEstimator
-    from photon_tpu_torch.types import TaskType
+    from photon_tpu_torch.types import OptimizerType, TaskType
 
-    cfgs = [config.FixedEffectCoordinateConfig("global", "global"),
-            config.RandomEffectCoordinateConfig("per_user", "userId", "user"),
-            config.RandomEffectCoordinateConfig("per_item", "itemId", "item", active_upper_bound=item_cap)]
+    opts = SOLVER_ROUTES.get(route, {})
+    kw = {name: dict(opts.get(name, {})) for name in ("global", "per_user", "per_item")}
+    for d in kw.values():
+        if "optimizer" in d:
+            d["optimizer"] = OptimizerType[d["optimizer"]]
+    alphas = {cid: d.pop("reg_alpha", 0.0) for cid, d in kw.items()}
+    cfgs = [config.FixedEffectCoordinateConfig("global", "global", **kw["global"]),
+            config.RandomEffectCoordinateConfig("per_user", "userId", "user", **kw["per_user"]),
+            config.RandomEffectCoordinateConfig("per_item", "itemId", "item", active_upper_bound=item_cap,
+                                                **kw["per_item"])]
     if fixed_only:
         cfgs = cfgs[:1]
-    reg = config.GameOptimizationConfig({c.coordinate_id: config.RegularizationConfig(1.0) for c in cfgs})
+    reg = config.GameOptimizationConfig({c.coordinate_id: config.RegularizationConfig(1.0, alphas[c.coordinate_id])
+                                         for c in cfgs})
+    norm = {shard: _standardization(batch.features[shard]) for shard in opts.get("standardize", ())}
     est = GameEstimator(TaskType.LOGISTIC_REGRESSION, cfgs, num_iterations=passes,
                         intercept_indices={"global": 0, "user": 0, "item": 0},
-                        num_entities={"userId": n_users, "itemId": n_items}, re_active_set=True)
+                        num_entities={"userId": n_users, "itemId": n_items}, re_active_set=True,
+                        normalization=norm or None)
     return est, reg
 
 
-def game_phase(dev, smi: str, check, Xb, Xr, users, n_users: int) -> dict:
-    """Phase 7: the GAME core. (a) A small input on the card (f32, kernels)
-    against the float64 plain path on the CPU; (b) ``GameEstimator.fit`` and
-    ``GameTransformer.transform`` at full width over phase 4's X (bf16), per
-    user features and ids, with per-item features and planted labels made
-    here; (c) one more pass under the profiler. Returns the kernel launches
-    of (b), with K3's by width under "newton_system_d<d>"."""
-    from photon_tpu_torch.algorithm.solve_cache import SolveCache
+def _small_game(dev, check, label: str, route=None, needs=()) -> None:
+    """A small GAME fit (n = 2^14, 3 coordinates, d_item = 128) on the card
+    (f32, kernels) against the float64 plain path on the CPU, same numpy data
+    and labels: scores within REFERENCE_TOL, and the card run launched the
+    kernels ``needs`` names ("newton_system_d<d>": K3 at width d)."""
     from photon_tpu_torch.estimators.game_transformer import GameTransformer
-    from photon_tpu_torch.evaluation.suite import EvaluationSuite, EvaluatorSpec
     from photon_tpu_torch.ops import fused_newton, kernels
-    from photon_tpu_torch.ops.losses import LogisticLoss
-    from photon_tpu_torch.optim.common import HOST_READS
 
-    log("## phase 7: GAME core (GameEstimator.fit, GameTransformer.transform)")
-    g = torch.Generator(device=dev).manual_seed(7)
-
-    # 7a. Small input: f32 on the card (K1, K3 at d = 16 and 128) against the
-    # float64 plain path on the CPU, same numpy data.
     rng = np.random.default_rng(70)
     sn, sd, sdu, sdi, sE, sI = 1 << 14, 32, 8, G_D_ITEM, 64, 32
     cols = lambda k: np.concatenate([np.ones((sn, 1)), rng.normal(size=(sn, k - 1))], axis=1)  # noqa: E731
@@ -460,7 +534,7 @@ def game_phase(dev, smi: str, check, Xb, Xr, users, n_users: int) -> dict:
     p = 1.0 / np.arange(1, sI + 1) ** 1.1
     small["items"] = rng.choice(sI, size=sn, p=p / p.sum())
 
-    def small_scores(device, dtype, labels=None):
+    def scores(device, dtype, labels=None):
         t = {k: torch.as_tensor(v, device=device, dtype=torch.int32 if k in ("users", "items") else dtype)
              for k, v in small.items()}
         gs = torch.Generator(device=device).manual_seed(71)
@@ -468,22 +542,154 @@ def game_phase(dev, smi: str, check, Xb, Xr, users, n_users: int) -> dict:
                             t["W_i"], gs)
         if labels is not None:  # the same labels on both sides
             batch = dataclasses.replace(batch, label=labels.to(device=device, dtype=dtype))
-        est, reg = _game_estimator(sE, sI, 256, G_PASSES)
+        est, reg = _game_estimator(sE, sI, 256, G_PASSES, route=route, batch=batch)
         (res,) = est.fit(batch, optimization_configs=[reg])
         return GameTransformer(res.model).transform(batch), batch.label
 
-    ref, small_labels = small_scores("cpu", torch.float64)
+    ref, labels = scores("cpu", torch.float64)
     kernels.reset_launches()
     fused_newton.LAUNCHES_BY_WIDTH.clear()
-    card, _ = small_scores(dev, torch.float32, small_labels)
+    card, _ = scores(dev, torch.float32, labels)
     torch.cuda.synchronize()
-    used = dict(kernels.LAUNCHES, by_width=dict(fused_newton.LAUNCHES_BY_WIDTH))
+    used = dict(launch_counts(), **{f"newton_system_d{d}": c for d, c in fused_newton.LAUNCHES_BY_WIDTH.items()})
     _, r = rel_err(card.cpu(), ref)
-    check(r <= REFERENCE_TOL and used["fused_value_grad"] > 0 and used["by_width"].get(G_D_ITEM, 0) > 0,
-          f"7a small GAME fit (n={sn}, 3 coordinates, d_item={sdi}) on the card vs float64 plain path on the "
+    check(r <= REFERENCE_TOL and all(ran(used, k) > 0 for k in needs),
+          f"{label} small GAME fit (n={sn}, 3 coordinates, d_item={sdi}) on the card vs float64 plain path on the "
           f"CPU: scores rel {r:.3e} (tolerance {REFERENCE_TOL:g}); launches {used}")
 
+
+def _fit_passes(label: str, est, reg, train, valid, check, smi: str, read_bound=None) -> dict:
+    """``est.fit`` of ``train`` with ``valid`` for validation, through a
+    solve cache of its own, and one line a pass: wall, host reads of the
+    coordinate updates (validation apart), samples/s (bench.py's visit
+    accounting), each coordinate's wall, launches, entities skipped,
+    training logloss, validation AUC, the cache's counts and peak memory.
+    Fails unless the logloss falls every pass, the AUC is finite, a pass
+    after the first captures nothing, and (``read_bound``) the coordinate
+    updates of all passes read at most that often. Returns the result, the
+    estimator's cache, the launches (K3's by width as "newton_system_d<d>")
+    and the best pass's AUC."""
+    from photon_tpu_torch.algorithm.solve_cache import SolveCache
+    from photon_tpu_torch.evaluation.suite import EvaluationSuite, EvaluatorSpec
+    from photon_tpu_torch.ops import fused_newton, kernels
+    from photon_tpu_torch.ops.losses import LogisticLoss
+    from photon_tpu_torch.optim.common import HOST_READS
+
+    N = train.label.shape[0]
+
+    def logloss(model, batch):
+        return float(HOST_READS.fetch(torch.mean(LogisticLoss.value(model.score_with_offset(batch), batch.label)))[0])
+
+    history = []
+
+    class Suite(EvaluationSuite):
+        """Validation AUC (the primary metric), and the training logloss, of
+        each pass's model, with the host reads of the validation and the
+        pass's peak memory (the peak is reset for the next pass)."""
+
+        def evaluate_model(self, model, batch):
+            r0 = HOST_READS.count
+            out = dict(super().evaluate_model(model, batch), train_logloss=logloss(model, train))
+            history.append(dict(out, validation_reads=HOST_READS.count - r0,
+                                peak=torch.cuda.max_memory_allocated()))
+            torch.cuda.reset_peak_memory_stats()
+            return out
+
+    # A cache of the fit's own (the shared one is released when a fit
+    # returns), so that later runs can replay its captures.
+    cache = est.solve_cache = SolveCache()
+    t0 = time.perf_counter()
+    est._prepare_datasets(train)
+    torch.cuda.synchronize()
+    for cid, ds in est._re_datasets.items():
+        log(f"  {label} {cid}: {len(ds.blocks)} blocks {[tuple(b.features.shape) for b in ds.blocks]}, "
+            f"{ds.num_active_samples} active samples")
+    log(f"  {label} random-effect blocks built in {time.perf_counter() - t0:.1f} s (host grouping, once per batch)")
+    marks = []
+
+    def on_coordinate(it, cid, coord, wall):
+        stats = getattr(coord, "last_active_set_stats", None)
+        marks.append(dict(it=it, cid=cid, wall=wall, reads=HOST_READS.count, launches=dict(kernels.LAUNCHES),
+                          by_width=dict(fused_newton.LAUNCHES_BY_WIDTH), cache=cache.stats.counts(),
+                          skipped=None if stats is None else stats["entities_skipped"]))
+
+    built0 = cache_setup(f"{label} GAME", cache)
+    kernels.reset_launches()
+    fused_newton.LAUNCHES_BY_WIDTH.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reads0, counts0 = HOST_READS.count, cache.stats.counts()
+    (res,) = est.fit(train, validation_batch=valid, evaluation_suite=Suite([EvaluatorSpec.parse("AUC")]),
+                     optimization_configs=[reg], on_coordinate=on_coordinate)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    launches.update({f"newton_system_d{d}": c for d, c in fused_newton.LAUNCHES_BY_WIDTH.items()})
+
+    losses = [float(np.log(2.0))]  # every score is 0 before the first pass
+    prev = dict(reads=reads0, launches={k: 0 for k in kernels.LAUNCHES}, by_width={}, cache=counts0)
+    total_visits, total_s, coordinate_reads = 0, 0.0, 0
+    for it in range(est.num_iterations):
+        pm = [m for m in marks if m["it"] == it]
+        fe = res.tracker["global"][it]
+        visits = N * int(fe.x_passes) + sum(int(res.tracker[c][it].sample_visits) for c in ("per_user", "per_item"))
+        wall = sum(m["wall"] for m in pm)
+        total_visits, total_s = total_visits + visits, total_s + wall
+        end = pm[-1]
+        ran = {k: v - prev["launches"][k] for k, v in end["launches"].items()}
+        k3 = {d: c - prev["by_width"].get(d, 0) for d, c in end["by_width"].items()}
+        losses.append(history[it]["train_logloss"])
+        auc = history[it]["AUC"]
+        # The pass's coordinate updates: from the end of the last validation
+        # (or the fit's start) to the last update; validation comes after.
+        reads = end["reads"] - prev["reads"] - (history[it - 1]["validation_reads"] if it else 0)
+        coordinate_reads += reads
+        delta = {k: end["cache"][k] - prev["cache"][k] for k in end["cache"]}
+        assert pm[0]["cid"] == "global"
+        fe_run = pm[0]["cache"]["x_passes_run"] - prev["cache"]["x_passes_run"]
+        log(f"  {label} pass {it + 1}: {wall:.3f} s wall, {reads} host reads in the coordinate updates (validation "
+            f"{history[it]['validation_reads']} more), {visits / wall:.4e} samples/s ({visits} visits; fixed effect "
+            f"{int(fe.x_passes)} X passes of its iterations, {fe_run} run on the card with masked steps and "
+            f"capture warm-ups, {int(fe.iterations)} iterations), coordinates "
+            + ", ".join(f"{m['cid']} {m['wall']:.3f} s" for m in pm)
+            + f"; launches {ran}, K3 by width {k3}; entities skipped "
+            + ", ".join(f"{m['cid']} {m['skipped']}" for m in pm if m["skipped"] is not None)
+            + f"; training logloss {losses[-1]:.6f}, validation AUC {auc:.4f}; {cache_text(delta)}; "
+            f"peak memory {history[it]['peak'] / 2 ** 30:.2f} GiB")
+        for cid in ("per_user", "per_item"):
+            log(f"    {cid}: {res.tracker[cid][it].summary()}")
+        check(losses[-1] < losses[-2],
+              f"{label} pass {it + 1}: training logloss fell ({losses[-2]:.6f} -> {losses[-1]:.6f})")
+        check(np.isfinite(auc), f"{label} pass {it + 1}: validation AUC {auc:.4f} finite")
+        if it > 0:
+            check(delta["captures"] == 0 and delta["traces"] == 0,
+                  f"{label} pass {it + 1}: no new capture ({delta['captures']}) or key ({delta['traces']})")
+        prev = end
+    cache_entries(built0, cache)
+    log(f"  {label} GAME {est.num_iterations} passes: {total_s:.3f} s, {coordinate_reads} host reads in the "
+        f"coordinate updates, {total_visits / total_s:.4e} samples/s (bench.py visit accounting) on {smi}; "
+        f"launches {launches}")
+    if read_bound is not None:
+        check(coordinate_reads <= read_bound,
+              f"{label}: {coordinate_reads} host reads in the coordinate updates of all passes <= {read_bound}")
+    return dict(res=res, cache=cache, launches=launches, auc=max(h["AUC"] for h in history))
+
+
+def game_phase(dev, smi: str, check, Xb, Xr, users, n_users: int):
+    """Phase 7: the GAME core. (a) A small input on the card (f32, kernels)
+    against the float64 plain path on the CPU; (b) ``GameEstimator.fit`` and
+    ``GameTransformer.transform`` at full width over phase 4's X (bf16), per
+    user features and ids, with per-item features and planted labels made
+    here; (c) one more pass under the profiler. Returns the kernel launches
+    of (b), with K3's by width under "newton_system_d<d>", the training and
+    validation batches and the fixed-only validation AUC (for phase 9)."""
+    from photon_tpu_torch.estimators.game_transformer import GameTransformer
+    from photon_tpu_torch.evaluation.suite import EvaluationSuite, EvaluatorSpec
+
+    log("## phase 7: GAME core (GameEstimator.fit, GameTransformer.transform)")
+    _small_game(dev, check, "7a", needs=("fused_value_grad", f"newton_system_d{G_D_ITEM}"))
+
     # 7b. Full width.
+    g = torch.Generator(device=dev).manual_seed(7)
     t0 = time.perf_counter()
     N = Xb.shape[0]
     d_fix, d_user = Xb.shape[1], Xr.shape[1]
@@ -511,163 +717,111 @@ def game_phase(dev, smi: str, check, Xb, Xr, users, n_users: int) -> dict:
         f"d={d_user}, per_item E={G_ITEMS} d={G_D_ITEM} (samples an item: max {int(counts.max())}, median "
         f"{int(counts.median())}, min {int(counts.min())}; cap {G_ITEM_CAP}); validation {nv} rows; card {smi}")
 
-    def logloss(model, batch):
-        return float(HOST_READS.fetch(torch.mean(LogisticLoss.value(model.score_with_offset(batch), batch.label)))[0])
-
-    history = []
-
-    class Suite(EvaluationSuite):
-        """Validation AUC (the primary metric), and the training logloss, of
-        each pass's model, with the host reads of the validation and the
-        pass's peak memory (the peak is reset for the next pass)."""
-
-        def evaluate_model(self, model, batch):
-            r0 = HOST_READS.count
-            out = dict(super().evaluate_model(model, batch), train_logloss=logloss(model, train))
-            history.append(dict(out, validation_reads=HOST_READS.count - r0,
-                                peak=torch.cuda.max_memory_allocated()))
-            torch.cuda.reset_peak_memory_stats()
-            return out
-
     est, reg = _game_estimator(n_users, G_ITEMS, G_ITEM_CAP, G_PASSES)
-    # A cache of the phase's own (the shared one is released when a fit
-    # returns), so that the profiled pass of 7c replays 7b's captures.
-    cache = est.solve_cache = SolveCache()
-    t0 = time.perf_counter()
-    est._prepare_datasets(train)
-    torch.cuda.synchronize()
-    for cid, ds in est._re_datasets.items():
-        log(f"  {cid}: {len(ds.blocks)} blocks {[tuple(b.features.shape) for b in ds.blocks]}, "
-            f"{ds.num_active_samples} active samples")
-    log(f"  random-effect blocks built in {time.perf_counter() - t0:.1f} s (host grouping, once per batch)")
-
-    marks = []
-
-    def on_coordinate(it, cid, coord, wall):
-        stats = getattr(coord, "last_active_set_stats", None)
-        marks.append(dict(it=it, cid=cid, wall=wall, reads=HOST_READS.count, launches=dict(kernels.LAUNCHES),
-                          by_width=dict(fused_newton.LAUNCHES_BY_WIDTH), cache=cache.stats.counts(),
-                          skipped=None if stats is None else stats["entities_skipped"]))
-
-    built0 = cache_setup("7b GAME", cache)
-    kernels.reset_launches()
-    fused_newton.LAUNCHES_BY_WIDTH.clear()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reads0, counts0 = HOST_READS.count, cache.stats.counts()
-    (res,) = est.fit(train, validation_batch=valid, evaluation_suite=Suite([EvaluatorSpec.parse("AUC")]),
-                     optimization_configs=[reg], on_coordinate=on_coordinate)
+    out = _fit_passes("7b", est, reg, train, valid, check, smi, read_bound=60)
+    res, launches = out["res"], out["launches"]
     transformer = GameTransformer(res.model, EvaluationSuite([EvaluatorSpec.parse("AUC")]))
     scores = transformer.transform(valid)
-    torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
-    launches.update({f"newton_system_d{d}": c for d, c in fused_newton.LAUNCHES_BY_WIDTH.items()})
-
-    losses = [float(np.log(2.0))]  # every score is 0 before the first pass
-    prev = dict(reads=reads0, launches={k: 0 for k in kernels.LAUNCHES}, by_width={}, cache=counts0)
-    total_visits, total_s, coordinate_reads = 0, 0.0, 0
-    for it in range(G_PASSES):
-        pm = [m for m in marks if m["it"] == it]
-        fe = res.tracker["global"][it]
-        visits = N * int(fe.x_passes) + sum(int(res.tracker[c][it].sample_visits) for c in ("per_user", "per_item"))
-        wall = sum(m["wall"] for m in pm)
-        total_visits, total_s = total_visits + visits, total_s + wall
-        end = pm[-1]
-        k1 = end["launches"]["fused_value_grad"] - prev["launches"]["fused_value_grad"]
-        k3 = {d: c - prev["by_width"].get(d, 0) for d, c in end["by_width"].items()}
-        losses.append(history[it]["train_logloss"])
-        auc = history[it]["AUC"]
-        # The pass's coordinate updates: from the end of the last validation
-        # (or the fit's start) to the last update; validation comes after.
-        reads = end["reads"] - prev["reads"] - (history[it - 1]["validation_reads"] if it else 0)
-        coordinate_reads += reads
-        delta = {k: end["cache"][k] - prev["cache"][k] for k in end["cache"]}
-        assert pm[0]["cid"] == "global"
-        fe_run = pm[0]["cache"]["x_passes_run"] - prev["cache"]["x_passes_run"]
-        log(f"  pass {it + 1}: {wall:.3f} s wall, {reads} host reads in the coordinate updates (validation "
-            f"{history[it]['validation_reads']} more), {visits / wall:.4e} samples/s ({visits} visits; fixed effect "
-            f"{int(fe.x_passes)} X passes of its iterations, {fe_run} run on the card with masked steps and "
-            f"capture warm-ups, {int(fe.iterations)} iterations), coordinates "
-            + ", ".join(f"{m['cid']} {m['wall']:.3f} s" for m in pm)
-            + f"; K1 launches {k1}, K3 launches by width {k3}; entities skipped "
-            + ", ".join(f"{m['cid']} {m['skipped']}" for m in pm if m["skipped"] is not None)
-            + f"; training logloss {losses[-1]:.6f}, validation AUC {auc:.4f}; {cache_text(delta)}; "
-            f"peak memory {history[it]['peak'] / 2 ** 30:.2f} GiB")
-        for cid in ("per_user", "per_item"):
-            log(f"    {cid}: {res.tracker[cid][it].summary()}")
-        check(losses[-1] < losses[-2], f"7b pass {it + 1}: training logloss fell ({losses[-2]:.6f} -> {losses[-1]:.6f})")
-        check(np.isfinite(auc), f"7b pass {it + 1}: validation AUC {auc:.4f} finite")
-        if it > 0:
-            check(delta["captures"] == 0 and delta["traces"] == 0,
-                  f"7b pass {it + 1}: no new capture ({delta['captures']}) or key ({delta['traces']})")
-        prev = end
-    cache_entries(built0, cache)
-    log(f"  GAME {G_PASSES} passes: {total_s:.3f} s, {coordinate_reads} host reads in the coordinate updates, "
-        f"{total_visits / total_s:.4e} samples/s (bench.py visit accounting) on {smi}; launches {launches}")
-    check(coordinate_reads <= 60, f"7b: {coordinate_reads} host reads in the coordinate updates of both passes <= 60")
-    check(launches["fused_value_grad"] > 0 and launches.get(f"newton_system_d{Xr.shape[1]}", 0) > 0
+    check(launches["fused_value_grad"] > 0 and launches.get(f"newton_system_d{d_user}", 0) > 0
           and launches.get(f"newton_system_d{G_D_ITEM}", 0) > 0,
-          f"GAME path launched K1, and K3 at d = {Xr.shape[1]} and d = {G_D_ITEM}")
-    glmix_auc = max(h["AUC"] for h in history)  # the fit returns the best pass's model
+          f"GAME path launched K1, and K3 at d = {d_user} and d = {G_D_ITEM}")
     check(bool(torch.isfinite(scores).all()) and scores.shape == (nv,)
-          and abs(transformer.last_metrics["AUC"] - glmix_auc) <= 1e-6,
+          and abs(transformer.last_metrics["AUC"] - out["auc"]) <= 1e-6,
           f"GameTransformer.transform of the fit's model: {nv} finite scores, validation AUC "
-          f"{transformer.last_metrics['AUC']:.4f} (the fit's best pass {glmix_auc:.4f})")
+          f"{transformer.last_metrics['AUC']:.4f} (the fit's best pass {out['auc']:.4f})")
 
     fe_est, fe_reg = _game_estimator(n_users, G_ITEMS, G_ITEM_CAP, 1, fixed_only=True)
     (fe_res,) = fe_est.fit(train, validation_batch=valid, evaluation_suite=EvaluationSuite(
         [EvaluatorSpec.parse("AUC")]), optimization_configs=[fe_reg])
-    check(glmix_auc >= fe_res.metrics["AUC"],
-          f"7b GLMix validation AUC {glmix_auc:.4f} >= fixed-only {fe_res.metrics['AUC']:.4f}")
+    fe_auc = fe_res.metrics["AUC"]
+    check(out["auc"] >= fe_auc, f"7b GLMix validation AUC {out['auc']:.4f} >= fixed-only {fe_auc:.4f}")
 
-    captured_solves(dev, est, train, check)
+    captured_solves("7b", est, reg, train, check, chunks=(1, 2, 4, 8))
 
     # 7c. One more pass from the trained model under the profiler (its
     # launches are not counted).
     est.num_iterations = 1
     profiled("GAME pass from the trained model, profiled",
              lambda: est.fit(train, optimization_configs=[reg], initial_model=res.model))
+    return launches, train, valid, fe_auc
+
+
+def game_solvers_phase(dev, smi: str, check, train, valid, fe_auc: float) -> dict:
+    """Phase 9: GAME with the other solvers on phase 7's data, at full
+    width, each route (SOLVER_ROUTES) first on a small input against the
+    float64 plain path on the CPU, then fit for G_PASSES passes with the
+    active set: 9a TRON on the fixed effect (K1, K2), elastic net per user
+    (batched OWL-QN) and TRON per item (batched TRON at d = 128); 9b Pearson
+    caps per user under standardization (gradient-form L-BFGS) and per item
+    (margin L-BFGS at d = 128). Fails unless each fit passes _fit_passes'
+    checks, its GLMix AUC reaches the fixed-only AUC, captured equals eager
+    per route at every K of PHASE9_CHUNKS (the sweep that chose the TRON
+    and OWL-QN K), and K1 and K2 were launched; then one pass of each under
+    the profiler. Returns the launches of both fits."""
+    log("## phase 9: GAME with TRON, OWL-QN and the L-BFGS fallbacks")
+    launches = {}
+    for route, needs in (("9a", ("fused_value_grad", "fused_hvp")), ("9b", ("fused_value_grad",))):
+        log(f"  {route}: " + "; ".join(f"{k} {v}" for k, v in SOLVER_ROUTES[route].items()))
+        _small_game(dev, check, route, route, needs)
+        est, reg = _game_estimator(train.entity_ids["userId"].max().item() + 1, G_ITEMS, G_ITEM_CAP, G_PASSES,
+                                   route=route, batch=train)
+        out = _fit_passes(route, est, reg, train, valid, check, smi)
+        check(out["auc"] >= fe_auc, f"{route} GLMix validation AUC {out['auc']:.4f} >= fixed-only {fe_auc:.4f}")
+        check(all(ran(out["launches"], k) > 0 for k in needs), f"{route} ran {', '.join(needs)}")
+        for k, v in out["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        captured_solves(route, est, reg, train, check, chunks=PHASE9_CHUNKS)
+        # One more pass from the trained model under the profiler (its
+        # launches are not counted).
+        est.num_iterations = 1
+        profiled(f"{route} GAME pass from the trained model, profiled",
+                 lambda: est.fit(train, optimization_configs=[reg], initial_model=out["res"].model))
+        del est, out
+        torch.cuda.empty_cache()
     return launches
 
 
-def captured_solves(dev, est, train, check) -> None:
-    """7b, after the fit: the fixed-effect solve and the first block of each
-    random effect of the fit's configuration (from zero, no offsets), run
-    eagerly on the card and through a solve cache at K = 1, 2, 4 and 8 steps
-    per host read (the cache's FE_CHUNK and BLOCK_CHUNK, set for the sweep).
-    At every K, iterations and reasons must equal the eager ones and
-    coefficients agree within 1e-6 relative; per K, the wall and host reads
-    of a solve replayed after its capture."""
+def captured_solves(label: str, est, reg, train, check, chunks=(None,)) -> None:
+    """After a fit: the fixed-effect solve and the first block of each random
+    effect of the fit's configuration (its coordinates' objectives, specs and
+    Pearson masks; from zero, no offsets), run eagerly on the card and
+    through a solve cache at each K of ``chunks`` (every K of solve_cache set
+    to it; None: the defaults). At every K, iterations and reasons must
+    equal the eager ones and coefficients agree within 1e-6 relative; per
+    K, the wall and host reads of a solve replayed after its capture, each
+    capture's seconds and graph nodes, and each program's masked step (its
+    chunk graph replayed after its solve ended, over K)."""
     from photon_tpu_torch.algorithm import solve_cache
     from photon_tpu_torch.algorithm.random_effect import _solve_block
-    from photon_tpu_torch.ops.losses import LogisticLoss
-    from photon_tpu_torch.ops.objective import GLMObjective
     from photon_tpu_torch.optim.common import HOST_READS
-    from photon_tpu_torch.optim.factory import OptimizerSpec
-    from photon_tpu_torch.optim.margin_lbfgs import minimize_lbfgs_margin
+    from photon_tpu_torch.optim.factory import make_optimizer
 
-    spec = OptimizerSpec()  # the coordinates' default: margin L-BFGS, and Newton up to d = 128
-    cfg = dataclasses.replace(spec.config(), track_history=False)
-    fe_obj = GLMObjective(LogisticLoss, l2_weight=1.0, intercept_index=0, use_fused=True)
-    re_obj = GLMObjective(LogisticLoss, l2_weight=1.0, intercept_index=0)
+    coords = est._build_coordinates(train, reg)
+    fe = coords["global"]
+    fe_obj = dataclasses.replace(fe.objective, use_fused=True)
     lb = train.labeled_batch("global")
-    fe_w0 = torch.zeros(lb.features.shape[1], device=dev)
-    blocks = {cid: est._re_datasets[cid].blocks[0] for cid in ("per_user", "per_item")}
-    eager = minimize_lbfgs_margin(fe_obj, lb, fe_w0, spec.config())
-    solves = {"fixed effect": (lambda cache: cache.fe_solver(fe_obj, spec), (fe_w0, lb),
+    fe_w0 = torch.zeros(lb.features.shape[1], device=lb.label.device)
+    eager = make_optimizer(fe_obj, fe.optimizer_spec)(fe_w0, lb)
+    solves = {"fixed effect": (lambda cache: cache.fe_solver(fe_obj, fe.optimizer_spec), (fe_w0, lb),
                                (eager.w, eager.iterations, eager.reason_code))}
-    for cid, b in blocks.items():
-        args = (b, torch.zeros_like(b.label), torch.zeros(b.num_entities, b.dim, device=dev))
+    for cid in ("per_user", "per_item"):
+        c = coords[cid]
+        b, obj, mask = c.dataset.blocks[0], c._block_objectives[0], c._feature_masks.get(0)
+        args = (b, torch.zeros_like(b.label), torch.zeros(b.num_entities, b.dim, device=b.label.device), mask)
         solves[f"{cid} block {tuple(b.features.shape)}"] = (
-            lambda cache: cache.block_solver(re_obj, spec, cfg, has_mask=False, re_kernel="cuda"), args,
-            _solve_block(*args, re_obj, spec, cfg, re_kernel="cuda")[:3])
-    chunks = solve_cache.FE_CHUNK, solve_cache.BLOCK_CHUNK
+            lambda cache, c=c, obj=obj, mask=mask: cache.block_solver(obj, c.optimizer_spec, c._config,
+                                                                      has_mask=mask is not None,
+                                                                      re_kernel=c._re_kernel),
+            args, _solve_block(*args[:3], obj, c.optimizer_spec, c._config, mask, re_kernel=c._re_kernel)[:3])
+    names = ("FE_CHUNK", "CHUNK")
+    defaults = {k: getattr(solve_cache, k) for k in names}
     try:
-        for K in (1, 2, 4, 8):
-            solve_cache.FE_CHUNK = solve_cache.BLOCK_CHUNK = K
+        for K in chunks:
+            for k in names:
+                setattr(solve_cache, k, defaults[k] if K is None else K)
             cache = solve_cache.SolveCache()
             parts = []
-            for label, (make, args, want) in solves.items():
+            for name, (make, args, want) in solves.items():
                 solve = make(cache)
                 got = solve(*args)  # captures
                 torch.cuda.synchronize()
@@ -675,18 +829,40 @@ def captured_solves(dev, est, train, check) -> None:
                 solve(*args)
                 torch.cuda.synchronize()
                 wall, reads = time.perf_counter() - t0, HOST_READS.count - r0
-                w, it, reason = (got.w, got.iterations, got.reason_code) if label == "fixed effect" else got[:3]
-                parts.append(f"{label} {wall * 1e3:.2f} ms, {reads} reads, {int(it.max())} iterations")
+                w, it, reason = (got.w, got.iterations, got.reason_code) if name == "fixed effect" else got[:3]
+                parts.append(f"{name} {wall * 1e3:.2f} ms, {reads} reads, {int(it.max())} iterations")
                 _, r = rel_err(w, want[0])
                 check(torch.equal(it, want[1]) and torch.equal(reason, want[2]) and r <= 1e-6,
-                      f"7b {label}: captured (K = {K}) vs eager on the card: iterations and reasons equal, "
-                      f"coefficients rel {r:.3e} (tolerance 1e-6)")
-            info = cache.entry_info()
-            log(f"  K = {K}: " + "; ".join(parts) + "; captures " + ", ".join(
-                f"{i.get('capture_s', 0.0):.3f} s {i.get('chunk_nodes')} nodes" for i in info))
+                      f"{label} {name}: captured (K = {'default' if K is None else K}) vs eager on the card: "
+                      f"iterations and reasons equal, coefficients rel {r:.3e} (tolerance 1e-6)")
+            log(f"  {label} K = {'default' if K is None else K}: " + "; ".join(parts))
+            for info, (ms, nodes) in zip(cache.entry_info(), masked_steps(cache)):
+                log(f"    {info['key']}: K = {info['chunk']}, capture {info.get('capture_s', 0.0):.3f} s, chunk graph "
+                    f"{info.get('chunk_nodes')} nodes ({nodes} a step), masked step {ms:.4f} ms")
             del cache, solve
     finally:
-        solve_cache.FE_CHUNK, solve_cache.BLOCK_CHUNK = chunks
+        for k in names:
+            setattr(solve_cache, k, defaults[k])
+
+
+def masked_steps(cache) -> list:
+    """Per program of ``cache``, in build order: (ms, nodes) of one step of
+    its chunk graph replayed after its solve has ended, every part masked
+    and the launch flags of K1 and K2 off (the chunk's outputs included, so
+    an upper bound), timed with CUDA events over 20 replays; nodes per step
+    likewise."""
+    out = []
+    for entry in sorted(cache._programs.values(), key=lambda e: cache._built.index(e.info)):
+        entry.g_chunk.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            entry.g_chunk.replay()
+        end.record()
+        end.synchronize()
+        nodes = entry.info.get("chunk_nodes")
+        out.append((start.elapsed_time(end) / 20 / entry.chunk, None if nodes is None else nodes // entry.chunk))
+    return out
 
 
 def _driver_records(n: int, seed: int, n_users: int = H_USERS, n_items: int = H_ITEMS) -> list:
@@ -791,7 +967,7 @@ def game_drivers_phase(dev, smi: str, check) -> dict:
                                 str(out / "best"), "--evaluators", "AUC", "--device", "cuda"] + shards)
     torch.cuda.synchronize()
     stages("game_scoring", time.perf_counter() - t0, HOST_READS.count - reads0, counts0)
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     launches.update({f"newton_system_d{d}": c for d, c in fused_newton.LAUNCHES_BY_WIDTH.items()})
     log(f"  launches: training {trained}; all three drivers {launches}")
 
@@ -865,9 +1041,11 @@ def main() -> int:
     from photon_tpu_torch.ops.losses import (
         LogisticLoss, PoissonLoss, SmoothedHingeLoss, SquaredLoss)
     from photon_tpu_torch.ops.objective import GLMObjective
+    from photon_tpu_torch.algorithm.solve_cache import SolveCache
     from photon_tpu_torch.optim.common import HOST_READS, OptimizerConfig
-    from photon_tpu_torch.optim.tron import minimize_tron
+    from photon_tpu_torch.optim.factory import OptimizerSpec, make_optimizer
     from photon_tpu_torch.parallel.train_step import full_precision_matmuls, glmix_train_step
+    from photon_tpu_torch.types import OptimizerType
 
     full_precision_matmuls()
     dev = torch.device("cuda")
@@ -968,6 +1146,25 @@ def main() -> int:
     check(torch.equal(fused_hvp(w, Xb, d2), fused_hvp(w, Xb, d2)),
           "K2 N=2^21 d=256 bf16: two launches give bitwise equal products")
     del first, again
+    # The launch flag at the headline shapes and launch plans (every
+    # fixed-effect TRON, OWL-QN and L-BFGS step launches with it): on,
+    # bitwise the launch without it; off, the zeroed outputs stay zero and
+    # the launch is not counted as run.
+    flag_on, flag_off = (torch.tensor(v, dtype=torch.int32, device=dev) for v in (1, 0))
+    kernels.reset_launches()
+    for Xk, tag in ((Xb, "bf16"), (Xf, "f32")):
+        k1 = [fused_value_grad(LogisticLoss, w, Xk, y, off, wt, return_margins=True, enable=e)
+              for e in (None, flag_on, flag_off)]
+        check(all(torch.equal(a, b) for a, b in zip(k1[0], k1[1])) and not any(bool(t.any()) for t in k1[2]),
+              f"K1 N=2^21 d=256 {tag} margins with its launch flag: on, value, gradient and margins bitwise "
+              f"those of the launch without it; off, all three left zero")
+        k2 = [fused_hvp(w, Xk, d2, enable=e) for e in (None, flag_on, flag_off)]
+        check(torch.equal(k2[0], k2[1]) and not bool(k2[2].any()),
+              f"K2 N=2^21 d=256 {tag} with its launch flag: on, bitwise the launch without it; off, left zero")
+        del k1, k2
+    flagged = launch_counts()
+    check(all(flagged[k] == 6 and flagged[f"{k}_ran"] == 4 for k in ("fused_value_grad", "fused_hvp")),
+          f"K1 and K2: 6 launches each, 4 of them run (the flag's count on the card): {flagged}")
     Eb, nb, db = block.features.shape
     rd2 = torch.rand(Eb, nb, device=dev, generator=g) * 0.25 * block.weight
     rdz = torch.randn(Eb, nb, device=dev, generator=g) * block.weight
@@ -1138,7 +1335,7 @@ def main() -> int:
             f"FE objective {float(fe_obj):.6e}; {cache_text(default_cache().stats.since(counts0))}; {peak_text()}")
         check(bool(torch.isfinite(scores).all()) and np.isfinite(float(fe_obj)), f"pass {p}: scores and objective finite")
         check(losses[-1] < losses[-2], f"pass {p}: training logloss fell ({losses[-2]:.6f} -> {losses[-1]:.6f})")
-    glmix_launches = dict(kernels.LAUNCHES)
+    glmix_launches = launch_counts()
     cache_entries(built0)
     log(f"  GLMix {CD_PASSES} passes: {total_s:.3f} s, {HOST_READS.count - reads0} host reads, "
         f"{total_visits / total_s:.4e} samples/s (bench.py visit accounting) on {smi}; launches {glmix_launches}")
@@ -1149,23 +1346,36 @@ def main() -> int:
     profiled("profiled pass", lambda: step(w_fixed, re_coefs, fe_batch, block, Xr, users))
 
     # ---------------- 5. TRON ----------------
-    log("## phase 5: fixed-effect TRON (hvp_factory = linearized_hvp)")
+    log("## phase 5: fixed-effect TRON through the solve cache (captured: K1 trials, K2 products)")
     tron_obj = GLMObjective(use_fused=True, **obj)
+    spec5 = OptimizerSpec(OptimizerType.TRON, max_iter=5, tol=1e-5)
     w0 = torch.zeros(D_FIX, device=dev)
     f0 = float(tron_obj.value_and_grad(w0, fe_batch)[0])
+    eager = make_optimizer(tron_obj, spec5)(w0, fe_batch)  # the same program, eagerly (not counted)
+    cache5 = SolveCache()
+    built0 = cache_setup("5 TRON", cache5)
     kernels.reset_launches()
-    torch.cuda.synchronize()
-    r0, t0 = HOST_READS.count, time.perf_counter()
-    res = minimize_tron(lambda v: tron_obj.value_and_grad(v, fe_batch), None, w0,
-                        OptimizerConfig(max_iter=5, tol=1e-5),
-                        hvp_factory=lambda v: tron_obj.linearized_hvp(v, fe_batch))
-    torch.cuda.synchronize()
-    tron_launches = dict(kernels.LAUNCHES)
-    log(f"  {time.perf_counter() - t0:.3f} s, {int(res.iterations)} iterations, {HOST_READS.count - r0} host reads "
-        "(TRON keeps its host loop), "
-        f"objective {f0:.6e} -> {float(res.value):.6e}; launches {tron_launches}")
+    for attempt in ("capture", "replay"):
+        torch.cuda.synchronize()
+        r0, t0, counts0 = HOST_READS.count, time.perf_counter(), cache5.stats.counts()
+        res = cache5.fe_solver(tron_obj, spec5)(w0, fe_batch)
+        torch.cuda.synchronize()
+        d5 = cache5.stats.since(counts0)
+        log(f"  {attempt}: {time.perf_counter() - t0:.4f} s, {int(res.iterations)} iterations, "
+            f"{res.convergence_reason.value}, {HOST_READS.count - r0} host reads, {int(res.x_passes)} X passes "
+            f"({d5['x_passes_run']} run, masked steps and warm-up included), objective {f0:.6e} -> "
+            f"{float(res.value):.6e}; {cache_text(d5)}")
+    tron_launches = launch_counts()
+    cache_entries(built0, cache5)
+    for info, (ms, nodes) in zip(cache5.entry_info(), masked_steps(cache5)):
+        log(f"  masked step of {info['key']}: {ms:.4f} ms, {nodes} graph nodes a step; launches {tron_launches}")
+    _, r5 = rel_err(res.w, eager.w)
     check(float(res.value) < f0 and np.isfinite(float(res.value)), "TRON lowered the objective")
-    check(tron_launches["fused_value_grad"] > 0 and tron_launches["fused_hvp"] > 0, "TRON path launched K1 and K2")
+    check(ran(tron_launches, "fused_value_grad") > 0 and ran(tron_launches, "fused_hvp") > 0,
+          "TRON path ran K1 and K2 (launches with their flag on)")
+    check(int(res.iterations) == int(eager.iterations) and int(res.reason_code) == int(eager.reason_code)
+          and r5 <= 1e-6, f"5 TRON captured vs eager on the card: iterations and reason equal, coefficients rel "
+                          f"{r5:.3e} (tolerance 1e-6)")
 
     # ---------------- 6. train_glm ----------------
     del fe_batch, block, ds
@@ -1175,8 +1385,13 @@ def main() -> int:
 
     # ---------------- 7. GAME ----------------
     torch.cuda.empty_cache()
-    game_launches = game_phase(dev, smi, check, Xb, Xr, users, E)
+    game_launches, train, valid, fe_auc = game_phase(dev, smi, check, Xb, Xr, users, E)
     del Xb, Xr, users, y
+
+    # ---------------- 9. GAME with the other solvers ----------------
+    torch.cuda.empty_cache()
+    solver_launches = game_solvers_phase(dev, smi, check, train, valid, fe_auc)
+    del train, valid
 
     # ---------------- 8. GAME drivers ----------------
     torch.cuda.empty_cache()
@@ -1203,12 +1418,13 @@ def main() -> int:
                              **{f"{other}_ms": o["ms"], f"{other}_bound_ms": o["bound_ms"]})
     timings["newton_system_d128"].update({f"d96_{k}": v for k, v in timings.pop("newton_system_d96").items()},
                                          d96_max_abs_err=headline_err["newton_system_d96"])
+    # "ran": the launches that did their work (launches less those whose
+    # launch flag was off; K3 has no flag).
+    paths = (glmix_launches, tron_launches, glm_launches, game_launches, driver_launches, solver_launches)
     rows = []
     for name, (src, repl) in sources.items():
         rows.append(dict(name=name, route="cuda", source=src, replaces=repl,
-                         launches=(glmix_launches.get(name, 0) + tron_launches.get(name, 0)
-                                   + glm_launches.get(name, 0) + game_launches.get(name, 0)
-                                   + driver_launches.get(name, 0)),
+                         launches=sum(c.get(name, 0) for c in paths), ran=sum(ran(c, name) for c in paths),
                          max_abs_err=headline_err[name], **timings[name]))
     if failures:
         log(f"chip_smoke: {len(failures)} check(s) failed: {failures}")

@@ -2,18 +2,21 @@
 block at a time (port of photon_tpu/algorithm/random_effect.py, the dense
 and projected in-process paths).
 
-Every entity of a block is solved at once: batched damped Newton for smooth,
-unmasked, shift-free problems up to d = 128 (at any width under an explicit
-NEWTON spec), with its Newton systems from the K3 kernel on the card; batched
-margin-space L-BFGS for the feature-masked (Pearson), shift-normalized and
-wider problems, and batched gradient-form L-BFGS where a mask meets shifts
-(optim/batched.py). Every lane keeps the reference's iteration count and
-reason. Batched OWL-QN (an L1 weight) and TRON (an explicit TRON spec) are
-not ported yet, nor the out-of-core store or per-device placement: a
+Every entity of a block is solved at once, by one solver program with a
+lane an entity (optim/program.py), on the reference's routes in the
+reference's order: OWL-QN under an L1 weight (L1 or elastic net, the
+intercept unpenalized); batched damped Newton for smooth, unmasked,
+shift-free problems up to d = 128 (at any width under an explicit NEWTON
+spec), with its Newton systems from the K3 kernel on the card; TRON under an
+explicit TRON spec (the Pearson mask folded into the Hessian-vector
+product); then margin-space L-BFGS for the feature-masked (Pearson),
+shift-normalized and wider problems, and gradient-form L-BFGS where a mask
+meets shifts. Every lane keeps the reference's iteration count and reason.
+The out-of-core store and per-device placement are not ported yet: a
 coordinate that would need one raises.
 
 Every block solve goes through the solve cache (``solve_cache``, else the
-shared ``default_cache()``): the Newton route as captured CUDA graphs on the
+shared ``default_cache()``): every route as captured CUDA graphs on the
 card. The active-set gate is the reference's: from the second pass, only
 entities whose coefficients still moved more than ``convergence_tol`` are
 solved, repacked onto blocks of the sizes the full pass used (inside
@@ -47,7 +50,6 @@ from photon_tpu_torch.models.game import DatumScoringModel, ProjectedRandomEffec
 from photon_tpu_torch.ops.fused_newton import resolve_re_kernel
 from photon_tpu_torch.ops.objective import GLMObjective
 from photon_tpu_torch.ops.variance import full_hessian_variances, normalize_variance_type
-from photon_tpu_torch.optim import batched
 from photon_tpu_torch.optim.common import (
     HOST_READS,
     OptimizerConfig,
@@ -56,9 +58,14 @@ from photon_tpu_torch.optim.common import (
     REASON_GRADIENT_CONVERGED,
     REASON_MAX_ITERATIONS,
 )
-from photon_tpu_torch.optim.factory import OptimizerSpec
-from photon_tpu_torch.optim.newton import EAGER_CHUNK, Newton
-from photon_tpu_torch.optim.program import run_chunked
+from photon_tpu_torch.optim.factory import OptimizerSpec, l1_mask
+from photon_tpu_torch.optim.lbfgs import LBFGS
+from photon_tpu_torch.optim.margin_lbfgs import MarginLBFGS
+from photon_tpu_torch.optim.newton import Newton
+from photon_tpu_torch.optim.owlqn import OWLQN
+from photon_tpu_torch.optim.problem import GLMOracle, GLMTerms
+from photon_tpu_torch.optim.program import EAGER_CHUNK, Program, run_chunked
+from photon_tpu_torch.optim.tron import TRON
 from photon_tpu_torch.types import OptimizerType, TaskType, VarianceComputationType
 
 Tensor = torch.Tensor
@@ -145,15 +152,6 @@ def newton_eligible(objective: GLMObjective, spec: OptimizerSpec, block_dim: int
                  or (spec.optimizer == OptimizerType.LBFGS and block_dim <= NEWTON_AUTO_MAX_DIM)))
 
 
-def _block_problem(objective: GLMObjective, features: Tensor, block: EntityBlock,
-                   offsets: Tensor) -> batched.BlockGLM:
-    norm = objective.normalization
-    folded = norm is not None and not norm.is_identity
-    return batched.BlockGLM(
-        objective.loss, features, block.label, block.weight, offsets, objective.l2_weight,
-        objective.intercept_index, norm.factors if folded else None, norm.shifts if folded else None)
-
-
 def _block_start(w0: Tensor, objective: GLMObjective) -> Tensor:
     """The solver's start: the model-space warm start in transformed space."""
     norm = objective.normalization
@@ -171,12 +169,30 @@ def _block_end(w: Tensor, w0: Tensor, block: EntityBlock, objective: GLMObjectiv
     return torch.where(block.train_mask[:, None], w_out, w0)
 
 
-def block_newton(objective: GLMObjective, block: EntityBlock, offsets: Tensor, w_start: Tensor,
-                 config: OptimizerConfig, re_kernel: str) -> Newton:
-    """The batched Newton state machine of a block, from the transformed
-    start ``w_start``."""
-    return Newton(objective, LabeledBatch(block.label, block.features, offsets, block.weight), w_start,
-                  config, kernel=re_kernel)
+def block_program(objective: GLMObjective, spec: OptimizerSpec, config: OptimizerConfig, block: EntityBlock,
+                  offsets: Tensor, w_start: Tensor, feature_mask: Optional[Tensor] = None,
+                  re_kernel: str = "torch") -> Program:
+    """The solver program of a block on the reference's route (module
+    docstring), one lane an entity, from the transformed start ``w_start``
+    (E, d); it reads the block's tensors, ``offsets``, ``feature_mask`` and
+    ``w_start`` in place."""
+    oracle = lambda: GLMOracle(GLMTerms.of_block(objective, block, offsets), objective.l2_weight,  # noqa: E731
+                               objective.intercept_index, w_start.dtype, mask=feature_mask)
+    if objective.l1_weight > 0.0:
+        return OWLQN(oracle(), w_start, objective.l1_weight, config, l1_mask(objective, w_start))
+    if newton_eligible(objective, spec, block.dim, feature_mask is not None):
+        return Newton(objective, LabeledBatch(block.label, block.features, offsets, block.weight), w_start,
+                      config, kernel=re_kernel)
+    if spec.optimizer == OptimizerType.TRON:
+        return TRON(oracle(), w_start, config, spec.max_cg_iter)
+    if feature_mask is not None and _has_shifts(objective):
+        # Shift normalization spans the whole w, so masking X's columns would
+        # not silence masked coordinates: solve f(w ∘ m) in gradient form.
+        return LBFGS(oracle(), w_start, config)
+    # Margin-space L-BFGS on X ∘ m: masked coordinates appear only in the
+    # separable L2 term and reach the gradient-masked optimum.
+    return MarginLBFGS(GLMTerms.of_block(objective, block, offsets, col_mask=feature_mask), objective.l2_weight,
+                       objective.intercept_index, w_start, config)
 
 
 def _solve_block(block: EntityBlock, offsets: Tensor, w0: Tensor, objective: GLMObjective,
@@ -184,30 +200,12 @@ def _solve_block(block: EntityBlock, offsets: Tensor, w0: Tensor, objective: GLM
                  feature_mask: Optional[Tensor] = None, re_kernel: str = "torch"):
     """Solve every entity of a block from the model-space warm start w0
     (E, d), eagerly; returns (w (E, d) in model space, iterations, reasons,
-    X passes), each per entity. The solve cache runs the Newton route as a
-    captured state machine (``block_newton``) between the same two ends."""
-    if objective.l1_weight > 0.0:
-        raise NotImplementedError("batched OWL-QN for random effects under L1 is not ported yet")
-    w_start = _block_start(w0, objective)
-    if newton_eligible(objective, spec, block.dim, feature_mask is not None):
-        prog = block_newton(objective, block, offsets, w_start, config, re_kernel)
-        run_chunked(prog, EAGER_CHUNK)
-        res = prog.result()
-    elif spec.optimizer == OptimizerType.TRON:
-        raise NotImplementedError("batched TRON for random effects is not ported yet")
-    elif feature_mask is not None and _has_shifts(objective):
-        # Shift normalization spans the whole w, so masking X's columns would
-        # not silence masked coordinates: solve f(w ∘ m) in gradient form.
-        full = _block_problem(objective, block.features, block, offsets)
-
-        def vg(w):
-            v, g = full.value_and_grad(w * feature_mask)
-            return v, g * feature_mask
-
-        res = batched.minimize_lbfgs(vg, w_start, config)
-    else:
-        X = block.features if feature_mask is None else block.features * feature_mask[:, None, :]
-        res = batched.minimize_lbfgs_margin(_block_problem(objective, X, block, offsets), w_start, config)
+    X passes), each per entity. The solve cache captures the same program
+    (``block_program``) between the same two ends."""
+    prog = block_program(objective, spec, config, block, offsets, _block_start(w0, objective), feature_mask,
+                         re_kernel)
+    run_chunked(prog, EAGER_CHUNK)
+    res = prog.result()
     return _block_end(res.w, w0, block, objective, feature_mask), res.iterations, res.reason_code, res.x_passes
 
 
@@ -218,8 +216,8 @@ def _block_variances_of(objective: GLMObjective, block: EntityBlock, offsets: Te
     norm = objective.normalization
     folded = norm is not None and not norm.is_identity
     wv = norm.model_to_transformed_space(w) if folded else w
-    P = _block_problem(objective, block.features, block, offsets)
-    d2 = block.weight * objective.loss.dzz(P.forward(wv) + offsets, block.label)
+    terms = GLMTerms.of_block(objective, block, offsets)
+    d2 = terms.curvature(terms.forward(wv) + offsets)
     Xe = block.features.to(d2.dtype)
     if folded and norm.factors is not None:
         Xe = Xe * norm.factors
@@ -274,13 +272,6 @@ class RandomEffectCoordinate(Coordinate):
 
     def __post_init__(self):
         self.compute_variance = normalize_variance_type(self.compute_variance)
-        if self.objective.l1_weight > 0.0:
-            raise NotImplementedError(
-                f"coordinate {self.coordinate_id}: batched OWL-QN for random effects under L1 "
-                "is not ported yet")
-        if self.optimizer_spec.optimizer == OptimizerType.TRON:
-            raise NotImplementedError(
-                f"coordinate {self.coordinate_id}: batched TRON for random effects is not ported yet")
         if self.device_budget_bytes:
             raise NotImplementedError("the out-of-core random-effect store is not ported yet")
         if self.device is not None:

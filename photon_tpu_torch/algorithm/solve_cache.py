@@ -21,9 +21,10 @@ has-mask, active-set tol, re_kernel); objects keyed by identity are pinned,
 so an id is never recycled while its entry lives. A graph also fixes its
 inputs' shapes, dtypes and device, so those are in the key too (the
 reference's trace records the shape and retraces on a new one, which counts
-as a trace here as there). The objective's L2 weight is in the key, as in
-the reference, but not in the graph: the state machines read it from a
-device scalar, so the keys of one λ sweep share one captured program
+as a trace here as there). The objective's L2 and L1 weights are in the
+key, as in the reference, but not in the graph: the state machines read
+them from device scalars (``prog.l2``, OWL-QN's ``prog.l1``), so the keys of
+one λ sweep, L2, L1 or elastic net, share one captured program
 (``captures`` counts those; ``traces`` counts keys, as the reference does).
 
 The fixed effect's X and label, the same tensors in every pass, are keyed
@@ -38,10 +39,11 @@ cloned, since the next replay overwrites them. ``release`` drops every
 entry with its graphs, buffers and pinned tensors: the GAME estimator and
 the λ sweep of cli/train_glm.py release the shared cache when they return.
 
-Routes that keep host loops (TRON and its CG, OWL-QN, L-BFGS-B, black-box
-L-BFGS, the entity-batched L-BFGS of optim/batched.py) are entries too,
-marked eager by their route: they run their solver as it is. A capture or
-replay that fails raises; nothing falls back to an eager solve.
+Every route is a program: margin L-BFGS, TRON, OWL-QN, L-BFGS-B and
+gradient-form L-BFGS on the fixed effect (optim/factory.py::fe_program),
+and the same plus batched Newton on a block, one lane an entity
+(random_effect.py::block_program). A capture or replay that fails raises;
+nothing falls back to an eager solve.
 """
 
 from __future__ import annotations
@@ -62,17 +64,18 @@ from photon_tpu_torch.data.batch import LabeledBatch
 from photon_tpu_torch.ops import kernels
 from photon_tpu_torch.optim.common import REASON_DIVERGED
 from photon_tpu_torch.optim.program import Program, chunk_loop, run_chunked
-from photon_tpu_torch.types import OptimizerType
 
 Tensor = torch.Tensor
 
 # Bounded-cache opt-in: entry cap for every SolveCache constructed without an
 # explicit ``max_entries`` (default unbounded; a λ sweep is one entry per λ).
 MAX_ENTRIES_ENV = "PHOTON_TPU_TORCH_SOLVE_CACHE_MAX_ENTRIES"
-# Loop steps per captured chunk (one host read per chunk), by solver; read
-# when a program is built.
+# Loop steps per captured chunk (one host read per chunk), read when a
+# program is built (``chunk_of``): FE_CHUNK for the fixed effect's margin
+# L-BFGS, CHUNK for every other program. Both chosen by sweeps of K on the
+# card (PERF.md §6).
 FE_CHUNK = 2
-BLOCK_CHUNK = 4
+CHUNK = 4
 _WARMUP_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
 
 
@@ -178,13 +181,21 @@ def _graph_nodes(graph: torch.cuda.CUDAGraph) -> Optional[int]:
     return int(count.value) if err == 0 else None
 
 
+def chunk_of(prog: Program, fixed_effect: bool) -> int:
+    """K of a program (the module's constants, read now)."""
+    from photon_tpu_torch.optim.margin_lbfgs import MarginLBFGS
+
+    return FE_CHUNK if fixed_effect and isinstance(prog, MarginLBFGS) else CHUNK
+
+
 class _Started(Program):
     """``prog`` whose ``init`` first runs ``start`` (which writes the
     program's warm start from the entry's buffers)."""
 
     def __init__(self, prog: Program, start: Callable[[], Any]):
         self.prog, self.start, self.max_steps = prog, start, prog.max_steps
-        self.init_passes, self.step_passes, self.l2 = prog.init_passes, prog.step_passes, prog.l2
+        self.init_passes, self.step_passes = prog.init_passes, prog.step_passes
+        self.l2, self.l1 = prog.l2, prog.l1
 
     def init(self) -> None:
         self.start()
@@ -206,26 +217,29 @@ class _Started(Program):
 class _Entry:
     """One program: a Program over static input buffers (``slots``), with
     ``post`` (the outputs from the program's result, capturable), run by
-    graph replays on the card and eagerly on the CPU. ``prog.l2`` is the
-    program's L2 weight, filled per solve."""
+    graph replays on the card and eagerly on the CPU. ``prog.l2`` (and
+    ``prog.l1`` where the program has one) are its weights, filled per
+    solve from ``weights`` = (L2, L1)."""
 
     def __init__(self, cache: "SolveCache", prog: Program, slots: Dict[str, _Slot], post: Callable[[], tuple],
-                 chunk: int, inputs: Dict[str, Tensor], l2_weight: float):
+                 chunk: int, inputs: Dict[str, Tensor], weights: Tuple[float, float]):
         # The cache by a weak reference (it holds its entries; a solver handle
         # that holds an entry holds the cache too).
         self._cache = weakref.ref(cache)
         self.prog, self.slots, self.post = prog, slots, post
         self.chunk = max(1, min(chunk, prog.max_steps))
         device = self.device = inputs["w0"].device
-        self._load(inputs, l2_weight)  # the warm-up solves the first call's problem
+        self._load(inputs, weights)  # the warm-up solves the first call's problem
         self.captured = device.type == "cuda"
         self.flag = torch.zeros((), dtype=torch.bool, device=device)
         self.info: Dict[str, Any] = dict(chunk=self.chunk)
         if self.captured:
             self._capture()
 
-    def _load(self, inputs: Dict[str, Tensor], l2_weight: float) -> None:
-        self.prog.l2.fill_(l2_weight)
+    def _load(self, inputs: Dict[str, Tensor], weights: Tuple[float, float]) -> None:
+        for t, v in zip((self.prog.l2, self.prog.l1), weights):
+            if t is not None:
+                t.fill_(v)
         self._cache().stats.copied_bytes += sum(self.slots[k].load(v) for k, v in inputs.items())
 
     def _chunk_body(self) -> tuple:
@@ -273,8 +287,8 @@ class _Entry:
         self._cache().stats.replays += 1
         return self.flag
 
-    def __call__(self, inputs: Dict[str, Tensor], l2_weight: float) -> tuple:
-        self._load(inputs, l2_weight)
+    def __call__(self, inputs: Dict[str, Tensor], weights: Tuple[float, float]) -> tuple:
+        self._load(inputs, weights)
         if self.captured:
             steps = chunk_loop(self._replay_init, self._replay_chunk, self.chunk, self.prog.max_steps)
             out = self.out
@@ -326,12 +340,12 @@ class SolveCache:
 
     @classmethod
     def _objective_key(cls, objective) -> Tuple:
-        """The objective's key without its L2 weight (an input of the
-        program), but with whether it has one."""
+        """The objective's key without its L2 and L1 weights (inputs of the
+        program), but with whether it has each."""
         return (
             objective.loss,
             objective.l2_weight != 0.0,
-            _scalar(objective.l1_weight),
+            objective.l1_weight != 0.0,
             _scalar(objective.intercept_index),
             bool(objective.use_fused),
             cls._norm_key(objective.normalization),
@@ -382,14 +396,13 @@ class SolveCache:
             out[name] = slot
         return out
 
-    def _get_or_build(self, pkey: Tuple, l2_weight: float, build: Callable[[], Any], pins: Tuple,
+    def _get_or_build(self, pkey: Tuple, weights: Tuple[float, float], build: Callable[[], Any], pins: Tuple,
                       trace_key: Tuple):
-        """The entry of (``pkey``, ``l2_weight``), the reference's key: if
-        absent, the live program of ``pkey``, else one built (``build``, None
-        for an eager route); counted as a trace, and a program built as a
-        capture. The least recently used entries past ``max_entries`` are
-        evicted."""
-        key = pkey + (_scalar(l2_weight),)
+        """The entry of (``pkey``, ``weights``), the reference's key: if
+        absent, the live program of ``pkey``, else one built (``build``);
+        counted as a trace, and a program built as a capture. The least
+        recently used entries past ``max_entries`` are evicted."""
+        key = pkey + tuple(_scalar(w) for w in weights)
         with self._lock:
             entry = self._entries.get(key)
             if entry is not None:
@@ -398,14 +411,11 @@ class SolveCache:
             entry = self._programs.get(pkey)
         if entry is None:
             entry = build()
-            if entry is None:
-                entry = "eager"
-            else:
-                with self._lock:
-                    entry.info["key"] = trace_key
-                    self._built.append(entry.info)
-                    self._programs[pkey] = entry
-                    self.stats.captures += 1
+            with self._lock:
+                entry.info["key"] = trace_key
+                self._built.append(entry.info)
+                self._programs[pkey] = entry
+                self.stats.captures += 1
         with self._lock:
             self.stats.traces += 1
             self.stats.trace_keys.append(trace_key)
@@ -418,14 +428,14 @@ class SolveCache:
                     self.stats.evictions += 1
         return entry, True
 
-    def _dispatch(self, handle_entries: Dict, pkey: Tuple, l2_weight: float, build, pins, trace_key):
+    def _dispatch(self, handle_entries: Dict, pkey: Tuple, weights: Tuple[float, float], build, pins, trace_key):
         """An entry for one dispatch of a handle: the one the handle used
         for this key before (kept through eviction, as a jitted handle keeps
         its executable), else the cache's; counts the call and the hit."""
         entry = handle_entries.get(pkey)
         built = False
         if entry is None:
-            entry, built = self._get_or_build(pkey, l2_weight, build, pins, trace_key)
+            entry, built = self._get_or_build(pkey, weights, build, pins, trace_key)
             handle_entries[pkey] = entry
         self.stats.calls += 1
         if not built:
@@ -441,17 +451,16 @@ class SolveCache:
         coefficients moved by more than tol relative to max(1, ‖w0‖);
         padding rows are never active. Every dispatch carries the divergence
         quarantine. ``re_kernel`` is resolved
-        (ops.fused_newton.resolve_re_kernel). The batched Newton route is
-        captured; the batched L-BFGS routes are eager entries."""
-        from photon_tpu_torch.algorithm.random_effect import (
-            _block_end, _block_start, _solve_block, block_newton, newton_eligible)
+        (ops.fused_newton.resolve_re_kernel). Every route is a program
+        (random_effect.py::block_program)."""
+        from photon_tpu_torch.algorithm.random_effect import _block_end, _block_start, block_program
 
         has_mask = bool(has_mask)
         tol = None if convergence_tol is None else float(convergence_tol)
         re_kernel = str(re_kernel)
         base = ("block", self._objective_key(objective), self._spec_key(spec), self._config_key(config),
                 has_mask, tol, re_kernel)
-        l2_weight = float(objective.l2_weight)
+        weights = (float(objective.l2_weight), float(objective.l1_weight))
         entries: Dict = {}
 
         def solve(block, offsets: Tensor, w0: Tensor, feature_mask: Optional[Tensor] = None):
@@ -462,84 +471,72 @@ class SolveCache:
             trace_key = ("block",) + tuple(block.features.shape) + (has_mask,)
             inputs = dict(features=block.features, label=block.label, weight=block.weight, offsets=offsets, w0=w0,
                           train_mask=block.train_mask, entity_idx=block.entity_idx)
+            if has_mask:
+                inputs["feature_mask"] = feature_mask
 
             def build():
-                if not newton_eligible(objective, spec, block.dim, has_mask):
-                    return None
                 slots = self._slots_for(inputs)
                 t = {k: v.t for k, v in slots.items()}
                 blk = dataclasses.replace(block, **{k: t[k] for k in ("features", "label", "weight", "train_mask",
                                                                       "entity_idx")})
+                mask = t.get("feature_mask")
                 w_start = torch.empty_like(t["w0"])
-                prog = _Started(block_newton(objective, blk, t["offsets"], w_start, config, re_kernel),
+                prog = _Started(block_program(objective, spec, config, blk, t["offsets"], w_start, mask, re_kernel),
                                 lambda: w_start.copy_(_block_start(t["w0"], objective)))
 
                 def post():
                     res = prog.result()
-                    w = _block_end(res.w, t["w0"], blk, objective, None)
+                    w = _block_end(res.w, t["w0"], blk, objective, mask)
                     w, reasons, *masks = _gate(w, t["w0"], res.reason_code, t["entity_idx"], tol)
                     return (w, res.iterations, reasons, res.x_passes, *masks)
 
-                return _Entry(self, prog, slots, post, BLOCK_CHUNK, inputs, l2_weight)
+                return _Entry(self, prog, slots, post, chunk_of(prog.prog, False), inputs, weights)
 
-            entry = self._dispatch(entries, key, l2_weight, build, (objective, spec, config), trace_key)
-            if entry == "eager":
-                w, iterations, reasons, passes = _solve_block(block, offsets, w0, objective, spec, config,
-                                                              feature_mask, re_kernel=re_kernel)
-                gated = _gate(w, w0, reasons, block.entity_idx, tol)
-                return (gated[0], iterations, gated[1], passes, *gated[2:])
-            return entry(inputs, l2_weight)
+            entry = self._dispatch(entries, key, weights, build, (objective, spec, config), trace_key)
+            return entry(inputs, weights)
 
         return solve
 
     def fe_solver(self, objective, spec) -> Callable:
         """Fixed-effect solve ``(w0, labeled_batch) -> OptimizeResult`` for
         one (objective, spec), with the reference's divergence backstop: a
-        non-finite final point falls back to w0 with reason DIVERGED. Margin
-        L-BFGS (a smooth, unboxed LabeledBatch under LBFGS) is captured; the
-        other routes are eager entries."""
+        non-finite final point falls back to w0 with reason DIVERGED. Every
+        route is a program (optim/factory.py::fe_program)."""
         from photon_tpu_torch.optim.common import OptimizeResult
-        from photon_tpu_torch.optim.factory import make_optimizer
-        from photon_tpu_torch.optim.margin_lbfgs import MarginLBFGS
+        from photon_tpu_torch.optim.factory import fe_program
 
         base = ("fe", self._objective_key(objective), self._spec_key(spec))
         config = spec.config()
-        l2_weight = float(objective.l2_weight)
+        weights = (float(objective.l2_weight), float(objective.l1_weight))
         entries: Dict = {}
 
-        def backstop(res: OptimizeResult, w0: Tensor) -> OptimizeResult:
-            ok = torch.isfinite(res.w).all()
-            return dataclasses.replace(
-                res, w=torch.where(ok, res.w, w0),
-                reason_code=torch.where(ok, res.reason_code, REASON_DIVERGED).to(torch.int32))
-
         def solve(w0: Tensor, lb) -> OptimizeResult:
-            margin = (objective.l1_weight == 0.0 and isinstance(lb, LabeledBatch) and spec.box is None
-                      and spec.optimizer not in (OptimizerType.TRON, OptimizerType.LBFGSB))
+            if not isinstance(lb, LabeledBatch):
+                raise NotImplementedError("sparse feature batches are not ported yet")
             X, label = lb.features, lb.label
-            key = base + (margin, ("id", id(X)), ("id", id(label))) + tuple(
+            key = base + (("id", id(X)), ("id", id(label))) + tuple(
                 _sig(t) for t in (X, label, lb.weight, lb.offset, w0))
             inputs = dict(w0=w0, weight=lb.weight, offset=lb.offset)
 
             def build():
-                if not margin:
-                    return None
                 slots = self._slots_for(inputs)
                 t = {k: v.t for k, v in slots.items()}
-                prog = MarginLBFGS(objective, LabeledBatch(label, X, t["offset"], t["weight"]), t["w0"], config)
+                prog = fe_program(objective, spec, t["w0"], LabeledBatch(label, X, t["offset"], t["weight"]), config)
 
                 def post():
-                    res = backstop(prog.result(), t["w0"])
-                    return (res.w, res.value, res.grad_norm, res.iterations, res.reason_code, res.loss_history,
+                    res = prog.result()
+                    ok = torch.isfinite(res.w).all()
+                    return (torch.where(ok, res.w, t["w0"]), res.value, res.grad_norm, res.iterations,
+                            torch.where(ok, res.reason_code, REASON_DIVERGED).to(torch.int32), res.loss_history,
                             res.grad_norm_history, res.evals)
 
-                return _Entry(self, prog, slots, post, FE_CHUNK, inputs, l2_weight)
+                entry = _Entry(self, prog, slots, post, chunk_of(prog, True), inputs, weights)
+                entry.eval_unit = prog.eval_unit
+                return entry
 
-            entry = self._dispatch(entries, key, l2_weight, build, (objective, spec, X, label),
+            entry = self._dispatch(entries, key, weights, build, (objective, spec, X, label),
                                    ("fe", int(w0.shape[0])))
-            if entry == "eager":
-                return backstop(make_optimizer(objective, spec)(w0, lb), w0)
-            return OptimizeResult(*entry(inputs, l2_weight), eval_unit="x_passes")
+            return OptimizeResult(*entry(inputs, weights), eval_unit=entry.eval_unit)
 
         return solve
 

@@ -232,8 +232,8 @@ def train_lambda_sweep(
             _sync(w)
             reads0, t0 = HOST_READS.count, time.perf_counter()
             # λ solves route through the solve cache, as in the reference:
-            # one entry per λ; margin L-BFGS is captured once on the card and
-            # reads λ as an input.
+            # one entry per λ; every route's program is captured once on the
+            # card and reads λ (its L2 and L1 parts) as an input.
             counts0 = cache.stats.counts()
             result = cache.fe_solver(objective, spec)(w, train)
             _sync(result.w)

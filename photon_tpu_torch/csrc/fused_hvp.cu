@@ -52,7 +52,9 @@ struct HvpOp {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     hvp_kernel(const T* __restrict__ X, const float* __restrict__ v, const float* __restrict__ d2,
-               float* __restrict__ parts, int n, int d, int tile_n, int vec) {
+               float* __restrict__ parts, int n, int d, int tile_n, int vec,
+               const int* __restrict__ enable) {
+  if (launch_disabled(enable)) return;
   extern __shared__ __align__(16) unsigned char smem[];
   T* xs = reinterpret_cast<T*>(smem);
   float* vs = reinterpret_cast<float*>(smem + align16((size_t)tile_n * d * sizeof(T)));
@@ -101,23 +103,25 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T>
 cudaError_t launch_tile(const void* X, const float* v, const float* d2, float* parts, float* out,
-                        int n, int d, int tile_n, int grid, int vec, cudaStream_t stream) {
+                        int n, int d, int tile_n, int grid, int vec, const int* enable,
+                        cudaStream_t stream) {
   const size_t smem = align16((size_t)tile_n * d * sizeof(T)) + (size_t)(d + tile_n) * sizeof(float);
   auto kernel = hvp_kernel<T>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(X), v, d2, parts, n, d, tile_n,
-                                           vec);
+                                           vec, enable);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_reduce(parts, grid, d, out, stream);
+  return launch_reduce(parts, grid, d, out, stream, enable);
 }
 
 template <typename T>
 cudaError_t dispatch_route(int route, const RowLaunch& a, const float* d2, int vec,
                            cudaStream_t s) {
   if (route == 1) return dispatch_row<T>(a, HvpOp{d2}, s);
-  return launch_tile<T>(a.X, a.vec, d2, a.parts, a.out, a.n, a.d, a.tile_n, a.grid, vec, s);
+  return launch_tile<T>(a.X, a.vec, d2, a.parts, a.out, a.n, a.d, a.tile_n, a.grid, vec, a.enable,
+                        s);
 }
 
 }  // namespace pt
@@ -125,13 +129,15 @@ cudaError_t dispatch_route(int route, const RowLaunch& a, const float* d2, int v
 // route 0 (tile): parts is (grid, d) f32 scratch; tiles_per_slot and stages
 // are unused. route 1 (row): parts is (slots + ceil(slots / 64), d) f32
 // scratch, slots = ceil(ceil(n / tile_n) / tiles_per_slot); vec is unused.
-// out: (d) f32. Returns the cudaError_t of the launches.
+// out: (d) f32. enable: null, or a device int; a launch whose flag is 0
+// writes nothing. Returns the cudaError_t of the launches.
 extern "C" int pt_fused_hvp(const void* X, int x_is_bf16, const void* v, const void* d2,
                             void* parts, void* out, int n, int d, int route, int tile_n, int grid,
-                            int tiles_per_slot, int stages, int vec, void* stream) {
+                            int tiles_per_slot, int stages, int vec, const void* enable,
+                            void* stream) {
   const pt::RowLaunch a{X, static_cast<const float*>(v), static_cast<float*>(parts),
                         static_cast<float*>(out), n, d, tile_n, grid, tiles_per_slot, stages,
-                        nullptr};
+                        nullptr, static_cast<const int*>(enable)};
   const float* d2f = static_cast<const float*>(d2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_is_bf16) return (int)pt::dispatch_route<__nv_bfloat16>(route, a, d2f, vec, s);
@@ -143,7 +149,7 @@ extern "C" int pt_fused_hvp(const void* X, int x_is_bf16, const void* v, const v
 extern "C" int pt_fused_hvp_occupancy(int x_is_bf16, int d, int tile_n, int stages,
                                       int* ctas_per_sm) {
   const pt::RowLaunch a{nullptr, nullptr, nullptr, nullptr, 0, d, tile_n, 0, 1, stages,
-                        ctas_per_sm};
+                        ctas_per_sm, nullptr};
   if (x_is_bf16) return (int)pt::dispatch_row<__nv_bfloat16>(a, pt::HvpOp{nullptr}, nullptr);
   return (int)pt::dispatch_row<float>(a, pt::HvpOp{nullptr}, nullptr);
 }

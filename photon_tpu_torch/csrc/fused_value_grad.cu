@@ -69,7 +69,9 @@ __global__ void __launch_bounds__(kThreads)
     tile_value_grad_kernel(const T* __restrict__ X, const float* __restrict__ w,
                            const float* __restrict__ y, const float* __restrict__ off,
                            const float* __restrict__ wt, float* __restrict__ z_out,
-                           float* __restrict__ parts, int n, int d, int tile_n, int vec) {
+                           float* __restrict__ parts, int n, int d, int tile_n, int vec,
+                           const int* __restrict__ enable) {
+  if (launch_disabled(enable)) return;
   extern __shared__ __align__(16) unsigned char smem[];
   T* xs = reinterpret_cast<T*>(smem);
   float* ws = reinterpret_cast<float*>(smem + align16((size_t)tile_n * d * sizeof(T)));
@@ -135,13 +137,14 @@ struct Args {
   void *z_out, *parts, *out;
   int n, d, tile_n, grid, tiles_per_slot, stages, vec;
   int* ctas_per_sm;  // if set, the row route reports its occupancy instead of launching
+  const int* enable;  // launch flag (glm_common.h launch_disabled), may be null
 };
 
 template <typename T, int L>
 cudaError_t launch_row(const Args& a, cudaStream_t s) {
   const RowLaunch r{a.X,    static_cast<const float*>(a.w), static_cast<float*>(a.parts),
                     static_cast<float*>(a.out), a.n, a.d, a.tile_n, a.grid, a.tiles_per_slot,
-                    a.stages, a.ctas_per_sm};
+                    a.stages, a.ctas_per_sm, a.enable};
   const ValueGradOp<L> op{static_cast<const float*>(a.y), static_cast<const float*>(a.off),
                           static_cast<const float*>(a.wt), static_cast<float*>(a.z_out)};
   return dispatch_row<T>(r, op, s);
@@ -157,11 +160,12 @@ cudaError_t launch_tile(const Args& a, cudaStream_t stream) {
   kernel<<<a.grid, kThreads, smem, stream>>>(
       static_cast<const T*>(a.X), static_cast<const float*>(a.w), static_cast<const float*>(a.y),
       static_cast<const float*>(a.off), static_cast<const float*>(a.wt),
-      static_cast<float*>(a.z_out), static_cast<float*>(a.parts), a.n, a.d, a.tile_n, a.vec);
+      static_cast<float*>(a.z_out), static_cast<float*>(a.parts), a.n, a.d, a.tile_n, a.vec,
+      a.enable);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_reduce(static_cast<const float*>(a.parts), a.grid, a.d + 1,
-                       static_cast<float*>(a.out), stream);
+                       static_cast<float*>(a.out), stream, a.enable);
 }
 
 template <typename T, int L>
@@ -185,15 +189,17 @@ cudaError_t dispatch_loss(int loss, int route, const Args& a, cudaStream_t s) {
 // route 0 (tile): parts is (grid, d + 1) f32 scratch; tiles_per_slot and
 // stages are unused. route 1 (row): parts is (slots + ceil(slots / 64),
 // d + 1) f32 scratch, slots = ceil(ceil(n / tile_n) / tiles_per_slot); vec is
-// unused. out: (d + 1) f32 = [grad, loss]. z_out may be null. Returns the
+// unused. out: (d + 1) f32 = [grad, loss]. z_out may be null. enable: null,
+// or a device int; a launch whose flag is 0 writes nothing. Returns the
 // cudaError_t of the launches.
 extern "C" int pt_fused_value_grad(const void* X, int x_is_bf16, const void* w, const void* y,
                                    const void* off, const void* wt, void* z_out, void* parts,
                                    void* out, int n, int d, int route, int tile_n, int grid,
                                    int tiles_per_slot, int stages, int loss, int vec,
-                                   void* stream) {
+                                   const void* enable, void* stream) {
   const pt::Args a{X,     w, y,      off,  wt,   z_out,          parts,  out, n,
-                   d, tile_n, grid, tiles_per_slot, stages, vec, nullptr};
+                   d, tile_n, grid, tiles_per_slot, stages, vec, nullptr,
+                   static_cast<const int*>(enable)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_is_bf16) return (int)pt::dispatch_loss<__nv_bfloat16>(loss, route, a, s);
   return (int)pt::dispatch_loss<float>(loss, route, a, s);
@@ -203,8 +209,9 @@ extern "C" int pt_fused_value_grad(const void* X, int x_is_bf16, const void* w, 
 // *ctas_per_sm. Launches nothing.
 extern "C" int pt_fused_value_grad_occupancy(int x_is_bf16, int d, int tile_n, int stages,
                                              int loss, int* ctas_per_sm) {
-  const pt::Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                   0,       d,       tile_n,  0,       1,       stages,  0,       ctas_per_sm};
+  const pt::Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,     nullptr, nullptr,
+                   0,       d,       tile_n,  0,       1,       stages,  0,           ctas_per_sm,
+                   nullptr};
   if (x_is_bf16) return (int)pt::dispatch_loss<__nv_bfloat16>(loss, 1, a, nullptr);
   return (int)pt::dispatch_loss<float>(loss, 1, a, nullptr);
 }

@@ -97,12 +97,21 @@ __device__ __forceinline__ void stage(T* dst, const T* __restrict__ src, long co
 // min(num_parts, (g + 1) * group))) of parts[c * width + j]; blockIdx.y is
 // the group. Each block takes 32 columns; its 8 thread rows sum strided part
 // subsets in a fixed order and thread row 0 adds the 8 subtotals in order, so
-// the result is reproducible run to run (no atomics).
+// the result is reproducible run to run (no atomics). A launch whose
+// `enable` flag (device memory, may be null) is 0 writes nothing.
 constexpr int kReduceRows = 8;
+
+// The launch flag of K1 and K2: null, or a device int that a launch reads
+// first and returns at once on when it is 0 (a masked step of a captured
+// solve, optim/program.py). Uniform over the grid, so no barrier is split.
+__device__ __forceinline__ bool launch_disabled(const int* enable) {
+  return enable != nullptr && __ldg(enable) == 0;
+}
 
 __global__ void __launch_bounds__(32 * kReduceRows)
     reduce_parts(const float* __restrict__ parts, int num_parts, int width, int group,
-                 float* __restrict__ out) {
+                 float* __restrict__ out, const int* __restrict__ enable) {
+  if (launch_disabled(enable)) return;
   __shared__ float sub[kReduceRows][32];
   const int j = blockIdx.x * 32 + threadIdx.x;
   const int c0 = blockIdx.y * group, c1 = min(num_parts, c0 + group);
@@ -122,10 +131,10 @@ __global__ void __launch_bounds__(32 * kReduceRows)
 
 // out[j] = sum over all num_parts rows of parts, in one group.
 inline cudaError_t launch_reduce(const float* parts, int num_parts, int width, float* out,
-                                 cudaStream_t stream) {
+                                 cudaStream_t stream, const int* enable = nullptr) {
   dim3 block(32, kReduceRows);
   dim3 grid((width + 31) / 32);
-  reduce_parts<<<grid, block, 0, stream>>>(parts, num_parts, width, num_parts, out);
+  reduce_parts<<<grid, block, 0, stream>>>(parts, num_parts, width, num_parts, out, enable);
   return cudaGetLastError();
 }
 
@@ -138,15 +147,16 @@ constexpr int kTreeGroup = 64;
 inline int tree_groups(int num_parts) { return (num_parts + kTreeGroup - 1) / kTreeGroup; }
 
 inline cudaError_t launch_reduce_tree(const float* parts, int num_parts, int width, float* mid,
-                                      float* out, cudaStream_t stream) {
+                                      float* out, cudaStream_t stream,
+                                      const int* enable = nullptr) {
   const int groups = tree_groups(num_parts);
-  if (groups == 1) return launch_reduce(parts, num_parts, width, out, stream);
+  if (groups == 1) return launch_reduce(parts, num_parts, width, out, stream, enable);
   dim3 block(32, kReduceRows);
   dim3 grid((width + 31) / 32, groups);
-  reduce_parts<<<grid, block, 0, stream>>>(parts, num_parts, width, kTreeGroup, mid);
+  reduce_parts<<<grid, block, 0, stream>>>(parts, num_parts, width, kTreeGroup, mid, enable);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_reduce(mid, groups, width, out, stream);
+  return launch_reduce(mid, groups, width, out, stream, enable);
 }
 
 // ---- mbarriers and the 1-D bulk copy (TMA without a tensor map), sm_90 ----

@@ -166,7 +166,8 @@ template <typename T, typename Op, int CPL>
 __global__ void __launch_bounds__(kRowThreads + 32)
     row_kernel(const T* __restrict__ X, const float* __restrict__ vec, const Op op,
                float* __restrict__ parts, int n, int d, int tile_n, int tiles_per_slot,
-               int stages) {
+               int stages, const int* __restrict__ enable) {
+  if (launch_disabled(enable)) return;
   constexpr int V = Chunk<T>::V;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
@@ -253,7 +254,8 @@ struct RowLaunch {
   const float* vec;  // the vector dotted with each row, rounded like X
   float *parts, *out;
   int n, d, tile_n, grid, tiles_per_slot, stages;
-  int* ctas_per_sm;  // if set, report the occupancy instead of launching
+  int* ctas_per_sm;    // if set, report the occupancy instead of launching
+  const int* enable;   // launch flag (launch_disabled), may be null
 };
 
 template <typename T, typename Op, int CPL>
@@ -274,14 +276,14 @@ cudaError_t launch_row(const RowLaunch& a, const Op& op, cudaStream_t stream) {
   }
   kernel<<<a.grid, kRowThreads + 32, smem, stream>>>(static_cast<const T*>(a.X), a.vec, op,
                                                       a.parts, a.n, a.d, a.tile_n,
-                                                      a.tiles_per_slot, a.stages);
+                                                      a.tiles_per_slot, a.stages, a.enable);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // parts holds the slots' partials, then room for the tree's group sums.
   const int num_tiles = (a.n + a.tile_n - 1) / a.tile_n;
   const int num_slots = (num_tiles + a.tiles_per_slot - 1) / a.tiles_per_slot;
   return launch_reduce_tree(a.parts, num_slots, width, a.parts + (size_t)num_slots * width, a.out,
-                            stream);
+                            stream, a.enable);
 }
 
 // Chunks per lane: the smallest of 1, 2, 4, 8 with 32 * CPL >= d / V.

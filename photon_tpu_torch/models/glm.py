@@ -25,7 +25,7 @@ class GeneralizedLinearModel:
     task: TaskType
 
     @staticmethod
-    def zeros(dim: int, task: TaskType, dtype=torch.float32, device="cpu") -> "GeneralizedLinearModel":
+    def zeros(dim: int, task: TaskType, dtype=torch.float32, device="cuda") -> "GeneralizedLinearModel":
         return GeneralizedLinearModel(Coefficients(torch.zeros(dim, dtype=dtype, device=device)), task)
 
     def compute_score(self, features: Tensor) -> Tensor:

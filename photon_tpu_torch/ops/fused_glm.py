@@ -13,12 +13,22 @@ X may be f32 or bfloat16. As in the reference, the vector is rounded to X's
 dtype before the dot and everything after is f32. On CPU tensors each
 wrapper computes its plain version (``*_plain``, same casts); on CUDA
 tensors it launches the kernel or raises.
+
+Both take an optional launch flag ``enable``, a 0-dim int32 tensor on the
+card: the kernels read it first and a launch whose flag is 0 returns at once
+and writes nothing, so a captured solve step (optim/program.py) skips the X
+pass of a part that does not apply instead of running it masked. With a
+flag the outputs start zeroed (a disabled launch returns zeros); a launch
+whose flag is 1 gives the result of a launch without one, bit for bit. The
+plain versions compute whatever the flag says: their callers keep a result
+only where the flag was on. A flagged launch is counted apart as well
+(``kernels.count_flag``), so ``kernels.ran`` tells the launches that ran.
 """
 
 from __future__ import annotations
 
 from dataclasses import asdict, dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -209,9 +219,26 @@ def fused_value_grad_plain(loss: PointwiseLoss, w, X, label, offset, weight,
     return (value, grad, z) if return_margins else (value, grad)
 
 
+def _flag(name: str, enable, X: Tensor):
+    """The kernel's pointer to the launch flag ``enable`` (None: no flag)."""
+    if enable is None:
+        return None
+    if enable.dtype != torch.int32 or enable.dim() != 0 or enable.device != X.device:
+        raise ValueError(f"{name}: enable must be a 0-dim int32 tensor on {X.device}, got "
+                         f"{enable.dtype} {tuple(enable.shape)} on {enable.device}")
+    return kernels.ptr(enable)
+
+
+def _out(shape, X: Tensor, enable):
+    alloc = torch.empty if enable is None else torch.zeros
+    return alloc(shape, dtype=torch.float32, device=X.device)
+
+
 def fused_value_grad(loss: PointwiseLoss, w: Tensor, X: Tensor, label: Tensor,
-                     offset: Tensor, weight: Tensor, return_margins: bool = False):
-    """(value, grad[, z]) of the weighted data loss in one pass over X."""
+                     offset: Tensor, weight: Tensor, return_margins: bool = False,
+                     enable: Optional[Tensor] = None):
+    """(value, grad[, z]) of the weighted data loss in one pass over X
+    (``enable``: the launch flag of the module docstring)."""
     n, d = X.shape
     _check_width(d, "fused_value_grad")
     if X.device.type == "cpu":
@@ -221,15 +248,18 @@ def fused_value_grad(loss: PointwiseLoss, w: Tensor, X: Tensor, label: Tensor,
         raise ValueError("fused_value_grad: shapes of w/label/offset/weight do not match X")
     # Route by shape (value_grad_route): both routes are CUDA kernels.
     scratch, geometry, vec = _launch_geometry("fused_value_grad", X, loss.kernel_id)
+    flag = _flag("fused_value_grad", enable, X)
     parts = torch.empty((scratch, d + 1), dtype=torch.float32, device=X.device)
-    out = torch.empty(d + 1, dtype=torch.float32, device=X.device)
-    z = torch.empty(n, dtype=torch.float32, device=X.device) if return_margins else None
+    out = _out(d + 1, X, enable)
+    z = _out(n, X, enable) if return_margins else None
     kernels.launch(
         "fused_value_grad", kernels.ptr(X), int(X.dtype == torch.bfloat16), kernels.ptr(w),
         kernels.ptr(label), kernels.ptr(offset), kernels.ptr(weight),
         None if z is None else kernels.ptr(z), kernels.ptr(parts), kernels.ptr(out),
-        n, d, *geometry, loss.kernel_id, vec,
+        n, d, *geometry, loss.kernel_id, vec, flag,
     )
+    if enable is not None:
+        kernels.count_flag("fused_value_grad", enable)
     value, grad = out[d], out[:d]
     return (value, grad, z) if return_margins else (value, grad)
 
@@ -242,8 +272,9 @@ def fused_hvp_plain(v: Tensor, X: Tensor, d2: Tensor) -> Tensor:
     return Xa.T @ (d2.to(acc) * u)
 
 
-def fused_hvp(v: Tensor, X: Tensor, d2: Tensor) -> Tensor:
-    """Xᵀ·diag(d2)·X·v in one pass over X."""
+def fused_hvp(v: Tensor, X: Tensor, d2: Tensor, enable: Optional[Tensor] = None) -> Tensor:
+    """Xᵀ·diag(d2)·X·v in one pass over X (``enable``: the launch flag of
+    the module docstring)."""
     n, d = X.shape
     _check_width(d, "fused_hvp")
     if X.device.type == "cpu":
@@ -254,10 +285,13 @@ def fused_hvp(v: Tensor, X: Tensor, d2: Tensor) -> Tensor:
     # Route by shape (hvp_route, the same as value_grad_route): both routes
     # are CUDA kernels.
     scratch, geometry, vec = _launch_geometry("fused_hvp", X, -1)
+    flag = _flag("fused_hvp", enable, X)
     parts = torch.empty((scratch, d), dtype=torch.float32, device=X.device)
-    out = torch.empty(d, dtype=torch.float32, device=X.device)
+    out = _out(d, X, enable)
     kernels.launch(
         "fused_hvp", kernels.ptr(X), int(X.dtype == torch.bfloat16), kernels.ptr(v),
-        kernels.ptr(d2), kernels.ptr(parts), kernels.ptr(out), n, d, *geometry, vec,
+        kernels.ptr(d2), kernels.ptr(parts), kernels.ptr(out), n, d, *geometry, vec, flag,
     )
+    if enable is not None:
+        kernels.count_flag("fused_hvp", enable)
     return out

@@ -15,6 +15,11 @@ the graph is replayed, so the solve cache (algorithm/solve_cache.py) takes
 the capture's counts back (``snapshot``, ``restore``) and adds them on every
 replay that ran them (``add``); the counts stay the launches the card ran.
 Wrappers may keep finer counts of their own (``register_counts``).
+
+A launch with a launch flag (ops/fused_glm.py) may return at once, so its
+wrapper also counts it in ``FLAGGED`` and adds the flag to a counter on
+the card (``count_flag``), which a capture records and every replay runs:
+``ran`` gives, per kernel, the launches that did their work.
 """
 
 from __future__ import annotations
@@ -40,11 +45,11 @@ _I = ctypes.c_int
 KERNELS: Dict[str, Tuple[str, str, list]] = {
     "fused_value_grad": (
         "fused_value_grad.cu", "pt_fused_value_grad",
-        [_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
+        [_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP, _VP],
     ),
     "fused_hvp": (
         "fused_hvp.cu", "pt_fused_hvp",
-        [_VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
+        [_VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _VP, _VP],
     ),
     "newton_system": (
         "newton_system.cu", "pt_newton_system",
@@ -53,15 +58,46 @@ KERNELS: Dict[str, Tuple[str, str, list]] = {
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
-# Every launch count: LAUNCHES and the finer ones of register_counts.
-_COUNTS: List[Dict] = [LAUNCHES]
+# The launches of LAUNCHES that had a launch flag.
+FLAGGED: Dict[str, int] = {name: 0 for name in KERNELS}
+# Every launch count: LAUNCHES, FLAGGED and the finer ones of register_counts.
+_COUNTS: List[Dict] = [LAUNCHES, FLAGGED]
+# (kernel, card) -> the sum of the flags of its flagged launches, on the card.
+_FLAG_SUMS: Dict[Tuple[str, int], torch.Tensor] = {}
 
 _LOADED: Dict[str, ctypes._CFuncPtr] = {}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
-        LAUNCHES[name] = 0
+        LAUNCHES[name] = FLAGGED[name] = 0
+    for total in _FLAG_SUMS.values():
+        total.zero_()
+
+
+def count_flag(name: str, flag: torch.Tensor) -> None:
+    """Count a launch of ``name`` whose launch flag is ``flag`` (a 0-dim
+    int32 tensor on the card): the flag is added on the card, so a captured
+    launch counts what each replay's flag says."""
+    key = (name, flag.device.index)
+    total = _FLAG_SUMS.get(key)
+    if total is None:
+        if flag.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{name}: the first flagged launch on {flag.device} is being captured; "
+                               "run it once eagerly first")
+        total = _FLAG_SUMS[key] = torch.zeros((), dtype=torch.int64, device=flag.device)
+    total.add_(flag)
+    FLAGGED[name] += 1
+
+
+def ran() -> Dict[str, int]:
+    """Per kernel, the launches since ``reset_launches`` that did their
+    work: the unflagged ones and those whose flag was on (one read of each
+    card's counters)."""
+    on = {name: 0 for name in KERNELS}
+    for (name, _), total in _FLAG_SUMS.items():
+        on[name] += int(total)
+    return {name: LAUNCHES[name] - FLAGGED[name] + on[name] for name in KERNELS}
 
 
 def register_counts(counts: Dict) -> None:

@@ -7,8 +7,10 @@ takes the gradient with ``jax.grad``; here it is written out: with the
 normalization fold the margin is A·w where A·v = X·(f∘v) − s·(f∘v), so the
 gradient is Aᵀ·dz = f∘(Xᵀ·dz − s·Σdz).
 
-With ``use_fused`` (and a batch ``_can_fuse`` accepts) ``value_and_grad``
-and ``linearized_hvp`` run the fused kernels of ops/fused_glm.py.
+``value_and_grad``, ``hvp`` and ``linearized_hvp`` are the solvers' GLM
+oracle over this batch (optim/problem.py::GLMOracle, the one implementation
+of a GLM's X passes); with ``use_fused`` (and a batch ``_can_fuse``
+accepts) they run the fused kernels of ops/fused_glm.py.
 ``hessian_diagonal`` and ``hessian_matrix`` (for coefficient variances)
 work through row chunks of X, so no temporary of X's full size is held.
 """
@@ -20,10 +22,11 @@ from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 
-from photon_tpu_torch.data.batch import LabeledBatch, matvec, rmatvec
+from photon_tpu_torch.data.batch import LabeledBatch
 from photon_tpu_torch.data.normalization import NormalizationContext
-from photon_tpu_torch.ops.fused_glm import MAX_FUSED_DIM, fused_hvp, fused_value_grad
+from photon_tpu_torch.ops.fused_glm import MAX_FUSED_DIM
 from photon_tpu_torch.ops.losses import PointwiseLoss
+from photon_tpu_torch.optim.problem import GLMOracle, GLMTerms
 
 Tensor = torch.Tensor
 
@@ -42,7 +45,7 @@ class GLMObjective:
     # where ``_can_fuse`` allows (the reference's ``use_pallas``).
     use_fused: bool = False
 
-    # ----- margins and their transpose -----
+    # ----- margins -----
 
     def _factors(self) -> Optional[Tensor]:
         return None if self.normalization is None else self.normalization.factors
@@ -55,21 +58,6 @@ class GLMObjective:
             ew, es = self.normalization.effective(w)
             return batch.margins(ew) + es
         return batch.margins(w)
-
-    def _forward(self, v: Tensor, batch: LabeledBatch) -> Tensor:
-        """A·v: the (linear) change of the margins along v."""
-        f, s = self._factors(), self._shifts()
-        ev = v if f is None else v * f
-        u = matvec(batch.features, ev)
-        return u if s is None else u - torch.dot(s, ev)
-
-    def _transpose(self, r: Tensor, batch: LabeledBatch) -> Tensor:
-        """Aᵀ·r."""
-        f, s = self._factors(), self._shifts()
-        g = rmatvec(batch.features, r)
-        if s is not None:
-            g = g - torch.sum(r) * s
-        return g if f is None else g * f
 
     # ----- regularization -----
 
@@ -105,15 +93,13 @@ class GLMObjective:
         z = self.margins(w, batch)
         return torch.sum(batch.weight * self.loss.value(z, batch.label)) + self.l2_term(w)
 
+    def oracle(self, batch: LabeledBatch, dtype: torch.dtype) -> GLMOracle:
+        """The solvers' oracle of this objective over ``batch`` (its L2
+        weight fixed)."""
+        return GLMOracle(GLMTerms.of_batch(self, batch), self.l2_weight, self.intercept_index, dtype)
+
     def value_and_grad(self, w: Tensor, batch: LabeledBatch) -> Tuple[Tensor, Tensor]:
-        if self._can_fuse(batch):
-            return self._fused_value_and_grad(w, batch)
-        z = self.margins(w, batch)
-        val = torch.sum(batch.weight * self.loss.value(z, batch.label)) + self.l2_term(w)
-        g = self._transpose(batch.weight * self.loss.dz(z, batch.label), batch)
-        if self.l2_weight != 0.0:
-            g = g + self.l2_weight * self._l2_mask(w)
-        return val, g.to(w.dtype)
+        return self.oracle(batch, w.dtype).value_grad(w)
 
     def _can_fuse(self, batch: LabeledBatch) -> bool:
         """The reference's shape routing: dense features within the kernel's
@@ -122,63 +108,24 @@ class GLMObjective:
             return False
         return self._shifts() is None
 
-    def _fused_value_and_grad(self, w: Tensor, batch: LabeledBatch) -> Tuple[Tensor, Tensor]:
-        f = self._factors()
-        ew = w if f is None else w * f
-        val, g = fused_value_grad(
-            self.loss, ew, batch.features, batch.label, batch.offset, batch.weight
-        )
-        if f is not None:
-            g = g * f
-        if self.l2_weight != 0.0:
-            val = val + self.l2_term(w)
-            g = g + self.l2_weight * self._l2_mask(w)
-        return val.to(w.dtype), g.to(w.dtype)
-
     # ----- Hessian-vector products -----
 
     def _curvature(self, w: Tensor, batch: LabeledBatch) -> Tensor:
         """d2 = weight·loss''(margins): the Hessian's per-sample multiplier."""
         return batch.weight * self.loss.dzz(self.margins(w, batch), batch.label)
 
-    def _plain_hvp(self, d2: Tensor, batch: LabeledBatch) -> Callable[[Tensor], Tensor]:
-        lam = self.l2_weight
-
-        def hv(v: Tensor) -> Tensor:
-            out = self._transpose(d2 * self._forward(v, batch), batch)
-            if lam != 0.0:
-                out = out + lam * self._l2_mask(v)
-            return out.to(v.dtype)
-
-        return hv
-
     def hvp(self, w: Tensor, v: Tensor, batch: LabeledBatch) -> Tensor:
         """H(w)·v without materializing H (the reference's jvp of the
-        gradient): one forward and one transpose pass."""
-        return self._plain_hvp(self._curvature(w, batch), batch)(v)
+        gradient)."""
+        return self.linearized_hvp(w, batch)(v)
 
     def linearized_hvp(self, w: Tensor, batch: LabeledBatch) -> Callable[[Tensor], Tensor]:
         """Build v → H(w)·v with the w-dependent state (margins, d2) computed
         once; each product is then one fused pass (or a forward and a
         transpose pass)."""
-        d2 = self._curvature(w, batch)
-        lam = self.l2_weight
-
-        if self._can_fuse(batch):
-            f = self._factors()
-
-            def hv_fused(v: Tensor) -> Tensor:
-                ev = v if f is None else v * f
-                out = fused_hvp(ev, batch.features, d2)
-                if f is not None:
-                    out = out * f
-                if lam != 0.0:
-                    out = out + lam * self._l2_mask(v)
-                return out.to(v.dtype)
-
-            return hv_fused
-
-        return self._plain_hvp(d2, batch)
+        oracle = self.oracle(batch, w.dtype)
+        d2 = oracle.curvature(w)
+        return lambda v: oracle.hvp(d2, v)
 
     # ----- Hessian diagonal and matrix (coefficient variances) -----
 

@@ -1,12 +1,11 @@
 """Shared optimizer plumbing (port of photon_tpu/optim/common.py).
 
 The reference runs each solver as one ``lax.while_loop`` on the device. The
-port's margin L-BFGS and Newton run as device-side state machines
-(optim/program.py) whose loop test is read back once per chunk of
-iterations; the other solvers keep host loops with a read per loop test.
-``HOST_READS`` counts every device-to-host read of the solvers and of the
-GAME coordinates, so a caller can report the syncs per step. Histories are
-device tensors written by index, read only by whoever reports them.
+port runs every solver as a device-side state machine (optim/program.py)
+whose loop test is read back once per chunk of steps. ``HOST_READS`` counts
+every device-to-host read of the solvers and of the GAME coordinates, so a
+caller can report the syncs per step. Histories are device tensors written
+by index, one row a lane, read only by whoever reports them.
 """
 
 from __future__ import annotations
@@ -146,31 +145,35 @@ def project_to_box(w: Tensor, box: Optional[Tuple[Tensor, Tensor]]) -> Tensor:
 
 
 def new_history(config: OptimizerConfig, value: Tensor) -> Tensor:
-    """A (history_len,) device history filled with ``value`` (the reference's
-    ``jnp.full``); slot min(it, len - 1) holds iteration it's value."""
-    return value.reshape(1).repeat(config.history_len)
+    """A (lanes..., history_len) device history filled with ``value`` (one
+    a lane; the reference's ``jnp.full``); slot min(it, len - 1) holds
+    iteration it's value."""
+    return value[..., None].expand(*value.shape, config.history_len).clone()
 
 
 def record(hist: Tensor, it, value: Tensor) -> Tensor:
-    """``hist`` with slot min(it, len - 1) set to ``value``; ``it`` may be a
-    host int or a device int (then no host read)."""
-    slot = torch.clamp(torch.as_tensor(it, device=hist.device).reshape(1).long(), max=hist.shape[0] - 1)
-    return hist.index_copy(0, slot, value.reshape(1).to(hist.dtype))
+    """``hist`` with each lane's slot min(it, len - 1) set to its ``value``;
+    ``it`` may be a host int or a device int (then no host read)."""
+    it = torch.as_tensor(it, device=hist.device).expand(hist.shape[:-1])
+    slot = torch.clamp(it.long(), max=hist.shape[-1] - 1)
+    return hist.scatter(-1, slot[..., None], value.to(hist.dtype).expand(hist.shape[:-1])[..., None])
 
 
 def finish_result(w, f, grad_norm, it, reason, loss_hist, gnorm_hist, evals,
                   eval_unit="objective_evals") -> OptimizeResult:
     """OptimizeResult with the histories padded past the last iteration by
-    the final values and NOT_CONVERGED turned into MAX_ITERATIONS. Every
-    argument may be a device tensor or a host number; nothing is read back."""
+    the final values and NOT_CONVERGED turned into MAX_ITERATIONS, a lane
+    at a time (every field has the lanes' leading axes). Every argument may
+    be a device tensor or a host number; nothing is read back."""
     dtype, device = w.dtype, w.device
     as_t = lambda a, dt: torch.as_tensor(a, device=device).to(dt)  # noqa: E731
     it, reason = as_t(it, torch.int32), as_t(reason, torch.int32)
     f, grad_norm = as_t(f, dtype), as_t(grad_norm, dtype)
-    idx = torch.arange(loss_hist.shape[0], device=device)
+    past = torch.arange(loss_hist.shape[-1], device=device) > it[..., None]
     reason = torch.where(reason == REASON_NOT_CONVERGED, REASON_MAX_ITERATIONS, reason).to(torch.int32)
     return OptimizeResult(
         w=w, value=f, grad_norm=grad_norm, iterations=it, reason_code=reason,
-        loss_history=torch.where(idx <= it, loss_hist, f), grad_norm_history=torch.where(idx <= it, gnorm_hist, grad_norm),
+        loss_history=torch.where(past, f[..., None], loss_hist),
+        grad_norm_history=torch.where(past, grad_norm[..., None], gnorm_hist),
         evals=as_t(evals, torch.int32), eval_unit=eval_unit,
     )

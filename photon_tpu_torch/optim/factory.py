@@ -4,7 +4,9 @@
 The reference's routing: OWL-QN whenever the objective has an L1 weight
 (intercept unpenalized), TRON with the linearized Hessian-vector product,
 L-BFGS-B (which needs a box), margin-space L-BFGS for a smooth unboxed
-LabeledBatch, and black-box L-BFGS otherwise.
+LabeledBatch, and gradient-form L-BFGS otherwise. ``fe_program`` builds the
+route's device program (optim/program.py) over the objective's GLM terms;
+``make_optimizer`` runs it eagerly and the solve cache captures it.
 """
 
 from __future__ import annotations
@@ -17,10 +19,11 @@ import torch
 from photon_tpu_torch.data.batch import LabeledBatch
 from photon_tpu_torch.ops.objective import GLMObjective
 from photon_tpu_torch.optim.common import OptimizeResult, OptimizerConfig
-from photon_tpu_torch.optim.lbfgs import minimize_lbfgs, minimize_lbfgsb
-from photon_tpu_torch.optim.margin_lbfgs import minimize_lbfgs_margin
-from photon_tpu_torch.optim.owlqn import minimize_owlqn
-from photon_tpu_torch.optim.tron import TRON_DEFAULT_CONFIG, minimize_tron
+from photon_tpu_torch.optim.lbfgs import LBFGS
+from photon_tpu_torch.optim.margin_lbfgs import MarginLBFGS
+from photon_tpu_torch.optim.owlqn import OWLQN
+from photon_tpu_torch.optim.program import EAGER_CHUNK, Program, run_chunked
+from photon_tpu_torch.optim.tron import TRON, TRON_DEFAULT_CONFIG
 from photon_tpu_torch.types import OptimizerType
 
 Tensor = torch.Tensor
@@ -49,35 +52,48 @@ class OptimizerSpec:
         )
 
 
+def l1_mask(objective: GLMObjective, w0: Tensor) -> Optional[Tensor]:
+    """OWL-QN's mask: 0 at the intercept (unpenalized), else None (all 1)."""
+    if objective.intercept_index is None:
+        return None
+    mask = torch.ones(w0.shape[-1], dtype=w0.dtype, device=w0.device)
+    mask[objective.intercept_index] = 0.0
+    return mask
+
+
+def fe_program(objective: GLMObjective, spec: OptimizerSpec, w0: Tensor, batch: LabeledBatch,
+               config: Optional[OptimizerConfig] = None) -> Program:
+    """The program of the reference's route for ``objective`` on ``batch``
+    from ``w0``; it reads the batch's tensors and ``w0`` in place."""
+    config = spec.config() if config is None else config
+    if objective.l1_weight == 0.0 and spec.box is None and spec.optimizer not in (
+            OptimizerType.TRON, OptimizerType.LBFGSB):
+        # Smooth unconstrained GLM over a LabeledBatch: two X passes per
+        # iteration instead of 2·(1 + line-search trials).
+        return MarginLBFGS.of_batch(objective, batch, w0, config)
+    oracle = objective.oracle(batch, w0.dtype)
+    # An L1 term always routes to OWL-QN; a smooth objective never does
+    # (orthant projection would still pin sign-crossing coordinates).
+    if objective.l1_weight > 0.0:
+        return OWLQN(oracle, w0, objective.l1_weight, config, l1_mask(objective, w0))
+    if spec.optimizer == OptimizerType.TRON:
+        return TRON(oracle, w0, config, spec.max_cg_iter, spec.box)
+    if spec.box is None:
+        raise ValueError("LBFGSB requires a box")
+    return LBFGS(oracle, w0, config, spec.box)
+
+
 def make_optimizer(
     objective: GLMObjective, spec: OptimizerSpec
 ) -> Callable[[Tensor, LabeledBatch], OptimizeResult]:
-    """solve(w0, batch) -> OptimizeResult for the given objective."""
-    config = spec.config()
+    """solve(w0, batch) -> OptimizeResult for the given objective: the
+    route's program, run eagerly."""
 
     def solve(w0: Tensor, batch: LabeledBatch) -> OptimizeResult:
-        vg = lambda w: objective.value_and_grad(w, batch)  # noqa: E731
-        # An L1 term always routes to OWL-QN; a smooth objective never does
-        # (orthant projection would still pin sign-crossing coordinates).
-        if objective.l1_weight > 0.0:
-            l1_mask = None
-            if objective.intercept_index is not None:
-                l1_mask = torch.ones_like(w0)
-                l1_mask[objective.intercept_index] = 0.0
-            return minimize_owlqn(vg, w0, objective.l1_weight, config, l1_mask)
-        if spec.optimizer == OptimizerType.TRON:
-            return minimize_tron(
-                vg, None, w0, config, spec.max_cg_iter, spec.box,
-                hvp_factory=lambda w: objective.linearized_hvp(w, batch),
-            )
-        if spec.optimizer == OptimizerType.LBFGSB:
-            if spec.box is None:
-                raise ValueError("LBFGSB requires a box")
-            return minimize_lbfgsb(vg, w0, spec.box[0], spec.box[1], config)
-        # Smooth unconstrained GLM over a LabeledBatch: two X passes per
-        # iteration instead of 2·(1 + line-search trials).
-        if spec.box is None and isinstance(batch, LabeledBatch):
-            return minimize_lbfgs_margin(objective, batch, w0, config)
-        return minimize_lbfgs(vg, w0, config, spec.box)
+        if not isinstance(batch, LabeledBatch):
+            raise NotImplementedError("sparse feature batches are not ported yet")
+        prog = fe_program(objective, spec, w0, batch)
+        run_chunked(prog, EAGER_CHUNK)
+        return prog.result()
 
     return solve

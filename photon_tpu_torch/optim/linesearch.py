@@ -5,21 +5,16 @@ interpolation (Nocedal & Wright alg. 3.5/3.6), written as tensors in the
 objective's dtype: ``wolfe_start`` makes the state, ``wolfe_update`` takes
 it one trial further. The state is one tensor, (15,) for one search or
 (E, 15) for one per lane of an entity block, and every operation works
-lane by lane.
-The margin L-BFGS state machine (optim/margin_lbfgs.py) runs the trials on
-the device, each kept only while its search runs; ``strong_wolfe`` drives
-them from the host with one read per trial, for the solvers that keep host
-loops.
+lane by lane. The L-BFGS state machines (optim/margin_lbfgs.py,
+optim/lbfgs.py) run the trials on the device, each kept only while its
+search runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
 
 import torch
-
-from photon_tpu_torch.optim.common import HOST_READS
 
 Tensor = torch.Tensor
 
@@ -119,22 +114,3 @@ def wolfe_result(st: Tensor, f0: Tensor) -> LineSearchResult:
     alpha, value, deriv = torch.where(take, st[..., _A_BEST:_G_BEST + 1], st[..., _A_LO:_G_LO + 1]).unbind(-1)
     return LineSearchResult(alpha=alpha, value=value, deriv=deriv, evals=st[..., _EVALS].to(torch.int32),
                             success=success)
-
-
-def strong_wolfe(fg: Callable[[Tensor], Tuple[Tensor, Tensor]], f0: Tensor, dg0: Tensor,
-                 init_alpha: Tensor, lanes=True, c1: float = C1, c2: float = C2,
-                 max_evals: int = 20, max_alpha: float = MAX_ALPHA) -> LineSearchResult:
-    """Find alpha with f(a) <= f0 + c1 a dg0 and |f'(a)| <= c2 |dg0| on every
-    lane in ``lanes`` (bool, f0's shape) at once, with one host read per
-    trial. ``fg(alpha)`` returns (f, directional derivative), each of f0's
-    shape. On budget exhaustion a lane returns the best sufficient-decrease
-    point seen, else the zoom's lo end."""
-    lanes = torch.as_tensor(lanes, device=f0.device).expand(f0.shape)
-    st = wolfe_start(f0, dg0, init_alpha, lanes)
-    while True:
-        run = wolfe_running(st, max_evals)
-        if not bool(HOST_READS.read(run.any())[0]):
-            break
-        f, g = fg(wolfe_alpha(st))
-        st = torch.where(run[..., None], wolfe_update(st, f, g, f0, dg0, c1, c2, max_alpha), st)
-    return wolfe_result(st, f0)

@@ -35,7 +35,8 @@ from photon_tpu_torch.optim.common import (
     REASON_NOT_CONVERGED,
     check_convergence,
 )
-from photon_tpu_torch.optim.program import Commit, Program, run_chunked
+from photon_tpu_torch.optim.problem import L2Term
+from photon_tpu_torch.optim.program import EAGER_CHUNK, Commit, Program, run_chunked
 
 Tensor = torch.Tensor
 
@@ -44,8 +45,6 @@ _MU_BOOST = 10.0
 _MU_SHRINK = 0.25
 _MU_MIN_ON_REJECT = 1e-4
 _TRIAL_STEPS = (1.0, 0.5, 0.25, 0.125, 1 / 16, 1 / 32, 1 / 64)
-# Iterations between reads of the loop flag when run eagerly.
-EAGER_CHUNK = 4
 
 
 def _bmv(X: Tensor, w: Tensor) -> Tensor:
@@ -87,6 +86,8 @@ class Newton(Program):
     (label/offset/weight (E, n), features (E, n, d)) and ``w0`` (E, d) are
     read by ``init``; every constant is built here, outside any capture."""
 
+    eval_unit = "x_passes"
+
     def __init__(self, objective: GLMObjective, batch: LabeledBatch, w0: Tensor,
                  config: OptimizerConfig = OptimizerConfig(), kernel: str = "torch"):
         _check(objective, kernel)
@@ -97,11 +98,8 @@ class Newton(Program):
         E, _, d = batch.features.shape
         dtype, device = w0.dtype, w0.device
         self.dtype, self.device = dtype, device
-        self.has_l2 = objective.l2_weight != 0.0
-        self.l2 = torch.full((), objective.l2_weight, dtype=dtype, device=device)
-        self.l2_cols = torch.ones(d, dtype=dtype, device=device)  # the columns L2 weighs
-        if objective.intercept_index is not None:
-            self.l2_cols[objective.intercept_index] = 0.0
+        self.reg = L2Term(objective.l2_weight, objective.intercept_index, d, dtype, device)
+        self.l2 = self.reg.l2
         self.init_passes = 1 if self.factors is None else 2
         self.ts = torch.tensor(_TRIAL_STEPS, dtype=dtype, device=device)
         z = torch.zeros(batch.label.shape, dtype=torch.promote_types(batch.features.dtype, dtype), device=device)
@@ -118,20 +116,6 @@ class Newton(Program):
         """The features with the normalization factors folded in (by ``init``)."""
         return self.batch.features if self.factors is None else self.s["X"]
 
-    def _l2_mask(self, w: Tensor) -> Tensor:
-        ii = self.objective.intercept_index
-        if ii is None:
-            return w
-        w = w.clone()
-        w.select(-1, ii).zero_()  # a fill: no host scalar copied under capture
-        return w
-
-    def _l2_value(self, w: Tensor) -> Tensor:  # (..., d) → (...)
-        if not self.has_l2:
-            return torch.zeros(w.shape[:-1], dtype=self.dtype, device=self.device)
-        wm = self._l2_mask(w)
-        return 0.5 * self.l2 * torch.sum(wm * wm, dim=-1)
-
     def _data_value(self, z: Tensor) -> Tensor:  # (..., n) → (...)
         b = self.batch
         return torch.sum(b.weight * self.objective.loss.value(z, b.label), dim=-1)
@@ -143,7 +127,7 @@ class Newton(Program):
         z = _bmv(self._X(), w0) + self.batch.offset
         S["w"].copy_(w0)
         S["z"].copy_(z)
-        S["f"].copy_(self._data_value(z) + self._l2_value(w0))
+        S["f"].copy_(self._data_value(z) + self.reg.value(w0))
         S["mu"].fill_(_MU_INIT)
         S["gnorm"].fill_(float("inf"))
         S["g0_norm"].zero_()
@@ -174,9 +158,9 @@ class Newton(Program):
         else:
             g_data = torch.einsum("bnd,bn->bd", X, dz)
             H_data = torch.einsum("bnd,bn,bne->bde", X, d2, X)
-        if self.has_l2:
-            g = g_data + self.l2 * self._l2_mask(w)
-            H = H_data + torch.diag(self.l2 * self.l2_cols)
+        if self.reg.on:
+            g = g_data + self.reg.grad(w)
+            H = H_data + torch.diag(self.l2 * self.reg.cols)
         else:
             g, H = g_data, H_data
         gn_new = torch.linalg.norm(g, dim=-1)
@@ -199,7 +183,7 @@ class Newton(Program):
         u = z_try - z
         z_trials = z[:, None, :] + ts[None, :, None] * u[:, None, :]  # (E, len(ts), n)
         fs = torch.sum(b.weight[:, None, :] * loss.value(z_trials, b.label[:, None, :]), dim=-1)
-        fs = fs + self._l2_value(w[:, None, :] + ts[None, :, None] * p[:, None, :])
+        fs = fs + self.reg.value(w[:, None, :] + ts[None, :, None] * p[:, None, :])
         fs = torch.where(torch.isnan(fs), float("inf"), fs)
         ib = torch.argmin(fs, dim=-1)
         f_best = fs.gather(1, ib[:, None])[:, 0]

@@ -25,7 +25,7 @@ eagerly through it; the solve cache drives its captured chunks through it.
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -33,16 +33,28 @@ from photon_tpu_torch.optim.common import HOST_READS, OptimizeResult
 
 Tensor = torch.Tensor
 
+# Steps between reads of the loop flag when a program runs eagerly
+# (``run_chunked`` from the ``minimize_*`` functions and the eager solves).
+EAGER_CHUNK = 4
+
+
+def lanewise(pred: Tensor, like: Tensor) -> Tensor:
+    """``pred`` (one value a lane, shape lanes) shaped to broadcast over
+    ``like`` (lanes + the state's own axes)."""
+    return pred.reshape(pred.shape + (1,) * (like.dim() - pred.dim()))
+
 
 class Commit:
     """Writes of one part of a step: ``set(dst, new)`` keeps ``new`` where
-    the part's predicate holds and ``dst`` elsewhere."""
+    the part's predicate holds and ``dst`` elsewhere. The predicate is one
+    value a lane (shape lanes, () for a single solve) and broadcasts over
+    the state's own axes."""
 
     def __init__(self, pred: Tensor):
         self.pred = pred
 
     def set(self, dst: Tensor, new: Tensor) -> None:
-        dst.copy_(torch.where(self.pred, new, dst))
+        dst.copy_(torch.where(lanewise(self.pred, dst), new, dst))
 
     def update(self, dst: Dict[str, Tensor], new: Dict[str, Tensor]) -> None:
         for k, v in new.items():
@@ -59,6 +71,13 @@ class Program:
     max_steps: int
     init_passes: int = 1
     step_passes: int = 2
+    # The unit of the result's ``evals`` (common.OptimizeResult).
+    eval_unit: str = "objective_evals"
+    # The program's L2 weight (and OWL-QN's L1 weight): device scalars the
+    # steps read, filled per solve by the solve cache; None where the
+    # objective is a black box.
+    l2: Optional[Tensor] = None
+    l1: Optional[Tensor] = None
 
     def init(self) -> None:
         raise NotImplementedError

@@ -109,9 +109,11 @@ def _configs(pkg, fixed=None, user=None, item=None):
             pkg.RandomEffectCoordinateConfig("per_item", "itemId", "item", **conv(item))]
 
 
-def _reg(pkg, lam=(1.0, 0.5, 0.5)):
-    return pkg.GameOptimizationConfig(reg={cid: pkg.RegularizationConfig(weight=w)
-                                           for cid, w in zip(("global", "per_user", "per_item"), lam)})
+def _reg(pkg, lam=(1.0, 0.5, 0.5), alpha=(None, None, None)):
+    """Weights (and elastic-net alphas, None: L2) of (global, per_user, per_item)."""
+    return pkg.GameOptimizationConfig(reg={
+        cid: pkg.RegularizationConfig(weight=w) if a is None else pkg.RegularizationConfig(weight=w, alpha=a)
+        for cid, w, a in zip(("global", "per_user", "per_item"), lam, alpha)})
 
 
 def _coefs(model) -> dict:
@@ -148,9 +150,10 @@ def _assert_same_trace(got, want):
             np.testing.assert_array_equal(gr, wr, err_msg=f"{cid} reasons")
 
 
-def _fit_both(data, passes=2, est_kw=None, fixed=None, user=None, item=None, norm=None):
-    """Fit one configuration with both estimators; returns ((coefs, trace,
-    result) of the port, of the reference)."""
+def _fit_both(data, passes=2, est_kw=None, fixed=None, user=None, item=None, norm=None, alpha=(None, None, None)):
+    """Fit one configuration with both estimators (``alpha``: the
+    coordinates' elastic-net alphas); returns ((coefs, trace, result) of the
+    port, of the reference)."""
     est_kw = dict(est_kw or {})
     common = dict(num_iterations=passes, intercept_indices={"global": 0, "user": 0, "item": 0},
                   num_entities=data["num_entities"])
@@ -161,13 +164,13 @@ def _fit_both(data, passes=2, est_kw=None, fixed=None, user=None, item=None, nor
                                            for k, ctx in norm.items()}
         jest = JGameEstimator(JTASK, _configs(jconfig, fixed, user, item), normalization=jnorm,
                               **common, **est_kw)
-        (jres,) = jest.fit(_jbatch(data), optimization_configs=[_reg(jconfig)])
+        (jres,) = jest.fit(_jbatch(data), optimization_configs=[_reg(jconfig, alpha=alpha)])
         want = (_coefs(jres.model), _trace(jres.tracker), jres)
     tnorm = None if norm is None else {k: NormalizationContext(
         **{f: None if v is None else torch.from_numpy(v) for f, v in ctx.items() if f != "intercept_index"},
         intercept_index=ctx.get("intercept_index")) for k, ctx in norm.items()}
     est = GameEstimator(TASK, _configs(config, fixed, user, item), normalization=tnorm, **common, **est_kw)
-    (res,) = est.fit(_tbatch(data), optimization_configs=[_reg(config)])
+    (res,) = est.fit(_tbatch(data), optimization_configs=[_reg(config, alpha=alpha)])
     return (_coefs(res.model), _trace(res.tracker), res), want
 
 
@@ -184,7 +187,12 @@ def _assert_fit_parity(got, want):
 #   masked_shifted — mask and shifts together: batched gradient-form L-BFGS;
 #   wide        — per item at d = 130 (bucketed to 192 > 128): margin L-BFGS;
 #   newton_wide — the same width under an explicit NEWTON spec: Newton;
-#   downsampled — the fixed effect under the down-sampler's masks.
+#   downsampled — the fixed effect under the down-sampler's masks;
+#   elastic_net_tron — per user elastic net (batched OWL-QN), per item an
+#                  explicit TRON spec (batched TRON);
+#   l1_tron_pearson — per user L1 (OWL-QN), per item TRON under a Pearson
+#                  mask (the masked Hessian-vector product), the fixed
+#                  effect TRON too.
 ROUTES = {
     "dense": {},
     "pearson": dict(user=dict(features_to_samples_ratio=0.05), item=dict(features_to_samples_ratio=0.04)),
@@ -193,6 +201,9 @@ ROUTES = {
     "wide": dict(d_item=130),
     "newton_wide": dict(d_item=130, item=dict(optimizer=OptimizerType.NEWTON, max_iter=20)),
     "downsampled": dict(fixed=dict(down_sampling_rate=0.5)),
+    "elastic_net_tron": dict(alpha=(None, 0.5, None), item=dict(optimizer=OptimizerType.TRON)),
+    "l1_tron_pearson": dict(alpha=(None, 1.0, None), fixed=dict(optimizer=OptimizerType.TRON),
+                            item=dict(optimizer=OptimizerType.TRON, features_to_samples_ratio=0.04)),
 }
 
 
@@ -593,16 +604,7 @@ def test_existing_entity_mask_model_types():
 def test_unported_machinery_raises_not_ported_yet(tmp_path):
     data = _glmix(seed=12)
     batch = _tbatch(data)
-    l1 = config.GameOptimizationConfig(reg={"global": config.RegularizationConfig(1.0),
-                                            "per_user": config.RegularizationConfig(1.0, alpha=0.5),
-                                            "per_item": config.RegularizationConfig(1.0)})
     est = GameEstimator(TASK, _configs(config), num_entities=data["num_entities"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        est.fit(batch, optimization_configs=[l1])
-    tron = GameEstimator(TASK, _configs(config, user=dict(optimizer=OptimizerType.TRON)),
-                         num_entities=data["num_entities"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tron.fit(batch, optimization_configs=[_reg(config)])
     with pytest.raises(NotImplementedError, match="not ported yet"):
         est.fit(batch, optimization_configs=[_reg(config)], checkpoint_dir=str(tmp_path))
     with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -623,7 +625,7 @@ def test_game_modules_import_without_jax():
         "import photon_tpu_torch.algorithm.random_effect, photon_tpu_torch.algorithm.solve_cache\n"
         "import photon_tpu_torch.estimators.game_estimator, photon_tpu_torch.estimators.game_transformer\n"
         "import photon_tpu_torch.evaluation.suite, photon_tpu_torch.data.padding, photon_tpu_torch.interop\n"
-        "import photon_tpu_torch.sampling.down_sampler, photon_tpu_torch.optim.batched\n"
+        "import photon_tpu_torch.sampling.down_sampler, photon_tpu_torch.optim.problem\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'photon_tpu'"
         " or m.startswith('photon_tpu.')]\n"
         "print(bad)\n"

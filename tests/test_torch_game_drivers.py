@@ -389,6 +389,27 @@ def test_pearson_capped_random_effect_driver_matches_reference(files, tmp_path):
     _assert_score_files_agree(tmp_path / "sj" / "scores.avro", tmp_path / "st" / "scores.avro", rtol=1e-5)
 
 
+@pytest.mark.parametrize("per_user", ["reg.alpha=0.5", "optimizer=TRON"], ids=["elastic_net", "tron"])
+def test_elastic_net_and_tron_random_effects_match_reference(files, tmp_path, per_user):
+    """``reg.alpha=`` (elastic net: batched OWL-QN) and ``optimizer=TRON``
+    (batched TRON) on a random effect, beside a per-item effect that takes
+    the other one: both drivers' summaries and model files agree, and each
+    package scores the other's model directory as its own."""
+    other = "optimizer=TRON" if per_user != "optimizer=TRON" else "reg.alpha=0.5"
+    argv = ["--input-paths", files["train"], "--validation-paths", files["valid"], *SHARDS,
+            "--coordinate-configurations", GLOBAL, PER_USER + "," + per_user, PER_ITEM + "," + other,
+            "--update-sequence", "global,perUser,perItem", "--coordinate-descent-iterations", "2",
+            "--evaluators", "AUC"]
+    j_summary, t_summary, jdir, tdir = _train_both(tmp_path, argv, "lifted")
+    _assert_summaries_agree(j_summary, t_summary)
+    _assert_model_dirs_agree(jdir / "best", tdir / "best")
+    for model, d in (("jax", jdir), ("port", tdir)):
+        _score("jax", d / "best", files["valid"], tmp_path / f"{model}-by-jax")
+        _score("port", d / "best", files["valid"], tmp_path / f"{model}-by-port")
+        _assert_score_files_agree(tmp_path / f"{model}-by-jax" / "scores.avro",
+                                  tmp_path / f"{model}-by-port" / "scores.avro", rtol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # Warm start, locked coordinates and new entities (test_drivers.py:97).
 # ---------------------------------------------------------------------------

@@ -437,6 +437,119 @@ def test_captured_newton_matches_eager(cuda_device, d):
         ran = kernels.LAUNCHES["newton_system"] - k3
         chunks = cache.stats.replays - replays - 1
         steps = int(it.max())
-        assert chunks == min(-(-steps // sc.BLOCK_CHUNK), -(-cfg.max_iter // sc.BLOCK_CHUNK))
-        assert ran == sc.BLOCK_CHUNK * (chunks + cache.stats.captures - captures)  # and the warm-up's chunk
+        assert chunks == min(-(-steps // sc.CHUNK), -(-cfg.max_iter // sc.CHUNK))
+        assert ran == sc.CHUNK * (chunks + cache.stats.captures - captures)  # and the warm-up's chunk
+    assert (cache.stats.traces, cache.stats.calls, cache.stats.hits) == (1, 2, 1)
+
+
+@pytest.mark.parametrize("d", [40, 256, 37])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernels_launch_flag(cuda_device, dtype, d):
+    """K1 and K2 with their launch flag: on, the result of a launch without
+    it, bit for bit (both routes: d = 37 takes the tile route); off, the
+    launch writes nothing (the zeroed outputs stay zero) and is not counted
+    among the launches that ran."""
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    n = 3001
+    X = torch.randn(n, d, device=cuda_device, generator=g).to(dtype)
+    w = torch.randn(d, device=cuda_device, generator=g) / d ** 0.5
+    y = (torch.rand(n, device=cuda_device, generator=g) < 0.5).float()
+    off, wt = torch.randn(n, device=cuda_device, generator=g) * 0.1, torch.rand(n, device=cuda_device, generator=g)
+    on, off_flag = (torch.tensor(v, dtype=torch.int32, device=cuda_device) for v in (1, 0))
+    kernels.reset_launches()
+    plain = fused_glm.fused_value_grad(LogisticLoss, w, X, y, off, wt, return_margins=True)
+    flagged = fused_glm.fused_value_grad(LogisticLoss, w, X, y, off, wt, return_margins=True, enable=on)
+    assert all(torch.equal(a, b) for a, b in zip(plain, flagged))
+    skipped = fused_glm.fused_value_grad(LogisticLoss, w, X, y, off, wt, return_margins=True, enable=off_flag)
+    assert all(not bool(t.any()) for t in skipped)
+    assert torch.equal(fused_glm.fused_hvp(w, X, wt), fused_glm.fused_hvp(w, X, wt, enable=on))
+    assert not bool(fused_glm.fused_hvp(w, X, wt, enable=off_flag).any())
+    assert kernels.LAUNCHES == dict(fused_value_grad=3, fused_hvp=3, newton_system=0)
+    assert kernels.ran() == dict(fused_value_grad=2, fused_hvp=2, newton_system=0)
+
+
+def _fe_objective(route, d):
+    from photon_tpu_torch.ops.objective import GLMObjective
+    from photon_tpu_torch.optim.factory import OptimizerSpec
+    from photon_tpu_torch.types import OptimizerType
+
+    obj = GLMObjective(LogisticLoss, l2_weight=1.0, l1_weight=2.0 if route == "owlqn" else 0.0,
+                       intercept_index=d - 1, use_fused=True)
+    box = None
+    if route == "lbfgsb":
+        box = (torch.full((d,), -0.2, device="cuda"), torch.full((d,), 0.2, device="cuda"))
+    opt = dict(tron=OptimizerType.TRON, owlqn=OptimizerType.LBFGS, lbfgsb=OptimizerType.LBFGSB)[route]
+    return obj, OptimizerSpec(opt, max_iter=30, box=box)
+
+
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("route", ["tron", "owlqn", "lbfgsb"])
+def test_captured_fixed_effect_programs_match_eager(cuda_device, route, d):
+    """TRON (K1 and K2 with their flags), OWL-QN and L-BFGS-B (K1) through
+    the solve cache (captured) against the same program run eagerly on the
+    card, N = 2^16: equal iterations, reason and evals, coefficients within
+    1e-6 relative; a second λ runs the same program."""
+    from photon_tpu_torch.algorithm.solve_cache import SolveCache
+    from photon_tpu_torch.data.batch import LabeledBatch
+    from photon_tpu_torch.optim.factory import make_optimizer
+
+    X, y = _planted_glm(1 << 16, d, seed=31)
+    batch = LabeledBatch(y.to(cuda_device), X.to(cuda_device))
+    obj, spec = _fe_objective(route, d)
+    cache = SolveCache()
+    for lam in (1.0, 0.25):
+        o = dataclasses.replace(obj, l2_weight=lam, l1_weight=obj.l1_weight * lam)
+        w0 = torch.zeros(d, device=cuda_device)
+        kernels.reset_launches()
+        ref = make_optimizer(o, spec)(w0, batch)
+        got = cache.fe_solver(o, spec)(w0, batch)
+        torch.cuda.synchronize()
+        assert (int(got.iterations), int(got.reason_code), int(got.evals)) == (
+            int(ref.iterations), int(ref.reason_code), int(ref.evals))
+        torch.testing.assert_close(got.w, ref.w, rtol=1e-6, atol=1e-6 * float(ref.w.abs().max()))
+        assert kernels.LAUNCHES["fused_value_grad"] > 0
+        assert (kernels.LAUNCHES["fused_hvp"] > 0) == (route == "tron")
+    assert (cache.stats.traces, cache.stats.captures) == (2, 1)
+
+
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("route", ["tron", "tron_pearson", "owlqn", "margin_pearson", "lbfgs_masked_shifts"])
+def test_captured_block_programs_match_eager(cuda_device, route, d):
+    """Every non-Newton block route through the solve cache (captured)
+    against the eager block solve on the card, E·n_max = 2^16: equal
+    per-entity iterations, reasons and X passes, coefficients within 1e-6
+    relative; the second solve is a hit."""
+    from photon_tpu_torch.algorithm.random_effect import _solve_block
+    from photon_tpu_torch.algorithm.solve_cache import SolveCache
+    from photon_tpu_torch.data.normalization import NormalizationContext
+    from photon_tpu_torch.ops.objective import GLMObjective
+    from photon_tpu_torch.optim.factory import OptimizerSpec
+    from photon_tpu_torch.types import OptimizerType
+
+    block = _logistic_block(512, 128, d, seed=d + len(route), device=cuda_device)
+    g = torch.Generator().manual_seed(7)
+    norm = None
+    if route.endswith("shifts"):
+        shifts = torch.randn(d, generator=g) * 0.1
+        shifts[0] = 0.0
+        norm = NormalizationContext(torch.ones(d, device=cuda_device), shifts.to(cuda_device), 0)
+    obj = GLMObjective(LogisticLoss, l2_weight=1.0, l1_weight=0.5 if route == "owlqn" else 0.0, intercept_index=0,
+                       normalization=norm)
+    spec = OptimizerSpec(OptimizerType.TRON if route.startswith("tron") else OptimizerType.LBFGS, max_iter=25,
+                         tol=1e-7)
+    cfg = dataclasses.replace(spec.config(), track_history=False)
+    mask = None
+    if "pearson" in route or "masked" in route:
+        mask = (torch.rand(512, d, generator=g) < 0.6).float()
+        mask[:, 0] = 1.0
+        mask = mask.to(cuda_device)
+    cache = SolveCache()
+    solve = cache.block_solver(obj, spec, cfg, has_mask=mask is not None)
+    offs = torch.zeros_like(block.label)
+    for w0 in (torch.zeros(512, d, device=cuda_device), torch.full((512, d), 0.01, device=cuda_device)):
+        ref = _solve_block(block, offs, w0, obj, spec, cfg, mask)
+        w, it, reasons, passes = solve(block, offs, w0.clone(), mask)
+        torch.cuda.synchronize()
+        assert torch.equal(it, ref[1]) and torch.equal(reasons, ref[2]) and torch.equal(passes, ref[3])
+        torch.testing.assert_close(w, ref[0], rtol=1e-6, atol=1e-6 * float(ref[0].abs().max()))
     assert (cache.stats.traces, cache.stats.calls, cache.stats.hits) == (1, 2, 1)

@@ -190,6 +190,32 @@ def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
     assert kernels.LAUNCHES == {name: 0 for name in kernels.KERNELS}
 
 
+def test_flagged_launches_count_what_ran_through_capture_and_replay():
+    """``kernels.ran``: a flagged launch counts by its flag, an unflagged
+    one always; the solve cache's capture bookkeeping (snapshot, restore,
+    add) keeps both counts, as it keeps LAUNCHES. The wrappers' bookkeeping
+    is driven by hand here (a CPU tensor takes no kernel)."""
+
+    def flagged(name, v):
+        kernels.LAUNCHES[name] += 1
+        kernels.count_flag(name, torch.tensor(v, dtype=torch.int32))
+
+    kernels.reset_launches()
+    kernels.LAUNCHES["fused_value_grad"] += 1
+    flagged("fused_value_grad", 0)
+    flagged("fused_hvp", 1)
+    flagged("fused_hvp", 0)
+    assert kernels.ran() == dict(fused_value_grad=1, fused_hvp=1, newton_system=0)
+    snap = kernels.snapshot()
+    flagged("fused_hvp", 1)
+    counted = kernels.counted_since(snap)
+    kernels.restore(snap)
+    kernels.add(counted, times=2)
+    assert kernels.LAUNCHES["fused_hvp"] == 4 and kernels.FLAGGED["fused_hvp"] == 4
+    kernels.reset_launches()
+    assert kernels.ran() == {name: 0 for name in kernels.KERNELS}
+
+
 def test_width_limits_raise():
     Xw = torch.zeros(2, fused_glm.MAX_FUSED_DIM + 1)
     v, r = torch.zeros(fused_glm.MAX_FUSED_DIM + 1), torch.zeros(2)

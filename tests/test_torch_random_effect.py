@@ -280,6 +280,73 @@ def test_dense_passes_match_reference(route):
     _assert_pass_parity(_run_passes(coord, jcoord, tb, jb, 2))
 
 
+# route: (objective keywords, optimizer, Pearson mask, normalization)
+_LIFTED = {
+    "l1": (dict(l2_weight=0.0, l1_weight=0.6), "LBFGS", False, None),
+    "elastic_net": (dict(l2_weight=0.3, l1_weight=0.3), "LBFGS", False, None),
+    "elastic_net_pearson": (dict(l2_weight=0.3, l1_weight=0.3), "LBFGS", True, None),
+    "tron": (dict(l2_weight=0.5), "TRON", False, None),
+    "tron_factors": (dict(l2_weight=0.5), "TRON", False, "factors"),
+    "tron_pearson": (dict(l2_weight=0.5), "TRON", True, None),
+    "tron_pearson_shifts": (dict(l2_weight=0.5), "TRON", True, "shifts"),
+}
+
+
+@pytest.mark.parametrize("route", list(_LIFTED))
+def test_solve_block_lifted_routes_match_reference(route):
+    """``_solve_block`` on the routes that were the reference's alone (OWL-QN
+    under L1 or elastic net, TRON; plain, normalized and under a Pearson
+    mask) against the reference's ``_solve_block`` on every block, from a
+    warm start and with offsets: coefficients at rtol 1e-5, per-entity
+    iterations and reasons equal."""
+    from photon_tpu.algorithm.random_effect import _solve_block as j_solve_block
+    from photon_tpu.data.normalization import NormalizationContext as JNorm
+    from photon_tpu.optim.common import OptimizerConfig as JConfig
+
+    from photon_tpu_torch.algorithm.random_effect import _solve_block
+    from photon_tpu_torch.data.normalization import NormalizationContext
+    from photon_tpu_torch.optim.common import OptimizerConfig
+
+    obj_kw, opt, pearson, norm = _LIFTED[route]
+    rng = np.random.default_rng(len(route))
+    d = 6
+    counts = rng.integers(3, 50, size=E)
+    eids = np.repeat(np.arange(E, dtype=np.int32), counts)
+    X = rng.normal(size=(eids.size, d))
+    X[:, 0] = 1.0
+    W = rng.normal(size=(E, d)) * 1.5
+    y = (rng.uniform(size=eids.size) < 1.0 / (1.0 + np.exp(-np.sum(X * W[eids], axis=1)))).astype(np.float64)
+    ds, jds = _both_datasets(eids, X, y, np.ones(eids.size))
+    factors = rng.uniform(0.5, 2.0, size=d)
+    shifts = rng.normal(size=d) * 0.2
+    factors[0], shifts[0] = 1.0, 0.0
+    ctx = None if norm is None else dict(factors=factors, shifts=shifts if norm == "shifts" else None)
+    cfg = dict(max_iter=40, tol=1e-8, track_history=False)
+    offsets = rng.normal(size=eids.size) * 0.2
+    for b, jb in zip(ds.blocks, jds.blocks):
+        w0 = rng.normal(size=(b.num_entities, b.dim)) * 0.1
+        k = np.maximum(1, rng.integers(1, d, size=b.num_entities)).astype(np.int32)
+        mask = tre.pearson_feature_mask(b, torch.from_numpy(k), always_keep=0) if pearson else None
+        tnorm = None if ctx is None else NormalizationContext(
+            *(None if ctx[f] is None else torch.from_numpy(ctx[f]) for f in ("factors", "shifts")), 0)
+        tobj = GLMObjective(loss=LogisticLoss, intercept_index=0, normalization=tnorm, **obj_kw)
+        got = _solve_block(b, b.gather_offsets(torch.from_numpy(offsets)), torch.from_numpy(w0), tobj,
+                           OptimizerSpec(OptimizerType[opt]), OptimizerConfig(**cfg), mask)
+        with jax.enable_x64(True):
+            jnorm = None if ctx is None else JNorm(
+                *(None if ctx[f] is None else jnp.asarray(ctx[f]) for f in ("factors", "shifts")), 0)
+            jobj = JObjective(loss=JLogistic, intercept_index=0, normalization=jnorm, **obj_kw)
+            want = j_solve_block(jb, jb.gather_offsets(jnp.asarray(offsets)), jnp.asarray(w0), jobj,
+                                 JSpec(JOptimizerType[opt]), JConfig(**cfg),
+                                 None if mask is None else jnp.asarray(mask.numpy()))
+            want = [np.asarray(a) for a in want]
+        np.testing.assert_allclose(got[0].numpy(), want[0], rtol=RTOL64, atol=ATOL64)
+        np.testing.assert_array_equal(got[1].numpy(), want[1])
+        np.testing.assert_array_equal(got[2].numpy(), want[2])
+        if obj_kw.get("l1_weight"):
+            assert int((got[0] == 0).sum()) > 0
+
+
 @pytest.mark.parametrize("projected", [False, True], ids=["dense", "projected"])
 def test_gated_passes_match_reference_and_skip(projected):
     """Three passes with the active set: the reference's gating, repack and

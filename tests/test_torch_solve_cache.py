@@ -266,23 +266,25 @@ def _cold_cohort_problem(seed=7):
     return eids, X, y, np.ones(eids.size), n_ent
 
 
-def test_active_set_passes_capture_nothing_new_and_match_reference():
-    """Gated passes (repacked onto the first pass's block sizes, inside
-    ``expect_cached``) build no entry, skip the retired entities, and give
-    the reference's coefficients and counters."""
+def _active_set_passes(obj_kw, spec_kw):
+    """Three CD passes of one coordinate with the active set on, in both
+    packages: gated passes (repacked onto the first pass's block sizes,
+    inside ``expect_cached``) build no entry, skip the retired entities, and
+    give the reference's coefficients and counters."""
     eids, X, y, w, n_ent = _cold_cohort_problem()
     cfg = dict(re_type="userId", feature_shard="re", n_buckets=4)
     ds = tre.build_random_effect_dataset(eids, X, y, w, n_ent, tre.RandomEffectDataConfig(**cfg), device="cpu")
     with jax.enable_x64(True):
         jds = jre.build_random_effect_dataset(eids, X, y, w, n_ent, jre.RandomEffectDataConfig(**cfg))
     cache, jcache = SolveCache(), JSolveCache(donate=False)
-    obj = dict(loss=LogisticLoss, l2_weight=0.5)
-    coord = RandomEffectCoordinate("per_user", ds, TaskType.LOGISTIC_REGRESSION, GLMObjective(**obj),
-                                   OptimizerSpec(OptimizerType.NEWTON, **SPEC), active_set=True,
+    opt = spec_kw.pop("optimizer")
+    coord = RandomEffectCoordinate("per_user", ds, TaskType.LOGISTIC_REGRESSION,
+                                   GLMObjective(loss=LogisticLoss, **obj_kw),
+                                   OptimizerSpec(OptimizerType[opt], **spec_kw), active_set=True,
                                    solve_cache=cache)
     with jax.enable_x64(True):
-        jcoord = JCoord("per_user", jds, JTaskType.LOGISTIC_REGRESSION, JObjective(loss=JLogistic, l2_weight=0.5),
-                        JSpec(optimizer=JOptimizerType.NEWTON, **SPEC), solve_cache=jcache, active_set=True)
+        jcoord = JCoord("per_user", jds, JTaskType.LOGISTIC_REGRESSION, JObjective(loss=JLogistic, **obj_kw),
+                        JSpec(optimizer=JOptimizerType[opt], **spec_kw), solve_cache=jcache, active_set=True)
     n = y.shape[0]
     tb = GameBatch(torch.from_numpy(y), torch.zeros(n, dtype=torch.float64), torch.from_numpy(w),
                    {"re": torch.from_numpy(X)}, {"userId": torch.from_numpy(eids)})
@@ -303,6 +305,65 @@ def test_active_set_passes_capture_nothing_new_and_match_reference():
         np.testing.assert_allclose(model.coefficients.numpy(), np.asarray(jmodel.coefficients), rtol=RTOL64,
                                    atol=1e-8)
     assert _counters(cache.stats) == _counters(jcache.stats)
+
+
+def test_active_set_passes_capture_nothing_new_and_match_reference():
+    """Gated passes (repacked onto the first pass's block sizes, inside
+    ``expect_cached``) build no entry, skip the retired entities, and give
+    the reference's coefficients and counters."""
+    _active_set_passes(dict(l2_weight=0.5), dict(optimizer="NEWTON", **SPEC))
+
+
+@pytest.mark.parametrize("route", ["l1", "elastic_net", "tron"])
+def test_active_set_passes_of_l1_and_tron_blocks_capture_nothing_new(route):
+    """The same on the batched OWL-QN (L1, elastic net) and TRON routes."""
+    obj_kw = dict(tron=dict(l2_weight=0.5), l1=dict(l1_weight=0.2),
+                  elastic_net=dict(l2_weight=0.3, l1_weight=0.2))[route]
+    _active_set_passes(obj_kw, dict(optimizer="TRON" if route == "tron" else "LBFGS", **SPEC))
+
+
+def test_elastic_net_sweep_captures_one_program_with_one_key_per_lambda():
+    """An elastic-net λ grid (α = 0.5) on the fixed effect and on a block:
+    one program each, one key per λ (the reference's trace keys), every λ
+    equal bit for bit to a cache built for that λ alone and to the
+    reference's solve at rtol 1e-5."""
+    from photon_tpu.optim.common import OptimizerConfig as JConfig
+
+    X, y = _planted_glm(n=600, d=6)
+    lb = LabeledBatch(torch.from_numpy(y), torch.from_numpy(X))
+    eids, Xb, yb, wb = _clustered_problem(np.float64)
+    ds, jds = _datasets(eids, Xb, yb, wb, n_buckets=2)
+    block, jblock = ds.blocks[0], jds.blocks[0]
+    spec, cfg = OptimizerSpec(**SPEC), OptimizerConfig(max_iter=25, tol=1e-9, track_history=False)
+    offs = block.gather_offsets(torch.zeros(yb.shape[0], dtype=torch.float64))
+    lams = (4.0, 1.0, 0.25)
+    shared, jshared = SolveCache(), JSolveCache(donate=False)
+    for lam in lams:
+        kw = dict(l2_weight=0.5 * lam, l1_weight=0.5 * lam, intercept_index=0)
+        obj = GLMObjective(loss=LogisticLoss, **kw)
+        w0 = torch.zeros((block.num_entities, block.dim), dtype=torch.float64)
+        for cache in (shared, SolveCache()):
+            fe = cache.fe_solver(obj, OptimizerSpec(max_iter=60))(torch.zeros(X.shape[1], dtype=torch.float64), lb)
+            got = cache.block_solver(obj, spec, cfg, has_mask=False)(block, offs, w0)
+            if cache is shared:
+                want_fe, want = fe, got
+        assert torch.equal(fe.w, want_fe.w) and int(fe.iterations) == int(want_fe.iterations)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        with jax.enable_x64(True):
+            jobj = JObjective(loss=JLogistic, **kw)
+            jfe = jshared.fe_solver(jobj, JSpec(max_iter=60))(jnp.zeros(X.shape[1]),
+                                                              JBatch(jnp.asarray(y), jnp.asarray(X)))
+            jgot = jshared.block_solver(jobj, JSpec(**SPEC),
+                                        JConfig(max_iter=25, tol=1e-9, track_history=False), has_mask=False)(
+                jblock, jblock.gather_offsets(jnp.zeros(yb.shape[0])), jnp.zeros((jblock.num_entities, jblock.dim)))
+            jfe_w, jgot = np.asarray(jfe.w), [np.asarray(a) for a in jgot]
+        np.testing.assert_allclose(want_fe.w.numpy(), jfe_w, rtol=RTOL64, atol=1e-10)
+        np.testing.assert_allclose(want[0].numpy(), jgot[0], rtol=RTOL64, atol=1e-10)
+        np.testing.assert_array_equal(want[1].numpy(), jgot[1])
+        np.testing.assert_array_equal(want[2].numpy(), jgot[2])
+    assert (shared.stats.traces, shared.stats.captures) == (2 * len(lams), 2)
+    assert [tuple(k) for k in shared.stats.trace_keys] == [tuple(k) for k in jshared.stats.trace_keys]
 
 
 def _planted_glm(n=4000, d=12, seed=3):
@@ -365,7 +426,7 @@ def test_block_newton_matches_reference_f64_and_reads_per_chunk():
     np.testing.assert_allclose(got[0].numpy(), want[0], rtol=RTOL64, atol=1e-10)
     np.testing.assert_array_equal(got[1].numpy(), want[1])
     np.testing.assert_array_equal(got[2].numpy(), want[2])
-    assert reads <= math.ceil(int(got[1].max()) / sc.BLOCK_CHUNK) + 2
+    assert reads <= math.ceil(int(got[1].max()) / sc.CHUNK) + 2
 
 
 def test_glmix_step_and_lambda_sweep_dispatch_through_the_cache():
