@@ -84,6 +84,26 @@ Phases, each of which must pass:
                 fails unless the logloss falls, GLMix reaches the fixed-only
                 AUC, pass 2 captures nothing, K1 (and for 9a K2) run, and
                 captured equals eager per route at each K of PHASE9_CHUNKS.
+ 10. sparse  — the sparse wide fixed effect: 10a bench_configs.py config 6
+                at full width (n = d = 2^20, 64 nnz a row, margin L-BFGS, 30
+                iterations) in four variants (scatter or segment-sum
+                rmatvec, f32 or bf16 values), each eager and captured: wall,
+                X passes, samples/s, GB/s, host reads, captures, bytes bound
+                and the run-to-run spread of the objective; fails unless the
+                segment sum's captured solve is its eager one bit for bit,
+                the variants' objectives at convergence agree (1e-4), a cut
+                copy (n = d = 2^14) matches the float64 plain path on the
+                CPU and the λ sweep's lanes reach the single solves'
+                objectives at convergence (1e-4). 10b GAME with phase
+                7b's per-user and per-item effects (K3 at d = 16, 128) and a
+                config-6 fixed-effect shard over its 2^21 rows, two passes
+                (as 7b, GLMix AUC at least the fixed-only AUC, no K1). 10c
+                the drivers on sparse Avro files (2^13 rows of 2^16 columns,
+                cut): train_glm with --constraint-string and
+                --summarization-output-dir and with ELASTIC_NET,
+                game_training with --coordinate-constraints and a sparse
+                per-user shard (projected blocks), game_scoring of that
+                model (its scores the in-process ones), name_and_term_bags.
 Phases 4, 6b, 7b, 8 and 9 print, per pass, λ or driver, the host reads (every
 device-to-host read of the path, through ``HOST_READS``; validation apart),
 the solve cache's captures (programs; the keys, which count each λ, apart),
@@ -94,7 +114,7 @@ fixed-effect solve and a block of each random effect eagerly and captured
 at K = 1, 2, 4 and 8, and fails at any K unless iterations and reasons are
 equal and coefficients within 1e-6; it fails if pass 2 captures anything or
 the two passes' coordinate updates make more than 60 host reads; 6b fails
-above SWEEP_READS reads for a λ solve. The order of the run is 1-7, 9, 8.
+above SWEEP_READS reads for a λ solve. The order of the run is 1-7, 9, 10, 8.
 It prints the card's name and power limit, a JSON line of per-kernel numbers
 ("launches" and "ran": the launches of the main paths, and those of them
 that did their work; a K1 or K2 launch whose flag was off does not), and last {"ok": true, "device": {...}}. It exits non-zero, printing no
@@ -165,6 +185,29 @@ PARITY_TOL = 1e-5
 # GLMix on the card (f32, kernels) vs the port's plain path in float64 on
 # the CPU, small input: scores, relative to max |score|.
 REFERENCE_TOL = 2e-3
+# Phase 10 (the sparse wide fixed effect). 10a: bench_configs.py config 6
+# (:461-570), not cut: n = d = 2^20, 64 nnz a row in the padded-sparse
+# layout (column 0 the intercept), logistic, l2 = 1, margin L-BFGS for 30
+# iterations; its card-vs-CPU copy n = d = 2^14; the λ sweep's weights.
+SP_N, SP_D, SP_K, SP_ITERS, SP_SEED = 1 << 20, 1 << 20, 64, 30, 3
+SP_CUT, SP_LAMBDAS = 1 << 14, (0.1, 1.0, 10.0, 100.0)
+# 10a's solves run to convergence (its agreement checks): the iteration cap
+# and the relative-improvement tolerance. The default 1e-7 is about one f32
+# ulp of the objective (~2e5), so an f32 solve would stop on the first
+# iteration that gains less, as much as 1e-4 above the optimum and at a point
+# that follows the scatter's summation order; 1e-9 lies below that ulp, so a
+# solve ends only where an iteration leaves the f32 objective unchanged.
+SP_CONVERGED, SP_CONVERGED_TOL = 400, 1e-9
+# 10c (the drivers on Avro files), cut as phase 8 is: training and
+# validation rows, global columns (drawn ∝ 1 / rank: ~40,000 of them occur
+# in the training rows) and nnz a row; users, each with a window of its own
+# user features (4 a row). The user shard is 256 × 20 = 5,120
+# columns wide (sparse: above the reader's dense limit of 4096); each of the
+# 4 projected blocks holds ~64 users (96 rows allocated), ~64 × 20 + 1 =
+# 1,281 columns (margin L-BFGS: Newton takes 128 at most), at most 96 × 64 ×
+# 1,281 f32 = 31 MB a block.
+S_TRAIN_ROWS, S_VALID_ROWS, S_COLUMNS, S_NNZ = 1 << 13, 1 << 12, 1 << 16, 32
+S_USERS, S_USER_WINDOW, S_USER_NNZ = 256, 20, 4
 
 
 def log(msg: str) -> None:
@@ -1024,6 +1067,452 @@ def game_drivers_phase(dev, smi: str, check) -> dict:
     return launches
 
 
+def _sparse_wide_data(seed: int = SP_SEED, n: int = 0, d: int = 0):
+    """bench_configs.py::_sparse_wide_data (:474-483), its sizes as
+    arguments (0: config 6's): (indices (n, k) int32, values (n, k) f32,
+    labels 0/1) of a planted logistic model, column 0 the intercept."""
+    n, d, k = n or SP_N, d or SP_D, SP_K
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, d, size=(n, k)).astype(np.int32)
+    vals = rng.normal(size=(n, k)).astype(np.float32)
+    idx[:, 0] = 0  # intercept slot: feature 0, value 1
+    vals[:, 0] = 1.0
+    w_true = (rng.normal(size=d) / 8.0).astype(np.float32)
+    z = np.sum(vals * w_true[idx], axis=1)
+    y = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-z))).astype(np.float32)
+    return idx, vals, y
+
+
+def sparse_wide_phase(dev, smi: str, check) -> dict:
+    """Phase 10a: config 6 at full width, its four rmatvec variants (scatter
+    or segment sum, f32 or bf16 values), each eagerly and through the solve
+    cache (captured): per variant the wall (best of 3 after a warm-up, as at
+    bench_configs.py:540-551), X passes, samples/s, nnz GB/s, host reads,
+    captures, the bytes bound, and the run-to-run spread of the objective
+    and iteration count over three solves from zero. Fails unless the
+    segment sum's captured solve is its eager one bit for bit, its f32 and
+    bf16 solves agree at convergence (1e-4 relative), the scatter's Xᵀ·r
+    matches the segment sum's at full size (PARITY_TOL), a cut copy matches
+    the float64 plain path on the CPU (REFERENCE_TOL) and the λ sweep's
+    lanes match four single solves' objectives at convergence (1e-4); the
+    scatter's solves to convergence are measured. Returns the
+    measurements."""
+    from photon_tpu_torch.algorithm.solve_cache import SolveCache
+    from photon_tpu_torch.data.batch import LabeledBatch, SparseFeatures, default_transpose_plan
+    from photon_tpu_torch.ops.losses import LogisticLoss
+    from photon_tpu_torch.ops.objective import GLMObjective
+    from photon_tpu_torch.optim.common import HOST_READS, OptimizerConfig
+    from photon_tpu_torch.optim.factory import OptimizerSpec, make_optimizer
+    from photon_tpu_torch.optim.margin_lbfgs import sweep_l2_lbfgs_margin
+
+    log(f"## phase 10a: sparse wide fixed effect (bench_configs.py config 6, not cut: n = 2^{SP_N.bit_length() - 1}, "
+        f"d = 2^{SP_D.bit_length() - 1}, {SP_K} nnz a row, logistic, l2 = 1, margin L-BFGS, {SP_ITERS} iterations; "
+        f"card {smi})")
+    t0 = time.perf_counter()
+    idx, vals, y = _sparse_wide_data()
+    log(f"  data (numpy, seed {SP_SEED}): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    idx_d, vals_d, y_d = (torch.as_tensor(a, device=dev) for a in (idx, vals, y))
+    plain = SparseFeatures(idx_d, vals_d, SP_D)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    planned = plain.with_transpose_plan()
+    torch.cuda.synchronize()
+    log(f"  transpose plan (stable sort of {SP_N * SP_K} indices on the card): {time.perf_counter() - t0:.3f} s")
+    vals_b = vals_d.to(torch.bfloat16)
+    variants = {"scatter": plain, "segsum": planned, "scatter_bf16": SparseFeatures(idx_d, vals_b, SP_D),
+                "segsum_bf16": SparseFeatures(idx_d, vals_b, SP_D, planned.csc_order, planned.csc_segments)}
+    obj = GLMObjective(LogisticLoss, l2_weight=1.0, intercept_index=0)
+    spec = OptimizerSpec(max_iter=SP_ITERS, track_history=False)
+    nnz = SP_N * SP_K
+    out, finals = {}, {}
+    for name, X in variants.items():
+        batch = LabeledBatch(y_d, X)
+        pass_bytes = nnz * (idx_d.element_size() + X.values.element_size())
+        pass_bound_ms = pass_bytes / HBM_BYTES_PER_S * 1e3
+        for mode in ("eager", "captured"):
+            cache = SolveCache()
+            solve = cache.fe_solver(obj, spec) if mode == "captured" else make_optimizer(obj, spec)
+            runs = []
+            for rep, start in enumerate((0.0, 1e-6, 2e-6, 3e-6, 0.0, 0.0)):
+                w0 = torch.full((SP_D,), start, device=dev)
+                torch.cuda.synchronize()
+                r0, c0, t0 = HOST_READS.count, cache.stats.counts(), time.perf_counter()
+                res = solve(w0, batch)
+                torch.cuda.synchronize()
+                runs.append(dict(wall=time.perf_counter() - t0, reads=HOST_READS.count - r0,
+                                 captures=cache.stats.since(c0)["captures"], passes=int(res.x_passes),
+                                 value=float(res.value), it=int(res.iterations), res=res if rep == 0 else None))
+            timed = runs[1:4]  # the warm-up first, then 3 (bench_configs.py's starts), then 2 more from zero
+            best = min(timed, key=lambda r: r["wall"])
+            from_zero = [runs[0], runs[4], runs[5]]
+            values = [r["value"] for r in from_zero]
+            spread = (max(values) - min(values)) / abs(np.mean(values))
+            its = sorted({r["it"] for r in from_zero})
+            bound_ms = best["passes"] * pass_bound_ms
+            m = dict(wall_s=best["wall"], x_passes=best["passes"], reads=best["reads"],
+                     captures=sum(r["captures"] for r in runs), samples_per_s=SP_N * best["passes"] / best["wall"],
+                     nnz_gbps=best["passes"] * pass_bytes / best["wall"] / 1e9, bound_ms=bound_ms,
+                     walls=[r["wall"] for r in timed], objective=values[0], objective_spread=spread, iterations=its)
+            out[f"{name}_{mode}"] = m
+            finals[(name, mode)] = runs[0]["res"]
+            log(f"  {name} {mode}: wall {m['wall_s']:.4f} s (best of {', '.join(f'{w:.4f}' for w in m['walls'])}), "
+                f"{m['x_passes']} X passes, {m['samples_per_s']:.4e} samples/s, {m['nnz_gbps']:.1f} GB/s of indices "
+                f"and values, {m['reads']} host reads a solve, {m['captures']} captures; bytes bound "
+                f"{bound_ms:.3f} ms ({pass_bytes / 2 ** 20:.0f} MiB a pass over {HBM_BYTES_PER_S / 1e12} TB/s) = "
+                f"{bound_ms / 1e3 / m['wall_s']:.2%} of the wall; objective {values[0]:.8e}, run-to-run spread "
+                f"{spread:.3e} relative over 3 solves from zero, iterations {its}")
+            del cache, solve
+    log(f"  peak memory of 10a's solves: {peak_text()}")
+    fastest = min(("scatter", "segsum"), key=lambda v: out[f"{v}_captured"]["wall_s"])
+    log(f"  the faster f32 lowering, captured: {fastest} (default on this device: "
+        f"{'segsum' if default_transpose_plan(dev) else 'scatter'})")
+
+    # The segment sum sums in one order: captured is eager bit for bit.
+    for name in ("segsum", "segsum_bf16"):
+        e, c = finals[(name, "eager")], finals[(name, "captured")]
+        check(int(c.iterations) == int(e.iterations) and torch.equal(c.w, e.w),
+              f"10a {name}: captured vs eager on the card after {SP_ITERS} iterations: iterations equal "
+              f"({int(c.iterations)}), coefficients bitwise equal")
+    # Where two scatter solves from zero part: their loss histories.
+    hist = [make_optimizer(obj, dataclasses.replace(spec, track_history=True))(
+        torch.zeros(SP_D, device=dev), LabeledBatch(y_d, plain)).loss_history.cpu() for _ in range(2)]
+    apart = torch.nonzero(hist[0] != hist[1])
+    log(f"  two eager scatter solves from zero: loss histories bitwise equal through iteration "
+        f"{int(apart[0]) - 1 if apart.numel() else SP_ITERS}; at iteration {SP_ITERS} {float(hist[0][-1]):.8e} and "
+        f"{float(hist[1][-1]):.8e}")
+    # Agreement on solves run to convergence (SP_CONVERGED_TOL: until a line
+    # search no longer changes the f32 objective). After config 6's 30
+    # iterations a solve is far from its optimum and its path follows the
+    # summation order. The segment sum sums in one order: its f32 and bf16
+    # solves are held to one another at 1e-4. The scatter's float atomics
+    # change the gradient's last bits from run to run, and where its f32
+    # solve stalls moves with them (8.9e-5 off the segment sum's in one of
+    # PERF.md §6's runs), so its solves to convergence are measured, not held;
+    # the scatter lowering is held by its products on the same inputs below,
+    # and by its captured solve of the cut copy against the CPU.
+    conv_spec = dataclasses.replace(spec, max_iter=SP_CONVERGED, tol=SP_CONVERGED_TOL)
+    conv = {}
+    for name, X in variants.items():
+        for mode in ("eager", "captured") if "scatter" in name else ("captured",):
+            solve = SolveCache().fe_solver(obj, conv_spec) if mode == "captured" else make_optimizer(obj, conv_spec)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = conv[(name, mode)] = solve(torch.zeros(SP_D, device=dev), LabeledBatch(y_d, X))
+            torch.cuda.synchronize()
+            log(f"  {name} {mode} to convergence: {int(res.iterations)} iterations, {res.convergence_reason.value}, "
+                f"objective {float(res.value):.8e}, {time.perf_counter() - t0:.3f} s")
+    optimum = conv[("segsum", "captured")]
+    off = {k: abs(float(r.value) - float(optimum.value)) / abs(float(optimum.value)) for k, r in conv.items()}
+    check(off[("segsum_bf16", "captured")] <= 1e-4,
+          f"10a the segment sum's solves at convergence, f32 and bf16 values: objectives rel "
+          f"{off[('segsum_bf16', 'captured')]:.3e} (tolerance 1e-4)")
+    log(f"  the scatter's solves at convergence, off the segment sum's objective (measured, not held): "
+        + ", ".join(f"{n} {m} {v:.3e}" for (n, m), v in off.items() if "scatter" in n))
+    # The scatter lowering at full size: Xᵀ·r with r the logistic residual at
+    # the segment sum's solution, against the segment sum's on the same r,
+    # for f32 and bf16 values. Both sum the same terms in f32 in different
+    # orders; at a solution the sums cancel (the intercept's 2^20 terms sum
+    # to about -w₀), so a column's difference is taken relative to the sum
+    # of its terms' magnitudes, |X|ᵀ·|r| (in float64).
+    r_star = torch.sigmoid(plain.matvec(optimum.w)) - y_d
+    for a, b in (("scatter", "segsum"), ("scatter_bf16", "segsum_bf16")):
+        Xb = variants[b]
+        scale = SparseFeatures(idx_d, Xb.values.double().abs(), SP_D, Xb.csc_order, Xb.csc_segments).rmatvec(
+            r_star.double().abs())
+        diff = (variants[a].rmatvec(r_star).double() - Xb.rmatvec(r_star).double()).abs()
+        rel = float((diff / scale.clamp(min=1e-30)).max())
+        check(rel <= PARITY_TOL, f"10a {a} vs {b}: Xᵀ·r at the segment sum's solution (n = d = "
+                                 f"2^{SP_N.bit_length() - 1}): max abs {float(diff.max()):.3e}, max over columns "
+                                 f"of |difference| / (|X|ᵀ·|r|) {rel:.3e} (tolerance {PARITY_TOL:g})")
+    del variants, plain, vals_b, finals, conv
+
+    # The cut copy, n = d = SP_CUT: the card (f32, both lowerings) against the
+    # float64 plain path on the CPU, margins relative to max |margin|.
+    ci, cv, cy = _sparse_wide_data(n=SP_CUT, d=SP_CUT)
+    cut = {dt: LabeledBatch(torch.as_tensor(cy, device=d_, dtype=dt),
+                            SparseFeatures(torch.as_tensor(ci, device=d_), torch.as_tensor(cv, device=d_, dtype=dt),
+                                           SP_CUT))
+           for dt, d_ in ((torch.float32, dev), (torch.float64, "cpu"))}
+    ref = make_optimizer(obj, spec)(torch.zeros(SP_CUT, dtype=torch.float64), cut[torch.float64])
+    want = cut[torch.float64].margins(ref.w)
+    for plan in (False, True):
+        X = cut[torch.float32].features
+        lb = LabeledBatch(cut[torch.float32].label, X.with_transpose_plan() if plan else X)
+        got = SolveCache().fe_solver(obj, spec)(torch.zeros(SP_CUT, device=dev), lb)
+        _, r = rel_err(lb.margins(got.w).cpu(), want)
+        check(r <= REFERENCE_TOL, f"10a cut copy (n = d = {SP_CUT}, {'segsum' if plan else 'scatter'}) captured on the "
+                                  f"card (f32) vs float64 plain path on the CPU: margins rel {r:.3e} (tolerance "
+                                  f"{REFERENCE_TOL:g})")
+
+    # The λ sweep over the same data, run to convergence: one program, a
+    # lane a weight, against four single solves.
+    batch = LabeledBatch(y_d, planned if default_transpose_plan(dev) else SparseFeatures(idx_d, vals_d, SP_D))
+    cfg = OptimizerConfig(max_iter=SP_CONVERGED, tol=SP_CONVERGED_TOL, track_history=False)
+    spec = conv_spec
+    torch.cuda.synchronize()
+    r0, t0 = HOST_READS.count, time.perf_counter()
+    sweep = sweep_l2_lbfgs_margin(obj, batch, torch.zeros(len(SP_LAMBDAS), SP_D, device=dev), SP_LAMBDAS, cfg)
+    torch.cuda.synchronize()
+    sweep_s, sweep_reads = time.perf_counter() - t0, HOST_READS.count - r0
+    t0 = time.perf_counter()
+    singles = [make_optimizer(obj.with_l2(lam), spec)(torch.zeros(SP_D, device=dev), batch) for lam in SP_LAMBDAS]
+    torch.cuda.synchronize()
+    singles_s = time.perf_counter() - t0
+    log(f"  sweep over λ = {SP_LAMBDAS}: {sweep_s:.3f} s, {sweep_reads} host reads, iterations "
+        f"{sweep.iterations.tolist()}; four single solves {singles_s:.3f} s, iterations "
+        f"{[int(s.iterations) for s in singles]}; {peak_text()}")
+    # Held on the objective: an f32 solve stops on a plateau where the
+    # objective agrees to 1e-4 but w, along flat directions, does not (the
+    # margins' difference is logged).
+    for i, (lam, one) in enumerate(zip(SP_LAMBDAS, singles)):
+        _, r = rel_err(batch.margins(sweep.w[i]), batch.margins(one.w))
+        dv = abs(float(sweep.value[i]) - float(one.value)) / abs(float(one.value))
+        check(dv <= 1e-4, f"10a sweep lane λ={lam:g} vs its single solve at convergence: objective rel {dv:.3e} "
+                          f"(tolerance 1e-4); margins rel {r:.3e}")
+    out.update(sweep_s=sweep_s, singles_s=singles_s, fastest=fastest)
+    return out
+
+
+def sparse_game_phase(dev, smi: str, check, train, valid) -> dict:
+    """Phase 10b: phase 7b's model, data and widths with the fixed-effect
+    shard replaced by config 6's layout over its N = 2^21 rows (d = 2^20, 64
+    nnz a row, the transpose plan by ``default_transpose_plan``; validation
+    likewise), labels planted anew over it; per user (d = 16) and per item
+    (d = 128) dense, on K3. Two passes with the active set, then a
+    fixed-only fit and one profiled pass. Fails unless _fit_passes' checks
+    hold, GLMix reaches the fixed-only AUC, K3 runs at both widths and K1
+    never (the reference never fuses sparse). Returns the launches."""
+    from photon_tpu_torch.data.batch import SparseFeatures, default_transpose_plan
+    from photon_tpu_torch.evaluation.suite import EvaluationSuite, EvaluatorSpec
+
+    log(f"## phase 10b: GAME with a sparse fixed-effect shard (d = 2^{SP_D.bit_length() - 1}, {SP_K} nnz a row over "
+        f"phase 7's N = {train.n} rows) beside its per-user (d = {D_RE}) and per-item (d = {G_D_ITEM}) effects; "
+        f"card {smi}")
+    g = torch.Generator(device=dev).manual_seed(10)
+    plan = default_transpose_plan(dev)
+
+    def sparse_rows(n):
+        idx = torch.randint(0, SP_D, (n, SP_K), device=dev, generator=g, dtype=torch.int32)
+        vals = torch.randn(n, SP_K, device=dev, generator=g)
+        idx[:, 0], vals[:, 0] = 0, 1.0
+        X = SparseFeatures(idx, vals, SP_D)
+        return X.with_transpose_plan() if plan else X
+
+    t0 = time.perf_counter()
+    n_users = int(train.entity_ids["userId"].max()) + 1
+    w_fe = torch.randn(SP_D, device=dev, generator=g) / 8.0
+    W_u = torch.randn(n_users, D_RE, device=dev, generator=g) * 0.5
+    W_i = torch.randn(G_ITEMS, G_D_ITEM, device=dev, generator=g) * 0.1
+    batches = []
+    for b in (train, valid):
+        batches.append(_game_batch(dev, sparse_rows(b.n), b.features["user"], b.entity_ids["userId"],
+                                   b.features["item"], b.entity_ids["itemId"], w_fe, W_u, W_i, g))
+    train_s, valid_s = batches
+    torch.cuda.synchronize()
+    log(f"  data {time.perf_counter() - t0:.1f} s: fixed-effect shard {SP_K} nnz a row, "
+        f"{'segment-sum plan' if plan else 'scatter'}; validation {valid_s.n} rows")
+    est, reg = _game_estimator(n_users, G_ITEMS, G_ITEM_CAP, G_PASSES)
+    out = _fit_passes("10b", est, reg, train_s, valid_s, check, smi)
+    launches = out["launches"]
+    check(launches.get("fused_value_grad", 0) == 0 and launches.get(f"newton_system_d{D_RE}", 0) > 0
+          and launches.get(f"newton_system_d{G_D_ITEM}", 0) > 0,
+          f"10b: K3 at d = {D_RE} and d = {G_D_ITEM}, and no K1 (a sparse fixed effect never fuses): {launches}")
+    fe_est, fe_reg = _game_estimator(n_users, G_ITEMS, G_ITEM_CAP, 1, fixed_only=True)
+    (fe_res,) = fe_est.fit(train_s, validation_batch=valid_s, evaluation_suite=EvaluationSuite(
+        [EvaluatorSpec.parse("AUC")]), optimization_configs=[fe_reg])
+    fe_auc = fe_res.metrics["AUC"]
+    check(out["auc"] >= fe_auc, f"10b GLMix validation AUC {out['auc']:.4f} >= fixed-only {fe_auc:.4f}")
+    est.num_iterations = 1
+    profiled("10b GAME pass from the trained model, profiled",
+             lambda: est.fit(train_s, optimization_configs=[reg], initial_model=out["res"].model))
+    return launches
+
+
+def _sparse_planted():
+    """10c's planted global weights and the features boxed by its
+    constraints: the 4 strongest of the 100 most frequent."""
+    w = np.random.default_rng(100).normal(size=S_COLUMNS) * 0.5
+    return w, np.argsort(-np.abs(w[:100]))[:4]
+
+
+def _sparse_driver_records(n: int, seed: int) -> list:
+    """TrainingExampleAvro rows of 10c: S_NNZ global features ("f<j>") of
+    S_COLUMNS, feature j drawn with frequency ∝ 1 / (j + 1) (a wide shard's
+    few common and many rare features), and S_USER_NNZ of the user's own
+    S_USER_WINDOW user features ("u<user>_<j>", bag userFeatures), the user
+    in metadataMap; labels planted from a fixed and a per-user effect (the
+    model from one seed, the rows from ``seed``)."""
+    model = np.random.default_rng(100)
+    w, _ = _sparse_planted()
+    W_u = model.normal(size=(S_USERS, S_USER_WINDOW)) * 0.5
+    b_u = model.normal(size=S_USERS) * 0.5
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, S_COLUMNS + 1)
+    cols = rng.choice(S_COLUMNS, size=(n, S_NNZ), p=p / p.sum())
+    vals = rng.normal(size=(n, S_NNZ))
+    users = rng.integers(0, S_USERS, size=n)
+    ucols = np.argsort(rng.random((n, S_USER_WINDOW)), axis=1)[:, :S_USER_NNZ]
+    uvals = rng.normal(size=(n, S_USER_NNZ))
+    logits = (np.sum(vals * w[cols], axis=1) * 2.0 / np.sqrt(S_NNZ)
+              + np.sum(uvals * W_u[users[:, None], ucols], axis=1) + b_u[users])
+    y = rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-logits))
+    return [{"uid": str(i), "label": float(y[i]), "weight": None, "offset": None,
+             "metadataMap": {"userId": f"user{users[i]}"},
+             "features": [{"name": f"f{c}", "term": "", "value": float(v)} for c, v in zip(cols[i], vals[i])],
+             "userFeatures": [{"name": f"u{users[i]}_{c}", "term": "", "value": float(v)}
+                              for c, v in zip(ucols[i], uvals[i])]}
+            for i in range(n)]
+
+
+def sparse_drivers_phase(dev, smi: str, check) -> None:
+    """Phase 10c: the drivers on Avro files wider than the reader's dense
+    limit: train_glm with --constraint-string and --summarization-output-dir
+    (L-BFGS under the box), and ELASTIC_NET; game_training with
+    --coordinate-constraints over a sparse global shard and a sparse
+    per-user shard (projected blocks); game_scoring of that model; and
+    name_and_term_bags on the training file."""
+    import copy
+
+    from photon_tpu_torch.cli import game_scoring, game_training, name_and_term_bags, train_glm
+    from photon_tpu_torch.cli.common import parse_feature_shard_config
+    from photon_tpu_torch.data.batch import SparseFeatures
+    from photon_tpu_torch.data.index_map import EntityIndex, IndexMap
+    from photon_tpu_torch.evaluation.metrics_map import AREA_UNDER_ROC
+    from photon_tpu_torch.io.avro import read_avro_records, write_avro_records
+    from photon_tpu_torch.io.data_reader import read_merged
+    from photon_tpu_torch.io.model_io import load_game_model
+    from photon_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA
+    from photon_tpu_torch.io.scores import load_scores
+    from photon_tpu_torch.optim.common import HOST_READS
+
+    log(f"## phase 10c: drivers on sparse Avro files; cut as phase 8 is (the port parses Avro in pure Python): "
+        f"{S_TRAIN_ROWS} training and {S_VALID_ROWS} validation rows, {S_COLUMNS} global columns, {S_NNZ} a row "
+        f"(config 6: 2^20 rows of 2^20 columns, 64 a row); {S_USERS} users of {S_USER_WINDOW} user features each, "
+        f"{S_USER_NNZ} a row")
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_sparse_drivers"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    schema = copy.deepcopy(TRAINING_EXAMPLE_SCHEMA)
+    schema["fields"].append({"name": "userFeatures", "type": {"type": "array", "items": "FeatureAvro"}})
+    t0 = time.perf_counter()
+    paths = {"train": str(work / "train.avro"), "valid": str(work / "valid.avro")}
+    write_avro_records(paths["train"], schema, _sparse_driver_records(S_TRAIN_ROWS, 101))
+    write_avro_records(paths["valid"], schema, _sparse_driver_records(S_VALID_ROWS, 102))
+    log(f"  wrote the Avro files in {time.perf_counter() - t0:.1f} s")
+    device = dev.type
+    torch.cuda.reset_peak_memory_stats()
+    # Common features of strong planted weights, boxed to ±0.01.
+    _, strongest = _sparse_planted()
+    box = [{"name": f"f{j}", "term": "", "lowerBound": -0.01, "upperBound": 0.01} for j in strongest]
+
+    def run(label, fn, argv):
+        reads0, t0 = HOST_READS.count, time.perf_counter()
+        result = fn(argv)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        log(f"  {label}: {time.perf_counter() - t0:.2f} s wall, {HOST_READS.count - reads0} host reads; {peak_text()}")
+        torch.cuda.reset_peak_memory_stats()
+        return result
+
+    # train_glm: L-BFGS under the constraint box, with the summary; ELASTIC_NET.
+    summ = work / "summary"
+    nonzero = {}
+    for label, extra in (("LBFGS + --constraint-string", ["--constraint-string", json.dumps(box),
+                                                          "--summarization-output-dir", str(summ)]),
+                         ("ELASTIC_NET α = 0.5", ["--regularization-type", "ELASTIC_NET",
+                                                  "--elastic-net-alpha", "0.5"])):
+        out = work / f"glm-{len(extra)}"
+        summary = run(f"train_glm {label}", train_glm.main,
+                      ["--training-data", paths["train"], "--validation-data", paths["valid"], "--output-dir",
+                       str(out), "--regularization-weights", "10,1", "--device", device] + extra)
+        best = next(m for m in summary["models"] if m["lambda"] == summary["best_lambda"])
+        auc = best["validation"][AREA_UNDER_ROC]
+        text = {}
+        with open(out / f"model-lambda-{summary['best_lambda']:g}.txt") as f:
+            for line in f:
+                if not line.startswith("#"):
+                    key, value = line.rstrip("\n").split("\t")
+                    text[key] = float(value)
+        log(f"    best λ {summary['best_lambda']:g}, validation AUC {auc:.4f}; per λ "
+            + ", ".join(f"{m['lambda']:g}: {m['iterations']} it {m['reason']}" for m in summary["models"])
+            + f"; {len(text)} nonzero coefficients written")
+        nonzero[label] = len(text)
+        check(auc > 0.55 and (out / "best" / "model-metadata.json").exists(),
+              f"10c train_glm {label}: best/ written, validation AUC {auc:.4f} > 0.55")
+        if "--constraint-string" in extra:
+            boxed = [abs(text.get(f"f{j}", 0.0)) for j in strongest]
+            check(max(boxed) <= 0.01 + 1e-6 and max(boxed) >= 0.0099,
+                  f"10c train_glm: the boxed coefficients {[f'{b:.4f}' for b in boxed]} within ±0.01, binding")
+            records = read_avro_records(str(summ / "part-00000.avro"))
+            check(len(records) > 4096, f"10c --summarization-output-dir: {len(records)} feature summaries (> 4096)")
+        else:
+            dense = nonzero["LBFGS + --constraint-string"]
+            check(len(text) < dense, f"10c train_glm ELASTIC_NET: {dense - len(text)} more coefficients exactly "
+                                     f"zero than under L2")
+
+    # game_training with --coordinate-constraints, then game_scoring.
+    shards = ["--feature-shard-configurations", "name=globalShard,feature.bags=features",
+              "name=userShard,feature.bags=userFeatures"]
+    coords = ["--coordinate-configurations", "name=global,feature.shard=globalShard,reg.weights=1",
+              "name=perUser,feature.shard=userShard,random.effect.type=userId,reg.weights=1",
+              "--update-sequence", "global,perUser", "--coordinate-descent-iterations", "2", "--evaluators", "AUC",
+              "--coordinate-constraints", json.dumps({"global": box})]
+    out, scored = work / "game", work / "scores"
+    summary = run("game_training", game_training.main,
+                  ["--input-paths", paths["train"], "--validation-paths", paths["valid"], "--output-dir", str(out),
+                   "--device", device] + shards + coords)
+    imaps = {s: IndexMap.load(str(out / f"index-map-{s}.json")) for s in ("globalShard", "userShard")}
+    eidx = {"userId": EntityIndex.load(str(out / "entity-index-userId.json"))}
+    model = load_game_model(str(out / "best"), imaps, eidx, device=dev)
+    w = model.models["global"].model.coefficients.means
+    boxed = [abs(float(w[imaps["globalShard"].get_index(f"f{j}")])) for j in strongest]
+    auc = summary["best"]["metrics"]["AUC"]
+    log(f"    shard widths {[len(m) for m in imaps.values()]}; best {summary['best']['config']}: AUC {auc:.4f}")
+    check(min(len(m) for m in imaps.values()) > 4096 and auc > 0.6 and max(boxed) <= 0.01 + 1e-6,
+          f"10c game_training: both shards sparse (widths {[len(m) for m in imaps.values()]}), validation AUC "
+          f"{auc:.4f} > 0.6, boxed coefficients within ±0.01 ({max(boxed):.4f})")
+    result = run("game_scoring", game_scoring.main,
+                 ["--input-paths", paths["valid"], "--output-dir", str(scored), "--model-input-dir", str(out / "best"),
+                  "--evaluators", "AUC", "--device", device] + shards)
+    shard_cfgs = {}
+    for spec in shards[1:]:
+        shard_cfgs.update(parse_feature_shard_config(spec))
+    valid, _, _ = read_merged([paths["valid"]], shard_cfgs, imaps, {"userId": "userId"}, eidx,
+                              intern_new_entities=False, device=dev)
+    check(all(isinstance(valid.features[s], SparseFeatures) for s in imaps),
+          "10c the validation file reads back as two sparse shards")
+    want = model.score_with_offset(valid).double().cpu()
+    got = torch.tensor([r["predictionScore"] for r in load_scores(str(scored / "scores.avro"))], dtype=torch.float64)
+    _, r = rel_err(got, want)
+    # (The summary's AUC is the last pass's, best/ the best pass's: ROADMAP queue 3.)
+    check(got.shape == want.shape and r <= 1e-5,
+          f"10c game_scoring: scores.avro vs best/ scored in process rel {r:.3e} (tolerance 1e-5); scoring AUC "
+          f"{result['metrics']['AUC']:.4f}")
+
+    # The per-user coordinate in process: projected blocks of the sparse shard.
+    from photon_tpu_torch.estimators import config as gconfig
+    from photon_tpu_torch.estimators.game_estimator import GameEstimator
+    from photon_tpu_torch.types import TaskType
+
+    train_b, _, _ = read_merged([paths["train"]], shard_cfgs, imaps, {"userId": "userId"}, eidx, device=dev)
+    est = GameEstimator(TaskType.LOGISTIC_REGRESSION, [gconfig.RandomEffectCoordinateConfig(
+        "perUser", "userId", "userShard")], num_entities={"userId": len(eidx["userId"])})
+    est._prepare_datasets(train_b)
+    ds = est._re_datasets["perUser"]
+    log(f"    per-user projected blocks {[tuple(b.features.shape) for b in ds.blocks]}")
+    check(ds.projected and all(b.dim < len(imaps["userShard"]) for b in ds.blocks),
+          "10c the sparse per-user shard trains in projected blocks")
+
+    counts = run("name_and_term_bags", lambda argv: name_and_term_bags.run(name_and_term_bags.build_parser()
+                                                                              .parse_args(argv)),
+                 ["--input-data-directories", paths["train"], "--root-output-directory", str(work / "bags"),
+                  "--feature-bags-keys", "features", "userFeatures"])
+    check(counts == {"features": len(imaps["globalShard"]) - 1, "userFeatures": len(imaps["userShard"]) - 1},
+          f"10c name_and_term_bags: {counts} distinct features, the index maps' less the intercepts")
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs only on a GPU", file=sys.stderr)
@@ -1391,7 +1880,16 @@ def main() -> int:
     # ---------------- 9. GAME with the other solvers ----------------
     torch.cuda.empty_cache()
     solver_launches = game_solvers_phase(dev, smi, check, train, valid, fe_auc)
+
+    # ---------------- 10. the sparse wide fixed effect ----------------
+    torch.cuda.empty_cache()
+    wide = sparse_wide_phase(dev, smi, check)
+    log("phase 10a " + json.dumps({k: v for k, v in wide.items()}))
+    torch.cuda.empty_cache()
+    sparse_launches = sparse_game_phase(dev, smi, check, train, valid)
     del train, valid
+    torch.cuda.empty_cache()
+    sparse_drivers_phase(dev, smi, check)
 
     # ---------------- 8. GAME drivers ----------------
     torch.cuda.empty_cache()
@@ -1420,7 +1918,8 @@ def main() -> int:
                                          d96_max_abs_err=headline_err["newton_system_d96"])
     # "ran": the launches that did their work (launches less those whose
     # launch flag was off; K3 has no flag).
-    paths = (glmix_launches, tron_launches, glm_launches, game_launches, driver_launches, solver_launches)
+    paths = (glmix_launches, tron_launches, glm_launches, game_launches, driver_launches, solver_launches,
+             sparse_launches)
     rows = []
     for name, (src, repl) in sources.items():
         rows.append(dict(name=name, route="cuda", source=src, replaces=repl,

@@ -28,7 +28,8 @@ one λ sweep, L2, L1 or elastic net, share one captured program
 (``captures`` counts those; ``traces`` counts keys, as the reference does).
 
 The fixed effect's X and label, the same tensors in every pass, are keyed
-by identity and read in place. Everything else a solve reads (offsets,
+by identity and read in place (a sparse X by its indices, values and
+transpose plan). Everything else a solve reads (offsets,
 weights, warm starts, the random-effect blocks, which the active-set repack
 rebuilds) is copied into static buffers, one per input name and signature
 in a cache, shared by the programs that read such an input (they replay in
@@ -60,7 +61,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from photon_tpu_torch.data.batch import LabeledBatch
+from photon_tpu_torch.data.batch import LabeledBatch, SparseFeatures
 from photon_tpu_torch.ops import kernels
 from photon_tpu_torch.optim.common import REASON_DIVERGED
 from photon_tpu_torch.optim.program import Program, chunk_loop, run_chunked
@@ -511,11 +512,12 @@ class SolveCache:
         entries: Dict = {}
 
         def solve(w0: Tensor, lb) -> OptimizeResult:
-            if not isinstance(lb, LabeledBatch):
-                raise NotImplementedError("sparse feature batches are not ported yet")
             X, label = lb.features, lb.label
-            key = base + (("id", id(X)), ("id", id(label))) + tuple(
-                _sig(t) for t in (X, label, lb.weight, lb.offset, w0))
+            # X's tensors (a sparse X's indices, values and plan) and the
+            # label are read in place: keyed by identity and signature.
+            xs = X.tensors() if isinstance(X, SparseFeatures) else (X,)
+            key = base + tuple(("id", id(t)) for t in xs + (label,)) + tuple(
+                _sig(t) for t in xs + (label, lb.weight, lb.offset, w0))
             inputs = dict(w0=w0, weight=lb.weight, offset=lb.offset)
 
             def build():
@@ -534,7 +536,7 @@ class SolveCache:
                 entry.eval_unit = prog.eval_unit
                 return entry
 
-            entry = self._dispatch(entries, key, weights, build, (objective, spec, X, label),
+            entry = self._dispatch(entries, key, weights, build, (objective, spec, X, label) + xs,
                                    ("fe", int(w0.shape[0])))
             return OptimizeResult(*entry(inputs, weights), eval_unit=entry.eval_unit)
 

@@ -12,7 +12,8 @@ The reference's steps, in its order: the output directory; the index maps
 of ``--feature-index-dir``; read the training data (a random effect's id
 column is its type); validate; read the validation data, looking entities
 up without interning new ones; feature statistics, normalization and
-``--summarization-output-dir``; the warm-start model, loaded after both
+``--summarization-output-dir``; the fixed effects' boxes of
+``--coordinate-constraints``; the warm-start model, loaded after both
 reads so that its entities extend the run's entity indexes; the
 evaluation suite; ``GameEstimator.fit`` over the cross product of the
 regularization weights; selection by ``--output-mode``; ``best/`` (and
@@ -27,9 +28,12 @@ machinery is not ported exit non-zero with "not ported yet".
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 from typing import Dict
+
+import torch
 
 from photon_tpu_torch.cli.common import (
     add_active_set_args,
@@ -46,10 +50,12 @@ from photon_tpu_torch.cli.common import (
     setup_logging,
     task_of,
 )
+from photon_tpu_torch.data.constraints import constraint_bound_vectors
 from photon_tpu_torch.data.index_map import IndexMap
 from photon_tpu_torch.data.normalization import build_normalization_context
 from photon_tpu_torch.data.stats import compute_feature_stats
 from photon_tpu_torch.data.validators import DataValidationType, validate_game_batch
+from photon_tpu_torch.estimators.config import FixedEffectCoordinateConfig
 from photon_tpu_torch.estimators.game_estimator import GameEstimator
 from photon_tpu_torch.evaluation.metrics_map import sanitize_for_json
 from photon_tpu_torch.evaluation.suite import EvaluationSuite, EvaluatorSpec
@@ -80,7 +86,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model-input-dir", default=None, help="warm-start model dir")
     p.add_argument("--locked-coordinates", default="",
                    help="comma-separated coordinate ids to keep fixed (partial retrain)")
-    p.add_argument("--coordinate-constraints", default=None, help="not ported yet")
+    p.add_argument("--coordinate-constraints", default=None,
+                   help='JSON object: fixed-effect coordinate id → constraint array, e.g. '
+                        '\'{"global": [{"name": "f1", "term": "", "lowerBound": 0}]}\'')
     p.add_argument("--output-mode", default="BEST", choices=["BEST", "ALL", "NONE", "EXPLICIT", "TUNED"],
                    help="reference ModelOutputMode: BEST = best model overall, ALL = every trained "
                         "model, EXPLICIT = best of the explicit λ grid, NONE = no model output "
@@ -132,11 +140,33 @@ def _refuse_unported(args) -> None:
         "--telemetry-out": args.telemetry_out is not None,
         "--otlp-endpoint": args.otlp_endpoint is not None,
         "--stream-ingest-chunk-rows": args.stream_ingest_chunk_rows > 0,
-        "--coordinate-constraints": args.coordinate_constraints is not None,
         "--re-device-budget-mb": args.re_device_budget_mb is not None,
         "--re-spill-dir": args.re_spill_dir is not None,
         "--re-spill-member": args.re_spill_member is not None,
     })
+
+
+def _constrained(coord_configs, cmap: Dict, index_maps, batch, intercept_indices) -> list:
+    """The coordinate configurations with each constrained fixed effect's
+    box: its constraint array resolved against its shard's index map."""
+    unknown = set(cmap) - {c.coordinate_id for c in coord_configs}
+    if unknown:
+        raise ValueError(f"constraints for unknown coordinates: {sorted(unknown)}")
+    out = []
+    for c in coord_configs:
+        entries = cmap.get(c.coordinate_id)
+        if entries is not None:
+            if not isinstance(c, FixedEffectCoordinateConfig):
+                raise ValueError(f"coordinate constraints apply to fixed-effect coordinates only; "
+                                 f"'{c.coordinate_id}' is a random-effect coordinate")
+            bounds = constraint_bound_vectors(json.dumps(entries), index_maps[c.feature_shard],
+                                              batch.features[c.feature_shard].shape[1],
+                                              intercept_indices.get(c.feature_shard))
+            if bounds is not None:
+                c = dataclasses.replace(c, box=tuple(
+                    torch.as_tensor(b, dtype=batch.label.dtype, device=batch.label.device) for b in bounds))
+        out.append(c)
+    return out
 
 
 def run(args) -> Dict:
@@ -203,6 +233,10 @@ def run(args) -> Dict:
             if args.summarization_output_dir:
                 write_basic_statistics(stats, index_maps[shard],
                                        os.path.join(args.summarization_output_dir, shard, "part-00000.avro"))
+
+    if args.coordinate_constraints:
+        coord_configs = _constrained(coord_configs, json.loads(args.coordinate_constraints), index_maps,
+                                     batch, intercept_indices)
 
     warm = None
     if args.model_input_dir:

@@ -5,11 +5,14 @@
         [--regularization-weights 10,1,0.1] [--optimizer TRON] [--device cpu]
 
 The reference's INIT → PREPROCESSED → TRAINED → VALIDATED stages: read Avro
-or LIBSVM, validate, normalize where asked, run the λ sweep strongest first
-with a warm start (``train_lambda_sweep``), compute the variances, score the
-validation set with the task's MetricsMap, pick the best λ, and write the
-text models, the Avro ``best/`` model, ``LATEST`` and
-``training-summary.json`` in the reference's layouts.
+(a file of more than 4096 features as padded-sparse features) or LIBSVM,
+restricted to ``--selected-features-file`` where given, validate, summarize
+(``--summarization-output-dir``) and normalize where asked, bound the
+coefficients (``--coefficient-box`` or ``--constraint-string``), run the λ
+sweep strongest first with a warm start (``train_lambda_sweep``), compute
+the variances, score the validation set with the task's MetricsMap, pick
+the best λ, and write the text models, the Avro ``best/`` model,
+``LATEST`` and ``training-summary.json`` in the reference's layouts.
 
 The data and the solves live on ``--device`` (default cuda; without a card
 the driver exits non-zero rather than run on the CPU). Flags whose
@@ -43,14 +46,16 @@ from photon_tpu_torch.cli.common import (
     task_of,
 )
 from photon_tpu_torch.data.batch import LabeledBatch
+from photon_tpu_torch.data.constraints import constraint_bound_vectors
 from photon_tpu_torch.data.index_map import IndexMap
 from photon_tpu_torch.data.normalization import NormalizationContext, build_normalization_context
 from photon_tpu_torch.data.stats import compute_feature_stats
 from photon_tpu_torch.data.validators import DataValidationType, validate_labeled_batch
 from photon_tpu_torch.evaluation.metrics_map import metrics_map, sanitize_for_json, selection_metric
+from photon_tpu_torch.io.avro import AvroReader
 from photon_tpu_torch.io.data_reader import FeatureShardConfig, read_merged
 from photon_tpu_torch.io.libsvm import read_libsvm
-from photon_tpu_torch.io.model_io import publish_latest_pointer, save_game_model
+from photon_tpu_torch.io.model_io import publish_latest_pointer, save_game_model, write_basic_statistics
 from photon_tpu_torch.models.coefficients import Coefficients
 from photon_tpu_torch.models.game import FixedEffectModel, GameModel
 from photon_tpu_torch.models.glm import GeneralizedLinearModel
@@ -102,8 +107,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--intercept", action=argparse.BooleanOptionalAction, default=True)
     p.add_argument("--coefficient-box", default=None,
                    help="lower,upper box constraint applied to all coefficients")
-    p.add_argument("--selected-features-file", default=None, help="not ported yet")
-    p.add_argument("--constraint-string", default=None, help="not ported yet")
+    p.add_argument("--selected-features-file", default=None,
+                   help="Avro file of FeatureNameTermAvro records: train on these features only (avro format)")
+    p.add_argument("--constraint-string", default=None,
+                   help='JSON array of {"name", "term", "lowerBound", "upperBound"} per-feature bounds '
+                        "(exclusive with --coefficient-box)")
     p.add_argument("--compute-variance", nargs="?", const="SIMPLE", default="NONE",
                    choices=["NONE", "SIMPLE", "FULL"],
                    help="coefficient variances (bare flag = SIMPLE diag-inverse; "
@@ -112,7 +120,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--event-listener", action="append", default=[], dest="event_listener",
                    help="not ported yet")
     p.add_argument("--telemetry-out", default=None, help="not ported yet")
-    p.add_argument("--summarization-output-dir", default=None, help="not ported yet")
+    p.add_argument("--summarization-output-dir", default=None,
+                   help="write per-feature summary statistics of the training data as "
+                        "FeatureSummarizationResultAvro (part-00000.avro)")
     p.add_argument("--stream-ingest-chunk-rows", type=int, default=0, help="not ported yet")
     p.add_argument("--replay-cache-mb", type=int, default=_REPLAY_CACHE_MB,
                    help="streaming ingest only (not ported yet)")
@@ -138,10 +148,22 @@ def _refuse_unported(args) -> None:
         "--telemetry-out": args.telemetry_out is not None,
         "--event-listeners": bool(args.event_listeners),
         "--event-listener": bool(args.event_listener),
-        "--summarization-output-dir": args.summarization_output_dir is not None,
-        "--constraint-string": args.constraint_string is not None,
-        "--selected-features-file": args.selected_features_file is not None,
     })
+
+
+def _selected_features_index_map(args) -> Optional[IndexMap]:
+    """The index map of ``--selected-features-file`` (an Avro file of
+    FeatureNameTermAvro records): features outside it are dropped at
+    ingest, as the reader drops features absent from a given map."""
+    if not args.selected_features_file:
+        return None
+    if args.format == "libsvm":
+        raise ValueError("--selected-features-file applies to the avro format (features are name/term keyed)")
+    with AvroReader(args.selected_features_file) as r:
+        keys = {IndexMap.key(rec["name"], rec.get("term") or "") for rec in r}
+    if not keys:
+        raise ValueError(f"no features in {args.selected_features_file}")
+    return IndexMap.build(sorted(keys), add_intercept=args.intercept)
 
 
 def load_data(args, path: Optional[str], device, index_map: Optional[IndexMap] = None):
@@ -275,7 +297,7 @@ def run(args) -> Dict:
     if args.validate_per_iteration and args.validation_data is None:
         raise ValueError("--validate-per-iteration requires --validation-data")
 
-    train, imap = load_data(args, args.training_data, device)
+    train, imap = load_data(args, args.training_data, device, _selected_features_index_map(args))
     valid, _ = load_data(args, args.validation_data, device, imap)
     mode = DataValidationType[args.data_validation]
     validate_labeled_batch(train, task, mode)
@@ -287,16 +309,25 @@ def run(args) -> Dict:
 
     norm = None
     norm_type = NormalizationType[args.normalization]
-    if norm_type != NormalizationType.NONE:
+    if norm_type != NormalizationType.NONE or args.summarization_output_dir:
         stats = compute_feature_stats(train, icpt)
-        norm = build_normalization_context(norm_type, stats.mean, stats.std, stats.abs_max, icpt)
+        if norm_type != NormalizationType.NONE:
+            norm = build_normalization_context(norm_type, stats.mean, stats.std, stats.abs_max, icpt)
+        if args.summarization_output_dir:
+            write_basic_statistics(stats, imap, os.path.join(args.summarization_output_dir, "part-00000.avro"))
     stage = DriverStage.PREPROCESSED
 
     box = None
+    d = train.features.shape[1]
     if args.coefficient_box:
         lo, hi = (float(x) for x in args.coefficient_box.split(","))
-        d = train.features.shape[1]
         box = tuple(torch.full((d,), v, dtype=train.label.dtype, device=device) for v in (lo, hi))
+    if args.constraint_string:
+        if box is not None:
+            raise ValueError("--constraint-string and --coefficient-box are exclusive")
+        bounds = constraint_bound_vectors(args.constraint_string, imap, d, icpt)
+        if bounds is not None:
+            box = tuple(torch.as_tensor(b, dtype=train.label.dtype, device=device) for b in bounds)
 
     # REGULARIZATION_TYPE_OPTION: NONE ignores the weights, L1/L2 pin the
     # elastic-net mix, ELASTIC_NET takes the alpha as given.

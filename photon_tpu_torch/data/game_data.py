@@ -13,7 +13,7 @@ from typing import Dict, Optional
 
 import torch
 
-from photon_tpu_torch.data.batch import LabeledBatch
+from photon_tpu_torch.data.batch import Features, LabeledBatch
 
 Tensor = torch.Tensor
 
@@ -23,7 +23,7 @@ class GameBatch:
     label: Tensor
     offset: Tensor
     weight: Tensor
-    features: Dict[str, Tensor]  # feature-shard name -> (n, d_shard)
+    features: Dict[str, Features]  # feature-shard name -> (n, d_shard), dense or sparse
     entity_ids: Dict[str, Tensor]  # RE type name -> (n,) int32
     uid: Optional[Tensor] = None
 

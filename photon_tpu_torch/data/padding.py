@@ -1,9 +1,9 @@
 """Shape-bucketed GameBatch padding (port of photon_tpu/data/padding.py).
 
 Rows pad with weight-0 samples and entity id -1 (scored as zero); uid,
-label and offset pad with zeros. Sparse shards are not ported yet, so the
-nnz-width bucketing has no counterpart here; ``bucket_pow2`` is kept for
-it.
+label and offset pad with zeros. A sparse shard's padding rows are
+zero-valued slots at index 0, and its nnz width k is bucketed to the next
+power of two, so a stream of batches meets few widths.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from photon_tpu_torch.data.batch import Features, SparseFeatures
 from photon_tpu_torch.data.random_effect import bucket_dim
 
 
@@ -35,11 +36,17 @@ def bucket_grid(max_n: int):
         n = b + 1
 
 
-def pad_feature_matrix(v: torch.Tensor, pad: int) -> torch.Tensor:
-    """Pad one dense feature matrix by ``pad`` zero rows (``v`` itself when
-    there is nothing to pad)."""
-    if not isinstance(v, torch.Tensor):
-        raise NotImplementedError("sparse feature shards are not ported yet")
+def pad_feature_matrix(v: Features, pad: int) -> Features:
+    """Pad one feature matrix by ``pad`` zero rows; a sparse one also to a
+    power-of-two nnz width, its transpose plan rebuilt if it had one (the
+    pattern changed). ``v`` itself when there is nothing to pad."""
+    if isinstance(v, SparseFeatures):
+        k = v.indices.shape[1]
+        k_pad = bucket_pow2(k)
+        if pad == 0 and k_pad == k:
+            return v
+        out = SparseFeatures(F.pad(v.indices, (0, k_pad - k, 0, pad)), F.pad(v.values, (0, k_pad - k, 0, pad)), v.dim)
+        return out.with_transpose_plan() if v.has_plan else out
     return v if pad == 0 else F.pad(v, (0, 0, 0, pad))
 
 

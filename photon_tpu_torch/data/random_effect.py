@@ -9,8 +9,11 @@ carry entity_idx -1 and train_mask False.
 
 Also here: per-block subspace projection of dense input (``col_map``), the
 merge of same-geometry blocks, the active-set repack (``pack_into_sizes``,
-``compact_entity_blocks``) and the Pearson feature mask. Sparse shard input
-is not ported yet. The reference's pad-waste telemetry has no counterpart.
+``compact_entity_blocks``) and the Pearson feature mask. A sparse shard
+comes in as host triples (indices, values, dim) and always takes the
+subspace projection: a block's columns are its entities' nonzero ones, and
+each row is scattered into them. The reference's pad-waste telemetry has no
+counterpart.
 """
 
 from __future__ import annotations
@@ -63,8 +66,8 @@ class RandomEffectDataConfig:
     n_buckets: int = 4
     shape_bucketing: bool = True
     # Per-block subspace projection (a block's features are the union of its
-    # entities' nonzero columns, ``col_map`` back to the shard). None and
-    # False: off (dense input); sparse input is not ported yet.
+    # entities' nonzero columns, ``col_map`` back to the shard). None: on for
+    # sparse input, off for dense; False refuses sparse input.
     subspace_projection: Optional[bool] = None
     merge_same_geometry: bool = False
 
@@ -160,19 +163,30 @@ def build_random_effect_dataset(
     existing_model_mask: Optional[np.ndarray] = None,
     device="cuda",
 ) -> RandomEffectDataset:
-    """Group dense per-sample rows into entity blocks on ``device``.
+    """Group per-sample rows into entity blocks on ``device``: ``features``
+    is a dense (n, d) array or host sparse triples (indices (n, k), values
+    (n, k), dim), which imply the subspace projection.
 
     Samples of an entity beyond ``active_upper_bound`` are dropped by
     deterministic reservoir sampling on the uid; entities under
     ``active_lower_bound`` samples keep their model (train_mask False) unless
     ``existing_model_mask`` says they have none."""
+    sp_indices = sp_values = None
     if isinstance(features, tuple):
-        raise NotImplementedError("sparse random-effect shard input is not ported yet")
-    features = np.asarray(features)
+        sp_indices, sp_values, d = features
+        sp_indices, sp_values = np.asarray(sp_indices), np.asarray(sp_values)
+        n = sp_indices.shape[0]
+        project = True if config.subspace_projection is None else bool(config.subspace_projection)
+        if not project:
+            raise ValueError("sparse shard input requires subspace projection")
+        feat_dtype = sp_values.dtype
+    else:
+        features = np.asarray(features)
+        n, d = features.shape
+        project = bool(config.subspace_projection)
+        feat_dtype = features.dtype
     entity_ids = np.asarray(entity_ids)
     label, weight = np.asarray(label), np.asarray(weight)
-    n, d = features.shape
-    project = bool(config.subspace_projection)
     uid = np.arange(n, dtype=np.int64) if uid is None else np.asarray(uid).astype(np.int64)
 
     order = np.argsort(entity_ids, kind="stable")
@@ -203,19 +217,25 @@ def build_random_effect_dataset(
             continue
         n_max = int(max(n_max, 1))
         E = E_alloc = sel.size
-        col_map = None
+        col_map = inv_map = None
         if project:
             block_rows = np.concatenate([entities[gi][1] for gi in sel])
-            col_map = np.flatnonzero(np.any(features[block_rows] != 0, axis=0)).astype(np.int64)
+            if sp_indices is not None:
+                col_map = np.unique(sp_indices[block_rows][sp_values[block_rows] != 0]).astype(np.int64)
+            else:
+                col_map = np.flatnonzero(np.any(features[block_rows] != 0, axis=0)).astype(np.int64)
             if col_map.size == 0:
                 col_map = np.zeros((1,), np.int64)  # an all-zero block
+            if sp_indices is not None:
+                inv_map = np.full((d,), -1, dtype=np.int64)
+                inv_map[col_map] = np.arange(col_map.size)
         d_block = int(col_map.size) if project else d
         if config.shape_bucketing:
             n_max, E_alloc = bucket_dim(n_max), bucket_dim(E)
             if not project:
                 d_block = bucket_dim(d_block)
 
-        feat = np.zeros((E_alloc, n_max, d_block), dtype=features.dtype)
+        feat = np.zeros((E_alloc, n_max, d_block), dtype=feat_dtype)
         lab = np.zeros((E_alloc, n_max), dtype=label.dtype)
         wt = np.zeros((E_alloc, n_max), dtype=weight.dtype)
         sidx = np.full((E_alloc, n_max), -1, dtype=np.int32)
@@ -224,7 +244,14 @@ def build_random_effect_dataset(
         for j, gi in enumerate(sel):
             eid, rows = entities[gi]
             m = len(rows)
-            if project:
+            if sp_indices is not None:
+                # The rows' nonzero entries scattered into the block's columns
+                # (a row's repeated column adds up, as in to_dense).
+                vals = sp_values[rows]
+                keep = vals != 0
+                r_i, _ = np.nonzero(keep)
+                np.add.at(feat[j], (r_i, inv_map[sp_indices[rows]][keep]), vals[keep])
+            elif project:
                 feat[j, :m] = features[rows][:, col_map]
             else:
                 feat[j, :m, :d] = features[rows]

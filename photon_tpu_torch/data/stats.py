@@ -1,8 +1,9 @@
 """Per-feature summary statistics (port of photon_tpu/data/stats.py).
 
-Weighted-presence column reductions over a dense batch: rows of weight 0
+Weighted-presence column reductions over a batch: rows of weight 0
 (padding) are excluded from every statistic. The reductions run over row
-chunks, so at a large N no temporary of X's full size is held.
+chunks, so at a large N no temporary of X's full size is held. A sparse
+batch gives the statistics of its dense matrix, computed from its entries.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from photon_tpu_torch.data.batch import LabeledBatch
+from photon_tpu_torch.data.batch import LabeledBatch, SparseFeatures
 
 Tensor = torch.Tensor
 
@@ -47,7 +48,9 @@ def compute_feature_stats(
     """Count, mean, sample variance (n − 1), min, max, L1 and L2 norms and
     nonzero counts of every column, over the rows of positive weight. Two
     passes over row chunks: sums first, then squared deviations from the
-    mean."""
+    mean. A sparse batch takes them from its entries (``_sparse_stats``)."""
+    if isinstance(batch.features, SparseFeatures):
+        return _sparse_stats(batch.features, batch.weight, intercept_index)
     X = batch.features
     n_rows, d = X.shape
     dt = torch.promote_types(X.dtype, batch.weight.dtype)
@@ -77,6 +80,44 @@ def compute_feature_stats(
     ss = zeros()
     for Xc, pc in chunks():
         ss += torch.sum(pc[:, None] * (Xc - mean[None, :]) ** 2, dim=0)
+    var = ss / torch.clamp(n - 1.0, min=1.0)
+    return FeatureDataStatistics(
+        count=n, mean=mean, variance=var, min=mn, max=mx,
+        norm_l1=l1, norm_l2=torch.sqrt(sq), num_nonzeros=nnz.to(torch.int32),
+        intercept_index=intercept_index,
+    )
+
+
+def _sparse_stats(feats: SparseFeatures, weight: Tensor, intercept_index: Optional[int]) -> FeatureDataStatistics:
+    """The statistics of the dense matrix (duplicate entries of a row summed,
+    as ``to_dense`` sums them) from the entries, the implicit zeros counted:
+    a column's present rows without an entry add 0 to its sums, (0 − mean)²
+    each to its squared deviations, and 0 to its min and max."""
+    n_rows, k = feats.values.shape
+    d, device = feats.dim, feats.device
+    dt = torch.promote_types(feats.values.dtype, weight.dtype)
+    rows = torch.arange(n_rows, device=device)[:, None].expand(n_rows, k)
+    cells, inverse = torch.unique((rows * d + feats.indices.long()).reshape(-1), return_inverse=True)
+    vals = torch.zeros(cells.shape[0], dtype=dt, device=device).index_add_(
+        0, inverse, feats.values.reshape(-1).to(dt))
+    row, col = cells // d, cells % d
+    present = weight > 0
+    n_present = torch.sum(present)
+    n = torch.clamp(n_present.to(dt), min=1.0)
+    p = present[row]
+    vp = vals * p.to(dt)
+    col_sum = lambda x: torch.zeros(d, dtype=x.dtype, device=device).index_add_(0, col, x)  # noqa: E731
+    total, l1, sq = col_sum(vp), col_sum(torch.abs(vp)), col_sum(vp * vp)
+    nnz = col_sum((vp != 0).to(torch.int64))
+    zeros_in = n_present - col_sum(p.to(torch.int64))  # present rows without an entry
+    big = torch.finfo(dt).max
+    zero = torch.zeros((), dtype=dt, device=device)
+    mn = torch.full((d,), big, dtype=dt, device=device).scatter_reduce(0, col[p], vals[p], "amin")
+    mx = torch.full((d,), -big, dtype=dt, device=device).scatter_reduce(0, col[p], vals[p], "amax")
+    implicit = zeros_in > 0
+    mn, mx = torch.where(implicit, torch.minimum(mn, zero), mn), torch.where(implicit, torch.maximum(mx, zero), mx)
+    mean = total / n
+    ss = col_sum(p.to(dt) * (vals - mean[col]) ** 2) + zeros_in.to(dt) * mean * mean
     var = ss / torch.clamp(n - 1.0, min=1.0)
     return FeatureDataStatistics(
         count=n, mean=mean, variance=var, min=mn, max=mx,

@@ -2,10 +2,10 @@
 photon_tpu/data/validators.py: ``validate_labeled_batch`` and
 ``validate_game_batch``).
 
-Finite features, labels in the task's domain, non-negative finite weights,
-finite offsets; VALIDATE_SAMPLE checks a deterministic stride subsample.
-Each check is a reduction on the batch's device, so only booleans come to
-the host.
+Finite features (a sparse shard's values), labels in the task's domain,
+non-negative finite weights, finite offsets; VALIDATE_SAMPLE checks a
+deterministic stride subsample. Each check is a reduction on the batch's
+device, so only booleans come to the host.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from typing import List, Optional
 
 import torch
 
-from photon_tpu_torch.data.batch import LabeledBatch
+from photon_tpu_torch.data.batch import Features, LabeledBatch, SparseFeatures
 from photon_tpu_torch.data.game_data import GameBatch
 from photon_tpu_torch.types import TaskType
 
@@ -45,6 +45,11 @@ def _subsample(a: torch.Tensor, mode: DataValidationType) -> torch.Tensor:
 def _check_finite(name: str, a: torch.Tensor, errors: List[str]) -> None:
     if not bool(torch.isfinite(a).all()):
         errors.append(f"{name} contains non-finite values")
+
+
+def _values(feats: Features) -> torch.Tensor:
+    """The values to check: a dense matrix, or a sparse one's (n, k) values."""
+    return feats.values if isinstance(feats, SparseFeatures) else feats
 
 
 def _check_labels(task: TaskType, y: torch.Tensor, errors: List[str]) -> None:
@@ -83,7 +88,7 @@ def validate_labeled_batch(
         return
     errors: List[str] = []
     _check_common(batch.label, batch.weight, batch.offset, task, mode, errors)
-    _check_finite("features", _subsample(batch.features, mode), errors)
+    _check_finite("features", _subsample(_values(batch.features), mode), errors)
     if errors:
         raise DataValidationError("; ".join(errors))
 
@@ -95,15 +100,12 @@ def validate_game_batch(
     feature_shards: Optional[List[str]] = None,
 ) -> None:
     """Sanity-check a GAME batch across all (or the given) feature shards;
-    raises DataValidationError. A sparse shard is not ported yet."""
+    raises DataValidationError."""
     if mode == DataValidationType.VALIDATE_DISABLED:
         return
     errors: List[str] = []
     _check_common(batch.label, batch.weight, batch.offset, task, mode, errors)
     for shard in feature_shards or list(batch.features):
-        feats = batch.features[shard]
-        if not isinstance(feats, torch.Tensor):
-            raise NotImplementedError(f"feature shard {shard!r}: sparse features are not ported yet")
-        _check_finite(f"features[{shard}]", _subsample(feats, mode), errors)
+        _check_finite(f"features[{shard}]", _subsample(_values(batch.features[shard]), mode), errors)
     if errors:
         raise DataValidationError("; ".join(errors))

@@ -1,8 +1,9 @@
 """GameEstimator: the fit() orchestrator (port of
 photon_tpu/estimators/game_estimator.py).
 
-The random-effect datasets are grouped once per batch on the host and their
-blocks placed on the batch's device; each optimization configuration (a
+The random-effect datasets are grouped once per batch on the host (a sparse
+shard as its host triples, each block projected onto its own columns) and
+their blocks placed on the batch's device; each optimization configuration (a
 point of the regularization grid) builds its coordinates and runs
 coordinate descent, warm-started from the previous configuration's model.
 Every solve dispatches through ``solve_cache`` (algorithm/solve_cache.py);
@@ -24,6 +25,7 @@ from photon_tpu_torch.algorithm.coordinate_descent import CoordinateDescent
 from photon_tpu_torch.algorithm.fixed_effect import FixedEffectCoordinate
 from photon_tpu_torch.algorithm.random_effect import RandomEffectCoordinate
 from photon_tpu_torch.algorithm.solve_cache import SolveCache, default_cache
+from photon_tpu_torch.data.batch import SparseFeatures
 from photon_tpu_torch.data.game_data import GameBatch
 from photon_tpu_torch.data.normalization import NormalizationContext
 from photon_tpu_torch.data.random_effect import RandomEffectDataConfig, build_random_effect_dataset
@@ -164,10 +166,17 @@ class GameEstimator:
         names = ["label", "weight"] + (["uid"] if batch.uid is not None else [])
         tensors = [batch.label, batch.weight] + ([batch.uid] if batch.uid is not None else [])
         for cfg in re_cfgs:
-            names += [f"ids:{cfg.re_type}", f"x:{cfg.feature_shard}"]
-            tensors += [batch.entity_ids[cfg.re_type], batch.features[cfg.feature_shard]]
+            feats = batch.features[cfg.feature_shard]
+            # A sparse shard comes to the host as its (indices, values): the
+            # dataset projects each block onto its columns, never densifying.
+            parts = [feats.indices, feats.values] if isinstance(feats, SparseFeatures) else [feats]
+            names += [f"ids:{cfg.re_type}"] + [f"x:{cfg.feature_shard}:{i}" for i in range(len(parts))]
+            tensors += [batch.entity_ids[cfg.re_type]] + parts
         host = dict(zip(names, HOST_READS.fetch(*tensors))) if re_cfgs else {}
         for cfg in re_cfgs:
+            feats = batch.features[cfg.feature_shard]
+            x = (host[f"x:{cfg.feature_shard}:0"], host[f"x:{cfg.feature_shard}:1"], feats.dim) \
+                if isinstance(feats, SparseFeatures) else host[f"x:{cfg.feature_shard}:0"]
             eids = host[f"ids:{cfg.re_type}"]
             E = self.num_entities.get(cfg.re_type, int(eids.max()) + 1 if eids.size else 0)
             existing = None
@@ -179,7 +188,7 @@ class GameEstimator:
                     k = min(E, src.shape[0])
                     existing[:k] = src[:k]
             self._re_datasets[cfg.coordinate_id] = build_random_effect_dataset(
-                eids, host[f"x:{cfg.feature_shard}"], host["label"], host["weight"], E,
+                eids, x, host["label"], host["weight"], E,
                 RandomEffectDataConfig(
                     re_type=cfg.re_type, feature_shard=cfg.feature_shard,
                     active_upper_bound=cfg.active_upper_bound, active_lower_bound=cfg.active_lower_bound,

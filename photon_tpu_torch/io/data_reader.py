@@ -7,9 +7,12 @@ and entity ids are interned from the metadataMap or a top-level field. The
 rows are decoded by the pure-Python codec (io/avro.py) and assembled on the
 host; the finished arrays go to ``device`` once.
 
-Not ported yet: the native columnar decoder (``use_columnar=True``, the
-reference's default) and padded-sparse shards (a shard wider than
-``dense_dim_limit`` raises).
+A shard of at most ``dense_dim_limit`` columns becomes a dense matrix; a
+wider one a padded-sparse ``SparseFeatures`` (one slot a feature of the
+row, the intercept included), with the transpose plan where the shard's
+``transpose_plan`` (or, when None, ``default_transpose_plan`` of the
+device) asks for it. Not ported yet: the native columnar decoder
+(``use_columnar=True``, the reference's default).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from photon_tpu_torch.data.batch import Features, SparseFeatures, default_transpose_plan
 from photon_tpu_torch.data.game_data import GameBatch
 from photon_tpu_torch.data.index_map import EntityIndex, IndexMap
 from photon_tpu_torch.io.avro import AvroReader
@@ -50,9 +54,15 @@ class FeatureShardConfig:
 
     feature_bags: Sequence[str] = ("features",)
     has_intercept: bool = True
-    # The widest shard read as a dense matrix; wider shards would be
-    # padded-sparse in the reference, which the port has not yet.
+    # The widest shard read as a dense matrix; wider shards are padded-sparse.
     dense_dim_limit: int = 4096
+    # The rmatvec lowering of a padded-sparse shard: True attaches the
+    # transpose plan (segment sum), False keeps the scatter-add, None takes
+    # data/batch.py::default_transpose_plan of the device.
+    transpose_plan: Optional[bool] = None
+
+    def resolved_transpose_plan(self, device) -> bool:
+        return default_transpose_plan(device) if self.transpose_plan is None else bool(self.transpose_plan)
 
 
 def _feature_key(f: dict) -> str:
@@ -127,7 +137,8 @@ def rows_to_game_batch(
 ) -> Tuple[GameBatch, Dict[str, EntityIndex]]:
     """Merge feature bags per shard, inject intercepts, intern entity ids
     (metadataMap first, then a top-level field). A feature repeated in a row
-    keeps its last value."""
+    keeps its last value in a dense shard and adds up in a sparse one, as in
+    the reference."""
     n = len(rows)
     entity_id_columns = entity_id_columns or {}
     entity_indexes = entity_indexes if entity_indexes is not None else {}
@@ -148,18 +159,13 @@ def rows_to_game_batch(
         np.float32,
     )
 
-    features: Dict[str, torch.Tensor] = {}
+    features: Dict[str, Features] = {}
     for shard, cfg in shard_configs.items():
         imap = index_maps[shard]
         d = len(imap)
-        if d > cfg.dense_dim_limit:
-            raise NotImplementedError(
-                f"shard {shard!r} has {d} features, above dense_dim_limit="
-                f"{cfg.dense_dim_limit}: sparse features are not ported yet"
-            )
         icpt = imap.get_index(INTERCEPT_KEY) if cfg.has_intercept else -1
-        X = np.zeros((n, d), np.float32)
-        for i, row in enumerate(rows):
+        sparse_rows = []
+        for row in rows:
             ix: List[int] = []
             vs: List[float] = []
             for bag in cfg.feature_bags:
@@ -171,8 +177,15 @@ def rows_to_game_batch(
             if icpt >= 0:
                 ix.append(icpt)
                 vs.append(1.0)
-            X[i, ix] = vs
-        features[shard] = as_t(X)
+            sparse_rows.append((ix, vs))
+        if d <= cfg.dense_dim_limit:
+            X = np.zeros((n, d), np.float32)
+            for i, (ix, vs) in enumerate(sparse_rows):
+                X[i, ix] = vs
+            features[shard] = as_t(X)
+        else:
+            sf = SparseFeatures.from_rows(sparse_rows, d, device=device)
+            features[shard] = sf.with_transpose_plan() if cfg.resolved_transpose_plan(device) else sf
 
     entity_ids: Dict[str, torch.Tensor] = {}
     for re_type, col in entity_id_columns.items():

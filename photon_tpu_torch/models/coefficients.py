@@ -7,6 +7,8 @@ from typing import Optional
 
 import torch
 
+from photon_tpu_torch.data.batch import Features, SparseFeatures
+
 Tensor = torch.Tensor
 
 
@@ -19,7 +21,9 @@ class Coefficients:
     def dim(self) -> int:
         return self.means.shape[-1]
 
-    def compute_score(self, features: Tensor) -> Tensor:
+    def compute_score(self, features: Features) -> Tensor:
+        if isinstance(features, SparseFeatures):
+            return features.matvec(self.means)  # a gather and a row sum: per row too
         # A per-row product and sum, not ``features @ means``: a matrix-vector
         # product picks its accumulation order by row count (cuBLAS and CPU
         # BLAS alike), so its scores would depend on the batch size. The

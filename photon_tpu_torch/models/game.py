@@ -7,7 +7,8 @@ matrix; a sample scores the row of its entity (0 for entity -1). A
 ProjectedRandomEffectModel keeps each block's coefficients in the block's
 column subspace. Every score is a per-row product and sum, as
 ``Coefficients.compute_score`` takes it, never a matrix product, so scores
-do not depend on the batch size.
+do not depend on the batch size. A sparse shard scores by gathering each
+entry's coefficient (through the block's inverse map when projected).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Dict, Optional, Union
 
 import torch
 
+from photon_tpu_torch.data.batch import SparseFeatures
 from photon_tpu_torch.data.game_data import GameBatch
 from photon_tpu_torch.models.glm import GeneralizedLinearModel
 from photon_tpu_torch.types import TaskType
@@ -57,7 +59,10 @@ class RandomEffectModel:
         valid = idx >= 0
         w = self.coefficients[torch.clamp(idx, min=0).long()]
         feats = batch.features[self.feature_shard]
-        scores = torch.sum(feats * w, dim=-1)
+        if isinstance(feats, SparseFeatures):
+            scores = torch.sum(feats.values * torch.take_along_dim(w, feats.indices.long(), dim=1), dim=-1)
+        else:
+            scores = torch.sum(feats * w, dim=-1)
         return torch.where(valid, scores, torch.zeros((), dtype=scores.dtype, device=scores.device))
 
 
@@ -90,10 +95,17 @@ class ProjectedRandomEffectModel:
         blk, row = self.entity_block[safe], self.entity_row[safe].long()
         feats = batch.features[self.feature_shard]
         total = torch.zeros(idx.shape[0], dtype=torch.float32, device=idx.device)
-        for b, coefs in enumerate(self.block_coefs):
+        for b, (coefs, inv) in enumerate(zip(self.block_coefs, self.inv_maps)):
             in_b = valid & (blk == b)
             w = coefs[torch.where(in_b, row, 0)]
-            s = torch.sum(feats[:, self.col_maps[b].long()].to(w.dtype) * w, dim=-1)
+            if isinstance(feats, SparseFeatures):
+                # Each entry's column in the block's subspace; a column the
+                # block never saw (-1) has coefficient 0.
+                loc = inv[feats.indices.long()].long()
+                got = torch.take_along_dim(w, torch.clamp(loc, min=0), dim=1)
+                s = torch.sum(torch.where(loc >= 0, feats.values * got, 0.0), dim=-1)
+            else:
+                s = torch.sum(feats[:, self.col_maps[b].long()].to(w.dtype) * w, dim=-1)
             total = total + torch.where(in_b, s, 0.0)
         return total
 

@@ -13,6 +13,8 @@ of a GLM's X passes); with ``use_fused`` (and a batch ``_can_fuse``
 accepts) they run the fused kernels of ops/fused_glm.py.
 ``hessian_diagonal`` and ``hessian_matrix`` (for coefficient variances)
 work through row chunks of X, so no temporary of X's full size is held.
+Over ``SparseFeatures`` the diagonal scatters values²·d2 over the entries;
+the matrix, and the diagonal under shifts, densify, as the reference's do.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 
-from photon_tpu_torch.data.batch import LabeledBatch
+from photon_tpu_torch.data.batch import LabeledBatch, SparseFeatures
 from photon_tpu_torch.data.normalization import NormalizationContext
 from photon_tpu_torch.ops.fused_glm import MAX_FUSED_DIM
 from photon_tpu_torch.ops.losses import PointwiseLoss
@@ -102,9 +104,10 @@ class GLMObjective:
         return self.oracle(batch, w.dtype).value_grad(w)
 
     def _can_fuse(self, batch: LabeledBatch) -> bool:
-        """The reference's shape routing: dense features within the kernel's
-        width, no shift normalization."""
-        if not self.use_fused or batch.features.shape[1] > MAX_FUSED_DIM:
+        """The reference's shape routing: dense features (never sparse)
+        within the kernel's width, no shift normalization."""
+        feats = batch.features
+        if not self.use_fused or isinstance(feats, SparseFeatures) or feats.shape[1] > MAX_FUSED_DIM:
             return False
         return self._shifts() is None
 
@@ -132,8 +135,11 @@ class GLMObjective:
     def _effective_chunks(self, batch: LabeledBatch, d2: Tensor) -> Iterator[Tuple[Tensor, Tensor]]:
         """(rows of the effective features, their d2), chunk by chunk: with
         factors f and shifts s the effective feature is x∘f − s∘f, and the
-        intercept column is reset to 1 after shifting."""
+        intercept column is reset to 1 after shifting. Sparse features
+        densify here, where the reference's do."""
         X = batch.features
+        if isinstance(X, SparseFeatures):
+            X = X.to_dense()
         dt = torch.promote_types(X.dtype, d2.dtype)
         norm = self.normalization
         f = s = None
@@ -154,6 +160,17 @@ class GLMObjective:
         """diag(H) = Σ_i weight_i · loss''_i · x_ij² (+λ off the intercept),
         normalization folded into the effective features."""
         d2 = self._curvature(w, batch)
+        feats, norm = batch.features, self.normalization
+        if isinstance(feats, SparseFeatures) and (norm is None or norm.shifts is None):
+            # Σ_i d2_i · (x_ij f_j)², scattered over the entries (shifts densify).
+            # Entry by entry, as the reference: a column repeated in a row
+            # adds Σv², where the dense matrix has (Σv)².
+            vals = feats.values if norm is None or norm.factors is None else \
+                feats.values * norm.factors[feats.indices]
+            diag = feats.scatter_columns(vals * vals * d2[:, None])
+            if self.l2_weight != 0.0:
+                diag = diag + self._l2_diag(diag.shape[0], diag.dtype, diag.device)
+            return diag
         diag = None
         for Xc, dc in self._effective_chunks(batch, d2):
             part = dc @ (Xc * Xc)

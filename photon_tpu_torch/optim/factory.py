@@ -4,9 +4,10 @@
 The reference's routing: OWL-QN whenever the objective has an L1 weight
 (intercept unpenalized), TRON with the linearized Hessian-vector product,
 L-BFGS-B (which needs a box), margin-space L-BFGS for a smooth unboxed
-LabeledBatch, and gradient-form L-BFGS otherwise. ``fe_program`` builds the
-route's device program (optim/program.py) over the objective's GLM terms;
-``make_optimizer`` runs it eagerly and the solve cache captures it.
+LabeledBatch (dense or sparse features), and gradient-form L-BFGS otherwise.
+``fe_program`` builds the route's device program (optim/program.py) over the
+objective's GLM terms; ``make_optimizer`` runs it eagerly and the solve
+cache captures it.
 """
 
 from __future__ import annotations
@@ -90,8 +91,6 @@ def make_optimizer(
     route's program, run eagerly."""
 
     def solve(w0: Tensor, batch: LabeledBatch) -> OptimizeResult:
-        if not isinstance(batch, LabeledBatch):
-            raise NotImplementedError("sparse feature batches are not ported yet")
         prog = fe_program(objective, spec, w0, batch)
         run_chunked(prog, EAGER_CHUNK)
         return prog.result()

@@ -23,12 +23,14 @@ A part that does not apply runs and keeps nothing. The solve cache
 ``minimize_lbfgs_margin`` runs the same steps eagerly, K between reads of
 the loop flag. The L2 weight is a device scalar (``l2``) the steps read, so
 one captured solve serves every weight (the solve cache fills it per
-solve). ``sweep_l2_lbfgs_margin`` is not ported yet.
+solve). ``sweep_l2_lbfgs_margin`` solves one batch against k L2 weights as
+k lanes of one program over the shared X, one weight a lane.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -57,13 +59,14 @@ TRIALS_PER_STEP = 4
 class MarginLBFGS(Program):
     """Margin-space L-BFGS over GLM data terms (optim/problem.py: a
     fixed-effect batch, or an entity block with one lane an entity) plus
-    ½·l2·‖c∘w‖² (c zero at ``intercept_index``), as a device state machine.
-    The terms' tensors and ``w0`` are read by ``init`` and ``step``; the
-    state is owned."""
+    ½·l2·‖c∘w‖² (c zero at ``intercept_index``; ``l2_weight`` a float, or a
+    tensor of one weight a lane over a shared batch), as a device state
+    machine. The terms' tensors and ``w0`` are read by ``init`` and
+    ``step``; the state is owned."""
 
     eval_unit = "x_passes"
 
-    def __init__(self, terms: GLMTerms, l2_weight: float, intercept_index: Optional[int], w0: Tensor,
+    def __init__(self, terms: GLMTerms, l2_weight, intercept_index: Optional[int], w0: Tensor,
                  config: OptimizerConfig = OptimizerConfig()):
         self.terms, self.w0, self.config = terms, w0, config
         # An iteration takes at most this many steps (its search's trials).
@@ -75,7 +78,7 @@ class MarginLBFGS(Program):
         self.l2 = self.reg.l2
         self.hist = CurvatureHistory(config.memory, d, dtype, device, lanes)
         lane = lambda v, dt=dtype: torch.full(lanes, v, dtype=dt, device=device)  # noqa: E731
-        z = torch.zeros(terms.label.shape, dtype=terms.curvature_dtype(dtype), device=device)
+        z = torch.zeros(lanes + tuple(terms.label.shape[-1:]), dtype=terms.curvature_dtype(dtype), device=device)
         self.true = lane(True, torch.bool)
         f0 = lane(0.0)
         self.s = dict(
@@ -207,5 +210,27 @@ def minimize_lbfgs_margin(
     ``result.evals`` counts X passes; O(n) line-search trials are not
     counted. Runs eagerly, EAGER_CHUNK steps between host reads."""
     prog = MarginLBFGS.of_batch(objective, batch, w0, config)
+    run_chunked(prog, EAGER_CHUNK)
+    return prog.result()
+
+
+def sweep_l2_lbfgs_margin(
+    objective: GLMObjective,
+    batch: LabeledBatch,
+    w0s: Tensor,
+    l2_weights: Union[Sequence[float], Tensor],
+    config: OptimizerConfig = OptimizerConfig(),
+) -> OptimizeResult:
+    """One batch against k L2 weights: ``w0s`` (k, d) starts, one lane a
+    weight, every field of the result with a leading (k,) axis. Each lane is
+    ``minimize_lbfgs_margin`` at its weight (the reference's vmap over
+    ``l2_override``); the lanes' direction passes are one X·P product over
+    the shared X. The fused kernel is off, as in the reference. Runs
+    eagerly, EAGER_CHUNK steps between host reads."""
+    if objective.l1_weight > 0.0:
+        raise ValueError("margin L-BFGS is for smooth objectives; use OWL-QN for L1")
+    terms = GLMTerms.of_batch(dataclasses.replace(objective, use_fused=False), batch)
+    l2 = torch.as_tensor(l2_weights, dtype=w0s.dtype, device=w0s.device)
+    prog = MarginLBFGS(terms, l2, objective.intercept_index, w0s, config)
     run_chunked(prog, EAGER_CHUNK)
     return prog.result()

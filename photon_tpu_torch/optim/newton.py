@@ -14,7 +14,9 @@ Each iteration is two X passes: the Newton system (H, g) from the carried
 margins — through the fused kernel (ops/fused_newton.py) when ``kernel`` is
 "cuda" or "cuda_bf16x" — and the trial margins, after which step-halving
 trials are O(n) on the margins. A failed Cholesky sets the lane's step to
-NaN, which lands in the reject branch as in the reference.
+NaN, which lands in the reject branch as in the reference. Each lane
+records its value and gradient norm a step into histories of
+``config.history_len`` slots, as the reference's loop does.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import Iterator
 
 import torch
 
-from photon_tpu_torch.data.batch import LabeledBatch
+from photon_tpu_torch.data.batch import LabeledBatch, SparseFeatures
 from photon_tpu_torch.ops.fused_newton import newton_system
 from photon_tpu_torch.ops.objective import GLMObjective
 from photon_tpu_torch.optim.common import (
@@ -34,6 +36,7 @@ from photon_tpu_torch.optim.common import (
     REASON_MAX_ITERATIONS,
     REASON_NOT_CONVERGED,
     check_convergence,
+    record,
 )
 from photon_tpu_torch.optim.problem import L2Term
 from photon_tpu_torch.optim.program import EAGER_CHUNK, Commit, Program, run_chunked
@@ -90,6 +93,8 @@ class Newton(Program):
 
     def __init__(self, objective: GLMObjective, batch: LabeledBatch, w0: Tensor,
                  config: OptimizerConfig = OptimizerConfig(), kernel: str = "torch"):
+        if isinstance(batch.features, SparseFeatures):
+            raise ValueError("minimize_newton requires dense features")
         _check(objective, kernel)
         self.objective, self.batch, self.w0, self.config, self.kernel = objective, batch, w0, config, kernel
         self.max_steps = config.max_iter
@@ -104,9 +109,11 @@ class Newton(Program):
         self.ts = torch.tensor(_TRIAL_STEPS, dtype=dtype, device=device)
         z = torch.zeros(batch.label.shape, dtype=torch.promote_types(batch.features.dtype, dtype), device=device)
         lane = lambda v, dt=dtype: torch.full((E,), v, dtype=dt, device=device)  # noqa: E731
+        hist = lambda: torch.zeros((E, config.history_len), dtype=dtype, device=device)  # noqa: E731
+        self.slots = torch.arange(config.history_len, device=device)
         self.s = dict(w=torch.zeros_like(w0), z=z, f=lane(0.0), mu=lane(_MU_INIT), gnorm=lane(float("inf")),
                       g0_norm=lane(0.0), it=lane(0, torch.int32), reason=lane(REASON_NOT_CONVERGED, torch.int32),
-                      evals=lane(1, torch.int32))
+                      evals=lane(1, torch.int32), loss_hist=hist(), gnorm_hist=hist())
         if self.factors is not None:
             self.s["X"] = torch.empty(batch.features.shape, dtype=torch.promote_types(batch.features.dtype,
                                                                                       self.factors.dtype),
@@ -128,6 +135,8 @@ class Newton(Program):
         S["w"].copy_(w0)
         S["z"].copy_(z)
         S["f"].copy_(self._data_value(z) + self.reg.value(w0))
+        S["loss_hist"].copy_(S["f"][:, None].expand_as(S["loss_hist"]))
+        S["gnorm_hist"].fill_(float("inf"))
         S["mu"].fill_(_MU_INIT)
         S["gnorm"].fill_(float("inf"))
         S["g0_norm"].zero_()
@@ -208,15 +217,24 @@ class Newton(Program):
             w=torch.where(a2, w_new, w), z=torch.where(a2, z_new, z), f=torch.where(a1, f_new, f),
             mu=torch.where(a1, mu_new, mu), gnorm=torch.where(a1, gn_new, S["gnorm"]),
             g0_norm=torch.where(a1, g0n_new, S["g0_norm"]), reason=torch.where(a1, r_new, S["reason"]),
-            evals=torch.where(a1, S["evals"] + 2, S["evals"]), it=torch.where(a1, it_new, it)))
+            evals=torch.where(a1, S["evals"] + 2, S["evals"]), it=torch.where(a1, it_new, it),
+            loss_hist=torch.where(a2, record(S["loss_hist"], it_new, f_new), S["loss_hist"]),
+            gnorm_hist=torch.where(a2, record(S["gnorm_hist"], it_new, gn_new), S["gnorm_hist"])))
 
     def finish(self) -> None:
+        """The result; past a lane's last iteration its histories hold its
+        final value and |g|, and |g| at the start is entry 0 of the gradient
+        history (inf where no iteration ran), as in the reference."""
         S = self.s
         reason = torch.where(S["reason"] == REASON_NOT_CONVERGED, REASON_MAX_ITERATIONS, S["reason"])
+        past = self.slots > S["it"][:, None]
+        loss_hist = torch.where(past, S["f"][:, None], S["loss_hist"])
+        gnorm_hist = torch.where(past, S["gnorm"][:, None], S["gnorm_hist"])
+        start = torch.where(S["it"] > 0, S["g0_norm"], S["gnorm"])
+        gnorm_hist = torch.where(self.slots == 0, start[:, None], gnorm_hist)
         self.out = OptimizeResult(
             w=S["w"], value=S["f"], grad_norm=S["gnorm"], iterations=S["it"], reason_code=reason.to(torch.int32),
-            loss_history=S["f"][:, None], grad_norm_history=S["gnorm"][:, None], evals=S["evals"],
-            eval_unit="x_passes",
+            loss_history=loss_hist, grad_norm_history=gnorm_hist, evals=S["evals"], eval_unit="x_passes",
         )
 
     def result(self) -> OptimizeResult:

@@ -4,11 +4,11 @@ with a lane axis: one solve (lanes ()) or one per entity of a block (lanes
 photon_tpu/algorithm/random_effect.py::_solve_block vmaps.
 
 ``GLMTerms`` is the data term of a GLM: Σ weight·loss(A·w + offset, label)
-over a fixed-effect LabeledBatch (X (n, d)) or an entity block (X (E, n, d)),
-where A·v = X·(f∘v) − s·(f∘v) folds the normalization (factors f, shifts
-s). ``GLMOracle`` adds the L2 term, its weight a device scalar the programs'
-steps read (so one captured program serves every weight), and the Pearson
-feature mask m of a block (the reference's f(w ∘ m), gradient ∘ m and
+over a fixed-effect LabeledBatch (X (n, d), dense or ``SparseFeatures``) or
+an entity block (X (E, n, d)), where A·v = X·(f∘v) − s·(f∘v) folds the
+normalization (factors f, shifts s). ``GLMOracle`` adds the L2 term, its
+weight a device scalar the programs' steps read (so one captured program
+serves every weight), and the Pearson feature mask m of a block (the reference's f(w ∘ m), gradient ∘ m and
 m ∘ H(m ∘ v)); ``L2Term`` is that L2 term, which the margin L-BFGS and
 Newton programs share. ``GLMObjective.oracle`` (ops/objective.py) builds
 the oracle of a fixed-effect batch, and the objective's value, gradient
@@ -51,12 +51,17 @@ def dot(a: Tensor, b: Tensor) -> Tensor:
 class L2Term:
     """½·l2·‖c∘w‖² over the last axis of w: ``l2`` a device scalar the
     programs' steps read (the solve cache fills it per solve, so one captured
-    program serves every weight), c zero at the intercept. ``on``: the weight
+    program serves every weight), or one weight a lane (a tensor of the
+    lanes' shape: the λ sweep), c zero at the intercept. ``on``: a weight
     the program was built with is not 0 (a zero weight builds no L2 work)."""
 
-    def __init__(self, weight: float, intercept_index: Optional[int], d: int, dtype, device):
-        self.on = weight != 0.0
-        self.l2 = torch.full((), weight, dtype=dtype, device=device)
+    def __init__(self, weight, intercept_index: Optional[int], d: int, dtype, device):
+        if isinstance(weight, Tensor):
+            self.on = True  # per-lane weights: the reference's traced override
+            self.l2 = weight.to(dtype=dtype, device=device).clone()
+        else:
+            self.on = weight != 0.0
+            self.l2 = torch.full((), weight, dtype=dtype, device=device)
         self.cols = torch.ones(d, dtype=dtype, device=device)
         if intercept_index is not None:
             self.cols[intercept_index] = 0.0
@@ -69,7 +74,7 @@ class L2Term:
 
     def grad(self, w: Tensor) -> Tensor:
         """The gradient at w, or the Hessian's product with w."""
-        return self.l2 * (w * self.cols)
+        return self.l2[..., None] * (w * self.cols)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +120,11 @@ class GLMTerms:
         if self.col_mask is not None:
             torch.mul(self.source, self.col_mask[:, None, :], out=self.X)
 
+    @property
+    def blocked(self) -> bool:
+        """X is an entity block (E, n, d)."""
+        return isinstance(self.X, Tensor) and self.X.dim() == 3
+
     def curvature_dtype(self, dtype) -> torch.dtype:
         if self.fused:
             return torch.float32
@@ -126,7 +136,7 @@ class GLMTerms:
         """A·v: (lanes, d) → (lanes, n). ``rounded``: a bf16 X takes v rounded
         to bf16 with an f32 product (margin L-BFGS's direction pass)."""
         ev = v if self.factors is None else v * self.factors
-        if self.X.dim() == 3:
+        if self.blocked:
             u = torch.bmm(self.X, ev[:, :, None])[:, :, 0]
         else:
             u = matvec_rounded(self.X, ev) if rounded else matvec(self.X, ev)
@@ -134,7 +144,7 @@ class GLMTerms:
 
     def transpose(self, r: Tensor) -> Tensor:
         """Aᵀ·r: (lanes, n) → (lanes, d)."""
-        g = torch.einsum("bnd,bn->bd", self.X, r) if self.X.dim() == 3 else rmatvec(self.X, r)
+        g = torch.einsum("bnd,bn->bd", self.X, r) if self.blocked else rmatvec(self.X, r)
         if self.shifts is not None:
             g = g - torch.sum(r, dim=-1, keepdim=True) * self.shifts
         return g if self.factors is None else g * self.factors

@@ -609,11 +609,6 @@ def test_unported_machinery_raises_not_ported_yet(tmp_path):
         est.fit(batch, optimization_configs=[_reg(config)], checkpoint_dir=str(tmp_path))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         GameEstimator(TASK, _configs(config), re_device_budget_mb=1.0)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_random_effect_dataset(data["ids"]["userId"], (np.zeros((data["n"], 2), np.int32),
-                                                            np.ones((data["n"], 2)), 50),
-                                    data["y"], np.ones(data["n"]), 24,
-                                    RandomEffectDataConfig("userId", "wide"), device="cpu")
 
 
 def test_game_modules_import_without_jax():

@@ -581,7 +581,7 @@ _TRAINING_UNPORTED = [
     ["--hyper-parameter-tuning", "RANDOM"], ["--output-mode", "TUNED"], ["--checkpoint-dir", "ck"], ["--resume"],
     ["--checkpoint-keep-last", "2"], ["--event-listeners", "a.b:c"], ["--event-listener", "a.b:c"],
     ["--telemetry-out", "t.jsonl"], ["--otlp-endpoint", "http://localhost:1"],
-    ["--stream-ingest-chunk-rows", "64"], ["--coordinate-constraints", "{}"], ["--re-device-budget-mb", "1"],
+    ["--stream-ingest-chunk-rows", "64"], ["--re-device-budget-mb", "1"],
     ["--re-spill-dir", "spill"], ["--re-spill-member", "m0"],
 ]
 _SCORING_UNPORTED = [
@@ -698,10 +698,18 @@ def test_validate_game_batch_follows_reference(mode, bad, task):
 
 
 def test_validate_game_batch_refuses_a_sparse_shard():
+    """A sparse shard is checked through its values: refused with a
+    non-finite value, as the reference refuses it, and passed without."""
+    from photon_tpu_torch.data.batch import SparseFeatures
+
     t = torch.zeros(3)
-    batch = GameBatch(t, t, torch.ones(3), {"s": (t, t)}, {})
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    values = torch.tensor([[1.0, 0.0], [float("nan"), 2.0], [0.5, 0.0]])
+    sparse = SparseFeatures(torch.zeros(3, 2, dtype=torch.int32), values, 5000)
+    batch = GameBatch(t, t, torch.ones(3), {"s": sparse}, {})
+    with pytest.raises(validators.DataValidationError, match=r"features\[s\] contains non-finite"):
         validators.validate_game_batch(batch, TaskType.LINEAR_REGRESSION)
+    ok = GameBatch(t, t, torch.ones(3), {"s": SparseFeatures(sparse.indices, torch.nan_to_num(values), 5000)}, {})
+    validators.validate_game_batch(ok, TaskType.LINEAR_REGRESSION)
 
 
 _COORDINATE_SPECS = [

@@ -553,3 +553,120 @@ def test_captured_block_programs_match_eager(cuda_device, route, d):
         assert torch.equal(it, ref[1]) and torch.equal(reasons, ref[2]) and torch.equal(passes, ref[3])
         torch.testing.assert_close(w, ref[0], rtol=1e-6, atol=1e-6 * float(ref[0].abs().max()))
     assert (cache.stats.traces, cache.stats.calls, cache.stats.hits) == (1, 2, 1)
+
+
+def _sparse_problem(device, n, d, k, seed, dtype=torch.float32):
+    """(SparseFeatures, labels) of config 6's layout at a small size:
+    column 0 the intercept, k - 1 uniform columns a row, planted labels."""
+    from photon_tpu_torch.data.batch import SparseFeatures
+
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.randint(0, d, (n, k), generator=g, dtype=torch.int32)
+    vals = torch.randn(n, k, generator=g)
+    idx[:, 0], vals[:, 0] = 0, 1.0
+    w = torch.randn(d, generator=g) / 8.0
+    y = (torch.rand(n, generator=g) < torch.sigmoid(torch.sum(vals * w[idx.long()], dim=1))).float()
+    return SparseFeatures(idx.to(device), vals.to(device=device, dtype=dtype), d), y.to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("plan", [False, True], ids=["scatter", "segsum"])
+def test_sparse_lowerings_on_card_match_cpu_plain(cuda_device, plan, dtype):
+    """The sparse products on the card (gather matvec; index_add_ scatter or
+    sorted segment sum) against the same ops on the CPU in float64 from the
+    card's values, and the Hessian diagonal likewise: rtol 1e-5."""
+    X, _ = _sparse_problem(cuda_device, 1 << 14, 1 << 12, 32, seed=plan + 2 * (dtype == torch.bfloat16), dtype=dtype)
+    X = X.with_transpose_plan() if plan else X
+    ref = type(X)(X.indices.cpu(), X.values.cpu().double(), X.dim)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    w = torch.randn(X.dim, device=cuda_device, generator=g)
+    r = torch.randn(X.shape[0], device=cuda_device, generator=g)
+    mv, rmv = X.matvec(w), X.rmatvec(r)
+    assert mv.dtype == rmv.dtype == torch.float32 and X.has_plan == plan
+    torch.testing.assert_close(mv.cpu().double(), ref.matvec(w.cpu().double()), rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(rmv.cpu().double(), ref.rmatvec(r.cpu().double()), rtol=RTOL, atol=ATOL)
+    if plan:  # the segment sum sums in one order: bitwise again
+        assert torch.equal(rmv, X.rmatvec(r))
+
+
+@pytest.mark.parametrize("plan", [False, True], ids=["scatter", "segsum"])
+@pytest.mark.parametrize("route", ["LBFGS", "TRON"])
+def test_captured_sparse_fixed_effect_matches_eager(cuda_device, route, plan):
+    """A sparse fixed-effect solve through the solve cache (captured) against
+    the same program run eagerly on the card and the float64 plain path on
+    the CPU: with the segment sum (one summation order) the eager solve bit
+    for bit; with the scatter (float atomics, whose rounding moves the path)
+    margins within 2e-3 of the eager solve's; both within 2e-3 of the CPU's."""
+    from photon_tpu_torch.algorithm.solve_cache import SolveCache
+    from photon_tpu_torch.data.batch import LabeledBatch
+    from photon_tpu_torch.ops.objective import GLMObjective
+    from photon_tpu_torch.optim.factory import OptimizerSpec, make_optimizer
+    from photon_tpu_torch.types import OptimizerType
+
+    X, y = _sparse_problem(cuda_device, 1 << 14, 1 << 13, 32, seed=7)
+    X = X.with_transpose_plan() if plan else X
+    batch = LabeledBatch(y, X)
+    obj = GLMObjective(LogisticLoss, l2_weight=1.0, intercept_index=0, use_fused=True)
+    spec = OptimizerSpec(OptimizerType[route], max_iter=20)
+    w0 = torch.zeros(X.dim, device=cuda_device)
+    eager = make_optimizer(obj, spec)(w0, batch)
+    cache = SolveCache()
+    got = cache.fe_solver(obj, spec)(w0, batch)
+    again = cache.fe_solver(obj, spec)(w0, batch)
+    torch.cuda.synchronize()
+    assert (cache.stats.captures, cache.stats.hits) == (1, 1)
+
+    def rel(a, b):
+        return float((a.cpu().double() - b.cpu().double()).abs().max()) / max(1.0, float(b.abs().max()))
+
+    if plan:
+        assert int(got.iterations) == int(eager.iterations) and int(got.reason_code) == int(eager.reason_code)
+        assert torch.equal(got.w, eager.w) and torch.equal(got.w, again.w)
+    else:
+        assert rel(batch.margins(got.w), batch.margins(eager.w)) <= 2e-3
+    cpu = LabeledBatch(y.cpu().double(), type(X)(X.indices.cpu(), X.values.cpu().double(), X.dim))
+    ref = make_optimizer(obj, spec)(torch.zeros(X.dim, dtype=torch.float64), cpu)
+    assert rel(batch.margins(got.w), cpu.margins(ref.w)) <= 2e-3
+
+
+def test_projected_sparse_random_effect_runs_k3(cuda_device):
+    """A sparse per-user shard on the card: projected blocks of d <= 128
+    solved by batched Newton with K3 (launched), coefficients within 2e-3 of
+    the CPU float64 plain path's."""
+    import numpy as np
+
+    from photon_tpu_torch.algorithm.random_effect import RandomEffectCoordinate
+    from photon_tpu_torch.data.batch import SparseFeatures
+    from photon_tpu_torch.data.game_data import GameBatch
+    from photon_tpu_torch.data.random_effect import RandomEffectDataConfig, build_random_effect_dataset
+    from photon_tpu_torch.ops.objective import GLMObjective
+    from photon_tpu_torch.types import TaskType
+
+    rng = np.random.default_rng(9)
+    n, E, d_full, k = 4096, 24, 6000, 4
+    eids = rng.integers(0, E, size=n).astype(np.int32)
+    idx = (eids[:, None] * 90 + rng.integers(1, 9, size=(n, k))).astype(np.int32)  # 8 columns an entity
+    idx[:, 0] = 0
+    vals = rng.normal(size=(n, k))
+    vals[:, 0] = 1.0
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-rng.normal(size=E)[eids] - vals[:, 1]))).astype(np.float64)
+    models = {}
+    for device, dtype in ((cuda_device, torch.float32), (torch.device("cpu"), torch.float64)):
+        npt = np.float64 if dtype == torch.float64 else np.float32
+        ds = build_random_effect_dataset(eids, (idx, vals.astype(npt), d_full), y.astype(npt), np.ones(n, npt), E,
+                                         RandomEffectDataConfig("userId", "wide", n_buckets=2), device=device)
+        assert ds.projected and all(b.dim <= 128 for b in ds.blocks)
+        sf = SparseFeatures(torch.as_tensor(idx, device=device), torch.as_tensor(vals, device=device, dtype=dtype),
+                            d_full)
+        batch = GameBatch(torch.as_tensor(y, device=device, dtype=dtype), torch.zeros(n, device=device, dtype=dtype),
+                          torch.ones(n, device=device, dtype=dtype), {"wide": sf},
+                          {"userId": torch.as_tensor(eids, device=device)})
+        kernels.reset_launches()
+        model, _ = RandomEffectCoordinate("perUser", ds, TaskType.LOGISTIC_REGRESSION,
+                                          GLMObjective(LogisticLoss, l2_weight=1.0, intercept_index=0)).train(batch)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["newton_system"] > 0
+        models[device.type] = model.to_dense().coefficients.cpu().double()
+    err = float((models["cuda"] - models["cpu"]).abs().max()) / max(1.0, float(models["cpu"].abs().max()))
+    assert err <= 2e-3

@@ -345,3 +345,33 @@ def test_solver_modules_import_without_jax():
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("track_history", [True, False])
+def test_newton_histories_match_reference(track_history):
+    """Batched Newton's per-iteration histories against ``jax.vmap`` of the
+    reference's ``minimize_newton`` in float64: the loss and gradient-norm
+    histories (history_len slots; past a lane's end its final value, entry
+    0 of the gradient history |g| at the start) at rtol 1e-5, iterations
+    equal, lanes stopping at different iterations."""
+    from photon_tpu.optim.newton import minimize_newton as j_newton
+
+    from photon_tpu_torch.optim.newton import minimize_newton
+
+    X, y, wt, off, _ = _block(seed=8)
+    E, _, d = X.shape
+    cfg = dict(max_iter=12, tol=1e-9, track_history=track_history)
+    with jax.enable_x64(True):
+        jo = JObjective(loss=JLogistic, l2_weight=0.5, intercept_index=0)
+        res = jax.vmap(lambda f, lab, w_, o: j_newton(jo, JBatch(lab, f, o, w_), jnp.zeros(d), JConfig(**cfg)))(
+            *(jnp.asarray(a) for a in (X, y, wt, off)))
+        want = [np.asarray(a) for a in (res.loss_history, res.grad_norm_history, res.iterations, res.value)]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    got = minimize_newton(GLMObjective(LogisticLoss, l2_weight=0.5, intercept_index=0), LabeledBatch(t(y), t(X), t(off),
+                          t(wt)), torch.zeros(E, d, dtype=torch.float64), OptimizerConfig(**cfg))
+    assert got.loss_history.shape == got.grad_norm_history.shape == (E, 13 if track_history else 1)
+    _close(got.loss_history, want[0])
+    _close(got.grad_norm_history, want[1])
+    _close(got.value, want[3])
+    np.testing.assert_array_equal(got.iterations.numpy(), want[2])
+    assert len(set(want[2].tolist())) > 1

@@ -46,7 +46,7 @@ from photon_tpu.types import TaskType as JTask
 from photon_tpu.types import VarianceComputationType as JVar
 
 from photon_tpu_torch.cli import train_glm
-from photon_tpu_torch.data.batch import LabeledBatch
+from photon_tpu_torch.data.batch import LabeledBatch, SparseFeatures
 from photon_tpu_torch.data.index_map import IndexMap
 from photon_tpu_torch.data.normalization import build_normalization_context
 from photon_tpu_torch.data.stats import compute_feature_stats
@@ -580,12 +580,22 @@ def test_avro_reader_entity_ids_and_column_names_match_reference(tmp_path):
 
 
 def test_avro_reader_rejects_a_shard_wider_than_the_dense_limit(tmp_path):
+    """A shard wider than the dense limit is not read as a dense matrix: it
+    comes back padded-sparse, with the reference's triples (and the dense
+    matrix as its to_dense); the columnar decoder still refuses."""
     path = _write_avro(tmp_path / "w.avro", _avro_records(5, 9, seed=21))
-    cfg = {"s": data_reader.FeatureShardConfig(dense_dim_limit=4)}
-    with pytest.raises(NotImplementedError, match="sparse features are not ported yet"):
-        data_reader.read_merged([path], cfg, device="cpu")
+    want, _, _ = j_reader.read_merged([path], {"s": j_reader.FeatureShardConfig(dense_dim_limit=4)},
+                                      use_columnar=False)
+    got, _, _ = data_reader.read_merged([path], {"s": data_reader.FeatureShardConfig(dense_dim_limit=4)},
+                                        device="cpu")
+    sf = got.features["s"]
+    assert isinstance(sf, SparseFeatures) and not isinstance(sf, torch.Tensor)
+    np.testing.assert_array_equal(sf.indices.numpy(), np.asarray(want.features["s"].indices))
+    np.testing.assert_array_equal(sf.values.numpy(), np.asarray(want.features["s"].values))
+    np.testing.assert_array_equal(sf.to_dense().numpy(), np.asarray(want.features["s"].to_dense()))
     with pytest.raises(NotImplementedError, match="columnar"):
-        data_reader.read_merged([path], cfg, use_columnar=True, device="cpu")
+        data_reader.read_merged([path], {"s": data_reader.FeatureShardConfig(dense_dim_limit=4)},
+                                use_columnar=True, device="cpu")
 
 
 def test_libsvm_reader_and_driver_loader_match_reference(tmp_path):
@@ -829,8 +839,7 @@ def test_driver_device_defaults_to_cuda_and_never_falls_back(tmp_path):
 _UNPORTED = [
     ["--stream-ingest-chunk-rows", "64"], ["--replay-cache-mb", "8"], ["--checkpoint-dir", "ck"], ["--resume"],
     ["--checkpoint-keep-last", "2"], ["--telemetry-out", "t.jsonl"], ["--event-listeners", "a.b:c"],
-    ["--event-listener", "a.b:c"], ["--summarization-output-dir", "s"], ["--constraint-string", "[]"],
-    ["--selected-features-file", "f.avro"],
+    ["--event-listener", "a.b:c"],
 ]
 
 
@@ -861,3 +870,136 @@ def test_driver_runs_as_a_module_without_jax(tmp_path):
     assert out.returncode == 0, out.stdout + out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1])["best_lambda"] in (1.0, 10.0)
     assert (tmp_path / "o" / "best" / "fixed-effect" / "global" / "coefficients" / "part-00000.avro").exists()
+
+
+# ---------------------------------------------------------------------------
+# Sparse files, summaries, selected features and name-and-term bags.
+# ---------------------------------------------------------------------------
+
+
+def _wide_records(n, seed, vocab=8000, nnz=25):
+    """Rows of a file wider than the reader's dense limit: ~5,700 of
+    ``vocab`` features occur in 400 rows, ``nnz`` a row, some with a term."""
+    rng = np.random.default_rng(seed)
+    w = np.random.default_rng(78).normal(size=vocab)
+    recs = []
+    for i in range(n):
+        cols = rng.choice(vocab, size=nnz, replace=False)
+        x = rng.normal(size=nnz)
+        recs.append({"uid": str(i), "label": float(rng.uniform() < 1 / (1 + np.exp(-0.5 * x @ w[cols]))),
+                     "metadataMap": None, "weight": None, "offset": None,
+                     "features": [{"name": f"f{c}", "term": "t" if c % 5 == 0 else "", "value": float(v)}
+                                  for c, v in zip(cols, x)]})
+    return recs
+
+
+def _wide_files(tmp_path):
+    return (_write_avro(tmp_path / "train.avro", _wide_records(400, 30)),
+            _write_avro(tmp_path / "valid.avro", _wide_records(200, 31)))
+
+
+# The elastic net runs at λ = 3 and 10, where OWL-QN's optimum is fixed to
+# better than 1e-3 in float32. At λ = 1 it stops on a plateau of 700
+# coefficients over 400 rows, and at λ = 30 only the intercept survives, on an
+# objective so flat that its float32 resolution (~1.6e-5 of 276.5) leaves the
+# intercept free by ~6e-4 (curvature ~100): both packages stop within that,
+# not within the drivers' 1e-3 of each other.
+_SPARSE_SOLVERS = {
+    "LBFGS": ["--regularization-weights", "1,10"],
+    "TRON": ["--regularization-weights", "1,10", "--optimizer", "TRON"],
+    "ELASTIC_NET": ["--regularization-weights", "3,10", "--regularization-type", "ELASTIC_NET",
+                    "--elastic-net-alpha", "0.5"],
+    "LBFGSB": ["--regularization-weights", "1,10", "--optimizer", "LBFGSB", "--coefficient-box=-0.5,0.5"],
+}
+
+
+@pytest.mark.parametrize("solver", list(_SPARSE_SOLVERS))
+def test_driver_matches_reference_on_a_sparse_avro_file(tmp_path, solver):
+    """train_glm on a file wider than the dense limit: both packages read it
+    padded-sparse and give the same λ path, text models, losses and
+    validation metrics (SIMPLE variances over the sparse Hessian diagonal)."""
+    train, valid = _wide_files(tmp_path)
+    argv = ["--training-data", train, "--validation-data", valid, "--compute-variance", "SIMPLE"] + \
+        _SPARSE_SOLVERS[solver]
+    j_summary, t_summary = _run_both(tmp_path, argv)
+    _assert_drivers_agree(tmp_path, j_summary, t_summary)
+    nonzero = len(_text_model(tmp_path / "port" / "model-lambda-3.txt" if solver == "ELASTIC_NET"
+                              else tmp_path / "port" / "model-lambda-10.txt"))
+    assert (0 < nonzero < 4096) if solver == "ELASTIC_NET" else (nonzero > 4096)
+    args = train_glm.build_parser().parse_args(argv + ["--output-dir", str(tmp_path / "x")])
+    batch, imap = train_glm.load_data(args, train, "cpu")
+    assert isinstance(batch.features, SparseFeatures) and len(imap) > 4096
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["dense", "sparse"])
+def test_summarization_output_is_read_by_the_other_package(tmp_path, wide):
+    """``--summarization-output-dir``: both packages' part-00000.avro, each
+    read with the other package's reader, hold the same features and
+    statistics (the sparse file's from its entries)."""
+    train, _ = _wide_files(tmp_path) if wide else (_write_avro(tmp_path / "t.avro", _avro_records(300, 7, seed=32)),
+                                                   None)
+    argv = ["--training-data", train, "--regularization-weights", "1"]
+    j_train_glm.run(j_train_glm.build_parser().parse_args(
+        argv + ["--summarization-output-dir", str(tmp_path / "jsum"), "--output-dir", str(tmp_path / "jax")]))
+    train_glm.main(argv + ["--summarization-output-dir", str(tmp_path / "tsum"), "--output-dir",
+                           str(tmp_path / "port"), "--device", "cpu"])
+    from photon_tpu.io.avro import read_avro_records as j_read_avro
+    from photon_tpu_torch.io.avro import read_avro_records
+
+    want = read_avro_records(str(tmp_path / "jsum" / "part-00000.avro"))  # the reference's, read by the port
+    got = j_read_avro(str(tmp_path / "tsum" / "part-00000.avro"))  # the port's, read by the reference
+    assert len(got) == len(want) > (4096 if wide else 5)
+    assert [(r["featureName"], r["featureTerm"]) for r in got] == [(r["featureName"], r["featureTerm"]) for r in want]
+    for g, w in zip(got, want):
+        assert list(g["metrics"]) == list(w["metrics"])
+        for k, v in w["metrics"].items():
+            assert g["metrics"][k] == pytest.approx(v, rel=1e-5, abs=1e-6), (g["featureName"], k)
+
+
+def test_selected_features_file_matches_reference(tmp_path):
+    """``--selected-features-file`` (FeatureNameTermAvro records): both
+    packages train on the listed features only, to the same text models."""
+    name_term_schema = {"type": "record", "name": "FeatureNameTermAvro", "fields": [
+        {"name": "name", "type": "string"}, {"name": "term", "type": ["null", "string"], "default": None}]}
+    train = _write_avro(tmp_path / "train.avro", _avro_records(300, 9, seed=33))
+    sel = str(tmp_path / "selected.avro")
+    write_avro_records(sel, name_term_schema, [{"name": f"f{j}", "term": "t" if j % 4 == 0 else ""}
+                                               for j in (0, 2, 3, 7)])
+    argv = ["--training-data", train, "--regularization-weights", "1", "--selected-features-file", sel]
+    j_summary, t_summary = _run_both(tmp_path, argv)
+    _assert_drivers_agree(tmp_path, j_summary, t_summary)
+    got = _text_model(tmp_path / "port" / "model-lambda-1.txt")
+    assert set(got) <= {"f0\x01t", "f2", "f3", "f7", IndexMap.INTERCEPT} and len(got) >= 4
+    with pytest.raises(ValueError, match="avro format"):
+        train_glm.main(["--training-data", "x.txt", "--format", "libsvm", "--selected-features-file", sel,
+                        "--output-dir", str(tmp_path / "o"), "--device", "cpu"])
+
+
+def test_name_and_term_bags_match_reference_and_read_across(tmp_path):
+    """``python -m photon_tpu_torch.cli.name_and_term_bags`` writes the
+    reference driver's text bags, and each package reads the other's into
+    the same index map."""
+    from photon_tpu.cli import name_and_term_bags as j_bags
+    from photon_tpu_torch.cli import name_and_term_bags as t_bags
+
+    recs = _avro_records(80, 9, seed=34, bags=("features", "extra"))
+    schema = dict(TRAINING_EXAMPLE_SCHEMA)
+    schema["fields"] = TRAINING_EXAMPLE_SCHEMA["fields"] + [
+        {"name": "extra", "type": {"type": "array", "items": TRAINING_EXAMPLE_SCHEMA["fields"][2]["type"]["items"]}}]
+    data = tmp_path / "in"
+    data.mkdir()
+    write_avro_records(str(data / "part-0.avro"), schema, recs)
+    argv = ["--input-data-directories", str(data / "part-0.avro"), "--feature-bags-keys", "features", "extra"]
+    want = j_bags.run(j_bags.build_parser().parse_args(argv + ["--root-output-directory", str(tmp_path / "j")]))
+    out = subprocess.run([sys.executable, "-m", "photon_tpu_torch.cli.name_and_term_bags", *argv,
+                          "--root-output-directory", str(tmp_path / "t")], cwd=REPO, capture_output=True, text=True,
+                         env={**os.environ, "PYTHONPATH": str(REPO)}, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines() == [f"{bag}: {n} distinct name-and-term features" for bag, n in want.items()]
+    for bag in ("features", "extra"):
+        assert (tmp_path / "t" / bag / "part-00000").read_text() == (tmp_path / "j" / bag / "part-00000").read_text()
+        assert t_bags.load_name_and_terms(str(tmp_path / "j"), bag) == j_bags.load_name_and_terms(
+            str(tmp_path / "t"), bag)
+    tmap = t_bags.index_map_from_text_bags(str(tmp_path / "j"), ["features", "extra"])
+    jmap = j_bags.index_map_from_text_bags(str(tmp_path / "t"), ["features", "extra"])
+    assert list(tmap.items()) == list(jmap.items())
