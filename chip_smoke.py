@@ -60,20 +60,25 @@ Phases, each of which must pass:
                 and K3 launches by width, entities skipped, training logloss
                 (must fall) and validation AUC (GLMix must reach fixed-only);
                 then one pass under the profiler.
-  8. GAME drivers — ``feature_indexing.main``, ``game_training.main`` and
-                ``game_scoring.main`` on Avro files written here (2^13
-                training and 2^12 validation rows; bags of 255, 15 and 127
-                values, which the intercepts take to d = 256, 16 and 128; 256
-                users and 256 Zipf-like items in metadataMap): fixed + per
-                user + per item, λ = 1|10 on the fixed effect, 2 passes with
-                the active set, SIMPLE variances, AUC. The files, LATEST and
-                the summary must be written, K1 and K3 at d = 16 and 128
+  8. GAME drivers — ``feature_indexing.main`` (on a 2^13-row file),
+                ``game_training.main`` and ``game_scoring.main`` on Avro files
+                written here by a spawn pool (2^17 training rows in 8 files,
+                2^15 validation rows in 2; bags of 255, 15 and 127 values,
+                which the intercepts take to d = 256, 16 and 128; 4096 users
+                and 1024 Zipf-like items in metadataMap): fixed + per user +
+                per item, λ = 1|10 on the fixed effect, 2 passes with the
+                active set, SIMPLE variances, AUC. Every read must take the
+                native columnar decoder (``READ_PATHS``); the files, LATEST
+                and the summary must be written, K1 and K3 at d = 16 and 128
                 launched, the best AUC above 0.7, every score of scores.avro
                 the in-process score of best/ loaded back (1e-5 relative), the
                 scoring AUC the training one (1e-5); and on a 2^10-row file
                 of 16 users and 16 items the driver on the card must give
-                the CPU run's coefficients (2e-3 relative). Each driver's wall time by stage, host reads
-                and launches by width are logged.
+                the CPU run's coefficients (2e-3 relative). The writer's
+                wall, each driver's wall by stage, each read's rows, bytes,
+                wall, rows/s and path, the columnar and the row read of the
+                2^13-row file side by side, host reads and launches by width
+                are logged.
   9. GAME solvers — phase 7's data and widths with the other solvers, two
                 passes with the active set: 9a TRON on the fixed effect (K1,
                 K2), elastic net per user (batched OWL-QN) and TRON per item
@@ -103,7 +108,23 @@ Phases, each of which must pass:
                 --summarization-output-dir and with ELASTIC_NET,
                 game_training with --coordinate-constraints and a sparse
                 per-user shard (projected blocks), game_scoring of that
-                model (its scores the in-process ones), name_and_term_bags.
+                model (its scores the in-process ones), on 2^17 training
+                and 2^15 validation rows of 2^16 columns (every read
+                columnar); name_and_term_bags on a 2^13-row file (its
+                counts the columnar decode's distinct keys).
+ 11. tuning  — 11a in process on phase 7's rows (N = 2^21, d_fix = 256
+                bf16, per user d = 16 over E = 4096, logistic): q = 4 and 8
+                candidates as batched lanes (two rounds) against q
+                sequential fits, with wall, host reads, captures, replays,
+                X passes and peak memory; fails unless every lane's AUC is
+                finite and within 2e-3 of its fit, the second round replays
+                with no new capture, and a cut copy on the card matches the
+                CPU float64 plain path (2e-3). 11b game_training
+                --hyper-parameter-tuning BAYESIAN --hyper-parameter-batch-size
+                2 --output-mode TUNED on phase 8's files (global and
+                per user): no decline, every candidate in
+                hyperparameter-observations.json, the TUNED model scored
+                by game_scoring, every read columnar.
 Phases 4, 6b, 7b, 8 and 9 print, per pass, λ or driver, the host reads (every
 device-to-host read of the path, through ``HOST_READS``; validation apart),
 the solve cache's captures (programs; the keys, which count each λ, apart),
@@ -114,7 +135,8 @@ fixed-effect solve and a block of each random effect eagerly and captured
 at K = 1, 2, 4 and 8, and fails at any K unless iterations and reasons are
 equal and coefficients within 1e-6; it fails if pass 2 captures anything or
 the two passes' coordinate updates make more than 60 host reads; 6b fails
-above SWEEP_READS reads for a λ solve. The order of the run is 1-7, 9, 10, 8.
+above SWEEP_READS reads for a λ solve. The order of the run is 1-7, 9, 11a,
+10, 8, 11b; the whole run's wall is printed at its end.
 It prints the card's name and power limit, a JSON line of per-kernel numbers
 ("launches" and "ran": the launches of the main paths, and those of them
 that did their work; a K1 or K2 launch whose flag was off does not), and last {"ok": true, "device": {...}}. It exits non-zero, printing no
@@ -164,11 +186,16 @@ SOLVER_ROUTES = {
     "9b": {"per_user": dict(features_to_samples_ratio=0.02), "per_item": dict(features_to_samples_ratio=0.1),
            "standardize": ("user",)},
 }
-# Phase 8 (GAME drivers): rows of the training, validation and card-vs-CPU
-# files, users and items. Phase 7's 2^21 rows, 4096 users and 1024 items are
-# cut because the port parses Avro in pure Python (the native columnar
-# decoder is not ported); the widths are phase 7's, not cut.
-H_TRAIN_ROWS, H_VALID_ROWS, H_USERS, H_ITEMS = 1 << 13, 1 << 12, 256, 256
+# Phase 8 (GAME drivers): rows of the training and validation sets, users
+# and items (phase 7's), and the files each set is written as (by a spawn
+# pool, one process a file: the Avro writer is pure Python). The drivers read
+# them through the native columnar decoder; only the 2^21 rows of phase 7
+# are cut, to bound the writer's time. feature_indexing (which parses rows
+# in pure Python in both packages) reads a file of H_INDEX_ROWS rows of the
+# same bags: every dense feature occurs in every row, so its index covers the
+# large files.
+H_TRAIN_ROWS, H_VALID_ROWS, H_USERS, H_ITEMS = 1 << 17, 1 << 15, E, G_ITEMS
+H_TRAIN_FILES, H_VALID_FILES, H_INDEX_ROWS = 8, 2, 1 << 13
 # The card-vs-CPU file: 2^10 rows over 16 users and 16 items. Spread over
 # 256 of each, a user or item has ~4 rows, many with one label only; their
 # unregularized intercepts then diverge until the solver stops, so their
@@ -206,8 +233,17 @@ SP_CONVERGED, SP_CONVERGED_TOL = 400, 1e-9
 # 4 projected blocks holds ~64 users (96 rows allocated), ~64 × 20 + 1 =
 # 1,281 columns (margin L-BFGS: Newton takes 128 at most), at most 96 × 64 ×
 # 1,281 f32 = 31 MB a block.
-S_TRAIN_ROWS, S_VALID_ROWS, S_COLUMNS, S_NNZ = 1 << 13, 1 << 12, 1 << 16, 32
+S_TRAIN_ROWS, S_VALID_ROWS, S_COLUMNS, S_NNZ = 1 << 17, 1 << 15, 1 << 16, 32
 S_USERS, S_USER_WINDOW, S_USER_NNZ = 256, 20, 4
+# 10c writes its sets as phase 8 does; name_and_term_bags (pure Python in
+# both packages) reads a cut file of S_CUT_ROWS rows.
+S_TRAIN_FILES, S_VALID_FILES, S_CUT_ROWS = 4, 1, 1 << 13
+# Phase 11 (hyperparameter tuning). 11a: q candidates a round (log10 λ of
+# the fixed effect and the per-user effect drawn in [-2, 2]) as batched
+# lanes against q sequential fits, on the GLMix headline rows; its cut copy
+# on the card against the CPU float64 plain path. Lanes and fits must agree
+# within TUNING_TOL (the reference's bar for batched against sequential).
+TUNING_Q, TUNING_TOL = (4, 8), 2e-3
 
 
 def log(msg: str) -> None:
@@ -908,11 +944,12 @@ def masked_steps(cache) -> list:
     return out
 
 
-def _driver_records(n: int, seed: int, n_users: int = H_USERS, n_items: int = H_ITEMS) -> list:
+def _driver_records(n: int, seed: int, n_users: int = H_USERS, n_items: int = H_ITEMS):
     """TrainingExampleAvro rows with three bags (H_BAGS) and the ids of
     ``n_users`` users and ``n_items`` Zipf-like items in metadataMap; labels
     planted from a fixed, a per-user and a per-item effect. The planted model
-    comes from one seed, the rows from ``seed``."""
+    comes from one seed, the rows from ``seed``; the rows are made as they
+    are written."""
     model = np.random.default_rng(80)
     w_fe = model.normal(size=D_FIX - 1) * 3.0 / np.sqrt(D_FIX - 1)
     W_u = model.normal(size=(H_USERS, D_RE)) * 0.4
@@ -925,51 +962,114 @@ def _driver_records(n: int, seed: int, n_users: int = H_USERS, n_items: int = H_
     logits = (X["features"] @ w_fe + np.sum(X["userFeatures"] * W_u[users, 1:], 1) + W_u[users, 0]
               + np.sum(X["itemFeatures"] * W_i[items, 1:], 1) + W_i[items, 0])
     y = rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-logits))
-    return [{"uid": str(i), "label": float(y[i]), "weight": None, "offset": None,
+    return ({"uid": str(i), "label": float(y[i]), "weight": None, "offset": None,
              "metadataMap": {"userId": f"user{users[i]}", "itemId": f"item{items[i]}"},
              **{bag: [{"name": f"{bag[0]}{j}", "term": "", "value": float(v)} for j, v in enumerate(X[bag][i])]
                 for bag, _, _ in H_BAGS}}
-            for i in range(n)]
+            for i in range(n))
 
 
-def game_drivers_phase(dev, smi: str, check) -> dict:
-    """Phase 8: the GAME drivers end to end on files: feature_indexing,
-    game_training and game_scoring, as a user calls them. Returns the kernel
-    launches of that run, K3's by width under "newton_system_d<d>"."""
+def _driver_schema(bags) -> dict:
+    """TrainingExampleAvro with the further feature bags ``bags``."""
     import copy
 
+    from photon_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA
+
+    schema = copy.deepcopy(TRAINING_EXAMPLE_SCHEMA)
+    schema["fields"] += [{"name": bag, "type": {"type": "array", "items": "FeatureAvro"}} for bag in bags]
+    return schema
+
+
+def _write_part(job) -> float:
+    """Write one Avro file (a task of ``write_files``' pool): ``job`` is
+    (kind, path, rows, seed[, users, items]), kind "game" (phase 8's rows) or
+    "sparse" (10c's). Returns the seconds it took."""
+    from photon_tpu_torch.io.avro import write_avro_records
+
+    kind, path, n, seed, *ents = job
+    t0 = time.perf_counter()
+    if kind == "game":
+        write_avro_records(path, _driver_schema([bag for bag, _, _ in H_BAGS[1:]]), _driver_records(n, seed, *ents))
+    else:
+        write_avro_records(path, _driver_schema(["userFeatures"]), _sparse_driver_records(n, seed))
+    return time.perf_counter() - t0
+
+
+def write_files(jobs) -> str:
+    """Write the files of ``jobs`` (``_write_part``'s) from a pool of spawned
+    processes, one a file (never forked from a process holding CUDA);
+    returns the writer's wall, rows and bytes as printed."""
+    import multiprocessing
+    import os
+
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(min(len(jobs), os.cpu_count() or 1)) as pool:
+        secs = pool.map(_write_part, jobs)
+    wall = time.perf_counter() - t0
+    rows, size = sum(j[2] for j in jobs), sum(os.path.getsize(j[1]) for j in jobs)
+    return (f"wrote {len(jobs)} Avro files ({rows} rows, {size / 1e6:.1f} MB) in {wall:.1f} s wall from a pool of "
+            f"{min(len(jobs), os.cpu_count() or 1)} processes ({sum(secs):.1f} s of writer time, "
+            f"{rows / sum(secs):.0f} rows/s a process)")
+
+
+def _split(folder: Path, rows: int, files: int) -> list:
+    """(path, rows) of the files of a set of ``rows`` rows written as
+    ``files`` files in ``folder`` (which the drivers take as their input)."""
+    folder.mkdir(parents=True, exist_ok=True)
+    return [(str(folder / f"part-{i:05d}.avro"), rows // files) for i in range(files)]
+
+
+def read_report(label: str, files, rows: int, seconds: float, took: dict) -> None:
+    """One line for a read: rows, file bytes, wall, rows/s and the path it
+    took (``READ_PATHS`` counts added)."""
+    import os
+
+    size = sum(os.path.getsize(f) for f in files)
+    log(f"  read {label}: {rows} rows, {size / 1e6:.1f} MB of files, {seconds:.3f} s wall, "
+        f"{rows / max(seconds, 1e-9):.4e} rows/s, path {dict(took) or 'none'}")
+
+
+def read_paths_since(snap: dict) -> dict:
+    """The reads of ``read_merged`` by path since ``snap`` (a copy of
+    ``READ_PATHS.counts``)."""
+    from photon_tpu_torch.io.data_reader import READ_PATHS
+
+    return {k: v - snap.get(k, 0) for k, v in READ_PATHS.counts.items() if v != snap.get(k, 0)}
+
+
+def game_drivers_phase(dev, smi: str, check) -> tuple:
+    """Phase 8: the GAME drivers end to end on files: feature_indexing,
+    game_training and game_scoring, as a user calls them. Returns the kernel
+    launches of that run (K3's by width under "newton_system_d<d>"), and the
+    work directory, files and shard flags phase 11b trains on."""
     from photon_tpu_torch.algorithm.solve_cache import default_cache
     from photon_tpu_torch.cli import feature_indexing, game_scoring, game_training
     from photon_tpu_torch.cli.common import parse_feature_shard_config
     from photon_tpu_torch.data.index_map import EntityIndex, IndexMap
-    from photon_tpu_torch.io.avro import write_avro_records
-    from photon_tpu_torch.io.data_reader import read_merged
+    from photon_tpu_torch.io.data_reader import READ_PATHS, read_merged
     from photon_tpu_torch.io.model_io import load_game_model
-    from photon_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA
     from photon_tpu_torch.io.scores import load_scores
     from photon_tpu_torch.ops import fused_newton, kernels
     from photon_tpu_torch.optim.common import HOST_READS
     from photon_tpu_torch.utils.timed import Timed
 
     log("## phase 8: GAME drivers (feature_indexing, game_training, game_scoring)")
-    log(f"  cut from phase 7: {H_TRAIN_ROWS} training rows (not 2^21), {H_USERS} users (not {E}), "
-        f"{H_ITEMS} items (not {G_ITEMS}), {H_VALID_ROWS} validation rows (not {G_VALID_ROWS}): the port parses "
-        f"Avro in pure Python; widths not cut (d = {D_FIX}, {D_RE}, {G_D_ITEM})")
+    log(f"  {H_TRAIN_ROWS} training rows in {H_TRAIN_FILES} files (phase 7: 2^21), {H_VALID_ROWS} validation rows "
+        f"in {H_VALID_FILES}, {H_USERS} users, {H_ITEMS} Zipf-like items; widths d = {D_FIX}, {D_RE}, {G_D_ITEM}; "
+        f"feature_indexing on a file of {H_INDEX_ROWS} rows of the same bags")
     work = Path(__file__).resolve().parent / "build" / "chip_smoke_game_drivers"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    schema = copy.deepcopy(TRAINING_EXAMPLE_SCHEMA)
-    schema["fields"] += [{"name": bag, "type": {"type": "array", "items": "FeatureAvro"}}
-                         for bag, _, _ in H_BAGS[1:]]
-    t0 = time.perf_counter()
-    train_recs = _driver_records(H_TRAIN_ROWS, 81)
-    paths = {"train": work / "train.avro", "valid": work / "valid.avro", "small": work / "small.avro"}
-    write_avro_records(str(paths["train"]), schema, train_recs)
-    write_avro_records(str(paths["valid"]), schema, _driver_records(H_VALID_ROWS, 82))
-    write_avro_records(str(paths["small"]), schema,
-                       _driver_records(H_SMALL_ROWS, 83, H_SMALL_ENTITIES, H_SMALL_ENTITIES))
-    paths = {k: str(v) for k, v in paths.items()}
-    log(f"  wrote the Avro files in {time.perf_counter() - t0:.1f} s")
+    train_files = _split(work / "train", H_TRAIN_ROWS, H_TRAIN_FILES)
+    valid_files = _split(work / "valid", H_VALID_ROWS, H_VALID_FILES)
+    paths = {"index": str(work / "index.avro"), "small": str(work / "small.avro")}
+    jobs = ([("game", f, n, 8100 + i) for i, (f, n) in enumerate(train_files)]
+            + [("game", f, n, 8200 + i) for i, (f, n) in enumerate(valid_files)]
+            + [("game", paths["index"], H_INDEX_ROWS, 84),
+               ("game", paths["small"], H_SMALL_ROWS, 83, H_SMALL_ENTITIES, H_SMALL_ENTITIES)])
+    log("  " + write_files(jobs))
+    train_paths, valid_paths = [f for f, _ in train_files], [f for f, _ in valid_files]
+    train_dir, valid_dir = str(work / "train"), str(work / "valid")
     shards = ["--feature-shard-configurations"] + [f"name={shard},feature.bags={bag}" for bag, shard, _ in H_BAGS]
     coords = ["--coordinate-configurations",
               "name=global,feature.shard=globalShard,optimizer=LBFGS,reg.weights=1|10",
@@ -993,26 +1093,38 @@ def game_drivers_phase(dev, smi: str, check) -> dict:
     Timed.reset()
     torch.cuda.reset_peak_memory_stats()
     counts0, t0 = default_cache().stats.counts(), time.perf_counter()
-    sizes = feature_indexing.main(["--input-paths", paths["train"], "--output-dir", str(idx)] + shards)
+    sizes = feature_indexing.main(["--input-paths", paths["index"], "--output-dir", str(idx)] + shards)
     stages(f"feature_indexing {sizes}", time.perf_counter() - t0, 0, counts0)
     Timed.reset()
+    snap = dict(READ_PATHS.counts)
     reads0, counts0, t0 = HOST_READS.count, default_cache().stats.counts(), time.perf_counter()
-    summary = game_training.main(["--input-paths", paths["train"], "--validation-paths", paths["valid"],
+    summary = game_training.main(["--input-paths", train_dir, "--validation-paths", valid_dir,
                                   "--output-dir", str(out), "--feature-index-dir", str(idx), "--device", "cuda"]
                                  + shards + coords)
     torch.cuda.synchronize()
     stages("game_training", time.perf_counter() - t0, HOST_READS.count - reads0, counts0)
+    took_train = read_paths_since(snap)
+    # (The driver's two reads share one count of paths.)
+    read_report("8 game_training training set", train_paths, H_TRAIN_ROWS, Timed.records["driver/read-train"],
+                took_train)
+    read_report("8 game_training validation set", valid_paths, H_VALID_ROWS,
+                Timed.records["driver/read-validation"], took_train)
     cache_entries(built0)
     trained = dict(kernels.LAUNCHES, by_width=dict(fused_newton.LAUNCHES_BY_WIDTH))
     Timed.reset()
+    snap = dict(READ_PATHS.counts)
     reads0, counts0, t0 = HOST_READS.count, default_cache().stats.counts(), time.perf_counter()
-    result = game_scoring.main(["--input-paths", paths["valid"], "--output-dir", str(scored), "--model-input-dir",
+    result = game_scoring.main(["--input-paths", valid_dir, "--output-dir", str(scored), "--model-input-dir",
                                 str(out / "best"), "--evaluators", "AUC", "--device", "cuda"] + shards)
     torch.cuda.synchronize()
     stages("game_scoring", time.perf_counter() - t0, HOST_READS.count - reads0, counts0)
+    took_score = read_paths_since(snap)
+    read_report("8 game_scoring", valid_paths, H_VALID_ROWS, Timed.records["driver/read"], took_score)
     launches = launch_counts()
     launches.update({f"newton_system_d{d}": c for d, c in fused_newton.LAUNCHES_BY_WIDTH.items()})
     log(f"  launches: training {trained}; all three drivers {launches}")
+    check(took_train == {"columnar": 2} and took_score == {"columnar": 1},
+          f"8 every read of game_training ({took_train}) and game_scoring ({took_score}) took the columnar path")
 
     written = [out / "best" / "model-metadata.json", out / "LATEST", out / "training-summary.json",
                out / "entity-index-userId.json", out / "entity-index-itemId.json"] + [
@@ -1036,7 +1148,7 @@ def game_drivers_phase(dev, smi: str, check) -> dict:
     shard_cfgs = {}
     for bag, shard, _ in H_BAGS:
         shard_cfgs.update(parse_feature_shard_config(f"name={shard},feature.bags={bag}"))
-    valid, _, _ = read_merged([paths["valid"]], shard_cfgs, imaps, {"userId": "userId", "itemId": "itemId"},
+    valid, _, _ = read_merged(valid_paths, shard_cfgs, imaps, {"userId": "userId", "itemId": "itemId"},
                               eidx, intern_new_entities=False, device=dev)
     want = model.score_with_offset(valid).double().cpu()
     got = torch.tensor([r["predictionScore"] for r in load_scores(str(scored / "scores.avro"))], dtype=torch.float64)
@@ -1045,6 +1157,16 @@ def game_drivers_phase(dev, smi: str, check) -> dict:
           f"8 scores.avro vs GameModel.score_with_offset of best/ loaded back: rel {r:.3e} (tolerance 1e-5)")
     check(abs(result["metrics"]["AUC"] - best_auc) <= 1e-5,
           f"8 scoring AUC {result['metrics']['AUC']:.6f} = training summary's best {best_auc:.6f} (tolerance 1e-5)")
+
+    # The columnar read against the row read of one file (not counted).
+    for use_columnar in (True, False):
+        torch.cuda.synchronize()
+        snap, t0 = dict(READ_PATHS.counts), time.perf_counter()
+        read_merged([paths["index"]], shard_cfgs, imaps, {"userId": "userId", "itemId": "itemId"}, eidx,
+                    intern_new_entities=False, use_columnar=use_columnar, device=dev)
+        torch.cuda.synchronize()
+        read_report(f"8 side by side, use_columnar={use_columnar}", [paths["index"]], H_INDEX_ROWS,
+                    time.perf_counter() - t0, read_paths_since(snap))
 
     # Card against CPU on the small file (not counted).
     small = {}
@@ -1063,8 +1185,7 @@ def game_drivers_phase(dev, smi: str, check) -> dict:
     check(worst <= REFERENCE_TOL, f"8 game_training on {H_SMALL_ROWS} rows of {H_SMALL_ENTITIES} users and items, "
                                   f"--device cuda vs --device cpu: best/ coefficients rel {worst:.3e} "
                                   f"(tolerance {REFERENCE_TOL:g})")
-    shutil.rmtree(work, ignore_errors=True)
-    return launches
+    return launches, dict(work=work, train=train_dir, valid=valid_dir, index=idx)
 
 
 def _sparse_wide_data(seed: int = SP_SEED, n: int = 0, d: int = 0):
@@ -1336,7 +1457,7 @@ def _sparse_planted():
     return w, np.argsort(-np.abs(w[:100]))[:4]
 
 
-def _sparse_driver_records(n: int, seed: int) -> list:
+def _sparse_driver_records(n: int, seed: int):
     """TrainingExampleAvro rows of 10c: S_NNZ global features ("f<j>") of
     S_COLUMNS, feature j drawn with frequency ∝ 1 / (j + 1) (a wide shard's
     few common and many rare features), and S_USER_NNZ of the user's own
@@ -1357,12 +1478,12 @@ def _sparse_driver_records(n: int, seed: int) -> list:
     logits = (np.sum(vals * w[cols], axis=1) * 2.0 / np.sqrt(S_NNZ)
               + np.sum(uvals * W_u[users[:, None], ucols], axis=1) + b_u[users])
     y = rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-logits))
-    return [{"uid": str(i), "label": float(y[i]), "weight": None, "offset": None,
+    return ({"uid": str(i), "label": float(y[i]), "weight": None, "offset": None,
              "metadataMap": {"userId": f"user{users[i]}"},
              "features": [{"name": f"f{c}", "term": "", "value": float(v)} for c, v in zip(cols[i], vals[i])],
              "userFeatures": [{"name": f"u{users[i]}_{c}", "term": "", "value": float(v)}
                               for c, v in zip(ucols[i], uvals[i])]}
-            for i in range(n)]
+            for i in range(n))
 
 
 def sparse_drivers_phase(dev, smi: str, check) -> None:
@@ -1372,46 +1493,57 @@ def sparse_drivers_phase(dev, smi: str, check) -> None:
     --coordinate-constraints over a sparse global shard and a sparse
     per-user shard (projected blocks); game_scoring of that model; and
     name_and_term_bags on the training file."""
-    import copy
-
     from photon_tpu_torch.cli import game_scoring, game_training, name_and_term_bags, train_glm
     from photon_tpu_torch.cli.common import parse_feature_shard_config
     from photon_tpu_torch.data.batch import SparseFeatures
     from photon_tpu_torch.data.index_map import EntityIndex, IndexMap
     from photon_tpu_torch.evaluation.metrics_map import AREA_UNDER_ROC
-    from photon_tpu_torch.io.avro import read_avro_records, write_avro_records
-    from photon_tpu_torch.io.data_reader import read_merged
+    from photon_tpu_torch.io import columnar
+    from photon_tpu_torch.io.avro import read_avro_records
+    from photon_tpu_torch.io.data_reader import READ_PATHS, read_merged
     from photon_tpu_torch.io.model_io import load_game_model
-    from photon_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA
     from photon_tpu_torch.io.scores import load_scores
     from photon_tpu_torch.optim.common import HOST_READS
+    from photon_tpu_torch.utils.timed import Timed
 
-    log(f"## phase 10c: drivers on sparse Avro files; cut as phase 8 is (the port parses Avro in pure Python): "
-        f"{S_TRAIN_ROWS} training and {S_VALID_ROWS} validation rows, {S_COLUMNS} global columns, {S_NNZ} a row "
-        f"(config 6: 2^20 rows of 2^20 columns, 64 a row); {S_USERS} users of {S_USER_WINDOW} user features each, "
-        f"{S_USER_NNZ} a row")
+    log(f"## phase 10c: drivers on sparse Avro files: {S_TRAIN_ROWS} training rows in {S_TRAIN_FILES} files and "
+        f"{S_VALID_ROWS} validation rows, {S_COLUMNS} global columns, {S_NNZ} a row (config 6: 2^20 rows of 2^20 "
+        f"columns, 64 a row); {S_USERS} users of {S_USER_WINDOW} user features each, {S_USER_NNZ} a row; "
+        f"name_and_term_bags on a file of {S_CUT_ROWS} rows")
     work = Path(__file__).resolve().parent / "build" / "chip_smoke_sparse_drivers"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    schema = copy.deepcopy(TRAINING_EXAMPLE_SCHEMA)
-    schema["fields"].append({"name": "userFeatures", "type": {"type": "array", "items": "FeatureAvro"}})
-    t0 = time.perf_counter()
-    paths = {"train": str(work / "train.avro"), "valid": str(work / "valid.avro")}
-    write_avro_records(paths["train"], schema, _sparse_driver_records(S_TRAIN_ROWS, 101))
-    write_avro_records(paths["valid"], schema, _sparse_driver_records(S_VALID_ROWS, 102))
-    log(f"  wrote the Avro files in {time.perf_counter() - t0:.1f} s")
+    train_files = _split(work / "train", S_TRAIN_ROWS, S_TRAIN_FILES)
+    valid_files = _split(work / "valid", S_VALID_ROWS, S_VALID_FILES)
+    cut = str(work / "cut.avro")
+    log("  " + write_files([("sparse", f, n, 1010 + i) for i, (f, n) in enumerate(train_files)]
+                           + [("sparse", f, n, 1020 + i) for i, (f, n) in enumerate(valid_files)]
+                           + [("sparse", cut, S_CUT_ROWS, 103)]))
+    paths = {"train": str(work / "train"), "valid": str(work / "valid")}
+    files = {"train": [f for f, _ in train_files], "valid": [f for f, _ in valid_files]}
     device = dev.type
+    snap0 = dict(READ_PATHS.counts)
     torch.cuda.reset_peak_memory_stats()
     # Common features of strong planted weights, boxed to ±0.01.
     _, strongest = _sparse_planted()
     box = [{"name": f"f{j}", "term": "", "lowerBound": -0.01, "upperBound": 0.01} for j in strongest]
 
     def run(label, fn, argv):
-        reads0, t0 = HOST_READS.count, time.perf_counter()
+        Timed.reset()
+        snap, reads0, t0 = dict(READ_PATHS.counts), HOST_READS.count, time.perf_counter()
         result = fn(argv)
         if dev.type == "cuda":
             torch.cuda.synchronize()
-        log(f"  {label}: {time.perf_counter() - t0:.2f} s wall, {HOST_READS.count - reads0} host reads; {peak_text()}")
+        by_stage = ", ".join(f"{k[len('driver/'):]} {v:.2f} s" for k, v in Timed.records.items()
+                             if k.startswith("driver/"))
+        log(f"  {label}: {time.perf_counter() - t0:.2f} s wall, {HOST_READS.count - reads0} host reads"
+            + (f"; by stage {by_stage}" if by_stage else "") + f"; {peak_text()}")
+        took = read_paths_since(snap)
+        for stage, key, rows in (("driver/read-train", "train", S_TRAIN_ROWS),
+                                 ("driver/read-validation", "valid", S_VALID_ROWS),
+                                 ("driver/read", "valid", S_VALID_ROWS)):
+            if stage in Timed.records:
+                read_report(f"10c {label} {stage[len('driver/'):]}", files[key], rows, Timed.records[stage], took)
         torch.cuda.reset_peak_memory_stats()
         return result
 
@@ -1480,6 +1612,9 @@ def sparse_drivers_phase(dev, smi: str, check) -> None:
         shard_cfgs.update(parse_feature_shard_config(spec))
     valid, _, _ = read_merged([paths["valid"]], shard_cfgs, imaps, {"userId": "userId"}, eidx,
                               intern_new_entities=False, device=dev)
+    took = read_paths_since(snap0)
+    check(took.get("rows", 0) == 0 and took.get("columnar", 0) == 8,
+          f"10c every read of train_glm, game_training and game_scoring took the columnar path ({took})")
     check(all(isinstance(valid.features[s], SparseFeatures) for s in imaps),
           "10c the validation file reads back as two sparse shards")
     want = model.score_with_offset(valid).double().cpu()
@@ -1506,11 +1641,197 @@ def sparse_drivers_phase(dev, smi: str, check) -> None:
 
     counts = run("name_and_term_bags", lambda argv: name_and_term_bags.run(name_and_term_bags.build_parser()
                                                                               .parse_args(argv)),
-                 ["--input-data-directories", paths["train"], "--root-output-directory", str(work / "bags"),
+                 ["--input-data-directories", cut, "--root-output-directory", str(work / "bags"),
                   "--feature-bags-keys", "features", "userFeatures"])
-    check(counts == {"features": len(imaps["globalShard"]) - 1, "userFeatures": len(imaps["userShard"]) - 1},
-          f"10c name_and_term_bags: {counts} distinct features, the index maps' less the intercepts")
+    decoded = columnar.read_avro_columnar([cut])
+    distinct = {bag: len(np.unique(decoded.bags[bag].key_ids)) for bag in ("features", "userFeatures")}
+    check(counts == distinct, f"10c name_and_term_bags on the {S_CUT_ROWS}-row file: {counts} distinct features, "
+                              f"the columnar decode's {distinct}")
     shutil.rmtree(work, ignore_errors=True)
+
+
+def _tuning_estimator(n_users: int, solve_cache=None):
+    """The GLMix tuning setup of phase 11: the fixed effect over "global" and
+    per-user effects over "user" (L-BFGS, Newton), λ = 1 each, two passes,
+    validation AUC."""
+    from photon_tpu_torch.estimators import config
+    from photon_tpu_torch.estimators.game_estimator import GameEstimator
+    from photon_tpu_torch.evaluation.suite import EvaluationSuite, EvaluatorSpec
+    from photon_tpu_torch.types import TaskType
+
+    est = GameEstimator(TaskType.LOGISTIC_REGRESSION, [config.FixedEffectCoordinateConfig("global", "global"),
+                                                       config.RandomEffectCoordinateConfig("per_user", "userId", "user")],
+                        num_iterations=G_PASSES, intercept_indices={"global": 0, "user": 0},
+                        num_entities={"userId": n_users}, solve_cache=solve_cache)
+    base = config.GameOptimizationConfig({"global": config.RegularizationConfig(1.0),
+                                          "per_user": config.RegularizationConfig(1.0)})
+    return est, base, EvaluationSuite([EvaluatorSpec.parse("AUC")])
+
+
+def tuning_phase(dev, smi: str, check, train, valid) -> dict:
+    """Phase 11a: hyperparameter tuning in process on the GLMix headline rows
+    (phase 7's batches: N = 2^21, d_fix = 256 bf16, per user d = 16 over
+    E = 4096, logistic): for q in TUNING_Q, q candidates as batched lanes
+    (two rounds: the first captures, the second replays) against the same q
+    sequential fits; then a cut copy on the card against the CPU float64
+    plain path. Returns the kernel launches of the lanes and fits."""
+    from photon_tpu_torch.algorithm.solve_cache import default_cache
+    from photon_tpu_torch.data.game_data import GameBatch
+    from photon_tpu_torch.estimators.evaluation_function import GameEstimatorEvaluationFunction
+    from photon_tpu_torch.ops import fused_newton, kernels
+    from photon_tpu_torch.optim.common import HOST_READS
+
+    log("## phase 11a: hyperparameter tuning, q candidates as batched lanes vs q sequential fits")
+    est, base, suite = _tuning_estimator(E)
+    fn = GameEstimatorEvaluationFunction(est, base, train, valid, suite, True)
+    t0 = time.perf_counter()
+    lanes = fn._batched_evaluator()
+    torch.cuda.synchronize()
+    check(lanes is not None, "11a the GLMix headline setup is batchable (no decline)")
+    blocks = [tuple(b.features.shape) for b in lanes.re.dataset.blocks]
+    log(f"  lanes built in {time.perf_counter() - t0:.1f} s (random-effect blocks {blocks}); fixed effect X "
+        f"{tuple(train.features['global'].shape)} {train.features['global'].dtype}; card {smi}")
+    rng = np.random.default_rng(110)
+    kernels.reset_launches()
+    fused_newton.LAUNCHES_BY_WIDTH.clear()
+    for q in TUNING_Q:
+        X = rng.uniform(-2.0, 2.0, size=(q, 2))
+        rounds = []
+        for r in (1, 2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counts0, reads0, t0 = lanes.cache.stats.counts(), HOST_READS.count, time.perf_counter()
+            rounds.append(fn.evaluate_batch(X))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            since = lanes.cache.stats.since(counts0)
+            log(f"  11a q={q} batched round {r}: {wall:.3f} s wall, {HOST_READS.count - reads0} host reads, "
+                f"{cache_text(since)}; {peak_text()}")
+        check(since["captures"] == 0 and since["traces"] == 0 and since["replays"] > 0 and rounds[1] == rounds[0],
+              f"11a q={q}: the second round replays ({since['replays']} replays) with no new capture and repeats "
+              f"the first")
+        profiled(f"11a q={q} batched round 3, profiled", lambda: fn.evaluate_batch(X))
+        torch.cuda.reset_peak_memory_stats()
+        counts0, reads0, t0 = default_cache().stats.counts(), HOST_READS.count, time.perf_counter()
+        seq = [fn(x) for x in X]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log(f"  11a q={q} sequential fits: {wall:.3f} s wall, {HOST_READS.count - reads0} host reads, "
+            f"{cache_text(default_cache().stats.since(counts0))}; {peak_text()}")
+        diff = float(np.max(np.abs(np.array(rounds[0]) - np.array(seq))))
+        log("    log10 λ (global, per_user) → AUC batched / sequential: " + "; ".join(
+            f"({x[0]:+.3f}, {x[1]:+.3f}) {-b:.6f} / {-v:.6f}" for x, b, v in zip(X, rounds[0], seq)))
+        check(bool(np.all(np.isfinite(rounds[0]))) and diff <= TUNING_TOL,
+              f"11a q={q}: every lane's AUC finite and within {TUNING_TOL:g} of its sequential fit ({diff:.3e})")
+    launches = launch_counts()
+    launches.update({f"newton_system_d{d}": c for d, c in fused_newton.LAUNCHES_BY_WIDTH.items()})
+    log(f"  11a launches {launches}")
+    check(launches.get(f"newton_system_d{D_RE}", 0) > 0 and ran(launches, "fused_value_grad") > 0,
+          f"11a launched K3 at d = {D_RE} (lanes and fits) and K1 (the sequential fits)")
+
+    # A cut copy on the card against the CPU float64 plain path (not counted).
+    cut = np.random.default_rng(111)
+    n, e, d_fix = 1 << 14, 64, 32
+    Xf, Xu = cut.normal(size=(n, d_fix)), cut.normal(size=(n, D_RE))
+    Xf[:, 0] = Xu[:, 0] = 1.0
+    users = cut.integers(0, e, size=n)
+    logits = Xf @ cut.normal(size=d_fix) / d_fix ** 0.5 + np.sum(Xu * cut.normal(size=(e, D_RE))[users], 1) * 0.5
+    y = cut.uniform(size=n) < 1 / (1 + np.exp(-logits))
+    X = cut.uniform(-2.0, 2.0, size=(4, 2))
+    out = []
+    for device, dtype in ((dev, torch.float32), (torch.device("cpu"), torch.float64)):
+        def batch(sl):
+            t = lambda a: torch.as_tensor(a[sl], device=device, dtype=dtype)  # noqa: E731
+            m = y[sl].shape[0]
+            return GameBatch(t(y), torch.zeros(m, device=device, dtype=dtype),
+                             torch.ones(m, device=device, dtype=dtype), {"global": t(Xf), "user": t(Xu)},
+                             {"userId": torch.as_tensor(users[sl], device=device, dtype=torch.int32)})
+
+        est_c, base_c, suite_c = _tuning_estimator(e)
+        fn_c = GameEstimatorEvaluationFunction(est_c, base_c, batch(slice(0, n // 2)), batch(slice(n // 2, None)),
+                                               suite_c, True)
+        out.append(fn_c.evaluate_batch(X))
+    diff = float(np.max(np.abs(np.array(out[0]) - np.array(out[1]))))
+    check(diff <= REFERENCE_TOL, f"11a cut copy (n={n}, d_fix={d_fix}, E={e}, 4 lanes) on the card vs the float64 "
+                                 f"plain path on the CPU: AUC within {diff:.3e} (tolerance {REFERENCE_TOL:g})")
+    return launches
+
+
+def tuning_driver_phase(dev, smi: str, check, files: dict) -> dict:
+    """Phase 11b: ``game_training --hyper-parameter-tuning BAYESIAN
+    --hyper-parameter-batch-size 2 --output-mode TUNED`` on phase 8's files
+    with the batchable two-coordinate configuration (global, perUser), then
+    ``game_scoring`` of the TUNED model. Returns the kernel launches of the
+    two drivers."""
+    import logging
+
+    from photon_tpu_torch.algorithm.solve_cache import default_cache
+    from photon_tpu_torch.cli import game_scoring, game_training
+    from photon_tpu_torch.io.data_reader import READ_PATHS
+    from photon_tpu_torch.ops import fused_newton, kernels
+    from photon_tpu_torch.optim.common import HOST_READS
+    from photon_tpu_torch.utils.timed import Timed
+
+    log("## phase 11b: game_training --hyper-parameter-tuning BAYESIAN --output-mode TUNED, then game_scoring")
+    work = files["work"]
+    shards = ["--feature-shard-configurations", "name=globalShard,feature.bags=features",
+              "name=userShard,feature.bags=userFeatures"]
+    argv = ["--input-paths", files["train"], "--validation-paths", files["valid"], "--output-dir", str(work / "tuned"),
+            "--feature-index-dir", str(files["index"]), "--device", "cuda", *shards, "--coordinate-configurations",
+            "name=global,feature.shard=globalShard,optimizer=LBFGS,reg.weights=1|10",
+            "name=perUser,feature.shard=userShard,random.effect.type=userId,reg.weights=1",
+            "--update-sequence", "global,perUser", "--coordinate-descent-iterations", "2", "--evaluators", "AUC",
+            "--hyper-parameter-tuning", "BAYESIAN", "--hyper-parameter-tuning-iter", "4",
+            "--hyper-parameter-batch-size", "2", "--output-mode", "TUNED"]
+    declined = []
+
+    class Declines(logging.Handler):
+        def emit(self, record):
+            if "declined" in record.getMessage():
+                declined.append(record.getMessage())
+
+    handler = Declines()
+    logging.getLogger("photon_tpu_torch.estimators.batched_tuning").addHandler(handler)
+    kernels.reset_launches()
+    fused_newton.LAUNCHES_BY_WIDTH.clear()
+    Timed.reset()
+    snap = dict(READ_PATHS.counts)
+    reads0, counts0, t0 = HOST_READS.count, default_cache().stats.counts(), time.perf_counter()
+    try:
+        summary = game_training.main(argv)
+    finally:
+        logging.getLogger("photon_tpu_torch.estimators.batched_tuning").removeHandler(handler)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_stage = ", ".join(f"{k[len('driver/'):]} {v:.2f} s" for k, v in Timed.records.items() if k.startswith("driver/"))
+    log(f"  game_training: {wall:.2f} s wall, {HOST_READS.count - reads0} host reads; by stage {by_stage}; "
+        f"{cache_text(default_cache().stats.since(counts0))}; {peak_text()}")
+    records = json.loads((work / "tuned" / "hyperparameter-observations.json").read_text())["records"]
+    for rec in records:
+        log(f"    observed log10 λ global {rec['global.weight']:+.4f}, perUser {rec['perUser.weight']:+.4f}: "
+            f"evaluation {rec['evaluationValue']:.6f}")
+    check(not declined, f"11b the batched lanes ran (declines logged: {declined})")
+    check(len(records) == 2 + 4 and all(np.isfinite(r["evaluationValue"]) for r in records),
+          f"11b hyperparameter-observations.json holds the 2 grid points and the 4 candidates ({len(records)})")
+    check(len(summary["tuned_configs"]) == 1 and (work / "tuned" / "best" / "model-metadata.json").exists(),
+          f"11b TUNED saved the winner's sequential refit: {summary['best']['config']}, AUC "
+          f"{summary['best']['metrics']['AUC']:.4f}")
+    Timed.reset()
+    t0 = time.perf_counter()
+    result = game_scoring.main(["--input-paths", files["valid"], "--output-dir", str(work / "tuned-scores"),
+                                "--model-input-dir", str(work / "tuned" / "best"), "--evaluators", "AUC",
+                                "--device", "cuda", *shards])
+    torch.cuda.synchronize()
+    log(f"  game_scoring of the TUNED model: {time.perf_counter() - t0:.2f} s wall, AUC {result['metrics']['AUC']:.4f}")
+    took = read_paths_since(snap)
+    check(took == {"columnar": 3}, f"11b every read took the columnar path ({took})")
+    check(result["numScored"] == H_VALID_ROWS and np.isfinite(result["metrics"]["AUC"])
+          and result["metrics"]["AUC"] > 0.6, f"11b game_scoring scored the TUNED model: {result['numScored']} rows, "
+                                              f"AUC {result['metrics']['AUC']:.4f} > 0.6")
+    launches = launch_counts()
+    launches.update({f"newton_system_d{d}": c for d, c in fused_newton.LAUNCHES_BY_WIDTH.items()})
+    log(f"  11b launches {launches}")
+    return launches
 
 
 def main() -> int:
@@ -1536,6 +1857,7 @@ def main() -> int:
     from photon_tpu_torch.parallel.train_step import full_precision_matmuls, glmix_train_step
     from photon_tpu_torch.types import OptimizerType
 
+    t_start = time.perf_counter()
     full_precision_matmuls()
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -1881,6 +2203,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     solver_launches = game_solvers_phase(dev, smi, check, train, valid, fe_auc)
 
+    # ---------------- 11a. hyperparameter tuning in process ----------------
+    torch.cuda.empty_cache()
+    tuning_launches = tuning_phase(dev, smi, check, train, valid)
+
     # ---------------- 10. the sparse wide fixed effect ----------------
     torch.cuda.empty_cache()
     wide = sparse_wide_phase(dev, smi, check)
@@ -1893,7 +2219,12 @@ def main() -> int:
 
     # ---------------- 8. GAME drivers ----------------
     torch.cuda.empty_cache()
-    driver_launches = game_drivers_phase(dev, smi, check)
+    driver_launches, driver_files = game_drivers_phase(dev, smi, check)
+
+    # ---------------- 11b. the tuning driver ----------------
+    torch.cuda.empty_cache()
+    tuning_driver_launches = tuning_driver_phase(dev, smi, check, driver_files)
+    shutil.rmtree(driver_files["work"], ignore_errors=True)
 
     # ---------------- report ----------------
     sources = {
@@ -1919,12 +2250,13 @@ def main() -> int:
     # "ran": the launches that did their work (launches less those whose
     # launch flag was off; K3 has no flag).
     paths = (glmix_launches, tron_launches, glm_launches, game_launches, driver_launches, solver_launches,
-             sparse_launches)
+             sparse_launches, tuning_launches, tuning_driver_launches)
     rows = []
     for name, (src, repl) in sources.items():
         rows.append(dict(name=name, route="cuda", source=src, replaces=repl,
                          launches=sum(c.get(name, 0) for c in paths), ran=sum(ran(c, name) for c in paths),
                          max_abs_err=headline_err[name], **timings[name]))
+    log(f"# chip_smoke wall {time.perf_counter() - t_start:.1f} s on {smi}")
     if failures:
         log(f"chip_smoke: {len(failures)} check(s) failed: {failures}")
         return 1

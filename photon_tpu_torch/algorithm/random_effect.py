@@ -244,10 +244,10 @@ def _block_variances_of(objective: GLMObjective, block: EntityBlock, offsets: Te
 
 
 def _scatter_rows(table: Tensor, block: EntityBlock, rows: Tensor) -> None:
-    """table[entity_idx] = rows[:, :d] for the block's real rows, in place;
-    padding rows (entity_idx -1) are dropped."""
+    """table[..., entity_idx, :] = rows[..., :, :d] for the block's real rows,
+    in place; padding rows (entity_idx -1) are dropped."""
     real = block.entity_idx >= 0
-    table.index_copy_(0, block.entity_idx[real].long(), rows[real, :table.shape[1]].to(table.dtype))
+    table.index_copy_(-2, block.entity_idx[real].long(), rows[..., real, :table.shape[-1]].to(table.dtype))
 
 
 @dataclasses.dataclass
@@ -489,9 +489,9 @@ class RandomEffectCoordinate(Coordinate):
         return model, self._tracker_stats([(b, it, rs, ps) for b, _w, it, rs, ps in results])
 
     def _dense_warm_start(self, coefs: Tensor, block: EntityBlock, d: int) -> Tensor:
-        """(E_b, block.dim) warm start: the entities' rows (padding rows take
-        row 0, inert), zero in padded columns."""
-        w0 = coefs[torch.clamp(block.entity_idx, min=0).long()]
+        """(..., E_b, block.dim) warm start: the entities' rows of coefs (...,
+        E, d) (padding rows take row 0, inert), zero in padded columns."""
+        w0 = coefs[..., torch.clamp(block.entity_idx, min=0).long(), :]
         if block.dim > d:
             w0 = torch.nn.functional.pad(w0, (0, block.dim - d))
         return w0

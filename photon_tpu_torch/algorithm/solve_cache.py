@@ -237,9 +237,9 @@ class _Entry:
         if self.captured:
             self._capture()
 
-    def _load(self, inputs: Dict[str, Tensor], weights: Tuple[float, float]) -> None:
+    def _load(self, inputs: Dict[str, Tensor], weights: Tuple[Optional[float], Optional[float]]) -> None:
         for t, v in zip((self.prog.l2, self.prog.l1), weights):
-            if t is not None:
+            if t is not None and v is not None:
                 t.fill_(v)
         self._cache().stats.copied_bytes += sum(self.slots[k].load(v) for k, v in inputs.items())
 
@@ -539,6 +539,33 @@ class SolveCache:
             entry = self._dispatch(entries, key, weights, build, (objective, spec, X, label) + xs,
                                    ("fe", int(w0.shape[0])))
             return OptimizeResult(*entry(inputs, weights), eval_unit=entry.eval_unit)
+
+        return solve
+
+    def lane_solver(self, name: Tuple, make: Callable[[Dict[str, Tensor]], Tuple[Program, Callable, Callable]],
+                    fixed_effect: bool, pins: Tuple = ()) -> Callable:
+        """``solve(inputs)`` → the outputs of a program over candidate lanes
+        (the q candidates of a tuning round, estimators/batched_tuning.py).
+        ``make(t)`` builds (program, start, post) over ``t``, the static
+        buffers of ``inputs`` (a dict of tensors, ``w0`` among them), which
+        every solve copies in: ``start`` runs first in the program's ``init``
+        and ``post`` gives the outputs. The lanes' L2 weights are such an
+        input, which ``start`` loads, so one captured program serves every round
+        of the same shapes. Keyed by ``name`` (what ``make`` closes over) and
+        the inputs' signatures; ``pins`` keep what ``name`` names by id."""
+        entries: Dict = {}
+        none = (None, None)
+
+        def solve(inputs: Dict[str, Tensor]) -> tuple:
+            key = ("lanes",) + tuple(name) + tuple((k, _sig(v)) for k, v in inputs.items())
+
+            def build():
+                slots = self._slots_for(inputs)
+                prog, start, post = make({k: v.t for k, v in slots.items()})
+                return _Entry(self, _Started(prog, start), slots, post, chunk_of(prog, fixed_effect), inputs, none)
+
+            entry = self._dispatch(entries, key, none, build, pins, ("lanes", str(name[0])) + tuple(inputs["w0"].shape))
+            return entry(inputs, none)
 
         return solve
 

@@ -16,9 +16,15 @@ up without interning new ones; feature statistics, normalization and
 ``--coordinate-constraints``; the warm-start model, loaded after both
 reads so that its entities extend the run's entity indexes; the
 evaluation suite; ``GameEstimator.fit`` over the cross product of the
-regularization weights; selection by ``--output-mode``; ``best/`` (and
-``models/configs-<i>/`` under ALL), the index maps and entity indexes,
-then ``LATEST``; and ``training-summary.json``.
+regularization weights; hyperparameter tuning (``--hyper-parameter-tuning
+RANDOM|BAYESIAN``: a Sobol or Gaussian-process search over the log10
+regularization weights, seeded with the explicit grid as prior
+observations, ``--hyper-parameter-batch-size`` candidates a round as the
+batched lanes of estimators/batched_tuning.py where the setup allows,
+``hyperparameter-observations.json``); selection by ``--output-mode``
+(EXPLICIT: the grid's models, TUNED: the tuned ones, else both); ``best/``
+(and ``models/{configs,tuned_configs}-<i>/`` under ALL), the index maps and
+entity indexes, then ``LATEST``; and ``training-summary.json``.
 
 The data and the solves live on ``--device`` (default cuda; without a card
 the driver exits non-zero rather than run on the CPU). Flags whose
@@ -30,9 +36,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import logging
 import os
 from typing import Dict
 
+import numpy as np
 import torch
 
 from photon_tpu_torch.cli.common import (
@@ -56,9 +64,12 @@ from photon_tpu_torch.data.normalization import build_normalization_context
 from photon_tpu_torch.data.stats import compute_feature_stats
 from photon_tpu_torch.data.validators import DataValidationType, validate_game_batch
 from photon_tpu_torch.estimators.config import FixedEffectCoordinateConfig
+from photon_tpu_torch.estimators.evaluation_function import GameEstimatorEvaluationFunction
 from photon_tpu_torch.estimators.game_estimator import GameEstimator
 from photon_tpu_torch.evaluation.metrics_map import sanitize_for_json
 from photon_tpu_torch.evaluation.suite import EvaluationSuite, EvaluatorSpec
+from photon_tpu_torch.hyperparameter.serialization import observations_to_json
+from photon_tpu_torch.hyperparameter.tuner import TunerName, TuningMode, get_tuner
 from photon_tpu_torch.io.data_reader import read_merged
 from photon_tpu_torch.io.model_io import (
     load_game_model,
@@ -69,6 +80,8 @@ from photon_tpu_torch.io.model_io import (
 from photon_tpu_torch.types import NormalizationType
 from photon_tpu_torch.utils.io_utils import process_output_dir
 from photon_tpu_torch.utils.timed import Timed
+
+logger = logging.getLogger("photon_tpu_torch.driver")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -91,13 +104,17 @@ def build_parser() -> argparse.ArgumentParser:
                         '\'{"global": [{"name": "f1", "term": "", "lowerBound": 0}]}\'')
     p.add_argument("--output-mode", default="BEST", choices=["BEST", "ALL", "NONE", "EXPLICIT", "TUNED"],
                    help="reference ModelOutputMode: BEST = best model overall, ALL = every trained "
-                        "model, EXPLICIT = best of the explicit λ grid, NONE = no model output "
-                        "(TUNED is not ported yet)")
+                        "model, EXPLICIT = best of the explicit λ grid, TUNED = best hyperparameter-tuned "
+                        "model, NONE = no model output")
     p.add_argument("--hyper-parameter-tuning", default="NONE", choices=["NONE", "RANDOM", "BAYESIAN"],
-                   help="not ported yet (NONE only)")
+                   help="tune regularization hyperparameters after the explicit grid (RANDOM = Sobol search, "
+                        "BAYESIAN = GP + expected improvement)")
     p.add_argument("--hyper-parameter-tuning-iter", type=int, default=10)
-    p.add_argument("--hyper-parameter-batch-size", type=int, default=1)
-    p.add_argument("--hyper-parameter-tuner", default="ATLAS", choices=["DUMMY", "ATLAS"])
+    p.add_argument("--hyper-parameter-batch-size", type=int, default=1,
+                   help="candidates evaluated together per tuning round (>1 trains them as lanes of one "
+                        "program where the setup allows it)")
+    p.add_argument("--hyper-parameter-tuner", default="ATLAS", choices=["DUMMY", "ATLAS"],
+                   help="tuner implementation (reference HyperparameterTunerFactory)")
     p.add_argument("--variance-computation", nargs="?", const="SIMPLE", default="NONE",
                    choices=["NONE", "SIMPLE", "FULL"],
                    help="coefficient variances: SIMPLE = inverse diagonal Hessian, FULL = diagonal of "
@@ -130,8 +147,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     refuse_unported("game_training", {
-        "--hyper-parameter-tuning": args.hyper_parameter_tuning != "NONE",
-        "--output-mode TUNED": args.output_mode == "TUNED",
         "--checkpoint-dir": args.checkpoint_dir is not None,
         "--resume": args.resume,
         "--checkpoint-keep-last": args.checkpoint_keep_last is not None,
@@ -265,17 +280,34 @@ def run(args) -> Dict:
                                 evaluation_suite=suite if valid_batch is not None else None,
                                 initial_model=warm)
 
-    if suite is not None and valid_batch is not None:
-        best = estimator.select_best(results, suite)
+    tuned_results = []
+    if args.hyper_parameter_tuning != "NONE":
+        tuned_results = _run_hyperparameter_tuning(args, estimator, results, batch, valid_batch, suite)
+
+    def select(candidates):
+        if not candidates:
+            return None
+        if suite is not None and valid_batch is not None:
+            return estimator.select_best(candidates, suite)
+        return candidates[-1]
+
+    if args.output_mode == "EXPLICIT":
+        best = select(results)
+    elif args.output_mode == "TUNED":
+        best = select(tuned_results)
+        if best is None:
+            raise ValueError("--output-mode TUNED requires --hyper-parameter-tuning with at least one successful "
+                             "tuning iteration")
     else:
-        best = results[-1]
+        best = select(results + tuned_results)
     summary = {"configs": [], "tuned_configs": [], "best": None}
     with Timed("driver/write"):
-        for i, r in enumerate(results):
-            summary["configs"].append({"config": r.config.describe(), "metrics": r.metrics})
-            if args.output_mode == "ALL":
-                save_game_model(r.model, os.path.join(args.output_dir, "models", f"configs-{i}"), index_maps,
-                                entity_indexes, sparsity_threshold=args.model_sparsity_threshold)
+        for key, pool in (("configs", results), ("tuned_configs", tuned_results)):
+            for i, r in enumerate(pool):
+                summary[key].append({"config": r.config.describe(), "metrics": r.metrics})
+                if args.output_mode == "ALL":
+                    save_game_model(r.model, os.path.join(args.output_dir, "models", f"{key}-{i}"), index_maps,
+                                    entity_indexes, sparsity_threshold=args.model_sparsity_threshold)
         if args.output_mode != "NONE":
             save_game_model(best.model, os.path.join(args.output_dir, "best"), index_maps, entity_indexes,
                             sparsity_threshold=args.model_sparsity_threshold,
@@ -291,6 +323,36 @@ def run(args) -> Dict:
         with open(os.path.join(args.output_dir, "training-summary.json"), "w") as f:
             json.dump(sanitize_for_json(summary), f, indent=2)
     return summary
+
+
+def _run_hyperparameter_tuning(args, estimator, results, batch, valid_batch, suite) -> list:
+    """Bayesian or random search over the regularization hyperparameters,
+    seeded with the explicit grid as prior observations; the observations go
+    to ``hyperparameter-observations.json``. Returns the tuned fits."""
+    if valid_batch is None or suite is None:
+        raise ValueError("--hyper-parameter-tuning requires --validation-paths and --evaluators (the tuner "
+                         "optimizes the primary validation metric)")
+    fn = GameEstimatorEvaluationFunction(estimator, results[0].config, batch, valid_batch, suite,
+                                         suite.primary.better()(1.0, 0.0))
+    if fn.dim == 0:
+        logger.warning("hyperparameter tuning requested but no coordinate is regularized in the base "
+                       "configuration; skipping")
+        return []
+    tuner = get_tuner(TunerName[args.hyper_parameter_tuner])
+    with Timed(f"driver/hyperparameter-tuning[{args.hyper_parameter_tuning}]"):
+        best_x, _best_v, observations = tuner.search(
+            args.hyper_parameter_tuning_iter, fn.dim, TuningMode[args.hyper_parameter_tuning], fn,
+            search_range=fn.search_range, prior_observations=fn.convert_observations(results),
+            batch_size=args.hyper_parameter_batch_size)
+    if best_x is not None and not fn.results:
+        # The batched lanes evaluate metrics without keeping models: one
+        # sequential fit of the winner gives TUNED a model to save.
+        fn(np.asarray(best_x))
+    os.makedirs(args.output_dir, exist_ok=True)
+    with open(os.path.join(args.output_dir, "hyperparameter-observations.json"), "w") as f:
+        f.write(observations_to_json(observations, fn.names))
+    logger.info("hyperparameter tuning: %d candidates evaluated, observations saved", len(fn.results))
+    return fn.results
 
 
 def main(argv=None) -> Dict:

@@ -65,6 +65,7 @@ from photon_tpu_torch.ops.variance import coefficient_variances, normalize_varia
 from photon_tpu_torch.optim.common import HOST_READS, OptimizeResult
 from photon_tpu_torch.optim.factory import OptimizerSpec, make_optimizer
 from photon_tpu_torch.types import NormalizationType, OptimizerType, TaskType, VarianceComputationType
+from photon_tpu_torch.utils.timed import Timed
 
 log = logging.getLogger("photon_tpu_torch.train_glm")
 
@@ -183,8 +184,7 @@ def load_data(args, path: Optional[str], device, index_map: Optional[IndexMap] =
         return LabeledBatch.from_numpy(y, X, device=device), imap
     cfg = {"features": FeatureShardConfig(feature_bags=["features"], has_intercept=args.intercept)}
     batch, imaps, _ = read_merged(
-        [path], cfg, index_maps=None if index_map is None else {"features": index_map},
-        use_columnar=False, device=device,
+        [path], cfg, index_maps=None if index_map is None else {"features": index_map}, device=device,
     )
     return batch.labeled_batch("features"), imaps["features"]
 
@@ -297,8 +297,10 @@ def run(args) -> Dict:
     if args.validate_per_iteration and args.validation_data is None:
         raise ValueError("--validate-per-iteration requires --validation-data")
 
-    train, imap = load_data(args, args.training_data, device, _selected_features_index_map(args))
-    valid, _ = load_data(args, args.validation_data, device, imap)
+    with Timed("driver/read-train"):
+        train, imap = load_data(args, args.training_data, device, _selected_features_index_map(args))
+    with Timed("driver/read-validation"):
+        valid, _ = load_data(args, args.validation_data, device, imap)
     mode = DataValidationType[args.data_validation]
     validate_labeled_batch(train, task, mode)
     if valid is not None:

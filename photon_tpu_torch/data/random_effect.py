@@ -109,9 +109,9 @@ class EntityBlock:
         return w_global[:, self.col_map.long()]
 
     def gather_offsets(self, offsets: Tensor) -> Tensor:
-        """(E, n_max) per-sample offsets from the flat (n,) array."""
+        """(..., E, n_max) per-sample offsets from the flat (..., n) array."""
         safe = torch.clamp(self.sample_index, min=0).long()
-        return torch.where(self.sample_index >= 0, offsets[safe], 0.0).to(offsets.dtype)
+        return torch.where(self.sample_index >= 0, offsets[..., safe], 0.0).to(offsets.dtype)
 
 
 @dataclasses.dataclass

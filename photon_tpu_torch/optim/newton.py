@@ -10,6 +10,13 @@ is active (one host read per chunk of iterations, optim/program.py) or at
 ``max_iter``. The L2 weight is a device scalar (``l2``) the steps read, so
 one captured solve serves every weight.
 
+Candidate lanes (``l2_lanes``): q candidates of a tuning round share the
+block, each with its own L2 weight and offsets, as a (q, E) lane grid over
+the one X (the reference vmaps the block solve over candidates). The
+margins of all q lanes are one product with X; the Newton systems are q
+launches of K3 over the one slab (or q einsums on the plain path), so X is
+never copied q times.
+
 Each iteration is two X passes: the Newton system (H, g) from the carried
 margins — through the fused kernel (ops/fused_newton.py) when ``kernel`` is
 "cuda" or "cuda_bf16x" — and the trial margins, after which step-halving
@@ -22,7 +29,7 @@ records its value and gradient norm a step into histories of
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator
+from typing import Iterator, Optional
 
 import torch
 
@@ -51,7 +58,10 @@ _TRIAL_STEPS = (1.0, 0.5, 0.25, 0.125, 1 / 16, 1 / 32, 1 / 64)
 
 
 def _bmv(X: Tensor, w: Tensor) -> Tensor:
-    """(E, n, d) · (E, d) → (E, n)."""
+    """(E, n, d) · (E, d) → (E, n); with candidate lanes (E, n, d) · (q, E, d)
+    → (q, E, n), one product over the shared X."""
+    if w.dim() == 3:
+        return torch.bmm(X, w.permute(1, 2, 0)).permute(2, 0, 1)
     return torch.bmm(X, w[:, :, None])[:, :, 0]
 
 
@@ -87,12 +97,16 @@ def _check(objective: GLMObjective, kernel: str) -> None:
 class Newton(Program):
     """Batched Levenberg-damped Newton as a device state machine. ``batch``
     (label/offset/weight (E, n), features (E, n, d)) and ``w0`` (E, d) are
-    read by ``init``; every constant is built here, outside any capture."""
+    read by ``init``; every constant is built here, outside any capture.
+    With ``l2_lanes`` (q, E), the objective's L2 weight is one a lane of a
+    (q, E) grid over the shared block: ``w0`` (q, E, d) and the batch's
+    offset (q, E, n)."""
 
     eval_unit = "x_passes"
 
     def __init__(self, objective: GLMObjective, batch: LabeledBatch, w0: Tensor,
-                 config: OptimizerConfig = OptimizerConfig(), kernel: str = "torch"):
+                 config: OptimizerConfig = OptimizerConfig(), kernel: str = "torch",
+                 l2_lanes: Optional[Tensor] = None):
         if isinstance(batch.features, SparseFeatures):
             raise ValueError("minimize_newton requires dense features")
         _check(objective, kernel)
@@ -100,16 +114,20 @@ class Newton(Program):
         self.max_steps = config.max_iter
         norm = objective.normalization
         self.factors = norm.factors if norm is not None and norm.factors is not None else None
-        E, _, d = batch.features.shape
+        d = batch.features.shape[-1]
+        lanes = tuple(w0.shape[:-1])
+        self.candidates = len(lanes) == 2
         dtype, device = w0.dtype, w0.device
         self.dtype, self.device = dtype, device
-        self.reg = L2Term(objective.l2_weight, objective.intercept_index, d, dtype, device)
+        self.reg = L2Term(objective.l2_weight if l2_lanes is None else l2_lanes, objective.intercept_index, d, dtype,
+                          device)
         self.l2 = self.reg.l2
         self.init_passes = 1 if self.factors is None else 2
         self.ts = torch.tensor(_TRIAL_STEPS, dtype=dtype, device=device)
-        z = torch.zeros(batch.label.shape, dtype=torch.promote_types(batch.features.dtype, dtype), device=device)
-        lane = lambda v, dt=dtype: torch.full((E,), v, dtype=dt, device=device)  # noqa: E731
-        hist = lambda: torch.zeros((E, config.history_len), dtype=dtype, device=device)  # noqa: E731
+        z = torch.zeros(lanes + tuple(batch.label.shape[-1:]), dtype=torch.promote_types(batch.features.dtype, dtype),
+                        device=device)
+        lane = lambda v, dt=dtype: torch.full(lanes, v, dtype=dt, device=device)  # noqa: E731
+        hist = lambda: torch.zeros(lanes + (config.history_len,), dtype=dtype, device=device)  # noqa: E731
         self.slots = torch.arange(config.history_len, device=device)
         self.s = dict(w=torch.zeros_like(w0), z=z, f=lane(0.0), mu=lane(_MU_INIT), gnorm=lane(float("inf")),
                       g0_norm=lane(0.0), it=lane(0, torch.int32), reason=lane(REASON_NOT_CONVERGED, torch.int32),
@@ -135,7 +153,7 @@ class Newton(Program):
         S["w"].copy_(w0)
         S["z"].copy_(z)
         S["f"].copy_(self._data_value(z) + self.reg.value(w0))
-        S["loss_hist"].copy_(S["f"][:, None].expand_as(S["loss_hist"]))
+        S["loss_hist"].copy_(S["f"][..., None].expand_as(S["loss_hist"]))
         S["gnorm_hist"].fill_(float("inf"))
         S["mu"].fill_(_MU_INIT)
         S["gnorm"].fill_(float("inf"))
@@ -160,16 +178,15 @@ class Newton(Program):
         # --- pass 1: gradient and Hessian from the carried margins ---
         dz = b.weight * loss.dz(z, b.label)
         d2 = b.weight * loss.dzz(z, b.label)
-        if self.kernel != "torch":
-            X_sys = X.to(torch.bfloat16) if self.kernel == "cuda_bf16x" else X
-            H_data, g_data = newton_system(X_sys, d2, dz)
-            H_data, g_data = H_data.to(self.dtype), g_data.to(self.dtype)
+        if self.candidates:
+            # q systems over the one slab: a launch (or an einsum) a candidate.
+            systems = [self._system(X, d2[i], dz[i]) for i in range(d2.shape[0])]
+            H_data, g_data = torch.stack([h for h, _ in systems]), torch.stack([g for _, g in systems])
         else:
-            g_data = torch.einsum("bnd,bn->bd", X, dz)
-            H_data = torch.einsum("bnd,bn,bne->bde", X, d2, X)
+            H_data, g_data = self._system(X, d2, dz)
         if self.reg.on:
             g = g_data + self.reg.grad(w)
-            H = H_data + torch.diag(self.l2 * self.reg.cols)
+            H = H_data + torch.diag_embed(self.l2[..., None] * self.reg.cols)
         else:
             g, H = g_data, H_data
         gn_new = torch.linalg.norm(g, dim=-1)
@@ -179,28 +196,28 @@ class Newton(Program):
         # dead column still becomes PD under damping.
         diag_h = torch.diagonal(H, dim1=-2, dim2=-1)
         floor = 1e-7 * torch.clamp(diag_h.max(dim=-1).values, min=1.0)
-        Hd = H + mu[:, None, None] * torch.diag_embed(torch.maximum(diag_h, floor[:, None]))
+        Hd = H + mu[..., None, None] * torch.diag_embed(torch.maximum(diag_h, floor[..., None]))
         with _cusolver(self.device):
             chol, info = torch.linalg.cholesky_ex(Hd)
-            p = -torch.cholesky_solve(g[:, :, None], chol)[:, :, 0]
-        p = torch.where((info != 0)[:, None], torch.full_like(p, float("nan")), p)
+            p = -torch.cholesky_solve(g[..., None], chol)[..., 0]
+        p = torch.where((info != 0)[..., None], torch.full_like(p, float("nan")), p)
 
         # --- pass 2: trial margins, then backtracking on the margins ---
         ts = self.ts
         w_try = w + p
         z_try = _bmv(X, w_try) + b.offset
         u = z_try - z
-        z_trials = z[:, None, :] + ts[None, :, None] * u[:, None, :]  # (E, len(ts), n)
-        fs = torch.sum(b.weight[:, None, :] * loss.value(z_trials, b.label[:, None, :]), dim=-1)
-        fs = fs + self.reg.value(w[:, None, :] + ts[None, :, None] * p[:, None, :])
+        z_trials = z[..., None, :] + ts[:, None] * u[..., None, :]  # (lanes, len(ts), n)
+        fs = torch.sum(b.weight[..., None, :] * loss.value(z_trials, b.label[..., None, :]), dim=-1)
+        fs = fs + self.reg.value(w[..., None, :] + ts[:, None] * p[..., None, :])
         fs = torch.where(torch.isnan(fs), float("inf"), fs)
         ib = torch.argmin(fs, dim=-1)
-        f_best = fs.gather(1, ib[:, None])[:, 0]
+        f_best = fs.gather(-1, ib[..., None])[..., 0]
         t_best = ts[ib]
         accept = f_best <= f
 
-        w_new = torch.where(accept[:, None], w + t_best[:, None] * p, w)
-        z_new = torch.where(accept[:, None], z + t_best[:, None] * u, z)
+        w_new = torch.where(accept[..., None], w + t_best[..., None] * p, w)
+        z_new = torch.where(accept[..., None], z + t_best[..., None] * u, z)
         f_new = torch.where(accept, f_best, f)
         mu_new = torch.where(
             accept & (t_best == 1.0),
@@ -212,7 +229,7 @@ class Newton(Program):
         r_new = torch.where(torch.isfinite(f_new), r_new, REASON_DIVERGED).to(torch.int32)
 
         # Freeze finished lanes (vmap-of-while_loop semantics).
-        a1, a2 = active, active[:, None]
+        a1, a2 = active, active[..., None]
         c.update(S, dict(
             w=torch.where(a2, w_new, w), z=torch.where(a2, z_new, z), f=torch.where(a1, f_new, f),
             mu=torch.where(a1, mu_new, mu), gnorm=torch.where(a1, gn_new, S["gnorm"]),
@@ -221,17 +238,25 @@ class Newton(Program):
             loss_hist=torch.where(a2, record(S["loss_hist"], it_new, f_new), S["loss_hist"]),
             gnorm_hist=torch.where(a2, record(S["gnorm_hist"], it_new, gn_new), S["gnorm_hist"])))
 
+    def _system(self, X: Tensor, d2: Tensor, dz: Tensor):
+        """(Xᵀ·diag(d2)·X, Xᵀ·dz) of every entity: K3 or the plain einsums."""
+        if self.kernel != "torch":
+            X_sys = X.to(torch.bfloat16) if self.kernel == "cuda_bf16x" else X
+            H_data, g_data = newton_system(X_sys, d2, dz)
+            return H_data.to(self.dtype), g_data.to(self.dtype)
+        return torch.einsum("bnd,bn,bne->bde", X, d2, X), torch.einsum("bnd,bn->bd", X, dz)
+
     def finish(self) -> None:
         """The result; past a lane's last iteration its histories hold its
         final value and |g|, and |g| at the start is entry 0 of the gradient
         history (inf where no iteration ran), as in the reference."""
         S = self.s
         reason = torch.where(S["reason"] == REASON_NOT_CONVERGED, REASON_MAX_ITERATIONS, S["reason"])
-        past = self.slots > S["it"][:, None]
-        loss_hist = torch.where(past, S["f"][:, None], S["loss_hist"])
-        gnorm_hist = torch.where(past, S["gnorm"][:, None], S["gnorm_hist"])
+        past = self.slots > S["it"][..., None]
+        loss_hist = torch.where(past, S["f"][..., None], S["loss_hist"])
+        gnorm_hist = torch.where(past, S["gnorm"][..., None], S["gnorm_hist"])
         start = torch.where(S["it"] > 0, S["g0_norm"], S["gnorm"])
-        gnorm_hist = torch.where(self.slots == 0, start[:, None], gnorm_hist)
+        gnorm_hist = torch.where(self.slots == 0, start[..., None], gnorm_hist)
         self.out = OptimizeResult(
             w=S["w"], value=S["f"], grad_norm=S["gnorm"], iterations=S["it"], reason_code=reason.to(torch.int32),
             loss_history=loss_hist, grad_norm_history=gnorm_hist, evals=S["evals"], eval_unit="x_passes",

@@ -1,6 +1,7 @@
 """The smooth objectives the solver programs minimize (optim/program.py),
-with a lane axis: one solve (lanes ()) or one per entity of a block (lanes
-(E,)), the port's counterpart of the reference's closures that
+with a lane axis: one solve (lanes ()), one per entity of a block (lanes
+(E,)), or, for the q candidates of a tuning round over one X, (q,) and
+(q, E): the port's counterpart of the reference's closures that
 photon_tpu/algorithm/random_effect.py::_solve_block vmaps.
 
 ``GLMTerms`` is the data term of a GLM: Σ weight·loss(A·w + offset, label)
@@ -70,7 +71,10 @@ class L2Term:
         if not self.on:
             return torch.zeros(w.shape[:-1], dtype=self.l2.dtype, device=w.device)
         wc = w * self.cols
-        return 0.5 * self.l2 * dot(wc, wc)
+        l2 = self.l2
+        if l2.dim() and w.dim() - 1 > l2.dim():  # lane weights over points of extra axes (trials)
+            l2 = l2.reshape(l2.shape + (1,) * (w.dim() - 1 - l2.dim()))
+        return 0.5 * l2 * dot(wc, wc)
 
     def grad(self, w: Tensor) -> Tensor:
         """The gradient at w, or the Hessian's product with w."""
@@ -137,14 +141,19 @@ class GLMTerms:
         to bf16 with an f32 product (margin L-BFGS's direction pass)."""
         ev = v if self.factors is None else v * self.factors
         if self.blocked:
-            u = torch.bmm(self.X, ev[:, :, None])[:, :, 0]
+            # Candidate lanes (q, E, d) over the shared block: one product.
+            u = (torch.bmm(self.X, ev.permute(1, 2, 0)).permute(2, 0, 1) if ev.dim() == 3
+                 else torch.bmm(self.X, ev[:, :, None])[:, :, 0])
         else:
             u = matvec_rounded(self.X, ev) if rounded else matvec(self.X, ev)
         return u if self.shifts is None else u - dot(ev, self.shifts)[..., None]
 
     def transpose(self, r: Tensor) -> Tensor:
         """Aᵀ·r: (lanes, n) → (lanes, d)."""
-        g = torch.einsum("bnd,bn->bd", self.X, r) if self.blocked else rmatvec(self.X, r)
+        if self.blocked:
+            g = torch.einsum("bnd,qbn->qbd" if r.dim() == 3 else "bnd,bn->bd", self.X, r)
+        else:
+            g = rmatvec(self.X, r)
         if self.shifts is not None:
             g = g - torch.sum(r, dim=-1, keepdim=True) * self.shifts
         return g if self.factors is None else g * self.factors

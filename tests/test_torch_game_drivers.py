@@ -578,7 +578,7 @@ def test_drivers_default_to_cuda_and_never_fall_back(runs, files, tmp_path, driv
 
 
 _TRAINING_UNPORTED = [
-    ["--hyper-parameter-tuning", "RANDOM"], ["--output-mode", "TUNED"], ["--checkpoint-dir", "ck"], ["--resume"],
+    ["--checkpoint-dir", "ck"], ["--resume"],
     ["--checkpoint-keep-last", "2"], ["--event-listeners", "a.b:c"], ["--event-listener", "a.b:c"],
     ["--telemetry-out", "t.jsonl"], ["--otlp-endpoint", "http://localhost:1"],
     ["--stream-ingest-chunk-rows", "64"], ["--re-device-budget-mb", "1"],

@@ -670,3 +670,88 @@ def test_projected_sparse_random_effect_runs_k3(cuda_device):
         models[device.type] = model.to_dense().coefficients.cpu().double()
     err = float((models["cuda"] - models["cpu"]).abs().max()) / max(1.0, float(models["cpu"].abs().max()))
     assert err <= 2e-3
+
+
+@pytest.mark.parametrize("dense_limit", [4096, 16])  # dense and padded-sparse
+def test_columnar_read_to_card_equals_cpu_read(cuda_device, tmp_path, dense_limit):
+    """read_merged through the native decoder to the card gives the CPU
+    read's tensors bit for bit (same transpose plan on both)."""
+    from photon_tpu_torch.data.batch import SparseFeatures
+    from photon_tpu_torch.io.data_reader import READ_PATHS, FeatureShardConfig, read_merged
+
+    path = _write_driver_file(tmp_path / "t.avro", 1024, 3)
+    cfg = {"g": FeatureShardConfig(feature_bags=["features", "itemFeatures"], dense_dim_limit=dense_limit,
+                                   transpose_plan=True),
+           "u": FeatureShardConfig(feature_bags=["userFeatures"])}
+    READ_PATHS.reset()
+    got, maps_got, eidx_got = read_merged([path], cfg, entity_id_columns={"userId": "userId"}, device=cuda_device)
+    want, maps_want, eidx_want = read_merged([path], cfg, entity_id_columns={"userId": "userId"}, device="cpu")
+    assert READ_PATHS.counts == {"columnar": 2}
+    assert dict(maps_got["g"].items()) == dict(maps_want["g"].items())
+    assert eidx_got["userId"].ids() == eidx_want["userId"].ids()
+    for name in ("label", "offset", "weight", "uid"):
+        assert getattr(got, name).is_cuda
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
+    assert torch.equal(got.entity_ids["userId"].cpu(), want.entity_ids["userId"])
+    for k in cfg:
+        a, b = got.features[k], want.features[k]
+        if isinstance(b, SparseFeatures):
+            assert isinstance(a, SparseFeatures) and a.dim == b.dim
+            for x, y in zip(a.tensors(), b.tensors()):
+                assert x.is_cuda and torch.equal(x.cpu(), y)
+        else:
+            assert a.is_cuda and torch.equal(a.cpu(), b)
+
+
+def test_batched_lanes_on_card_match_cpu_plain(cuda_device):
+    """Four tuning candidates as lanes on the card (f32, K3 on the lanes)
+    against the CPU float64 plain path: each lane's AUC within 2e-3; a
+    second round replays its captured programs and builds none."""
+    import numpy as np
+
+    from photon_tpu_torch.data.game_data import GameBatch
+    from photon_tpu_torch.estimators.config import (
+        FixedEffectCoordinateConfig,
+        GameOptimizationConfig,
+        RandomEffectCoordinateConfig,
+        RegularizationConfig,
+    )
+    from photon_tpu_torch.estimators.evaluation_function import GameEstimatorEvaluationFunction
+    from photon_tpu_torch.estimators.game_estimator import GameEstimator
+    from photon_tpu_torch.evaluation.suite import EvaluationSuite, EvaluatorSpec
+    from photon_tpu_torch.types import TaskType
+
+    rng = np.random.default_rng(13)
+    n, e, d_fix, d_re = 8192, 64, 16, 8
+    Xf, Xr = rng.normal(size=(n, d_fix)), rng.normal(size=(n, d_re))
+    Xf[:, 0] = Xr[:, 0] = 1.0
+    users = rng.integers(0, e, size=n).astype(np.int32)
+    logits = Xf @ rng.normal(size=d_fix) / 4 + np.sum(Xr * rng.normal(size=(e, d_re))[users], axis=1)
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-logits))).astype(np.float64)
+    X = np.array([[0.0, 0.0], [1.0, -1.0], [-1.0, 1.0], [2.0, 2.0]])
+    out = {}
+    for device, dtype in ((cuda_device, torch.float32), (torch.device("cpu"), torch.float64)):
+        def batch(sl):
+            t = lambda a: torch.as_tensor(a[sl], device=device, dtype=dtype)  # noqa: E731
+            m = y[sl].shape[0]
+            return GameBatch(t(y), torch.zeros(m, device=device, dtype=dtype), torch.ones(m, device=device, dtype=dtype),
+                             {"g": t(Xf), "r": t(Xr)}, {"u": torch.as_tensor(users[sl], device=device)})
+
+        est = GameEstimator(TaskType.LOGISTIC_REGRESSION, [FixedEffectCoordinateConfig("fe", "g"),
+                                                           RandomEffectCoordinateConfig("re", "u", "r")],
+                            num_iterations=2, intercept_indices={"g": 0, "r": 0}, num_entities={"u": e})
+        base = GameOptimizationConfig({"fe": RegularizationConfig(weight=1.0), "re": RegularizationConfig(weight=1.0)})
+        fn = GameEstimatorEvaluationFunction(est, base, batch(slice(0, n // 2)), batch(slice(n // 2, None)),
+                                             EvaluationSuite([EvaluatorSpec.parse("AUC")]), True)
+        kernels.reset_launches()
+        lanes = fn._batched_evaluator()
+        assert lanes is not None
+        out[device.type] = fn.evaluate_batch(X)
+        if device.type == "cuda":
+            assert kernels.LAUNCHES["newton_system"] > 0
+            counts = lanes.cache.stats.counts()
+            assert fn.evaluate_batch(X) == out["cuda"]
+            since = lanes.cache.stats.since(counts)
+            assert since["captures"] == 0 and since["traces"] == 0 and since["replays"] > 0
+    assert all(np.isfinite(out["cuda"]))
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0, atol=2e-3)

@@ -582,7 +582,8 @@ def test_avro_reader_entity_ids_and_column_names_match_reference(tmp_path):
 def test_avro_reader_rejects_a_shard_wider_than_the_dense_limit(tmp_path):
     """A shard wider than the dense limit is not read as a dense matrix: it
     comes back padded-sparse, with the reference's triples (and the dense
-    matrix as its to_dense); the columnar decoder still refuses."""
+    matrix as its to_dense), through the columnar decoder and the row path
+    alike."""
     path = _write_avro(tmp_path / "w.avro", _avro_records(5, 9, seed=21))
     want, _, _ = j_reader.read_merged([path], {"s": j_reader.FeatureShardConfig(dense_dim_limit=4)},
                                       use_columnar=False)
@@ -593,9 +594,10 @@ def test_avro_reader_rejects_a_shard_wider_than_the_dense_limit(tmp_path):
     np.testing.assert_array_equal(sf.indices.numpy(), np.asarray(want.features["s"].indices))
     np.testing.assert_array_equal(sf.values.numpy(), np.asarray(want.features["s"].values))
     np.testing.assert_array_equal(sf.to_dense().numpy(), np.asarray(want.features["s"].to_dense()))
-    with pytest.raises(NotImplementedError, match="columnar"):
-        data_reader.read_merged([path], {"s": data_reader.FeatureShardConfig(dense_dim_limit=4)},
-                                use_columnar=True, device="cpu")
+    rows, _, _ = data_reader.read_merged([path], {"s": data_reader.FeatureShardConfig(dense_dim_limit=4)},
+                                         use_columnar=False, device="cpu")
+    for x, y in zip(sf.tensors(), rows.features["s"].tensors()):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
 
 
 def test_libsvm_reader_and_driver_loader_match_reference(tmp_path):

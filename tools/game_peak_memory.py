@@ -67,7 +67,11 @@ def main() -> int:
     if phase == 7:
         cs.game_phase(dev, smi, check, Xb, Xr, users, cs.E)
     else:
-        cs.game_drivers_phase(dev, smi, check)
+        out = cs.game_drivers_phase(dev, smi, check)
+        if isinstance(out, tuple):  # a checkout whose phase 8 leaves its files for phase 11b
+            import shutil
+
+            shutil.rmtree(out[1]["work"], ignore_errors=True)
     torch.cuda.synchronize()
     print(json.dumps({"checkout": str(root), "card": smi, "phase": phase,
                       "peak_bytes": torch.cuda.max_memory_allocated(), "allocated_before_bytes": base,
