@@ -125,6 +125,30 @@ Phases, each of which must pass:
                 per user): no decline, every candidate in
                 hyperparameter-observations.json, the TUNED model scored
                 by game_scoring, every read columnar.
+ 12. durability — on phase 8's files, widths and index: 12a
+                ``stream_merged`` + ``concat_game_batches`` and
+                ``stream_device_batches`` (overlapped and serial; pinned
+                copies on a copy stream) + ``materialize_game_batch`` with
+                2^14-row chunks must equal ``read_merged`` bit for bit on
+                the card (rows/s of each against the whole-file read, the
+                pipeline's stages, the materialize peak memory); 12b phase
+                8's game_training with --stream-ingest-chunk-rows and
+                --checkpoint-dir, SIGKILLed by a fault plan right after
+                cfg_0/step_0 is durable (exit -9), then --resume'd in
+                process: its model within 1e-6 of phase 8's (bitwise is
+                printed), the same best, the same entities solved by the
+                active set (phase 8's events), K1 and K3 at d = 16 and 128
+                launched; 12c train_glm on the training files streamed
+                through a 64 MiB replay cache (which must spill), λ = 10,
+                1, 0.1, killed after λ = 10's checkpoint, resumed: losses
+                and coefficients within 1e-6 of an unbroken whole-file
+                sweep, the same best λ, K1 launched; 12d game_scoring of the
+                12b model streamed in 2^12-row chunks, overlapped and
+                --serial-ingest: every score phase 8's exactly, by uid; 12e a
+                checkpoint of the CUDA model with a bf16 leaf restored onto
+                the card with equal bits, a real torch.cuda.OutOfMemoryError
+                classified by ``resources.is_device_oom``, and a SolveCache
+                capture after a streamed ingest has joined its threads.
 Phases 4, 6b, 7b, 8 and 9 print, per pass, λ or driver, the host reads (every
 device-to-host read of the path, through ``HOST_READS``; validation apart),
 the solve cache's captures (programs; the keys, which count each λ, apart),
@@ -136,7 +160,7 @@ at K = 1, 2, 4 and 8, and fails at any K unless iterations and reasons are
 equal and coefficients within 1e-6; it fails if pass 2 captures anything or
 the two passes' coordinate updates make more than 60 host reads; 6b fails
 above SWEEP_READS reads for a λ solve. The order of the run is 1-7, 9, 11a,
-10, 8, 11b; the whole run's wall is printed at its end.
+10, 8, 11b, 12; the whole run's wall is printed at its end.
 It prints the card's name and power limit, a JSON line of per-kernel numbers
 ("launches" and "ran": the launches of the main paths, and those of them
 that did their work; a K1 or K2 launch whose flag was off does not), and last {"ok": true, "device": {...}}. It exits non-zero, printing no
@@ -244,10 +268,34 @@ S_TRAIN_FILES, S_VALID_FILES, S_CUT_ROWS = 4, 1, 1 << 13
 # on the card against the CPU float64 plain path. Lanes and fits must agree
 # within TUNING_TOL (the reference's bar for batched against sequential).
 TUNING_Q, TUNING_TOL = (4, 8), 2e-3
+# Phase 12 (durability and streaming ingest, on phase 8's files and
+# widths): the chunk rows of the streamed reads and drivers (12a-c) and of
+# streamed scoring (12d); 12c's replay-cache budget, below the ~0.6 GB the
+# decoded training set takes, so the cache spills to disk; the fault plan
+# that SIGKILLs a driver right after its first checkpoint is durable; the
+# resumed models' tolerance against the unbroken ones.
+P_CHUNK_ROWS, P_SCORE_CHUNK_ROWS, P_REPLAY_MB = 1 << 14, 1 << 12, 64
+KILL_AFTER_FIRST_SAVE = {"rules": [{"site": "checkpoint.after_save", "kind": "kill", "at": [0]}]}
+RESUME_TOL = 1e-6
+# The optimization-log events of the drivers' runs (``record_event`` is
+# registered by dotted path with --event-listener).
+EVENTS: list = []
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def record_event(event) -> None:
+    """An event listener the drivers register by dotted path."""
+    EVENTS.append(event)
+
+
+def _active_counts(events) -> list:
+    """(coordinate, pass, entities solved) of the random-effect updates of
+    ``events``, in order."""
+    return [(e.payload["coordinate"], e.payload["cd_iteration"], e.payload["active_set"]["entities_active"])
+            for e in events if e.name == "PhotonOptimizationLogEvent" and e.payload.get("active_set")]
 
 
 def cache_text(d: dict) -> str:
@@ -1098,9 +1146,11 @@ def game_drivers_phase(dev, smi: str, check) -> tuple:
     Timed.reset()
     snap = dict(READ_PATHS.counts)
     reads0, counts0, t0 = HOST_READS.count, default_cache().stats.counts(), time.perf_counter()
+    EVENTS.clear()
     summary = game_training.main(["--input-paths", train_dir, "--validation-paths", valid_dir,
-                                  "--output-dir", str(out), "--feature-index-dir", str(idx), "--device", "cuda"]
-                                 + shards + coords)
+                                  "--output-dir", str(out), "--feature-index-dir", str(idx), "--device", "cuda",
+                                  "--event-listener", f"{__name__}:record_event"] + shards + coords)
+    train_events = list(EVENTS)
     torch.cuda.synchronize()
     stages("game_training", time.perf_counter() - t0, HOST_READS.count - reads0, counts0)
     took_train = read_paths_since(snap)
@@ -1185,7 +1235,8 @@ def game_drivers_phase(dev, smi: str, check) -> tuple:
     check(worst <= REFERENCE_TOL, f"8 game_training on {H_SMALL_ROWS} rows of {H_SMALL_ENTITIES} users and items, "
                                   f"--device cuda vs --device cpu: best/ coefficients rel {worst:.3e} "
                                   f"(tolerance {REFERENCE_TOL:g})")
-    return launches, dict(work=work, train=train_dir, valid=valid_dir, index=idx)
+    return launches, dict(work=work, train=train_dir, valid=valid_dir, index=idx, out=out, scores=scored,
+                          shards=shards, coords=coords, events=train_events, train_paths=train_paths)
 
 
 def _sparse_wide_data(seed: int = SP_SEED, n: int = 0, d: int = 0):
@@ -1834,6 +1885,283 @@ def tuning_driver_phase(dev, smi: str, check, files: dict) -> dict:
     return launches
 
 
+def _run_killed(module: str, argv: list, log_path: Path) -> int:
+    """``python -m photon_tpu_torch.cli.<module> argv`` in a process of its
+    own under KILL_AFTER_FIRST_SAVE; returns its exit code (its output goes
+    to ``log_path``)."""
+    import os
+
+    env = dict(os.environ, PHOTON_TPU_FAULT_PLAN=json.dumps(KILL_AFTER_FIRST_SAVE))
+    with open(log_path, "w") as f:
+        return subprocess.run([sys.executable, "-m", f"photon_tpu_torch.cli.{module}", *argv], env=env,
+                              cwd=str(Path(__file__).resolve().parent), stdout=f, stderr=subprocess.STDOUT,
+                              timeout=900).returncode
+
+
+def _tail(path: Path, lines: int = 15) -> str:
+    return "\n".join(path.read_text(errors="replace").splitlines()[-lines:]) if path.exists() else "(no output)"
+
+
+def _model_coefficients(out: Path) -> dict:
+    """Coordinate → coefficients (CPU) of ``out``/best, loaded with the index
+    maps and entity indexes beside it."""
+    from photon_tpu_torch.data.index_map import EntityIndex, IndexMap
+    from photon_tpu_torch.io.model_io import load_game_model
+
+    imaps = {shard: IndexMap.load(str(out / f"index-map-{shard}.json")) for _, shard, _ in H_BAGS}
+    eidx = {rt: EntityIndex.load(str(out / f"entity-index-{rt}.json")) for rt in ("userId", "itemId")}
+    model = load_game_model(str(out / "best"), imaps, eidx, device="cpu")
+    return {cid: (m.model.coefficients.means if cid == "global" else m.coefficients) for cid, m in model.models.items()}
+
+
+def _batches_equal(a, b) -> bool:
+    from photon_tpu_torch.data.batch import SparseFeatures
+
+    pairs = [(getattr(a, k), getattr(b, k)) for k in ("label", "offset", "weight", "uid")]
+    pairs += [(a.entity_ids[k], b.entity_ids[k]) for k in b.entity_ids]
+    for k, f in b.features.items():
+        g = a.features[k]
+        pairs += list(zip(g.tensors(), f.tensors())) if isinstance(f, SparseFeatures) else [(g, f)]
+    return a.features.keys() == b.features.keys() and all(x.device == y.device and torch.equal(x, y)
+                                                          for x, y in pairs)
+
+
+def _stage_text(summary: dict) -> str:
+    return "; ".join(f"{name} busy {st['busy_s']:.3f} s, starved {st['wait_in_s']:.3f} s, backpressured "
+                     f"{st['wait_out_s']:.3f} s, {st['items']} chunks" for name, st in summary["stages"].items())
+
+
+def durability_phase(dev, smi: str, check, files: dict) -> dict:
+    """Phase 12: durability and streaming ingest on phase 8's files and
+    widths. 12a the streamed reads against the whole-file read in process;
+    12b game_training streamed and checkpointed, SIGKILLed after config 0's
+    first pass, then resumed, against phase 8's model; 12c train_glm
+    streamed through a replay cache that spills, SIGKILLed after the first
+    λ, then resumed, against an unbroken whole-file sweep; 12d game_scoring
+    streamed, overlapped and serial, against phase 8's scores; 12e a CUDA
+    checkpoint round trip, a real device OOM classified, and a capture after
+    a streamed ingest. Returns the kernel launches of the resumed drivers."""
+    import threading
+
+    from photon_tpu_torch.algorithm.solve_cache import SolveCache
+    from photon_tpu_torch.cli import game_scoring, game_training, train_glm
+    from photon_tpu_torch.cli.common import parse_feature_shard_config
+    from photon_tpu_torch.data.batch import LabeledBatch
+    from photon_tpu_torch.data.index_map import IndexMap
+    from photon_tpu_torch.io.data_reader import concat_game_batches, read_merged, stream_merged
+    from photon_tpu_torch.io.pipeline import materialize_game_batch, stream_device_batches
+    from photon_tpu_torch.io.scores import load_scores
+    from photon_tpu_torch.ops import fused_newton, kernels
+    from photon_tpu_torch.ops.losses import LogisticLoss
+    from photon_tpu_torch.ops.objective import GLMObjective
+    from photon_tpu_torch.optim.factory import OptimizerSpec
+    from photon_tpu_torch.utils import resources
+    from photon_tpu_torch.utils.checkpoint import latest_step, load_checkpoint, save_checkpoint
+    from photon_tpu_torch.utils.timed import PipelineStats
+
+    t_phase = time.perf_counter()
+    log("## phase 12: durability and streaming ingest (phase 8's files and widths)")
+    work = files["work"] / "durability"
+    work.mkdir(parents=True, exist_ok=True)
+    shard_cfgs = {}
+    for bag, shard, _ in H_BAGS:
+        shard_cfgs.update(parse_feature_shard_config(f"name={shard},feature.bags={bag}"))
+    imaps = {shard: IndexMap.load(str(files["index"] / f"index-map-{shard}.json")) for _, shard, _ in H_BAGS}
+    ids = {"userId": "userId", "itemId": "itemId"}
+    listener = ["--event-listener", f"{__name__}:record_event"]
+
+    # ---- 12a: streamed reads against the whole-file read ----
+    def timed_read(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (whole, _, eidx_whole), t_whole = timed_read(lambda: read_merged(files["train_paths"], shard_cfgs, imaps, ids,
+                                                                     device=dev))
+    eidx_s = {}
+    merged, t_merged = timed_read(lambda: concat_game_batches(list(stream_merged(
+        files["train_paths"], shard_cfgs, imaps, ids, eidx_s, chunk_rows=P_CHUNK_ROWS, device=dev))))
+    check(_batches_equal(merged, whole) and eidx_s["userId"].ids() == eidx_whole["userId"].ids(),
+          f"12a stream_merged + concat_game_batches (chunk rows {P_CHUNK_ROWS}) equals read_merged bit for bit "
+          f"on the card")
+    del merged
+    log(f"  12a whole-file columnar read: {H_TRAIN_ROWS} rows in {t_whole:.3f} s = {H_TRAIN_ROWS / t_whole:.4e} rows/s; "
+        f"stream_merged + concat: {t_merged:.3f} s = {H_TRAIN_ROWS / t_merged:.4e} rows/s")
+    for overlap in (True, False):
+        stats = PipelineStats()
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        streamed, t_s = timed_read(lambda: materialize_game_batch(stream_device_batches(
+            files["train_paths"], shard_cfgs, imaps, ids, {}, chunk_rows=P_CHUNK_ROWS, overlap=overlap, stats=stats,
+            telemetry_label=f"12a-{overlap}", device=dev)))
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        summ = stats.summary()
+        check(_batches_equal(streamed, whole), f"12a stream_device_batches overlap={overlap} + "
+                                               f"materialize_game_batch equals read_merged bit for bit on the card")
+        log(f"  12a stream_device_batches overlap={overlap}: {t_s:.3f} s = {H_TRAIN_ROWS / t_s:.4e} rows/s "
+            f"(whole-file read {H_TRAIN_ROWS / t_whole:.4e}); overlap factor {summ['overlap_factor']}; "
+            f"{_stage_text(summ)}; materialize peak device memory {peak / 2 ** 30:.3f} GiB above the "
+            f"{base_mem / 2 ** 30:.3f} GiB held before (the batch itself "
+            f"{sum(t.numel() * t.element_size() for t in (whole.label, whole.offset, whole.weight, whole.uid, *whole.features.values(), *whole.entity_ids.values())) / 2 ** 30:.3f} GiB)")
+        del streamed
+    del whole
+    torch.cuda.empty_cache()
+
+    # ---- 12b: game_training streamed, killed after config 0's pass 0, resumed ----
+    ck, out = work / "game-ck", work / "game-out"
+    argv = (["--input-paths", files["train"], "--validation-paths", files["valid"], "--output-dir", str(out),
+             "--feature-index-dir", str(files["index"]), "--device", "cuda", "--stream-ingest-chunk-rows",
+             str(P_CHUNK_ROWS), "--checkpoint-dir", str(ck)] + files["shards"] + files["coords"])
+    t0 = time.perf_counter()
+    rc = _run_killed("game_training", argv, work / "game-killed.log")
+    t_killed = time.perf_counter() - t0
+    check(rc == -9 and (ck / "cfg_0" / "step_0.npz").exists() and (ck / "cfg_0" / "LATEST").exists()
+          and latest_step(str(ck / "cfg_0")) == 0 and not (ck / "cfg_1").exists(),
+          f"12b game_training killed by the plan right after cfg_0/step_0 became durable: exit {rc} "
+          f"(want -9) in {t_killed:.1f} s")
+    if rc != -9:
+        log(_tail(work / "game-killed.log"))
+    kernels.reset_launches()
+    fused_newton.LAUNCHES_BY_WIDTH.clear()
+    EVENTS.clear()
+    t0 = time.perf_counter()
+    summary = game_training.main(argv + ["--resume"] + listener)
+    torch.cuda.synchronize()
+    t_resume = time.perf_counter() - t0
+    launches_b = launch_counts()
+    launches_b.update({f"newton_system_d{d}": c for d, c in fused_newton.LAUNCHES_BY_WIDTH.items()})
+    resumed_events = list(EVENTS)
+    want, got = _model_coefficients(files["out"]), _model_coefficients(out)
+    worst, bitwise = 0.0, True
+    for cid, w in want.items():
+        a, r = rel_err(got[cid], w)
+        worst, bitwise = max(worst, r), bitwise and torch.equal(got[cid], w)
+        log(f"  12b {cid}: max |resumed - phase 8| {a:.3e}, rel {r:.3e}, bitwise {torch.equal(got[cid], w)}")
+    log(f"  12b resumed game_training: {t_resume:.2f} s wall (the killed run {t_killed:.1f} s); launches {launches_b}")
+    check(worst <= RESUME_TOL, f"12b resumed model (fixed, per user, per item) vs phase 8's unbroken whole-file "
+                               f"model: rel {worst:.3e} (tolerance {RESUME_TOL:g}), bitwise {bitwise}")
+    base = json.loads((files["out"] / "training-summary.json").read_text())
+    check(summary["best"]["config"] == base["best"]["config"]
+          and abs(summary["best"]["metrics"]["AUC"] - base["best"]["metrics"]["AUC"]) <= RESUME_TOL,
+          f"12b the same best: {summary['best']['config']}, AUC {summary['best']['metrics']['AUC']:.6f} "
+          f"(phase 8 {base['best']['metrics']['AUC']:.6f})")
+    unbroken = _active_counts(files["events"])
+    resumed = _active_counts(resumed_events)
+    # Phase 8's run: config 0 passes 0 and 1, then config 1; the resumed run
+    # starts at config 0's pass 1.
+    check(len(unbroken) == 8 and resumed == unbroken[2:],
+          f"12b the resumed pass 1 solves the unbroken run's entities (coordinate, pass, entities solved): "
+          f"resumed {resumed}, unbroken {unbroken[2:]}")
+    check(launches_b["fused_value_grad"] > 0 and launches_b.get(f"newton_system_d{D_RE}", 0) > 0
+          and launches_b.get(f"newton_system_d{G_D_ITEM}", 0) > 0,
+          f"12b the resumed run launched K1, and K3 at d = {D_RE} and {G_D_ITEM}")
+
+    # ---- 12c: train_glm streamed with a spilling replay cache, killed after λ = 10, resumed ----
+    glm = ["--training-data", files["train"], "--validation-data", files["valid"], "--regularization-weights",
+           "10,1,0.1", "--device", "cuda"]
+    base_sum = train_glm.main(glm + ["--output-dir", str(work / "glm-base")])
+    streamed = glm + ["--output-dir", str(work / "glm-out"), "--stream-ingest-chunk-rows", str(P_CHUNK_ROWS),
+                      "--replay-cache-mb", str(P_REPLAY_MB), "--checkpoint-dir", str(work / "glm-ck")]
+    rc = _run_killed("train_glm", streamed, work / "glm-killed.log")
+    check(rc == -9 and latest_step(str(work / "glm-ck")) == 0,
+          f"12c train_glm killed by the plan right after λ = 10's checkpoint: exit {rc} (want -9)")
+    if rc != -9:
+        log(_tail(work / "glm-killed.log"))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res_sum = train_glm.main(streamed + ["--resume"])
+    torch.cuda.synchronize()
+    t_glm = time.perf_counter() - t0
+    launches_c = launch_counts()
+    ing, ckp = res_sum["ingest"], res_sum["checkpoint"]
+    log(f"  12c resumed train_glm: {t_glm:.2f} s wall; streamed read {ing['rows']} rows in {ing['wall_s']:.3f} s "
+        f"({ing['rows'] / ing['wall_s']:.4e} rows/s), replay cache spilled {ing['spilled']} "
+        f"({ing['cached_bytes'] / 2 ** 20:.1f} MiB held, {ing['spilled_bytes'] / 2 ** 20:.1f} MiB spooled), "
+        f"decode passes {ing['decode_passes']}, replay passes {ing['replay_passes']}; checkpoint saves "
+        f"{[round(s, 4) for s in ckp['save_wall_s']]} s; resumed λs {ckp['resumed_lambdas']}")
+    check(ing["spilled"] and ing["decode_passes"] == 1 and ing["replay_passes"] == 1,
+          "12c the replay cache spilled to disk and the decode ran once")
+    worst = 0.0
+    for mb, mr in zip(base_sum["models"], res_sum["models"]):
+        r = abs(mr["loss"] - mb["loss"]) / abs(mb["loss"])
+        wb, wr = (dict(line.rstrip("\n").split("\t") for line in open(d / f"model-lambda-{mb['lambda']:g}.txt")
+                       if not line.startswith("#")) for d in (work / "glm-base", work / "glm-out"))
+        keys = set(wb) | set(wr)
+        scale = max([1.0] + [abs(float(v)) for v in wb.values()])
+        wdiff = max(abs(float(wb.get(k, 0)) - float(wr.get(k, 0))) for k in keys) / scale
+        worst = max(worst, r, wdiff)
+        log(f"  12c λ={mb['lambda']:g}: loss {mb['loss']:.9e} unbroken, {mr['loss']:.9e} resumed (rel {r:.3e}); "
+            f"coefficients rel {wdiff:.3e}")
+    check(worst <= RESUME_TOL and res_sum["best_lambda"] == base_sum["best_lambda"] and ckp["resumed_lambdas"] == 1,
+          f"12c resumed streamed sweep vs the unbroken whole-file sweep: losses and coefficients rel {worst:.3e} "
+          f"(tolerance {RESUME_TOL:g}), best λ {res_sum['best_lambda']:g} = {base_sum['best_lambda']:g}")
+    check(launches_c["fused_value_grad"] > 0, f"12c the resumed sweep launched K1 ({launches_c})")
+
+    # ---- 12d: game_scoring streamed, overlapped and serial ----
+    want_scores = {r["uid"]: r for r in load_scores(str(files["scores"] / "scores.avro"))}
+    for extra in ([], ["--serial-ingest"]):
+        sdir = work / f"scores{'-serial' if extra else ''}"
+        t0 = time.perf_counter()
+        res = game_scoring.main(["--input-paths", files["valid"], "--output-dir", str(sdir), "--model-input-dir",
+                                 str(out / "best"), "--evaluators", "AUC", "--device", "cuda",
+                                 "--stream-ingest-chunk-rows", str(P_SCORE_CHUNK_ROWS)] + files["shards"] + extra)
+        wall = time.perf_counter() - t0
+        got_scores = load_scores(str(sdir / "scores.avro"))
+        same = len(got_scores) == len(want_scores) and all(
+            (r["predictionScore"], r["label"], r["weight"]) == (want_scores[r["uid"]]["predictionScore"],
+                                                               want_scores[r["uid"]]["label"],
+                                                               want_scores[r["uid"]]["weight"])
+            for r in got_scores)
+        pipe = res["ingestPipeline"]
+        log(f"  12d game_scoring streamed{' --serial-ingest' if extra else ''}: {wall:.2f} s wall, "
+            f"{res['numScored'] / wall:.4e} rows/s; pipeline wall {pipe['wall_s']} s, overlap factor "
+            f"{pipe['overlap_factor']}; {_stage_text(pipe)}")
+        check(same and res["numScored"] == H_VALID_ROWS,
+              f"12d streamed scores{' (serial)' if extra else ''} equal phase 8's whole-file scores exactly, row for "
+              f"row by uid ({len(got_scores)} rows), AUC {res['metrics']['AUC']:.6f}")
+
+    # ---- 12e: on the card, in process ----
+    model_dev = {cid: w.to(dev) for cid, w in got.items()}
+    state = dict(model=model_dev, bf16=model_dev["global"].to(torch.bfloat16), step=np.int64(7))
+    save_checkpoint(str(work / "ckpt-e"), state, 0)
+    back, _ = load_checkpoint(str(work / "ckpt-e"), device=dev)
+    check(all(back["model"][k].device.type == dev.type and torch.equal(back["model"][k], v)
+              for k, v in model_dev.items())
+          and back["bf16"].dtype == torch.bfloat16 and torch.equal(back["bf16"].view(torch.int16),
+                                                                 state["bf16"].view(torch.int16))
+          and back["step"] == 7, "12e a checkpoint of the CUDA model with a bf16 leaf restores onto cuda, equal bits")
+    free, _total = torch.cuda.mem_get_info()
+    oom = None
+    try:
+        torch.empty(free + (1 << 30), dtype=torch.uint8, device=dev)
+    except torch.cuda.OutOfMemoryError as exc:
+        oom = exc
+    torch.cuda.empty_cache()
+    check(oom is not None and resources.is_device_oom(oom),
+          f"12e a real torch.cuda.OutOfMemoryError ({str(oom).splitlines()[0][:80] if oom else 'none raised'}) "
+          f"is classified by is_device_oom")
+    batch = materialize_game_batch(stream_device_batches(
+        [files["train_paths"][0]], shard_cfgs, imaps, ids, {}, chunk_rows=P_CHUNK_ROWS, telemetry_label="12e",
+        device=dev))
+    alive = [t.name for t in threading.enumerate() if t.name.startswith("photon-pipe-") and t.is_alive()]
+    cache = SolveCache()
+    res_e = cache.fe_solver(GLMObjective(loss=LogisticLoss, l2_weight=1.0, intercept_index=D_FIX - 1, use_fused=True),
+                            OptimizerSpec(max_iter=10))(torch.zeros(D_FIX, device=dev),
+                                                        LabeledBatch(batch.label, batch.features["globalShard"]))
+    torch.cuda.synchronize()
+    check(not alive and cache.stats.captures == 1 and bool(torch.isfinite(res_e.w).all()),
+          f"12e a capture through SolveCache after a streamed ingest joined its threads (threads left {alive}): "
+          f"{cache.stats.captures} capture, {int(res_e.iterations)} iterations, objective {float(res_e.value):.6e}")
+    cache.release()
+    del batch, model_dev, back
+    launches = {k: launches_b.get(k, 0) + launches_c.get(k, 0) for k in set(launches_b) | set(launches_c)}
+    log(f"  phase 12: {time.perf_counter() - t_phase:.1f} s wall on {smi}; launches {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs only on a GPU", file=sys.stderr)
@@ -2224,6 +2552,10 @@ def main() -> int:
     # ---------------- 11b. the tuning driver ----------------
     torch.cuda.empty_cache()
     tuning_driver_launches = tuning_driver_phase(dev, smi, check, driver_files)
+
+    # ---------------- 12. durability and streaming ingest ----------------
+    torch.cuda.empty_cache()
+    durability_launches = durability_phase(dev, smi, check, driver_files)
     shutil.rmtree(driver_files["work"], ignore_errors=True)
 
     # ---------------- report ----------------
@@ -2250,7 +2582,7 @@ def main() -> int:
     # "ran": the launches that did their work (launches less those whose
     # launch flag was off; K3 has no flag).
     paths = (glmix_launches, tron_launches, glm_launches, game_launches, driver_launches, solver_launches,
-             sparse_launches, tuning_launches, tuning_driver_launches)
+             sparse_launches, tuning_launches, tuning_driver_launches, durability_launches)
     rows = []
     for name, (src, repl) in sources.items():
         rows.append(dict(name=name, route="cuda", source=src, replaces=repl,

@@ -75,6 +75,17 @@ class FixedEffectCoordinate(Coordinate):
             GeneralizedLinearModel(Coefficients(w_model, variances), self.task), self.feature_shard)
         return model, result
 
+    def train_from_stream(self, chunks, residual_scores: Optional[Tensor] = None,
+                          initial_model: Optional[FixedEffectModel] = None) -> Tuple[FixedEffectModel, OptimizeResult]:
+        """Train from a pipelined chunk stream (io/pipeline.py ``BatchChunk``s
+        of ``stream_device_batches`` or ``device_chunks_from``): the chunks
+        concatenate on the device, the stream's threads are joined, and the
+        solve runs exactly as :meth:`train`. Feed unpadded chunks
+        (``pad_rows_to=None``): padding rows would enter the objective."""
+        from photon_tpu_torch.io.pipeline import materialize_game_batch
+
+        return self.train(materialize_game_batch(chunks), residual_scores, initial_model)
+
     def score(self, model: FixedEffectModel, batch: GameBatch) -> Tensor:
         return model.score(batch)
 

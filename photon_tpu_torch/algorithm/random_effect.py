@@ -21,8 +21,11 @@ card. The active-set gate is the reference's: from the second pass, only
 entities whose coefficients still moved more than ``convergence_tol`` are
 solved, repacked onto blocks of the sizes the full pass used (inside
 ``expect_cached``: no new capture); the masks of all blocks are read back to
-the host in one transfer at the pass boundary. Every host read of the module
-goes through ``HOST_READS``. The coefficient write-back drops the
+the host in one transfer at the pass boundary, and ``export_active_state`` /
+``restore_active_state`` carry them through a checkpoint. Every host read of
+the module goes through ``HOST_READS``. The ``solve.re_block`` fault site
+poisons a block's offsets at its dispatch (``utils/faults.py``), which the
+solve cache's in-graph quarantine then contains. The coefficient write-back drops the
 shape-bucket padding rows (entity_idx -1) instead of scattering them.
 """
 
@@ -67,6 +70,7 @@ from photon_tpu_torch.optim.problem import GLMOracle, GLMTerms
 from photon_tpu_torch.optim.program import EAGER_CHUNK, Program, run_chunked
 from photon_tpu_torch.optim.tron import TRON
 from photon_tpu_torch.types import OptimizerType, TaskType, VarianceComputationType
+from photon_tpu_torch.utils import faults
 
 Tensor = torch.Tensor
 
@@ -338,13 +342,44 @@ class RandomEffectCoordinate(Coordinate):
         self._pending_masks: Optional[list] = None
         self.last_active_set_stats: Optional[dict] = None
         self._fetched_quarantined = 0
+        # Set by a restore: this process's cache has not seen the full pass
+        # whose block shapes the first gated pass repacks onto.
+        self._gate_restored = False
 
     def begin_cd_pass(self, cd_iteration: int) -> None:
         """A descent starting at iteration 0 begins with a full pass."""
         if cd_iteration == 0:
             self._reset_active_set()
 
-    def _fetch_active_masks(self) -> List[np.ndarray]:
+    def export_active_state(self) -> Optional[dict]:
+        """Checkpointable snapshot of the active-set gate: the pass counter
+        and the resolved per-block keep masks (host bool arrays), or None
+        when there is no gate state (active set off, or no pass yet)."""
+        if not self.active_set or self._pending_masks is None:
+            return None
+        keep = self._fetch_active_masks(count_quarantined=False)
+        return dict(cd_pass=int(self._cd_pass), keep=[np.asarray(k) for k in keep])
+
+    def restore_active_state(self, state: Optional[dict]) -> None:
+        """Inverse of :meth:`export_active_state`: the keep masks become
+        identity-mapped pending entries, so the first resumed pass is gated
+        exactly as the interrupted run's would have been."""
+        self._reset_active_set()
+        if not self.active_set or state is None:
+            return
+        self._cd_pass = int(state["cd_pass"])
+        pending = []
+        for i, k in enumerate(state["keep"]):
+            k = (k.cpu().numpy() if isinstance(k, Tensor) else np.asarray(k)).astype(bool)
+            valid = self._block_valid_rows[i]
+            sb = np.where(valid, i, -1).astype(np.int32)
+            sr = np.where(valid, np.arange(k.shape[0], dtype=np.int32), -1).astype(np.int32)
+            pending.append((torch.as_tensor(k, device=self._device),
+                            torch.zeros(k.shape, dtype=torch.bool, device=self._device), sb, sr))
+        self._pending_masks = pending
+        self._gate_restored = True
+
+    def _fetch_active_masks(self, count_quarantined: bool = True) -> List[np.ndarray]:
         """Read the previous pass's per-entity active and quarantined masks
         of every dispatched block to the host in one transfer (the
         reference's pass-boundary fetch); entities not dispatched stay
@@ -359,7 +394,8 @@ class RandomEffectCoordinate(Coordinate):
             for b in np.unique(sb[m]):
                 active[b][sr[m & (sb == b)]] = True
             quarantined += int(np.sum(q & valid))
-        self._fetched_quarantined = quarantined
+        if count_quarantined:
+            self._fetched_quarantined = quarantined
         return active
 
     def _compact_feature_mask(self, idxs, sb_local, sr, block_c) -> Optional[Tensor]:
@@ -457,12 +493,13 @@ class RandomEffectCoordinate(Coordinate):
         results, pending = [], []
         cache = self._cache()
         for block, obj, mask, sb, sr in entries:
-            offs = block.gather_offsets(total_offset)
+            offs = faults.poison("solve.re_block", block.gather_offsets(total_offset))
             solver = self._solver(obj, tol, mask is not None)
-            if gated and cache.max_entries is None:
+            if gated and cache.max_entries is None and not self._gate_restored:
                 # The repacked shapes were all captured in the full first
                 # pass: a capture here is a bug. (With a bounded cache the
-                # entry may have been evicted, and a rebuild is legitimate.)
+                # entry may have been evicted, and after a restore the full
+                # pass ran in another process: a build is legitimate.)
                 with cache.expect_cached(f"active-set dispatch {tuple(block.features.shape)}"):
                     out = solver(block, offs, self._dense_warm_start(coefs, block, d), mask)
             else:
@@ -477,6 +514,7 @@ class RandomEffectCoordinate(Coordinate):
             gated, dispatched_valid=int(sum(int(np.sum(sb >= 0)) for *_x, sb, _sr in entries)),
             dispatched_alloc=int(sum(e[0].num_entities for e in entries)), num_dispatches=len(entries))
         self._cd_pass += 1
+        self._gate_restored = False
 
         coefs = coefs.clone()
         for block, w, *_ in results:
@@ -510,7 +548,7 @@ class RandomEffectCoordinate(Coordinate):
         dispatched_valid = dispatched_alloc = num_dispatches = 0
         block_coefs, block_offs = [], []
         for i, block in enumerate(self.dataset.blocks):
-            offs = block.gather_offsets(total_offset)
+            offs = faults.poison("solve.re_block", block.gather_offsets(total_offset))
             block_offs.append(offs)
             if gated and not keep[i].any():
                 prev = initial_model.block_coefs[i]

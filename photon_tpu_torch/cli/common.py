@@ -25,6 +25,15 @@ def setup_logging(verbose: bool = False) -> None:
     )
 
 
+# Re-exported for drivers (the implementation lives in utils so algorithm
+# code can poll shutdown_requested without importing the CLI layer).
+from photon_tpu_torch.utils.shutdown import (  # noqa: E402,F401
+    GracefulShutdown,
+    handle_termination,
+    shutdown_requested,
+)
+
+
 def parse_kv(spec: str) -> Dict[str, str]:
     out: Dict[str, str] = {}
     for part in spec.split(","):

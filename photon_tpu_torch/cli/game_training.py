@@ -26,6 +26,17 @@ batched lanes of estimators/batched_tuning.py where the setup allows,
 (and ``models/{configs,tuned_configs}-<i>/`` under ALL), the index maps and
 entity indexes, then ``LATEST``; and ``training-summary.json``.
 
+``--stream-ingest-chunk-rows`` (with ``--feature-index-dir``: a stream
+cannot be distinct-scanned first) reads the training and validation data
+through the ingest pipeline (io/pipeline.py), the chunks concatenated on
+the device; a stream that cannot decode natively exits non-zero and never
+falls back to a whole-file read. With ``--checkpoint-dir`` every
+configuration's coordinate descent checkpoints under ``cfg_<i>/`` at pass
+boundaries and resumes from there (``--resume`` insists that state exists
+and keeps the output directory); a SIGTERM/SIGINT stops at the next pass
+boundary with a final checkpoint and exit code 128 + signum. Events go to
+the ``--event-listener(s)``.
+
 The data and the solves live on ``--device`` (default cuda; without a card
 the driver exits non-zero rather than run on the CPU). Flags whose
 machinery is not ported exit non-zero with "not ported yet".
@@ -44,11 +55,13 @@ import numpy as np
 import torch
 
 from photon_tpu_torch.cli.common import (
+    GracefulShutdown,
     add_active_set_args,
     add_common_args,
     add_device_arg,
     add_out_of_core_args,
     add_validation_arg,
+    handle_termination,
     parse_coordinate_config,
     parse_feature_shard_config,
     parse_input_column_names,
@@ -70,7 +83,8 @@ from photon_tpu_torch.evaluation.metrics_map import sanitize_for_json
 from photon_tpu_torch.evaluation.suite import EvaluationSuite, EvaluatorSpec
 from photon_tpu_torch.hyperparameter.serialization import observations_to_json
 from photon_tpu_torch.hyperparameter.tuner import TunerName, TuningMode, get_tuner
-from photon_tpu_torch.io.data_reader import read_merged
+from photon_tpu_torch.io.data_reader import concat_game_batches, read_merged
+from photon_tpu_torch.io.pipeline import stream_device_batches
 from photon_tpu_torch.io.model_io import (
     load_game_model,
     publish_latest_pointer,
@@ -78,6 +92,9 @@ from photon_tpu_torch.io.model_io import (
     write_basic_statistics,
 )
 from photon_tpu_torch.types import NormalizationType
+from photon_tpu_torch.utils import resources
+from photon_tpu_torch.utils.checkpoint import latest_step
+from photon_tpu_torch.utils.events import EventEmitter, setup_event, training_finish_event, training_start_event
 from photon_tpu_torch.utils.io_utils import process_output_dir
 from photon_tpu_torch.utils.timed import Timed
 
@@ -124,13 +141,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ignore-threshold-for-new-models", action="store_true",
                    help="during warm start, entities without an existing model bypass the "
                         "random-effect active-data lower bound (requires --model-input-dir)")
-    p.add_argument("--checkpoint-dir", default=None, help="not ported yet")
-    p.add_argument("--checkpoint-every", type=int, default=1, help="with --checkpoint-dir only")
-    p.add_argument("--checkpoint-keep-last", type=int, default=None, help="not ported yet")
-    p.add_argument("--resume", action="store_true", help="not ported yet")
-    p.add_argument("--event-listeners", nargs="*", default=[], help="not ported yet")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="coordinate-descent checkpoint directory (one cfg_<i>/ per configuration); a run resumes "
+                        "from it automatically when state exists")
+    p.add_argument("--checkpoint-every", type=int, default=1, help="checkpoint every N coordinate-descent passes")
+    p.add_argument("--checkpoint-keep-last", type=int, default=None,
+                   help="keep only the newest K step files per configuration; default: all, or "
+                        "PHOTON_TPU_CHECKPOINT_KEEP_LAST")
+    p.add_argument("--resume", action="store_true",
+                   help="resume an interrupted run from --checkpoint-dir: requires checkpoint state and keeps "
+                        "the existing --output-dir")
+    p.add_argument("--event-listeners", nargs="*", default=[], help="dotted paths of event listener callables")
     p.add_argument("--event-listener", action="append", default=[], dest="event_listener",
-                   help="not ported yet")
+                   help="register one event listener by path ('pkg.module:attr'); repeatable")
     p.add_argument("--telemetry-out", default=None, help="not ported yet")
     p.add_argument("--otlp-endpoint", default=None, help="not ported yet")
     p.add_argument("--otlp-metrics-interval", type=float, default=15.0, help="with --otlp-endpoint only")
@@ -140,21 +163,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--feature-index-dir", default=None,
                    help="directory of index-map-<shard>.json files written by the feature-indexing "
                         "driver; skips the distinct scan")
-    p.add_argument("--stream-ingest-chunk-rows", type=int, default=0, help="not ported yet")
+    p.add_argument("--stream-ingest-chunk-rows", type=int, default=0,
+                   help="read training/validation data through the chunked streaming pipeline (host memory "
+                        "bounded by a few chunks; chunks concatenate on the device); needs --feature-index-dir")
     add_device_arg(p)
     return p
 
 
 def _refuse_unported(args) -> None:
     refuse_unported("game_training", {
-        "--checkpoint-dir": args.checkpoint_dir is not None,
-        "--resume": args.resume,
-        "--checkpoint-keep-last": args.checkpoint_keep_last is not None,
-        "--event-listeners": bool(args.event_listeners),
-        "--event-listener": bool(args.event_listener),
         "--telemetry-out": args.telemetry_out is not None,
         "--otlp-endpoint": args.otlp_endpoint is not None,
-        "--stream-ingest-chunk-rows": args.stream_ingest_chunk_rows > 0,
         "--re-device-budget-mb": args.re_device_budget_mb is not None,
         "--re-spill-dir": args.re_spill_dir is not None,
         "--re-spill-member": args.re_spill_member is not None,
@@ -188,7 +207,14 @@ def run(args) -> Dict:
     setup_logging(args.verbose)
     _refuse_unported(args)
     device = resolve_device(args.device)
+    # Host RSS watchdog: inert without a detectable limit; at hard pressure
+    # the pass boundary fails cleanly instead of meeting the OOM-killer.
+    resources.start_watchdog()
     task = task_of(args)
+    emitter = EventEmitter()
+    for name in list(args.event_listeners) + list(args.event_listener):
+        emitter.register_by_name(name)
+    emitter.emit(setup_event(driver="game_training", task=args.task, update_sequence=args.update_sequence))
 
     shard_configs: Dict = {}
     for spec in args.feature_shard_configurations:
@@ -199,7 +225,21 @@ def run(args) -> Dict:
     coord_configs = [by_id[cid] for cid in update_sequence]  # order = sequence
     entity_id_columns = {c.re_type: c.re_type for c in coord_configs if hasattr(c, "re_type")}
     column_names = parse_input_column_names(args.input_column_names)
-    process_output_dir(args.output_dir, args.override_output_dir)
+    if args.resume:
+        # Checkpoint state must exist (a mistyped dir must not silently
+        # start over), and the interrupted run's output dir is kept.
+        if not args.checkpoint_dir:
+            raise SystemExit("--resume requires --checkpoint-dir")
+        # Each configuration checkpoints under cfg_<i>/; state in any of
+        # them (or in the dir itself) counts.
+        ckpt = args.checkpoint_dir
+        cfg_dirs = [ckpt] + sorted(os.path.join(ckpt, d) for d in (os.listdir(ckpt) if os.path.isdir(ckpt) else [])
+                                   if d.startswith("cfg_"))
+        if all(latest_step(d) is None for d in cfg_dirs if os.path.isdir(d)):
+            raise SystemExit(f"--resume: no checkpoint state under {ckpt}")
+        os.makedirs(args.output_dir, exist_ok=True)
+    else:
+        process_output_dir(args.output_dir, args.override_output_dir)
 
     preloaded_maps = None
     if args.feature_index_dir:
@@ -215,7 +255,29 @@ def run(args) -> Dict:
                     f"({sorted(shard_configs)})"
                 ) from exc
 
+    chunk_rows = args.stream_ingest_chunk_rows
+    if chunk_rows > 0 and preloaded_maps is None:
+        raise SystemExit("--stream-ingest-chunk-rows requires --feature-index-dir (run the feature-indexing "
+                         "driver first)")
+
     def read(paths, index_maps, entity_indexes, intern_new):
+        if chunk_rows > 0:
+            # The ingest pipeline: decode → assemble → h2d on worker threads
+            # with bounded queues; the unpadded chunks concatenate on the
+            # device (the threads are joined before the fit captures).
+            eidx = entity_indexes if entity_indexes is not None else {}
+            try:
+                chunks = list(stream_device_batches(
+                    paths, shard_configs, index_maps, entity_id_columns=entity_id_columns, entity_indexes=eidx,
+                    intern_new_entities=intern_new, chunk_rows=chunk_rows, column_names=column_names,
+                    telemetry_label="game-train-ingest", device=device))
+            except (RuntimeError, ValueError) as exc:
+                # A stream never falls back to a whole-file read.
+                raise SystemExit(f"streaming ingest unavailable for {paths}: {exc}; drop "
+                                 "--stream-ingest-chunk-rows to use the row-codec fallback reader") from exc
+            if not chunks:
+                raise SystemExit(f"streaming ingest read zero data blocks from {paths}")
+            return concat_game_batches([c.batch for c in chunks]), index_maps, eidx
         return read_merged(paths, shard_configs, index_maps=index_maps, entity_id_columns=entity_id_columns,
                            entity_indexes=entity_indexes, intern_new_entities=intern_new,
                            column_names=column_names, device=device)
@@ -275,10 +337,17 @@ def run(args) -> Dict:
         re_active_set=args.re_active_set,
         re_convergence_tol=args.re_convergence_tol,
     )
-    with Timed("driver/fit"):
-        results = estimator.fit(batch, validation_batch=valid_batch,
-                                evaluation_suite=suite if valid_batch is not None else None,
-                                initial_model=warm)
+    emitter.emit(training_start_event(task=task.value, coordinates=list(update_sequence)))
+    try:
+        with handle_termination(), Timed("driver/fit"):
+            results = estimator.fit(batch, validation_batch=valid_batch,
+                                    evaluation_suite=suite if valid_batch is not None else None,
+                                    initial_model=warm, checkpoint_dir=args.checkpoint_dir,
+                                    checkpoint_every=args.checkpoint_every,
+                                    checkpoint_keep_last=args.checkpoint_keep_last, emitter=emitter)
+    except GracefulShutdown as exc:
+        # The coordinate descent wrote a final pass-boundary checkpoint.
+        raise SystemExit(128 + exc.signum) from exc
 
     tuned_results = []
     if args.hyper_parameter_tuning != "NONE":
@@ -322,6 +391,7 @@ def run(args) -> Dict:
         summary["best"] = {"config": best.config.describe(), "metrics": best.metrics}
         with open(os.path.join(args.output_dir, "training-summary.json"), "w") as f:
             json.dump(sanitize_for_json(summary), f, indent=2)
+    emitter.emit(training_finish_event(best=None if best is None else best.config.describe()))
     return summary
 
 

@@ -14,10 +14,20 @@ the variances, score the validation set with the task's MetricsMap, pick
 the best λ, and write the text models, the Avro ``best/`` model,
 ``LATEST`` and ``training-summary.json`` in the reference's layouts.
 
+``--stream-ingest-chunk-rows`` reads Avro through the ingest pipeline
+(io/pipeline.py): one decode pass, teed into a ``ChunkReplayCache`` of
+``--replay-cache-mb`` (the overflow spills to disk), distinct-scans the
+features; a replay then assembles the chunks and copies them to the device,
+where they concatenate. With ``--checkpoint-dir`` each finished λ is a
+durable step (its results and the warm start), a killed sweep resumes at
+the next λ (``--resume`` insists that state exists), and a SIGTERM/SIGINT
+stops the sweep at the next λ boundary with exit code 128 + signum. Events
+go to the ``--event-listener(s)``.
+
 The data and the solves live on ``--device`` (default cuda; without a card
-the driver exits non-zero rather than run on the CPU). Flags whose
-machinery is not ported exit non-zero with "not ported yet"; the
-random-effect flags warn that they are no-ops, as in the reference.
+the driver exits non-zero rather than run on the CPU). ``--telemetry-out``
+exits non-zero with "not ported yet"; the random-effect flags warn that
+they are no-ops, as in the reference.
 """
 
 from __future__ import annotations
@@ -29,20 +39,23 @@ import json
 import logging
 import os
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from photon_tpu_torch.algorithm.solve_cache import SolveCache, default_cache
 from photon_tpu_torch.cli.common import (
+    GracefulShutdown,
     add_active_set_args,
     add_device_arg,
     add_out_of_core_args,
     add_validation_arg,
+    handle_termination,
     refuse_unported,
     resolve_device,
     setup_logging,
+    shutdown_requested,
     task_of,
 )
 from photon_tpu_torch.data.batch import LabeledBatch
@@ -65,6 +78,15 @@ from photon_tpu_torch.ops.variance import coefficient_variances, normalize_varia
 from photon_tpu_torch.optim.common import HOST_READS, OptimizeResult
 from photon_tpu_torch.optim.factory import OptimizerSpec, make_optimizer
 from photon_tpu_torch.types import NormalizationType, OptimizerType, TaskType, VarianceComputationType
+from photon_tpu_torch.utils import resources
+from photon_tpu_torch.utils.checkpoint import LegacyCheckpointError, latest_step, load_checkpoint, save_checkpoint
+from photon_tpu_torch.utils.events import (
+    EventEmitter,
+    optimization_log_event,
+    setup_event,
+    training_finish_event,
+    training_start_event,
+)
 from photon_tpu_torch.utils.timed import Timed
 
 log = logging.getLogger("photon_tpu_torch.train_glm")
@@ -117,22 +139,30 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["NONE", "SIMPLE", "FULL"],
                    help="coefficient variances (bare flag = SIMPLE diag-inverse; "
                         "FULL = Cholesky inverse diagonal)")
-    p.add_argument("--event-listeners", nargs="*", default=[], help="not ported yet")
+    p.add_argument("--event-listeners", nargs="*", default=[], help="dotted paths of event listener callables")
     p.add_argument("--event-listener", action="append", default=[], dest="event_listener",
-                   help="not ported yet")
+                   help="register one event listener by path ('pkg.module:attr'); repeatable")
     p.add_argument("--telemetry-out", default=None, help="not ported yet")
     p.add_argument("--summarization-output-dir", default=None,
                    help="write per-feature summary statistics of the training data as "
                         "FeatureSummarizationResultAvro (part-00000.avro)")
-    p.add_argument("--stream-ingest-chunk-rows", type=int, default=0, help="not ported yet")
+    p.add_argument("--stream-ingest-chunk-rows", type=int, default=0,
+                   help="avro format: stream the data in chunks of this many rows (one decode pass teed into a "
+                        "replay cache while the features are distinct-scanned, then a replay through the "
+                        "assemble and host-to-device pipeline stages, concatenated on the device)")
     p.add_argument("--replay-cache-mb", type=int, default=_REPLAY_CACHE_MB,
-                   help="streaming ingest only (not ported yet)")
+                   help="host byte budget (MiB) of the decoded-chunk replay cache; the overflow spills to disk")
     add_validation_arg(p)
     add_active_set_args(p)
     add_out_of_core_args(p)
-    p.add_argument("--checkpoint-dir", default=None, help="not ported yet")
-    p.add_argument("--resume", action="store_true", help="not ported yet")
-    p.add_argument("--checkpoint-keep-last", type=int, default=None, help="not ported yet")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="λ-sweep checkpoint directory: one durable step per finished λ; a killed run resumes at "
+                        "the next λ (automatically when state exists)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume an interrupted λ sweep from --checkpoint-dir (requires checkpoint state)")
+    p.add_argument("--checkpoint-keep-last", type=int, default=None,
+                   help="keep only the newest K λ-step files (a resumed sweep replays pruned λs); default: all, "
+                        "or PHOTON_TPU_CHECKPOINT_KEEP_LAST")
     add_device_arg(p)
     p.add_argument("--verbose", action="store_true")
     return p
@@ -140,16 +170,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     """Exit non-zero on a flag whose machinery the port does not have."""
-    refuse_unported("train_glm", {
-        "--stream-ingest-chunk-rows": args.stream_ingest_chunk_rows > 0,
-        "--replay-cache-mb": args.replay_cache_mb != _REPLAY_CACHE_MB,
-        "--checkpoint-dir": args.checkpoint_dir is not None,
-        "--resume": args.resume,
-        "--checkpoint-keep-last": args.checkpoint_keep_last is not None,
-        "--telemetry-out": args.telemetry_out is not None,
-        "--event-listeners": bool(args.event_listeners),
-        "--event-listener": bool(args.event_listener),
-    })
+    refuse_unported("train_glm", {"--telemetry-out": args.telemetry_out is not None})
 
 
 def _selected_features_index_map(args) -> Optional[IndexMap]:
@@ -167,10 +188,61 @@ def _selected_features_index_map(args) -> Optional[IndexMap]:
     return IndexMap.build(sorted(keys), add_intercept=args.intercept)
 
 
-def load_data(args, path: Optional[str], device, index_map: Optional[IndexMap] = None):
+def _stream_load_avro(args, path: str, device, index_map: Optional[IndexMap], ingest: Optional[Dict] = None):
+    """Streaming multi-pass Avro load: the first pass decodes container
+    blocks into ColumnarRows chunks, teed into a ``ChunkReplayCache``, and
+    distinct-scans the feature keys (skipped when ``index_map`` is given);
+    the second replays the decoded chunks (from memory, then from the
+    spool) through the assemble and h2d stages and concatenates them on
+    ``device``. Decode is paid once, and host RAM never holds the assembled
+    data. The cache's counts land in ``ingest`` when given."""
+    from photon_tpu_torch.io.columnar import stream_avro_columnar
+    from photon_tpu_torch.io.data_reader import _expand_paths
+    from photon_tpu_torch.io.pipeline import (
+        ChunkReplayCache,
+        assemble_host_batches,
+        columnar_nbytes,
+        device_chunks_from,
+        materialize_game_batch,
+    )
+
+    chunk_rows = args.stream_ingest_chunk_rows
+    paths = _expand_paths([path])
+    cache = ChunkReplayCache(lambda: stream_avro_columnar(paths, chunk_rows),
+                             byte_budget=args.replay_cache_mb << 20, nbytes=columnar_nbytes)
+    t0 = time.perf_counter()
+    imap = index_map
+    if imap is None:
+        seen: Dict[str, None] = {}
+        for cols in cache:
+            bag = cols.bags.get("features")
+            if bag is not None and bag.key_ids.size:
+                for i in np.unique(bag.key_ids):
+                    seen.setdefault(cols.intern[i], None)
+        imap = IndexMap.build(seen, add_intercept=args.intercept)
+    cfg = {"features": FeatureShardConfig(feature_bags=["features"], has_intercept=args.intercept)}
+    try:
+        batch = materialize_game_batch(device_chunks_from(
+            lambda: assemble_host_batches(iter(cache), cfg, {"features": imap}, device=device),
+            telemetry_label="train-ingest", device=device))
+    finally:
+        stats = dict(decode_passes=cache.source_passes, replay_passes=cache.replay_passes, spilled=cache.spilled,
+                     cached_bytes=cache.cached_bytes, spilled_bytes=cache.spilled_bytes)
+        cache.close()  # the batch is materialized (or failed): delete any spool now
+    stats.update(rows=batch.n, wall_s=time.perf_counter() - t0)
+    log.info("streaming ingest: decode passes=%d replay passes=%d cache=%s", stats["decode_passes"],
+             stats["replay_passes"], "spilled" if stats["spilled"] else f"{stats['cached_bytes'] >> 20} MiB held")
+    if ingest is not None:
+        ingest.update(stats)
+    return batch.labeled_batch("features"), imap
+
+
+def load_data(args, path: Optional[str], device, index_map: Optional[IndexMap] = None,
+              ingest: Optional[Dict] = None):
     """(LabeledBatch on ``device``, IndexMap) of a LIBSVM or Avro file; the
     LIBSVM path appends the ones column of the intercept, as the reference
-    does. (None, index_map) when ``path`` is None."""
+    does. (None, index_map) when ``path`` is None. Avro streams with
+    ``--stream-ingest-chunk-rows``, its counts in ``ingest``."""
     if path is None:
         return None, index_map
     if args.format == "libsvm":
@@ -182,6 +254,8 @@ def load_data(args, path: Optional[str], device, index_map: Optional[IndexMap] =
             add_intercept=args.intercept,
         )
         return LabeledBatch.from_numpy(y, X, device=device), imap
+    if args.stream_ingest_chunk_rows > 0:
+        return _stream_load_avro(args, path, device, index_map, ingest)
     cfg = {"features": FeatureShardConfig(feature_bags=["features"], has_intercept=args.intercept)}
     batch, imaps, _ = read_merged(
         [path], cfg, index_maps=None if index_map is None else {"features": index_map}, device=device,
@@ -214,6 +288,20 @@ def _sync(t: torch.Tensor) -> None:
         torch.cuda.synchronize(t.device)
 
 
+def lambda_objective(train: LabeledBatch, lam: float, task: TaskType, elastic_net_alpha: float = 0.0,
+                     intercept_index: Optional[int] = None,
+                     normalization: Optional[NormalizationContext] = None) -> GLMObjective:
+    """The objective of one λ of the sweep."""
+    # A routing choice, not a feature: on the card the fused kernels (K1 for
+    # value and gradient, K2 for TRON's products) are how the port computes
+    # these, under the reference's own routing rule (``_can_fuse``: dense X,
+    # d <= 4096, no shifts) and within the kernels' pinned parity with the
+    # plain path (1e-5 relative). The reference driver leaves use_pallas off.
+    return GLMObjective(loss=loss_for_task(task), l2_weight=(1.0 - elastic_net_alpha) * lam,
+                        l1_weight=elastic_net_alpha * lam, intercept_index=intercept_index,
+                        normalization=normalization, use_fused=train.features.is_cuda)
+
+
 def train_lambda_sweep(
     train: LabeledBatch,
     weights: Sequence[float],
@@ -224,33 +312,24 @@ def train_lambda_sweep(
     normalization: Optional[NormalizationContext] = None,
     variance: VarianceComputationType = VarianceComputationType.NONE,
     solve_cache: Optional[SolveCache] = None,
+    w_start: Optional[torch.Tensor] = None,
+    after_lambda: Optional[Callable[[LambdaResult], None]] = None,
 ) -> List[LambdaResult]:
     """Solve for every λ in ``weights``, in the order given (the driver
-    passes them strongest first), each from the previous solution, and
-    compute the variances at each optimum. The variances are taken in the
-    transformed space and not rescaled by factors², as the reference driver
-    does. The solves dispatch through ``solve_cache``; without one, through
-    the shared cache, released when the sweep returns."""
-    loss = loss_for_task(task)
-    # A routing choice, not a feature: on the card the fused kernels (K1 for
-    # value and gradient, K2 for TRON's products) are how the port computes
-    # these, under the reference's own routing rule (``_can_fuse``: dense X,
-    # d <= 4096, no shifts) and within the kernels' pinned parity with the
-    # plain path (1e-5 relative). The reference driver leaves use_pallas off.
-    use_fused = train.features.is_cuda
-    w = torch.zeros(train.features.shape[1], dtype=train.label.dtype, device=train.label.device)
+    passes them strongest first), each from the previous solution (the
+    first from ``w_start``, else zero), and compute the variances at each
+    optimum. The variances are taken in the transformed space and not
+    rescaled by factors², as the reference driver does. ``after_lambda`` is
+    called with each λ's result as it finishes. The solves dispatch through
+    ``solve_cache``; without one, through the shared cache, released when
+    the sweep returns."""
+    w = (torch.zeros(train.features.shape[1], dtype=train.label.dtype, device=train.label.device)
+         if w_start is None else w_start)
     out: List[LambdaResult] = []
     cache = solve_cache if solve_cache is not None else default_cache()
     try:
         for lam in weights:
-            objective = GLMObjective(
-                loss=loss,
-                l2_weight=(1.0 - elastic_net_alpha) * lam,
-                l1_weight=elastic_net_alpha * lam,
-                intercept_index=intercept_index,
-                normalization=normalization,
-                use_fused=use_fused,
-            )
+            objective = lambda_objective(train, lam, task, elastic_net_alpha, intercept_index, normalization)
             _sync(w)
             reads0, t0 = HOST_READS.count, time.perf_counter()
             # λ solves route through the solve cache, as in the reference:
@@ -267,6 +346,8 @@ def train_lambda_sweep(
             out.append(LambdaResult(lam, objective, spec, w0, result, w_model,
                                     coefficient_variances(objective, w, train, variance), wall, host_syncs,
                                     counted))
+            if after_lambda is not None:
+                after_lambda(out[-1])
     finally:
         if solve_cache is None:
             cache.release()
@@ -282,10 +363,37 @@ def _write_text_model(path: str, task: TaskType, r: LambdaResult, loss: float, i
             f.write(f"{key}\t{wv[j]:.8g}\n")
 
 
+def _restore_sweep(args, ckpt_tag: str, device) -> tuple:
+    """(finished λ records, warm start) of the sweep checkpoint under
+    ``--checkpoint-dir``, or ([], None) when there is none to resume."""
+    if args.resume and latest_step(args.checkpoint_dir) is None:
+        raise ValueError(f"--resume: no checkpoint state under {args.checkpoint_dir}")
+    try:
+        state, _step = load_checkpoint(args.checkpoint_dir, device=device)
+    except FileNotFoundError:
+        return [], None
+    except LegacyCheckpointError as exc:
+        log.warning("ignoring legacy checkpoint under %s: %s", args.checkpoint_dir, exc)
+        return [], None
+    if state.get("tag") != ckpt_tag:
+        log.warning("checkpoint under %s is for a different λ-sweep configuration; starting fresh",
+                    args.checkpoint_dir)
+        return [], None
+    log.info("resuming λ sweep from checkpoint: %d λ(s) done", len(state["lambdas"]))
+    return state["lambdas"], state["w"]
+
+
 def run(args) -> Dict:
     setup_logging(args.verbose)
     _refuse_unported(args)
     device = resolve_device(args.device)
+    # Host RSS watchdog: inert without a detectable limit; at hard pressure
+    # the λ boundary fails cleanly instead of meeting the OOM-killer.
+    resources.start_watchdog()
+    emitter = EventEmitter()
+    for name in list(args.event_listeners) + list(args.event_listener):
+        emitter.register_by_name(name)
+    emitter.emit(setup_event(driver="train_glm", task=args.task, optimizer=args.optimizer))
     if args.re_active_set:
         log.warning("--re-active-set is a no-op for the single-GLM driver (no "
                     "random-effect coordinates); it only affects GAME training")
@@ -297,8 +405,9 @@ def run(args) -> Dict:
     if args.validate_per_iteration and args.validation_data is None:
         raise ValueError("--validate-per-iteration requires --validation-data")
 
+    ingest: Dict = {}
     with Timed("driver/read-train"):
-        train, imap = load_data(args, args.training_data, device, _selected_features_index_map(args))
+        train, imap = load_data(args, args.training_data, device, _selected_features_index_map(args), ingest)
     with Timed("driver/read-validation"):
         valid, _ = load_data(args, args.validation_data, device, imap)
     mode = DataValidationType[args.data_validation]
@@ -343,8 +452,58 @@ def run(args) -> Dict:
 
     spec = OptimizerSpec(OptimizerType[args.optimizer], args.max_iterations, args.tolerance,
                          box=box, track_history=args.optimization_state_tracker)
-    sweep = train_lambda_sweep(train, weights, task, spec, args.elastic_net_alpha, icpt, norm,
-                               normalize_variance_type(args.compute_variance))
+    emitter.emit(training_start_event(task=task.value, weights=weights))
+
+    # λ-sweep checkpoint: one step per finished λ. The tag pins the sweep's
+    # configuration, so a resumed run solves the same problem.
+    ckpt_dir = args.checkpoint_dir
+    ckpt_tag = "|".join([args.task, args.optimizer, f"{args.elastic_net_alpha:g}",
+                         ",".join(f"{lam:g}" for lam in weights)])
+    if ckpt_dir and args.validate_per_iteration:
+        raise ValueError("--checkpoint-dir is incompatible with --validate-per-iteration (the per-iteration "
+                         "replay needs each solve's warm start)")
+    if args.resume and not ckpt_dir:
+        raise ValueError("--resume requires --checkpoint-dir")
+    done, w_start = _restore_sweep(args, ckpt_tag, device) if ckpt_dir else ([], None)
+    sweep = [LambdaResult(r["lam"], lambda_objective(train, r["lam"], task, args.elastic_net_alpha, icpt, norm),
+                          spec, None, r["result"], r["w_model"], r["variances"], r["wall_s"], r["host_syncs"],
+                          r["cache"]) for r in done]
+    save_walls: List[float] = []
+
+    def after_lambda(r: LambdaResult) -> None:
+        sweep.append(r)
+        emitter.emit(optimization_log_event(reg_weight=r.lam, loss=float(r.result.value),
+                                            iterations=int(r.result.iterations),
+                                            convergence=r.result.convergence_reason.value))
+        if ckpt_dir:
+            t0 = time.perf_counter()
+            try:
+                save_checkpoint(ckpt_dir, dict(
+                    tag=ckpt_tag, w=r.result.w,
+                    lambdas=[dict(lam=x.lam, result=x.result, w_model=x.w_model, variances=x.variances,
+                                  wall_s=x.wall_s, host_syncs=x.host_syncs, cache=x.cache) for x in sweep]),
+                    len(sweep) - 1, keep_last=args.checkpoint_keep_last)
+            except OSError as exc:
+                # The writer already pruned and retried: a disk that stays
+                # full costs resumability, not the sweep.
+                if not resources.is_enospc(exc):
+                    raise
+                log.warning("λ-sweep checkpoint at λ=%g failed even after pruning (disk full under %s); "
+                            "continuing WITHOUT a checkpoint for this λ: %s", r.lam, ckpt_dir, exc)
+            save_walls.append(time.perf_counter() - t0)
+        signum = shutdown_requested()
+        if signum is not None:
+            log.warning("λ sweep stopping after λ=%g on signal %d", r.lam, signum)
+            raise GracefulShutdown(signum)
+        # The finished λs are durable: failing here on hard host memory
+        # pressure is clean and resumable.
+        resources.check_memory(f"train_glm λ={r.lam:g}")
+
+    remaining = weights[len(sweep):]
+    if remaining:
+        train_lambda_sweep(train, remaining, task, spec, args.elastic_net_alpha, icpt, norm,
+                           normalize_variance_type(args.compute_variance), w_start=w_start,
+                           after_lambda=after_lambda)
     models: List[Dict] = []
     for r in sweep:
         models.append({"lambda": r.lam, "loss": float(r.result.value),
@@ -393,13 +552,26 @@ def run(args) -> Dict:
     save_game_model(game, os.path.join(args.output_dir, "best"), {"features": imap})
     publish_latest_pointer(args.output_dir, "best")
     summary = {"best_lambda": best.lam, "models": models, "stage": stage.name}
+    # Port additions: the streamed read's replay-cache counts and the
+    # checkpoint save walls.
+    if ingest:
+        summary["ingest"] = ingest
+    if ckpt_dir:
+        summary["checkpoint"] = {"resumed_lambdas": len(done), "save_wall_s": save_walls}
     with open(os.path.join(args.output_dir, "training-summary.json"), "w") as f:
         json.dump(sanitize_for_json(summary), f, indent=2)
+    emitter.emit(training_finish_event(best_lambda=best.lam))
     return summary
 
 
 def main(argv=None) -> Dict:
-    summary = run(build_parser().parse_args(argv))
+    try:
+        with handle_termination():
+            summary = run(build_parser().parse_args(argv))
+    except GracefulShutdown as exc:
+        # The finished λs are durable in --checkpoint-dir; 128 + signum is
+        # the conventional signal exit.
+        raise SystemExit(128 + exc.signum) from exc
     print(json.dumps({"best_lambda": summary["best_lambda"]}))
     return summary
 

@@ -206,13 +206,19 @@ class GameEstimator:
         optimization_configs: Optional[Sequence[GameOptimizationConfig]] = None,
         initial_model: Optional[GameModel] = None,
         checkpoint_dir: Optional[str] = None,
+        checkpoint_every: int = 1,
+        checkpoint_keep_last: Optional[int] = None,
+        emitter=None,
         on_coordinate=None,
     ) -> List[GameResult]:
         """Train one GameModel per optimization configuration, each
-        warm-started from the previous one. ``on_coordinate(pass, id,
-        coordinate, wall_s)`` is passed to the coordinate descent."""
-        if checkpoint_dir is not None:
-            raise NotImplementedError("coordinate-descent checkpointing is not ported yet")
+        warm-started from the previous one. With ``checkpoint_dir`` config
+        i's coordinate descent checkpoints under ``<dir>/cfg_<i>`` and
+        resumes from its newest state there (a finished config replays from
+        its final checkpoint without recomputation), tagged with the config
+        and the update sequence. ``emitter`` gets the optimization-log
+        events; ``on_coordinate(pass, id, coordinate, wall_s)`` is passed to
+        the coordinate descent."""
         with Timed("game-estimator/prepare-datasets"):
             self._prepare_datasets(batch)
         configs = (list(optimization_configs) if optimization_configs is not None
@@ -221,18 +227,21 @@ class GameEstimator:
         if evaluation_suite is not None and validation_batch is not None:
             validation_fn = evaluation_suite.validation_fn()
             better = evaluation_suite.primary.better()
+        checkpointing = dict(checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+                             checkpoint_keep_last=checkpoint_keep_last, emitter=emitter)
         try:
             return self._fit_configs(batch, configs, validation_batch, validation_fn, better, initial_model,
-                                     on_coordinate)
+                                     on_coordinate, checkpointing)
         finally:
             if self.solve_cache is None:
                 default_cache().release()
 
     def _fit_configs(self, batch, configs, validation_batch, validation_fn, better, initial_model,
-                     on_coordinate) -> List[GameResult]:
+                     on_coordinate, checkpointing) -> List[GameResult]:
         results: List[GameResult] = []
         warm = initial_model
-        for opt_config in configs:
+        ckpt_dir = checkpointing.pop("checkpoint_dir")
+        for cfg_idx, opt_config in enumerate(configs):
             with Timed(f"game-estimator/train[{opt_config.describe()}]"):
                 cd = CoordinateDescent(self._build_coordinates(batch, opt_config), self.update_sequence,
                                        num_iterations=self.num_iterations,
@@ -240,7 +249,11 @@ class GameEstimator:
                 cd_result = cd.run(batch, initial_model=warm, validation_batch=validation_batch,
                                    validation_fn=validation_fn,
                                    better=better if better is not None else (lambda a, b: a < b),
-                                   on_coordinate=on_coordinate)
+                                   checkpoint_dir=None if ckpt_dir is None else f"{ckpt_dir}/cfg_{cfg_idx}",
+                                   # The sweep point's fingerprint: resuming against a
+                                   # changed grid or sequence fails loudly.
+                                   checkpoint_tag=f"{opt_config.describe()}|{','.join(self.update_sequence)}",
+                                   on_coordinate=on_coordinate, **checkpointing)
             metrics = cd_result.metric_history[-1] if cd_result.metric_history else None
             results.append(GameResult(model=cd_result.best_model, config=opt_config, metrics=metrics,
                                       tracker=cd_result.tracker, wall_times=cd_result.wall_times))

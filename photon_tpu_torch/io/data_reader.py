@@ -1,5 +1,6 @@
 """Avro training data → GameBatch, with feature-bag merging per shard (port
-of photon_tpu/io/data_reader.py, its columnar and row paths).
+of photon_tpu/io/data_reader.py: its columnar and row paths, and the
+streaming half, ``stream_merged`` and ``concat_game_batches``).
 
 N source feature bags are merged into one matrix per feature shard, index
 maps are created by a distinct scan or supplied, the intercept is injected,
@@ -430,3 +431,64 @@ def read_merged(
         intern_new_entities, column_names, device,
     )
     return batch, index_maps, entity_indexes
+
+
+def stream_merged(
+    paths: Sequence[str],
+    shard_configs: Dict[str, FeatureShardConfig],
+    index_maps: Dict[str, IndexMap],
+    entity_id_columns: Optional[Dict[str, str]] = None,
+    entity_indexes: Optional[Dict[str, EntityIndex]] = None,
+    intern_new_entities: bool = True,
+    chunk_rows: int = 1 << 16,
+    column_names: Optional[InputColumnsNames] = None,
+    workers: Optional[int] = None,
+    device="cuda",
+):
+    """Chunked ``read_merged``: yields GameBatch chunks on ``device``, host
+    memory bounded by one chunk (and a bounded window of in-flight blocks),
+    never the dataset. ``index_maps`` must be supplied (a stream cannot be
+    distinct-scanned first); entity ids intern cumulatively across chunks
+    through ``entity_indexes``; each chunk's uids count from 0
+    (``concat_game_batches`` renumbers them). ``workers`` caps the
+    concurrent block decode. The stream decodes natively or raises: it
+    never falls back to the row codec."""
+    from photon_tpu_torch.io.columnar import stream_avro_columnar
+
+    entity_indexes = entity_indexes if entity_indexes is not None else {}
+    for cols in stream_avro_columnar(_expand_paths(paths), chunk_rows, workers=workers):
+        batch, entity_indexes = _columnar_to_game_batch(
+            cols, shard_configs, index_maps, entity_id_columns, entity_indexes, intern_new_entities,
+            column_names, device)
+        yield batch
+
+
+def concat_game_batches(batches: List[GameBatch]) -> GameBatch:
+    """Concatenate chunk batches into one GameBatch on the chunks' device.
+    Padded-sparse shards re-pad to the widest chunk and get the transpose
+    plan of the whole when every part had one; uids renumber globally."""
+    if not batches:
+        raise ValueError("no batches to concatenate")
+    if len(batches) == 1:
+        return batches[0]
+    cat = lambda parts: torch.cat(list(parts))  # noqa: E731
+    label = cat(b.label for b in batches)
+    features: Dict[str, Features] = {}
+    for shard in batches[0].features:
+        parts = [b.features[shard] for b in batches]
+        if isinstance(parts[0], SparseFeatures):
+            k = max(p.indices.shape[1] for p in parts)
+            widen = lambda t: torch.nn.functional.pad(t, (0, k - t.shape[1]))  # noqa: E731
+            sf = SparseFeatures(cat(widen(p.indices) for p in parts), cat(widen(p.values) for p in parts),
+                                parts[0].dim)
+            features[shard] = sf.with_transpose_plan() if all(p.has_plan for p in parts) else sf
+        else:
+            features[shard] = cat(parts)
+    return GameBatch(
+        label=label,
+        offset=cat(b.offset for b in batches),
+        weight=cat(b.weight for b in batches),
+        features=features,
+        entity_ids={k: cat(b.entity_ids[k] for b in batches) for k in batches[0].entity_ids},
+        uid=torch.arange(label.shape[0], dtype=torch.int64, device=label.device),
+    )

@@ -161,7 +161,10 @@ class GLMTerms:
     # --- pointwise terms of the margins z ---
 
     def data_value(self, z: Tensor) -> Tensor:
-        return torch.sum(self.weight * self.loss.value(z, self.label), dim=-1)
+        # Summed in f64 and rounded once, so the value does not depend on the
+        # CPU's vector width: near the optimum TRON's decrease is an ulp or
+        # two of f, and a summation order must not decide its ratio test.
+        return torch.sum(self.weight * self.loss.value(z, self.label), dim=-1, dtype=torch.float64).to(z.dtype)
 
     def dz(self, z: Tensor) -> Tensor:
         return self.weight * self.loss.dz(z, self.label)

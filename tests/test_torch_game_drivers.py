@@ -578,16 +578,10 @@ def test_drivers_default_to_cuda_and_never_fall_back(runs, files, tmp_path, driv
 
 
 _TRAINING_UNPORTED = [
-    ["--checkpoint-dir", "ck"], ["--resume"],
-    ["--checkpoint-keep-last", "2"], ["--event-listeners", "a.b:c"], ["--event-listener", "a.b:c"],
-    ["--telemetry-out", "t.jsonl"], ["--otlp-endpoint", "http://localhost:1"],
-    ["--stream-ingest-chunk-rows", "64"], ["--re-device-budget-mb", "1"],
+    ["--telemetry-out", "t.jsonl"], ["--otlp-endpoint", "http://localhost:1"], ["--re-device-budget-mb", "1"],
     ["--re-spill-dir", "spill"], ["--re-spill-member", "m0"],
 ]
-_SCORING_UNPORTED = [
-    ["--stream-ingest-chunk-rows", "64"], ["--serial-ingest"], ["--ingest-queue-depth", "2"],
-    ["--event-listeners", "a.b:c"], ["--event-listener", "a.b:c"], ["--telemetry-out", "t.jsonl"],
-]
+_SCORING_UNPORTED = [["--telemetry-out", "t.jsonl"]]
 
 
 @pytest.mark.parametrize("driver,flag", [("game_training", f) for f in _TRAINING_UNPORTED]

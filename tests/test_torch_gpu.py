@@ -755,3 +755,72 @@ def test_batched_lanes_on_card_match_cpu_plain(cuda_device):
             assert since["captures"] == 0 and since["traces"] == 0 and since["replays"] > 0
     assert all(np.isfinite(out["cuda"]))
     np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0, atol=2e-3)
+
+
+@pytest.mark.parametrize("pad_rows_to", [None, 256])
+@pytest.mark.parametrize("overlap", [True, False])
+def test_pipeline_h2d_chunks_equal_cpu_assembly(cuda_device, tmp_path, overlap, pad_rows_to):
+    """The h2d stage (pinned buffers, non-blocking copies on a copy stream,
+    the consumer waiting on the copy's event) gives chunks on the card equal
+    bit for bit to the CPU assembly, padded or not, threaded or inline; the
+    stage threads are gone when the stream ends."""
+    import threading
+
+    from photon_tpu_torch.data.batch import SparseFeatures
+    from photon_tpu_torch.io.data_reader import FeatureShardConfig, read_merged
+    from photon_tpu_torch.io.pipeline import stream_device_batches
+
+    # Three files of one container block each: three chunks.
+    paths = [_write_driver_file(tmp_path / f"t{i}.avro", 700, 5 + i) for i in range(3)]
+    cfg = {"g": FeatureShardConfig(feature_bags=["features", "itemFeatures"], dense_dim_limit=16,
+                                   transpose_plan=True),
+           "u": FeatureShardConfig(feature_bags=["userFeatures"])}
+    _, maps, _ = read_merged(paths, cfg, entity_id_columns={"userId": "userId"}, device="cpu")
+    kw = dict(entity_id_columns={"userId": "userId"}, chunk_rows=300, pad_rows_to=pad_rows_to, overlap=overlap)
+    got = list(stream_device_batches(paths, cfg, maps, entity_indexes={}, device=cuda_device, **kw))
+    want = list(stream_device_batches(paths, cfg, maps, entity_indexes={}, device="cpu", **kw))
+    assert len(got) == len(want) > 2
+    for a, b in zip(got, want):
+        assert a.n == b.n and a.event is not None and b.event is None
+        x, y = a.batch, b.batch
+        for name in ("label", "offset", "weight", "uid"):
+            assert getattr(x, name).is_cuda and torch.equal(getattr(x, name).cpu(), getattr(y, name))
+        assert torch.equal(x.entity_ids["userId"].cpu(), y.entity_ids["userId"])
+        for k in cfg:
+            if isinstance(y.features[k], SparseFeatures):
+                assert x.features[k].has_plan and y.features[k].has_plan
+                for s, t in zip(x.features[k].tensors(), y.features[k].tensors()):
+                    assert s.is_cuda and torch.equal(s.cpu(), t)
+            else:
+                assert torch.equal(x.features[k].cpu(), y.features[k])
+    assert not [t for t in threading.enumerate() if t.name.startswith("photon-pipe-") and t.is_alive()]
+
+
+def test_checkpoint_restores_onto_the_card(cuda_device, tmp_path):
+    """load_checkpoint(..., device="cuda") gives bf16 and f32 leaves of a
+    CUDA state back on the card with equal bits."""
+    from photon_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    state = {"f32": torch.randn(64, 16, device=cuda_device, generator=g),
+             "bf16": torch.randn(1000, device=cuda_device, generator=g).to(torch.bfloat16),
+             "i32": torch.arange(7, dtype=torch.int32, device=cuda_device), "n": 3}
+    save_checkpoint(str(tmp_path), state, 0)
+    back, step = load_checkpoint(str(tmp_path), device="cuda")
+    assert step == 0 and back["n"] == 3
+    for k in ("f32", "bf16", "i32"):
+        assert back[k].is_cuda and back[k].dtype == state[k].dtype
+        assert torch.equal(back[k].view(torch.int16) if k == "bf16" else back[k],
+                           state[k].view(torch.int16) if k == "bf16" else state[k])
+
+
+def test_real_out_of_memory_is_classified(cuda_device):
+    """An allocation larger than the card's free memory raises
+    torch.cuda.OutOfMemoryError, which is_device_oom classifies."""
+    from photon_tpu_torch.utils import resources
+
+    free, _total = torch.cuda.mem_get_info()
+    with pytest.raises(torch.cuda.OutOfMemoryError) as ei:
+        torch.empty(free + (1 << 30), dtype=torch.uint8, device=cuda_device)
+    assert resources.is_device_oom(ei.value)
+    torch.cuda.empty_cache()

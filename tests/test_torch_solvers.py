@@ -314,6 +314,25 @@ def test_init_step_and_finish_never_read_back(route, monkeypatch):
     assert int(prog.result().iterations.max()) > 0
 
 
+def test_f32_data_value_is_the_exact_sum_rounded_once():
+    """An f32 data term's value is the exact sum of the per-sample terms,
+    rounded once to f32: the same for every order of the samples (so for
+    every CPU vector width), as TRON's ratio test near the optimum needs."""
+    rng = np.random.default_rng(41)
+    n = 4099
+    t = lambda a: torch.from_numpy(a.astype(np.float32))  # noqa: E731
+    z, y, wt = t(rng.normal(size=n)), t((rng.uniform(size=n) < 0.5).astype(float)), t(rng.uniform(0.5, 2, n))
+    terms = GLMTerms(LogisticLoss, torch.zeros(n, 1), y, wt, torch.zeros(n))
+    got = terms.data_value(z)
+    assert got.dtype == torch.float32
+    per_sample = (wt * LogisticLoss.value(z, y)).double().numpy()
+    assert got.item() == float(np.float32(math.fsum(per_sample)))
+    for _ in range(3):
+        p = torch.from_numpy(rng.permutation(n))
+        shuffled = GLMTerms(LogisticLoss, torch.zeros(n, 1), y[p], wt[p], torch.zeros(n))
+        assert shuffled.data_value(z[p]).item() == got.item()
+
+
 def test_glm_zeros_defaults_to_the_card():
     """``GeneralizedLinearModel.zeros`` runs on the card unless asked for
     the CPU, like every entry point of the package; the fixed effect's zero
