@@ -277,6 +277,13 @@ TUNING_Q, TUNING_TOL = (4, 8), 2e-3
 P_CHUNK_ROWS, P_SCORE_CHUNK_ROWS, P_REPLAY_MB = 1 << 14, 1 << 12, 64
 KILL_AFTER_FIRST_SAVE = {"rules": [{"site": "checkpoint.after_save", "kind": "kill", "at": [0]}]}
 RESUME_TOL = 1e-6
+# Phase 13 (out-of-core random effects). 13a: passes, the random effects'
+# sample-count buckets, and each budgeted coordinate's budget as a fraction
+# (1 / OOC_BUDGET_DIVISOR) of its footprint (bench.py:1165-1183 takes a
+# quarter); 13b: the drivers' budget (MiB: it floors at each coordinate's
+# largest block) and spill member; 13c: the index store's partitions.
+OOC_PASSES, OOC_BUCKETS, OOC_BUDGET_DIVISOR = 3, 16, 4
+OOC_DRIVER_BUDGET_MB, OOC_SPILL_MEMBER, OOC_PARTITIONS = "1", "updater:3", 4
 # The optimization-log events of the drivers' runs (``record_event`` is
 # registered by dotted path with --event-listener).
 EVENTS: list = []
@@ -801,22 +808,11 @@ def _fit_passes(label: str, est, reg, train, valid, check, smi: str, read_bound=
     return dict(res=res, cache=cache, launches=launches, auc=max(h["AUC"] for h in history))
 
 
-def game_phase(dev, smi: str, check, Xb, Xr, users, n_users: int):
-    """Phase 7: the GAME core. (a) A small input on the card (f32, kernels)
-    against the float64 plain path on the CPU; (b) ``GameEstimator.fit`` and
-    ``GameTransformer.transform`` at full width over phase 4's X (bf16), per
-    user features and ids, with per-item features and planted labels made
-    here; (c) one more pass under the profiler. Returns the kernel launches
-    of (b), with K3's by width under "newton_system_d<d>", the training and
-    validation batches and the fixed-only validation AUC (for phase 9)."""
-    from photon_tpu_torch.estimators.game_transformer import GameTransformer
-    from photon_tpu_torch.evaluation.suite import EvaluationSuite, EvaluatorSpec
-
-    log("## phase 7: GAME core (GameEstimator.fit, GameTransformer.transform)")
-    _small_game(dev, check, "7a", needs=("fused_value_grad", f"newton_system_d{G_D_ITEM}"))
-
-    # 7b. Full width.
-    g = torch.Generator(device=dev).manual_seed(7)
+def _glmix_batches(dev, smi: str, Xb, Xr, users, n_users: int, seed: int):
+    """Phase 7b's training batch over Xb (bf16), Xr and the user ids, with
+    per-item features of 1024 Zipf-like items and labels planted here, and
+    its 2^18-row validation batch."""
+    g = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
     N = Xb.shape[0]
     d_fix, d_user = Xb.shape[1], Xr.shape[1]
@@ -843,7 +839,27 @@ def game_phase(dev, smi: str, check, Xb, Xr, users, n_users: int):
     log(f"  data {time.perf_counter() - t0:.1f} s: N=2^21, global d={d_fix} bf16, per_user E={n_users} "
         f"d={d_user}, per_item E={G_ITEMS} d={G_D_ITEM} (samples an item: max {int(counts.max())}, median "
         f"{int(counts.median())}, min {int(counts.min())}; cap {G_ITEM_CAP}); validation {nv} rows; card {smi}")
+    return train, valid
 
+
+def game_phase(dev, smi: str, check, Xb, Xr, users, n_users: int):
+    """Phase 7: the GAME core. (a) A small input on the card (f32, kernels)
+    against the float64 plain path on the CPU; (b) ``GameEstimator.fit`` and
+    ``GameTransformer.transform`` at full width over phase 4's X (bf16), per
+    user features and ids, with per-item features and planted labels made
+    here; (c) one more pass under the profiler. Returns the kernel launches
+    of (b), with K3's by width under "newton_system_d<d>", the training and
+    validation batches and the fixed-only validation AUC (for phase 9)."""
+    from photon_tpu_torch.estimators.game_transformer import GameTransformer
+    from photon_tpu_torch.evaluation.suite import EvaluationSuite, EvaluatorSpec
+
+    log("## phase 7: GAME core (GameEstimator.fit, GameTransformer.transform)")
+    _small_game(dev, check, "7a", needs=("fused_value_grad", f"newton_system_d{G_D_ITEM}"))
+
+    # 7b. Full width.
+    train, valid = _glmix_batches(dev, smi, Xb, Xr, users, n_users, seed=7)
+    d_user = Xr.shape[1]
+    nv = G_VALID_ROWS
     est, reg = _game_estimator(n_users, G_ITEMS, G_ITEM_CAP, G_PASSES)
     out = _fit_passes("7b", est, reg, train, valid, check, smi, read_bound=60)
     res, launches = out["res"], out["launches"]
@@ -2162,6 +2178,384 @@ def durability_phase(dev, smi: str, check, files: dict) -> dict:
     return launches
 
 
+def _ooc_datasets(train) -> dict:
+    """13a: the per-user and per-item datasets of ``train``, grouped once on
+    the host (OOC_BUCKETS sample-count buckets; items capped at G_ITEM_CAP
+    samples), as CPU tensors."""
+    from photon_tpu_torch.data.random_effect import RandomEffectDataConfig, build_random_effect_dataset
+    from photon_tpu_torch.optim.common import HOST_READS
+
+    label, weight, users, items, Xu, Xi = HOST_READS.fetch(
+        train.label, train.weight, train.entity_ids["userId"], train.entity_ids["itemId"], train.features["user"],
+        train.features["item"])
+    out = {}
+    for cid, re_type, shard, ids, X, n_ent, cap in (("per_user", "userId", "user", users, Xu, E, None),
+                                                    ("per_item", "itemId", "item", items, Xi, G_ITEMS, G_ITEM_CAP)):
+        out[cid] = build_random_effect_dataset(
+            ids, X, label, weight, n_ent,
+            RandomEffectDataConfig(re_type=re_type, feature_shard=shard, active_upper_bound=cap, n_buckets=OOC_BUCKETS),
+            device="cpu")
+    return out
+
+
+def _on_device(ds, dev):
+    """A copy of a dataset with its blocks on ``dev``."""
+    fields = ("entity_idx", "features", "label", "weight", "sample_index", "train_mask")
+    return dataclasses.replace(ds, blocks=[dataclasses.replace(b, **{f: getattr(b, f).to(dev) for f in fields})
+                                           for b in ds.blocks])
+
+
+def _ooc_coordinates(dev, host_ds: dict, budgets, cache) -> dict:
+    """13a's coordinates as ``GameEstimator`` builds them for phase 7b
+    (logistic, l2 = 1, intercepts, the active set), each random effect with
+    its own budget (None: fully resident), over blocks put on the card here."""
+    from photon_tpu_torch.algorithm.fixed_effect import FixedEffectCoordinate
+    from photon_tpu_torch.algorithm.random_effect import RandomEffectCoordinate
+    from photon_tpu_torch.estimators import config
+    from photon_tpu_torch.ops.losses import LogisticLoss
+    from photon_tpu_torch.ops.objective import GLMObjective
+    from photon_tpu_torch.types import TaskType
+
+    task = TaskType.LOGISTIC_REGRESSION
+    obj = lambda: GLMObjective(loss=LogisticLoss, l2_weight=1.0, intercept_index=0)  # noqa: E731
+    coords = {"global": FixedEffectCoordinate("global", "global", task, obj(),
+                                              config.FixedEffectCoordinateConfig("global", "global").optimizer_spec(),
+                                              dim=D_FIX, device=dev, solve_cache=cache)}
+    for cid, re_type, shard in (("per_user", "userId", "user"), ("per_item", "itemId", "item")):
+        spec = config.RandomEffectCoordinateConfig(cid, re_type, shard).optimizer_spec()
+        coords[cid] = RandomEffectCoordinate(cid, _on_device(host_ds[cid], dev), task, obj(), spec, active_set=True,
+                                             device_budget_bytes=None if budgets is None else budgets[cid],
+                                             solve_cache=cache)
+    return coords
+
+
+def _static_block_bytes(blocks) -> int:
+    """Bytes of the solve cache's static buffers for ``blocks``: one block
+    of each distinct geometry, with its offsets and warm start."""
+    from photon_tpu_torch.algorithm.re_store import block_data_bytes
+
+    seen = {}
+    for b in blocks:
+        key = tuple(b.features.shape)
+        if key not in seen:
+            item = b.label.element_size() if isinstance(b.label, torch.Tensor) else b.label.dtype.itemsize
+            seen[key] = block_data_bytes(b) + (b.num_entities * b.n_max + b.num_entities * b.dim) * item
+    return sum(seen.values())
+
+
+def _ooc_run(label: str, dev, smi: str, train, valid, host_ds: dict, budgets, cache) -> dict:
+    """13a: OOC_PASSES coordinate-descent passes of 7b's three coordinates
+    (budgets None: fully resident), one line a pass: wall, samples/s, host
+    reads, peak memory and static-buffer bytes, and per budgeted coordinate
+    its uploads, hits, bytes and GB/s, overlapped uploads, evictions and the
+    ``re_store`` pipeline's stages. The peak is from after construction."""
+    from photon_tpu_torch.algorithm.coordinate_descent import CoordinateDescent
+    from photon_tpu_torch.evaluation.suite import EvaluationSuite, EvaluatorSpec
+    from photon_tpu_torch.models.game import TABLE_COPIES
+    from photon_tpu_torch.ops import fused_newton, kernels
+    from photon_tpu_torch.optim.common import HOST_READS
+
+    n = train.label.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    coords = _ooc_coordinates(dev, host_ds, budgets, cache)
+    torch.cuda.synchronize()
+    log(f"  {label}: coordinates built in {time.perf_counter() - t0:.1f} s, construction peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB (the blocks are made on the card, then moved to the "
+        f"host master once), {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB held after it")
+    suite = EvaluationSuite([EvaluatorSpec.parse("AUC")])
+    history, marks = [], []
+
+    def validation_fn(model, batch):
+        out = suite.evaluate_model(model, batch)
+        history.append(dict(peak=torch.cuda.max_memory_allocated(), mark=cache.trace_mark(),
+                            static=cache.static_bytes(), auc=out["AUC"]))
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    def on_coordinate(it, cid, coord, wall):
+        res = getattr(coord, "last_residency_stats", None)
+        marks.append(dict(it=it, cid=cid, wall=wall, reads=HOST_READS.count, res=None if res is None else dict(res)))
+
+    kernels.reset_launches()
+    fused_newton.LAUNCHES_BY_WIDTH.clear()
+    copies0 = dataclasses.replace(TABLE_COPIES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reads0 = HOST_READS.count
+    result = CoordinateDescent(coords, ["global", "per_user", "per_item"], num_iterations=OOC_PASSES).run(
+        train, validation_batch=valid, validation_fn=validation_fn, better=suite.primary.better(),
+        on_coordinate=on_coordinate)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    launches.update({f"newton_system_d{d}": c for d, c in fused_newton.LAUNCHES_BY_WIDTH.items()})
+    walls, prev_reads, prev_res = [], reads0, {}
+    for it in range(OOC_PASSES):
+        pm = [m for m in marks if m["it"] == it]
+        wall = sum(m["wall"] for m in pm)
+        walls.append(wall)
+        visits = n * int(result.tracker["global"][it].x_passes) + sum(
+            int(result.tracker[c][it].sample_visits) for c in ("per_user", "per_item"))
+        reads = pm[-1]["reads"] - prev_reads
+        prev_reads = pm[-1]["reads"]
+        h = history[it]
+        parts = []
+        for m in pm:
+            r = m["res"]
+            if r is None:
+                continue
+            keys = ("uploads", "upload_hits", "upload_bytes", "upload_s", "overlapped_uploads", "evictions")
+            p = prev_res.get(m["cid"], dict.fromkeys(keys, 0))
+            d = {k: r[k] - p[k] for k in keys}
+            prev_res[m["cid"]] = r
+            rate = d["upload_bytes"] / max(d["upload_s"], 1e-9) / 1e9
+            parts.append(f"{m['cid']}: {d['uploads']} uploads, {d['upload_hits']} hits, "
+                         f"{d['upload_bytes'] / 1e6:.1f} MB at {rate:.2f} GB/s (host copy into pinned staging and "
+                         f"issue), {d['overlapped_uploads']} overlapped, {d['evictions']} evictions, store peak "
+                         f"{r['peak_bytes'] / 1e6:.1f} MB; {_stage_text(r['pipeline'])}")
+        log(f"  {label} pass {it + 1}: {wall:.3f} s wall, {visits / wall:.4e} samples/s, {reads} host reads (with "
+            f"validation), peak memory {h['peak'] / 2 ** 30:.3f} GiB, static buffers {h['static'] / 2 ** 20:.1f} MiB, "
+            f"validation AUC {h['auc']:.4f}; coordinates " + ", ".join(f"{m['cid']} {m['wall']:.3f} s" for m in pm))
+        for line in parts:
+            log(f"    {line}")
+    scores = result.model.score(valid)
+    torch.cuda.synchronize()
+    copies = TABLE_COPIES.copies - copies0.copies, TABLE_COPIES.bytes - copies0.bytes
+    log(f"  {label}: {sum(walls):.3f} s for {OOC_PASSES} passes on {smi}; launches {launches}; coefficient tables "
+        f"copied to the card for scoring {copies[0]} times ({copies[1] / 1e6:.2f} MB)")
+    out = dict(walls=walls, peak=max(h["peak"] for h in history), launches=launches,
+               after_pass0=cache.traces_since(history[0]["mark"]), scores=scores.cpu(),
+               coefs={c: result.model.models[c].coefficients.cpu() for c in ("per_user", "per_item")},
+               stats={c: coords[c].last_residency_stats for c in ("per_user", "per_item")},
+               blocks={c: coords[c].dataset.blocks for c in ("per_user", "per_item")})
+    del result, coords
+    return out
+
+
+def out_of_core_phase(dev, smi: str, check, files: dict) -> dict:
+    """Phase 13: out-of-core random effects. 13a in process at 7b's full
+    width, fully resident and then twice with a quarter of each random
+    effect's footprint as its budget; 13b phase 8's game_training with
+    --re-device-budget-mb, --re-spill-dir and --re-spill-member, and
+    game_scoring of its model; 13c feature_indexing --num-partitions on
+    phase 8's index file, its three readers against each other; 13d an
+    injected device OOM at the upload: the budget halves, then at the floor
+    DeviceMemoryError. Returns the launches of 13a's budgeted run and 13b."""
+    import os
+
+    from photon_tpu_torch.algorithm.re_store import block_device_cost
+    from photon_tpu_torch.algorithm.random_effect import RandomEffectCoordinate
+    from photon_tpu_torch.algorithm.solve_cache import SolveCache
+    from photon_tpu_torch.cli import feature_indexing, game_scoring, game_training
+    from photon_tpu_torch.data import native_index
+    from photon_tpu_torch.data.index_map import IndexMap
+    from photon_tpu_torch.data.synthetic import make_data
+    from photon_tpu_torch.estimators import config
+    from photon_tpu_torch.io.data_reader import READ_PATHS
+    from photon_tpu_torch.io.scores import load_scores
+    from photon_tpu_torch.ops import fused_newton, kernels
+    from photon_tpu_torch.ops.losses import LogisticLoss
+    from photon_tpu_torch.ops.objective import GLMObjective
+    from photon_tpu_torch.types import TaskType
+    from photon_tpu_torch.utils import faults, resources
+
+    log("## phase 13: out-of-core random effects (re_store, residency, native index)")
+    t_phase = time.perf_counter()
+
+    # ---- 13a: in process at 7b's width, resident against budgeted ----
+    Xf, Xr, users, _ = make_data(N, D_FIX, D_RE, E, seed=13, device=dev)
+    Xb = Xf.to(torch.bfloat16)
+    del Xf
+    train, valid = _glmix_batches(dev, smi, Xb, Xr, users, E, seed=13)
+    del Xb, Xr, users
+    t0 = time.perf_counter()
+    host_ds = _ooc_datasets(train)
+    log(f"  13a random-effect blocks grouped on the host in {time.perf_counter() - t0:.1f} s "
+        f"({OOC_BUCKETS} sample-count buckets)")
+    footprint = {c: sum(block_device_cost(b) for b in ds.blocks) for c, ds in host_ds.items()}
+    largest = {c: max(block_device_cost(b) for b in ds.blocks) for c, ds in host_ds.items()}
+    budgets = {c: footprint[c] // OOC_BUDGET_DIVISOR for c in host_ds}
+    for c, ds in host_ds.items():
+        static = _static_block_bytes(ds.blocks)
+        log(f"  13a {c}: {len(ds.blocks)} blocks {sorted({tuple(b.features.shape) for b in ds.blocks})}; footprint "
+            f"{footprint[c] / 1e6:.1f} MB, largest block {largest[c] / 1e6:.1f} MB, budget {budgets[c] / 1e6:.1f} MB; "
+            f"the solve cache's static buffers for its geometries {static / 1e6:.1f} MB "
+            f"({static / footprint[c]:.1%} of the footprint; outside the budget)")
+    check(all(largest[c] <= budgets[c] for c in host_ds),
+          "13a each random effect's largest block fits under its budget (the effective budget is the configured one)")
+
+    resident_cache = SolveCache()
+    resident = _ooc_run("13a resident", dev, smi, train, valid, host_ds, None, resident_cache)
+    resident_cache.release()
+    del resident["blocks"]
+    torch.cuda.empty_cache()
+    cache = SolveCache()
+    budgeted = _ooc_run("13a budgeted", dev, smi, train, valid, host_ds, budgets, cache)
+    torch.cuda.empty_cache()
+    again = _ooc_run("13a budgeted again (replays)", dev, smi, train, valid, host_ds, budgets, cache)
+    cache.release()
+    torch.cuda.empty_cache()
+    for c in ("per_user", "per_item"):
+        st = budgeted["stats"][c]
+        check(torch.equal(budgeted["coefs"][c], resident["coefs"][c]),
+              f"13a {c}: budgeted coefficients equal the resident ones bit for bit")
+        check(st["evictions"] > 0 and st["peak_bytes"] <= st["budget_bytes"] == st["effective_budget_bytes"],
+              f"13a {c}: {st['evictions']} evictions (passes {st['pass_evictions']}), store peak "
+              f"{st['peak_bytes'] / 1e6:.1f} MB <= budget {st['budget_bytes'] / 1e6:.1f} MB (effective "
+              f"{st['effective_budget_bytes'] / 1e6:.1f} MB), {st['uploads']} uploads, {st['upload_hits']} hits")
+        check(st["eviction_log"] == again["stats"][c]["eviction_log"],
+              f"13a {c}: two budgeted runs evict the same blocks in the same order ({len(st['eviction_log'])})")
+    check(torch.equal(budgeted["scores"], resident["scores"]),
+          f"13a validation scores of the budgeted model equal the resident model's bit for bit ({valid.n} rows)")
+    check(budgeted["after_pass0"] == 0 and resident["after_pass0"] == 0,
+          f"13a nothing captured after pass 0 (budgeted {budgeted['after_pass0']}, resident {resident['after_pass0']})")
+    la = budgeted["launches"]
+    check(la["fused_value_grad"] > 0 and la.get(f"newton_system_d{D_RE}", 0) > 0
+          and la.get(f"newton_system_d{G_D_ITEM}", 0) > 0,
+          f"13a the budgeted run launched K1, and K3 at d = {D_RE} and d = {G_D_ITEM}")
+    saved = sum(footprint[c] - budgets[c] for c in host_ds)
+    check(budgeted["peak"] <= resident["peak"] - saved / 2,
+          f"13a peak memory of the passes from after construction: budgeted {budgeted['peak'] / 2 ** 30:.3f} GiB, "
+          f"resident {resident['peak'] / 2 ** 30:.3f} GiB, {(resident['peak'] - budgeted['peak']) / 1e6:.1f} MB less "
+          f">= half of sum(footprint - budget) = {saved / 2e6:.1f} MB")
+    log(f"  13a budgeted/resident wall: {sum(budgeted['walls']) / sum(resident['walls']):.3f} (passes "
+        + ", ".join(f"{b / r:.3f}" for b, r in zip(budgeted["walls"], resident["walls"])) + "; not gated)")
+    launches_a = budgeted["launches"]
+    user_host = host_ds["per_user"]
+    del host_ds, budgeted, again, resident
+    torch.cuda.empty_cache()
+
+    # ---- 13d: device OOM at the upload, contained, then at the floor ----
+    def user_pass(budget, rules=()):
+        faults.reset()
+        if rules:
+            faults.configure(faults.FaultPlan(rules=tuple(rules)))
+        try:
+            coord = RandomEffectCoordinate(
+                "per_user", _on_device(user_host, dev), TaskType.LOGISTIC_REGRESSION,
+                GLMObjective(loss=LogisticLoss, l2_weight=1.0, intercept_index=0),
+                config.RandomEffectCoordinateConfig("per_user", "userId", "user").optimizer_spec(),
+                device_budget_bytes=budget, solve_cache=oom_cache)
+            coord.begin_cd_pass(0)
+            model, _ = coord.train(train, None, None)
+            return model.coefficients.cpu(), coord.last_residency_stats
+        finally:
+            faults.reset()
+
+    oom_cache = SolveCache()
+    want, _ = user_pass(None)
+    budget_u = sum(block_device_cost(b) for b in user_host.blocks) // OOC_BUDGET_DIVISOR
+    got, st = user_pass(budget_u, [faults.FaultRule("re_store.upload", kind="oom", at=(2,), max_count=1)])
+    check(torch.equal(got, want) and st["budget_shrinks"] == 1
+          and st["effective_budget_bytes"] == max(st["max_block_bytes"], budget_u // 2),
+          f"13d an injected OOM at the third upload of a budgeted per-user pass: the budget halved "
+          f"({budget_u / 1e6:.1f} -> {st['effective_budget_bytes'] / 1e6:.1f} MB), the pass finished, coefficients "
+          f"bitwise the unbudgeted pass's")
+    err = None
+    try:
+        user_pass(1, [faults.FaultRule("re_store.upload", kind="oom", p=1.0)])
+    except resources.DeviceMemoryError as exc:
+        err = exc
+    check(err is not None and "largest single" in str(err),
+          f"13d at the floor budget the same injection raises DeviceMemoryError ({str(err)[:90] if err else 'none'})")
+    oom_cache.release()
+    del train, valid, user_host
+    torch.cuda.empty_cache()
+
+    # ---- 13b: phase 8's game_training out of core, and game_scoring of it ----
+    work = files["work"]
+    out, spill, scored = work / "ooc-out", work / "ooc-spill", work / "ooc-scores"
+    coords = list(files["coords"])
+    # A budget refuses variances (the reference's rule): phase 8's model
+    # without them, its coefficients bit for bit.
+    i = coords.index("--variance-computation")
+    del coords[i:i + 2]
+    kernels.reset_launches()
+    fused_newton.LAUNCHES_BY_WIDTH.clear()
+    snap = dict(READ_PATHS.counts)
+    EVENTS.clear()
+    t0 = time.perf_counter()
+    summary = game_training.main(["--input-paths", files["train"], "--validation-paths", files["valid"],
+                                  "--output-dir", str(out), "--feature-index-dir", str(files["index"]),
+                                  "--device", "cuda", "--re-device-budget-mb", OOC_DRIVER_BUDGET_MB,
+                                  "--re-spill-dir", str(spill), "--re-spill-member", OOC_SPILL_MEMBER,
+                                  "--event-listener", f"{__name__}:record_event"] + files["shards"] + coords)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    launches_b = launch_counts()
+    launches_b.update({f"newton_system_d{d}": c for d, c in fused_newton.LAUNCHES_BY_WIDTH.items()})
+    took = read_paths_since(snap)
+    residency = [(e.payload["coordinate"], e.payload["cd_iteration"], e.payload["residency"]) for e in EVENTS
+                 if e.name == "PhotonOptimizationLogEvent" and e.payload.get("residency")]
+    for cid, it, r in residency:
+        log(f"    13b {cid} pass {it}: budget {r['budget_bytes'] / 1e6:.2f} MB (effective "
+            f"{r['effective_budget_bytes'] / 1e6:.2f} MB, the largest block), {r['uploads']} uploads, "
+            f"{r['evictions']} evictions, store peak {r['peak_bytes'] / 1e6:.2f} MB")
+    want, got = _model_coefficients(files["out"]), _model_coefficients(out)
+    same = {cid: torch.equal(got[cid], w) for cid, w in want.items()}
+    log(f"  13b game_training out of core: {t_train:.2f} s wall; launches {launches_b}")
+    check(all(same.values()) and summary["best"]["config"] == json.loads(
+        (files["out"] / "training-summary.json").read_text())["best"]["config"],
+          f"13b best/ of game_training --re-device-budget-mb {OOC_DRIVER_BUDGET_MB} --re-spill-dir "
+          f"--re-spill-member {OOC_SPILL_MEMBER} equals phase 8's bit for bit ({same})")
+    host_dir = spill / f"host-{OOC_SPILL_MEMBER.rsplit(':', 1)[1]}"
+    spilled = sorted(os.listdir(host_dir)) if host_dir.is_dir() else []
+    check(sorted(os.listdir(spill)) == [host_dir.name] and any(n.startswith("perUser.") for n in spilled)
+          and any(n.startswith("perItem.") for n in spilled) and residency
+          and all(r["evictions"] > 0 for _c, _i, r in residency),
+          f"13b the spill files lie under {host_dir.relative_to(work)}/ ({len(spilled)} files, both random effects); "
+          f"every budgeted pass evicted")
+    check(took == {"columnar": 2}, f"13b every read took the columnar path ({took})")
+    check(launches_b["fused_value_grad"] > 0 and launches_b.get(f"newton_system_d{D_RE}", 0) > 0
+          and launches_b.get(f"newton_system_d{G_D_ITEM}", 0) > 0,
+          f"13b launched K1, and K3 at d = {D_RE} and d = {G_D_ITEM}")
+    res = game_scoring.main(["--input-paths", files["valid"], "--output-dir", str(scored), "--model-input-dir",
+                             str(out / "best"), "--evaluators", "AUC", "--device", "cuda"] + files["shards"])
+    want_scores = {r["uid"]: r["predictionScore"] for r in load_scores(str(files["scores"] / "scores.avro"))}
+    got_scores = load_scores(str(scored / "scores.avro"))
+    check(len(got_scores) == len(want_scores) == res["numScored"]
+          and all(r["predictionScore"] == want_scores[r["uid"]] for r in got_scores),
+          f"13b game_scoring of that model gives phase 8's scores exactly, by uid ({len(got_scores)} rows)")
+
+    # ---- 13c: the partitioned native feature index ----
+    t0 = time.perf_counter()
+    native_index.build_native_lib(force=True)
+    t_build = time.perf_counter() - t0
+    idx_out = work / "ooc-index"
+    t0 = time.perf_counter()
+    sizes = feature_indexing.main(["--input-paths", str(work / "index.avro"), "--output-dir", str(idx_out),
+                                   "--num-partitions", str(OOC_PARTITIONS)] + files["shards"])
+    t_index = time.perf_counter() - t0
+    agree, rates = True, {"native": [], "pure": [], "IndexMap": []}
+    for shard, size in sizes.items():
+        imap = IndexMap.load(str(files["index"] / f"index-map-{shard}.json"))
+        names = [imap.get_feature_name(i) for i in range(len(imap))]
+        native = native_index.NativeIndexMap(str(idx_out / f"index-store-{shard}"), use_native=True)
+        pure = native_index.NativeIndexMap(str(idx_out / f"index-store-{shard}"), use_native=False)
+        agree &= len(native) == len(pure) == len(imap) == size
+        agree &= list(native.get_indices(names)) == [pure.get_index(k) for k in names] == list(range(size))
+        agree &= [native.get_feature_name(i) for i in range(size)] == [pure.get_feature_name(i)
+                                                                       for i in range(size)] == names
+        keys = names * max(1, 100_000 // len(names))
+        for reader, fn in (("native", lambda: native.get_indices(keys)),
+                           ("pure", lambda: [pure.get_index(k) for k in keys[:10_000]]),
+                           ("IndexMap", lambda: [imap.get_index(k) for k in keys])):
+            t0 = time.perf_counter()
+            n_keys = len(fn())
+            rates[reader].append(n_keys / (time.perf_counter() - t0))
+        native.close()
+        pure.close()
+    log(f"  13c index library built in {t_build:.2f} s; feature_indexing --num-partitions {OOC_PARTITIONS} "
+        f"{sizes} in {t_index:.2f} s; lookups/s by shard: "
+        + "; ".join(f"{r} " + ", ".join(f"{x:.3e}" for x in v) for r, v in rates.items()))
+    check(agree, f"13c the native reader, the pure reader and the IndexMap agree on every name -> index and "
+                 f"index -> name of {sizes}")
+    launches = {k: launches_a.get(k, 0) + launches_b.get(k, 0) for k in set(launches_a) | set(launches_b)}
+    log(f"  phase 13: {time.perf_counter() - t_phase:.1f} s wall on {smi}; launches {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs only on a GPU", file=sys.stderr)
@@ -2199,6 +2593,7 @@ def main() -> int:
     def check(ok: bool, what: str) -> None:
         log(f"  [{'ok' if ok else 'FAIL'}] {what}")
         if not ok:
+            print(f"chip_smoke [FAIL] {what}", file=sys.stderr, flush=True)
             failures.append(what)
 
     # ---------------- 1. build ----------------
@@ -2556,6 +2951,10 @@ def main() -> int:
     # ---------------- 12. durability and streaming ingest ----------------
     torch.cuda.empty_cache()
     durability_launches = durability_phase(dev, smi, check, driver_files)
+
+    # ---------------- 13. out-of-core random effects ----------------
+    torch.cuda.empty_cache()
+    ooc_launches = out_of_core_phase(dev, smi, check, driver_files)
     shutil.rmtree(driver_files["work"], ignore_errors=True)
 
     # ---------------- report ----------------
@@ -2582,7 +2981,7 @@ def main() -> int:
     # "ran": the launches that did their work (launches less those whose
     # launch flag was off; K3 has no flag).
     paths = (glmix_launches, tron_launches, glm_launches, game_launches, driver_launches, solver_launches,
-             sparse_launches, tuning_launches, tuning_driver_launches, durability_launches)
+             sparse_launches, tuning_launches, tuning_driver_launches, durability_launches, ooc_launches)
     rows = []
     for name, (src, repl) in sources.items():
         rows.append(dict(name=name, route="cuda", source=src, replaces=repl,
@@ -2591,6 +2990,7 @@ def main() -> int:
     log(f"# chip_smoke wall {time.perf_counter() - t_start:.1f} s on {smi}")
     if failures:
         log(f"chip_smoke: {len(failures)} check(s) failed: {failures}")
+        print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr, flush=True)
         return 1
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -12,8 +12,17 @@ explicit TRON spec (the Pearson mask folded into the Hessian-vector
 product); then margin-space L-BFGS for the feature-masked (Pearson),
 shift-normalized and wider problems, and gradient-form L-BFGS where a mask
 meets shifts. Every lane keeps the reference's iteration count and reason.
-The out-of-core store and per-device placement are not ported yet: a
-coordinate that would need one raises.
+Per-device placement (``device=``) is not ported yet: a coordinate given
+one raises.
+
+With ``device_budget_bytes`` a dense coordinate trains out of core: its
+blocks become a host master (optionally memory-mapped under
+``device_spill_dir``) and only a byte-budgeted working set lives on the
+device (algorithm/re_store.py); blocks are uploaded by a stage thread ahead
+of the solves and the results downloaded by another behind them. Every warm
+start gathers from the previous pass's host table and results round-trip
+losslessly, so the coefficients are bit for bit those of the fully resident
+run; the model's coefficient table is the host master.
 
 Every block solve goes through the solve cache (``solve_cache``, else the
 shared ``default_cache()``): every route as captured CUDA graphs on the
@@ -32,6 +41,8 @@ shape-bucket padding rows (entity_idx -1) instead of scattering them.
 from __future__ import annotations
 
 import dataclasses
+import logging
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -73,6 +84,8 @@ from photon_tpu_torch.types import OptimizerType, TaskType, VarianceComputationT
 from photon_tpu_torch.utils import faults
 
 Tensor = torch.Tensor
+
+logger = logging.getLogger(__name__)
 
 # Widest per-entity dimension the default (LBFGS) spec solves by batched
 # Newton; wider goes to margin L-BFGS. An explicit NEWTON spec takes any d.
@@ -266,8 +279,16 @@ class RandomEffectCoordinate(Coordinate):
     compute_variance: object = VarianceComputationType.NONE
     active_set: bool = False
     convergence_tol: float = 1e-4
-    # The out-of-core store and per-device placement are not ported yet.
+    # Out-of-core residency: with a byte budget, block data lives in a host
+    # master (optionally memory-mapped under ``device_spill_dir``) and only
+    # a budgeted working set is on the device, managed by
+    # algorithm/re_store.ReDeviceStore. None: fully resident (default).
     device_budget_bytes: Optional[int] = None
+    device_spill_dir: Optional[str] = None
+    # Host-owned spill layout: with a member id, spill files live under
+    # ``<device_spill_dir>/host-<k>/`` (re_store.partition_spill_dir).
+    device_spill_member: Optional[str] = None
+    # Per-device placement of the entity-sharded path: not ported yet.
     device: Optional[object] = None
     # Newton-system routing (ops.fused_newton.RE_KERNELS), resolved against
     # the blocks' device: "auto" is the K3 kernel on the card.
@@ -276,15 +297,46 @@ class RandomEffectCoordinate(Coordinate):
 
     def __post_init__(self):
         self.compute_variance = normalize_variance_type(self.compute_variance)
-        if self.device_budget_bytes:
-            raise NotImplementedError("the out-of-core random-effect store is not ported yet")
         if self.device is not None:
             raise NotImplementedError("per-device placement of random-effect blocks is not ported yet")
         blocks = self.dataset.blocks
-        self._device = blocks[0].features.device if blocks else torch.device("cpu")
-        # Every block's entity rows and column map, in one host read.
-        fetched = HOST_READS.fetch(*[b.entity_idx for b in blocks],
-                                   *[b.col_map for b in blocks if b.col_map is not None]) if blocks else []
+        host_master = bool(blocks) and isinstance(blocks[0].features, np.ndarray)
+        if host_master:
+            self._device = self.dataset.host_master_device
+        else:
+            self._device = blocks[0].features.device if blocks else torch.device("cpu")
+        self._store = None
+        self.last_residency_stats: Optional[dict] = None
+        if self.device_budget_bytes:
+            if self.dataset.projected:
+                logger.warning("coordinate %s: out-of-core residency supports dense RE datasets only (projected "
+                               "blocks keep content-defined col_map widths); training fully resident",
+                               self.coordinate_id)
+            elif self.dataset.config.features_to_samples_ratio is not None:
+                raise ValueError("out-of-core residency is incompatible with features_to_samples_ratio (Pearson "
+                                 "masks pin every block on device at construction)")
+            elif self.compute_variance != VarianceComputationType.NONE:
+                raise ValueError("out-of-core residency does not support coefficient variance computation (the "
+                                 "variance pass re-reads every block outside the residency budget)")
+            else:
+                from photon_tpu_torch.algorithm.re_store import ReDeviceStore
+
+                self._store = ReDeviceStore(blocks, self.device_budget_bytes, self.coordinate_id,
+                                            self.device_spill_dir, device=self._device,
+                                            spill_member=self.device_spill_member)
+                # From here on the dataset's blocks ARE the host master: the
+                # device holds them only through the store's uploads.
+                self.dataset.blocks = blocks = self._store.blocks
+                self.dataset.host_master_device = self._device
+        if self._store is None and host_master:
+            raise ValueError(f"coordinate {self.coordinate_id}: the dataset's blocks are a host master; it trains "
+                             "only with a device budget")
+        # Every block's entity rows and column map (device tensors in one
+        # host read).
+        values = [b.entity_idx for b in blocks] + [b.col_map for b in blocks if b.col_map is not None]
+        on_device = [v for v in values if isinstance(v, Tensor)]
+        got = iter(HOST_READS.fetch(*on_device)) if on_device else iter(())
+        fetched = [next(got) if isinstance(v, Tensor) else np.asarray(v) for v in values]
         self._block_valid_rows = [e >= 0 for e in fetched[:len(blocks)]]
         col_maps = iter(fetched[len(blocks):])
         self._host_col_maps = [None if b.col_map is None else next(col_maps) for b in blocks]
@@ -347,9 +399,13 @@ class RandomEffectCoordinate(Coordinate):
         self._gate_restored = False
 
     def begin_cd_pass(self, cd_iteration: int) -> None:
-        """A descent starting at iteration 0 begins with a full pass."""
+        """A descent starting at iteration 0 begins with a full pass. With an
+        out-of-core store, this is also the residency epoch boundary
+        (per-pass eviction accounting; resident blocks stay warm)."""
         if cd_iteration == 0:
             self._reset_active_set()
+        if self._store is not None:
+            self._store.begin_pass(cd_iteration)
 
     def export_active_state(self) -> Optional[dict]:
         """Checkpointable snapshot of the active-set gate: the pass counter
@@ -386,7 +442,11 @@ class RandomEffectCoordinate(Coordinate):
         retired."""
         active = [np.zeros((b.num_entities,), bool) for b in self.dataset.blocks]
         pending = self._pending_masks
-        fetched = HOST_READS.fetch(*[t for mask_dev, quar_dev, _sb, _sr in pending for t in (mask_dev, quar_dev)])
+        # The out-of-core pass downloaded its masks already (host arrays).
+        masks = [t for mask_dev, quar_dev, _sb, _sr in pending for t in (mask_dev, quar_dev)]
+        on_device = [t for t in masks if isinstance(t, Tensor)]
+        got = iter(HOST_READS.fetch(*on_device)) if on_device else iter(())
+        fetched = [next(got) if isinstance(t, Tensor) else t for t in masks]
         quarantined = 0
         for (_m, _q, sb, sr), m, q in zip(pending, fetched[0::2], fetched[1::2]):
             valid = sr >= 0
@@ -464,6 +524,8 @@ class RandomEffectCoordinate(Coordinate):
         total_offset = batch.offset if residual_scores is None else batch.offset + residual_scores
         if self.dataset.projected:
             return self._train_projected(total_offset, initial_model)
+        if self._store is not None:
+            return self._train_dense_ooc(batch, total_offset, initial_model)
         return self._train_dense(batch, total_offset, initial_model)
 
     def _cache(self) -> SolveCache:
@@ -479,7 +541,8 @@ class RandomEffectCoordinate(Coordinate):
         dtype = batch.offset.dtype
         if isinstance(initial_model, ProjectedRandomEffectModel):
             initial_model = initial_model.to_dense()
-        coefs = (initial_model.coefficients if initial_model is not None
+        # A warm start whose table is a host master moves to the blocks' device.
+        coefs = (initial_model.coefficients.to(self._device) if initial_model is not None
                  else torch.zeros((E, d), dtype=dtype, device=self._device))
         gated = self.active_set and self._pending_masks is not None and initial_model is not None
         if gated:
@@ -533,6 +596,145 @@ class RandomEffectCoordinate(Coordinate):
         if block.dim > d:
             w0 = torch.nn.functional.pad(w0, (0, block.dim - d))
         return w0
+
+    def _train_dense_ooc(self, batch: GameBatch, total_offset: Tensor,
+                         initial_model) -> Tuple[RandomEffectModel, RandomEffectTrackerStats]:
+        """Out-of-core dense pass: host master coefficients and block data,
+        the device working set under the store's byte budget, an h2d upload
+        stage ahead of the dispatch loop and a d2h download worker behind
+        it, both bounded.
+
+        Bit for bit the resident pass (:meth:`_train_dense`):
+
+        * every warm start gathers from ``coefs_prev``, the previous pass's
+          table frozen at the pass start, as the resident pass's do (its
+          write-back comes after every solve);
+        * an uploaded block is a copy of the resident path's block (same
+          arrays, same geometry), so it runs the same cached program;
+        * results come back as copies and land in disjoint rows of
+          ``coefs_out``, so the order of downloads cannot change a value.
+
+        The host master keeps the batch's dtype (the reference casts it to
+        float32), so a float64 run is bitwise the float64 resident run. The
+        model's coefficients are the host table (a CPU tensor); scoring
+        copies it to the batch's device."""
+        from photon_tpu_torch.algorithm.re_store import block_data_bytes
+        from photon_tpu_torch.io.pipeline import DEFAULT_QUEUE_DEPTH, RetryPolicy, StageWorker, _run_staged
+        from photon_tpu_torch.utils.timed import PipelineStats, record_pipeline
+
+        store = self._store
+        E, d = self.dataset.num_entities, self.dataset.dim
+        if isinstance(initial_model, ProjectedRandomEffectModel):
+            initial_model = initial_model.to_dense()
+        if initial_model is None:
+            coefs_prev = np.zeros((E, d), torch.empty(0, dtype=batch.offset.dtype).numpy().dtype)
+        elif initial_model.coefficients.device.type == "cpu":
+            coefs_prev = initial_model.coefficients.numpy()
+        else:
+            (coefs_prev,) = HOST_READS.fetch(initial_model.coefficients)
+        coefs_out = coefs_prev.copy()
+        gated = self.active_set and self._pending_masks is not None and initial_model is not None
+        store.begin_pass(self._cd_pass)
+        if gated:
+            keep = self._fetch_active_masks()
+            # The residency policy IS the active set: blocks whose entities
+            # all converged are evicted at the pass boundary.
+            store.retire([i for i, k in enumerate(keep) if self._block_valid_counts[i] and not k.any()])
+            entries = self._dense_dispatch_entries(keep)
+        else:
+            entries = [self._identity_entry(i) for i in range(len(self.dataset.blocks))]
+        tol = self.convergence_tol if self.active_set else None
+
+        # Residency keys: original blocks cache across passes under their
+        # index; compacted blocks are transient (their geometry follows the
+        # pass's active set) and released once their results are down.
+        block_ids = {id(b): i for i, b in enumerate(self.dataset.blocks)}
+        plan = [(block_ids.get(id(entry[0]), ("compact", self._cd_pass, j)), entry)
+                for j, entry in enumerate(entries)]
+
+        def upload(item):
+            key, (block, obj, mask, sb, sr) = item
+            eidx = np.asarray(block.entity_idx)
+            w0 = coefs_prev[np.maximum(eidx, 0)]
+            if block.dim > d:
+                w0 = np.pad(w0, ((0, 0), (0, block.dim - d)))
+            cacheable = isinstance(key, int)
+            dev_block, w0_dev = store.acquire(key, block, w0, cacheable)
+            return (block_data_bytes(block), key, cacheable, block, dev_block, obj, mask, sb, sr, eidx, w0_dev)
+
+        results_host: list = []
+        pending_host: list = []
+
+        def download(item):
+            key, cacheable, block, sb, sr, eidx, out, done = item
+            host = store.download(out, done)
+            w, iters, reasons, passes = host[:4]
+            valid = eidx >= 0
+            coefs_out[eidx[valid]] = w[valid, :d]
+            counts = np.sum(np.asarray(block.weight) > 0, axis=1)
+            results_host.append((eidx, iters, reasons, passes, counts))
+            if tol is not None:
+                pending_host.append((host[4], host[5], sb, sr))
+            store.mark_solve_done()
+            store.release(key, cacheable)
+
+        label = f"re_store/{self.coordinate_id}"
+        stats = PipelineStats(overlapped=True)
+        record_pipeline(label, stats)
+        solve_stage = stats.stage("solve")
+        worker = StageWorker("d2h", download, stats.stage("d2h"), depth=DEFAULT_QUEUE_DEPTH,
+                             nbytes_of=lambda item, _res: int(item[6][0].numel() * item[6][0].element_size()))
+        # No skip budget: a block dropped from the plan would leave its
+        # entities unsolved.
+        gen = _run_staged(lambda: iter(plan), lambda item: 0, [("h2d", upload, lambda out: out[0])], stats,
+                          depth=DEFAULT_QUEUE_DEPTH, overlap=True, source_name="plan", retry=RetryPolicy())
+        cache = self._cache()
+        t0_wall = time.perf_counter()
+        try:
+            for (_nb, key, cacheable, block, dev_block, obj, mask, sb, sr, eidx, w0_dev) in gen:
+                store.handover(key, dev_block, w0_dev)
+                t0 = time.perf_counter()
+                offs = faults.poison("solve.re_block", dev_block.gather_offsets(total_offset))
+                solver = self._solver(obj, tol, mask is not None)
+                store.mark_solve_start()
+                if gated and cache.max_entries is None and not self._gate_restored:
+                    with cache.expect_cached(f"out-of-core dispatch {tuple(dev_block.features.shape)}"):
+                        out = solver(dev_block, offs, w0_dev, mask)
+                else:
+                    out = solver(dev_block, offs, w0_dev, mask)
+                done = store.solve_event()
+                solve_stage.add_busy(time.perf_counter() - t0, 0)
+                worker.submit((key, cacheable, block, sb, sr, eidx, out, done))
+                del dev_block, w0_dev, offs, out
+            worker.close()
+        except BaseException:
+            store.abort_pass()
+            worker.abort()
+            raise
+        finally:
+            gen.close()
+            stats.wall_s = time.perf_counter() - t0_wall
+            store.end_pass()
+
+        if tol is not None:
+            self._pending_masks = pending_host
+        self._publish_active_set_stats(
+            gated, dispatched_valid=int(sum(int(np.sum(sb >= 0)) for *_x, sb, _sr in entries)),
+            dispatched_alloc=int(sum(e[0].num_entities for e in entries)), num_dispatches=len(entries))
+        self._cd_pass += 1
+        self._gate_restored = False
+        self.last_residency_stats = dict(store.stats(), pipeline=stats.summary())
+
+        model = RandomEffectModel(torch.from_numpy(coefs_out), self.dataset.config.re_type,
+                                  self.dataset.config.feature_shard, self.task, None)
+        if not results_host:
+            return model, RandomEffectTrackerStats.empty()
+        cat = lambda i: np.concatenate([np.ravel(r[i]) for r in results_host])  # noqa: E731
+        return model, RandomEffectTrackerStats(
+            iterations=torch.from_numpy(cat(1).astype(np.int32)),
+            reasons=torch.from_numpy(cat(2).astype(np.int32)),
+            valid=torch.from_numpy(cat(0) >= 0),
+            sample_visits=torch.tensor(int(np.sum(cat(3).astype(np.int64) * cat(4))), dtype=torch.long))
 
     def _train_projected(self, total_offset: Tensor,
                          initial_model) -> Tuple[ProjectedRandomEffectModel, RandomEffectTrackerStats]:

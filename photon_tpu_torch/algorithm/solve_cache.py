@@ -78,6 +78,12 @@ MAX_ENTRIES_ENV = "PHOTON_TPU_TORCH_SOLVE_CACHE_MAX_ENTRIES"
 FE_CHUNK = 2
 CHUNK = 4
 _WARMUP_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+# Held by a capture from its warm-up to its end. The captures run in the
+# default global error mode, where a CUDA call from any other thread
+# invalidates them: a thread that works on the card beside the solves (the
+# out-of-core store's upload and download stages, algorithm/re_store.py)
+# makes its CUDA calls under this lock.
+CAPTURE_LOCK = threading.RLock()
 
 
 @dataclasses.dataclass
@@ -252,6 +258,10 @@ class _Entry:
         return out
 
     def _capture(self) -> None:
+        with CAPTURE_LOCK:
+            self._capture_locked()
+
+    def _capture_locked(self) -> None:
         t0 = time.perf_counter()
         cache = self._cache()
         pool, side = cache._pool(self.device)
@@ -594,6 +604,13 @@ class SolveCache:
     @property
     def num_entries(self) -> int:
         return len(self._entries)
+
+    def static_bytes(self) -> int:
+        """Device bytes of the live static input buffers (one a name and
+        signature)."""
+        with self._lock:
+            slots = list(self._slots.values())
+        return sum(s.t.numel() * s.t.element_size() for s in slots)
 
     def entry_info(self) -> List[Dict[str, Any]]:
         """Per program built, in build order: its K and, on the card, its

@@ -169,13 +169,23 @@ def add_active_set_args(p: argparse.ArgumentParser) -> None:
 
 
 def add_out_of_core_args(p: argparse.ArgumentParser) -> None:
-    """Out-of-core random-effect residency flags (not ported yet)."""
+    """Out-of-core random-effect residency flags shared by all drivers.
+
+    Only GAME training acts on them (random-effect coordinates); the scoring
+    and fixed-effect-only drivers accept them and warn that they are no-ops
+    there.
+    """
     p.add_argument("--re-device-budget-mb", type=float, default=None,
-                   help="GAME training only: device byte budget for random-effect blocks")
+                   help="device byte budget for random-effect block data + coefficients; when set, blocks live in a "
+                        "host master (optionally memory-mapped, see --re-spill-dir) and only a budgeted working set "
+                        "is device-resident — trains models bigger than device memory at bit-exact parity")
     p.add_argument("--re-spill-dir", default=None,
-                   help="GAME training only: memory-mapped spill directory")
+                   help="directory for the host master's memory-mapped .npy spill (default: host RAM); only "
+                        "meaningful with --re-device-budget-mb")
     p.add_argument("--re-spill-member", default=None,
-                   help="GAME training only: ring-member tag of the spill layout")
+                   help="ring-member tag for the host-owned spill layout: spill files land under "
+                        "<re-spill-dir>/host-<k>/ so a fleet rebalance is a file move, not a row re-stream (see "
+                        "re_store.rebalance_spill_layout); only meaningful with --re-spill-dir")
 
 
 def add_validation_arg(p: argparse.ArgumentParser) -> None:

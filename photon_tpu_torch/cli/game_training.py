@@ -35,7 +35,10 @@ configuration's coordinate descent checkpoints under ``cfg_<i>/`` at pass
 boundaries and resumes from there (``--resume`` insists that state exists
 and keeps the output directory); a SIGTERM/SIGINT stops at the next pass
 boundary with a final checkpoint and exit code 128 + signum. Events go to
-the ``--event-listener(s)``.
+the ``--event-listener(s)``. ``--re-device-budget-mb`` trains the random
+effects out of core (algorithm/re_store.py): a host master, memory-mapped
+under ``--re-spill-dir`` (``host-<k>/`` with ``--re-spill-member``), and a
+budgeted working set on the card.
 
 The data and the solves live on ``--device`` (default cuda; without a card
 the driver exits non-zero rather than run on the CPU). Flags whose
@@ -174,9 +177,6 @@ def _refuse_unported(args) -> None:
     refuse_unported("game_training", {
         "--telemetry-out": args.telemetry_out is not None,
         "--otlp-endpoint": args.otlp_endpoint is not None,
-        "--re-device-budget-mb": args.re_device_budget_mb is not None,
-        "--re-spill-dir": args.re_spill_dir is not None,
-        "--re-spill-member": args.re_spill_member is not None,
     })
 
 
@@ -336,6 +336,9 @@ def run(args) -> Dict:
         warm_start_model=warm,
         re_active_set=args.re_active_set,
         re_convergence_tol=args.re_convergence_tol,
+        re_device_budget_mb=args.re_device_budget_mb,
+        re_spill_dir=args.re_spill_dir,
+        re_spill_member=args.re_spill_member,
     )
     emitter.emit(training_start_event(task=task.value, coordinates=list(update_sequence)))
     try:

@@ -120,10 +120,13 @@ class RandomEffectDataset:
     blocks: List[EntityBlock]
     num_entities: int
     dim: int  # the shard's width; a projected block's own may be narrower
+    # Where the blocks are solved once they are a host master (numpy
+    # fields, algorithm/re_store.py); None while they are device tensors.
+    host_master_device: Optional[torch.device] = None
 
     @property
     def num_active_samples(self) -> int:
-        return int(sum(int(torch.sum(b.weight > 0)) for b in self.blocks))
+        return int(sum(int((b.weight > 0).sum()) for b in self.blocks))
 
     @property
     def projected(self) -> bool:
@@ -276,10 +279,13 @@ def _host(t: Tensor) -> np.ndarray:
 
 
 def _pad_rows(field: str, block: EntityBlock, pad: int) -> Tensor:
-    """``pad`` inert rows of a block field: zeros, or -1 for the indices."""
+    """``pad`` inert rows of a block field: zeros, or -1 for the indices
+    (host numpy rows for a host block)."""
     like = getattr(block, field)
     shape = (pad,) + tuple(like.shape[1:])
     fill = -1 if field in ("entity_idx", "sample_index") else 0
+    if isinstance(like, np.ndarray):
+        return np.full(shape, fill, dtype=like.dtype)
     return torch.full(shape, fill, dtype=like.dtype, device=like.device)
 
 
@@ -341,7 +347,8 @@ def compact_entity_blocks(
     allowed sizes. Returns ``[(block, src_block, src_row), ...]``: for each
     row of a repacked block the (source block, row) it came from, (-1, -1) on
     its padding rows. The gather runs on the sources' device (nothing is read
-    back)."""
+    back); blocks of a host master (numpy fields) repack on the host into
+    host blocks, which the out-of-core store uploads."""
     if not blocks:
         return []
     geom = {(b.n_max, b.dim, b.col_map is None) for b in blocks}
@@ -353,14 +360,16 @@ def compact_entity_blocks(
         return []
     if allowed_sizes is None:
         allowed_sizes = [b.num_entities for b in blocks]
-    device = blocks[0].features.device
+    host = isinstance(blocks[0].features, np.ndarray)
+    device = None if host else blocks[0].features.device
     out = []
     start = 0
     for size in pack_into_sizes(src_block.size, allowed_sizes):
         sb, sr = src_block[start:start + size], src_row[start:start + size]
         start += sb.size
         pad = size - sb.size
-        rows = {b: torch.as_tensor(sr[sb == b], device=device).long() for b in np.unique(sb)}
+        rows = {b: (sr[sb == b] if host else torch.as_tensor(sr[sb == b], device=device).long())
+                for b in np.unique(sb)}
         fields = []
         for f in _ROW_FIELDS:
             # Sources are in (block, row) order, so per-block gathers
@@ -368,7 +377,7 @@ def compact_entity_blocks(
             parts = [getattr(blocks[b], f)[r] for b, r in rows.items()]
             if pad:
                 parts.append(_pad_rows(f, blocks[0], pad))
-            fields.append(torch.cat(parts))
+            fields.append(np.concatenate(parts) if host else torch.cat(parts))
         fill = np.full((pad,), -1, np.int32)
         out.append((EntityBlock(*fields), np.concatenate([sb, fill]), np.concatenate([sr, fill])))
     return out

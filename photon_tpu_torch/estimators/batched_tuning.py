@@ -105,6 +105,8 @@ def build_batched_evaluator(
         return _decline("fixed-effect optimizer is not LBFGS")
     if re_cfg.optimizer not in (OptimizerType.LBFGS, OptimizerType.NEWTON):
         return _decline("random-effect optimizer is not LBFGS/NEWTON")
+    if estimator.re_device_budget_bytes:
+        return _decline("out-of-core random-effect store (the lanes read resident blocks)")
     estimator._prepare_datasets(batch)
     ds = estimator._re_datasets.get(re_cfg.coordinate_id)
     if ds is None or ds.projected:

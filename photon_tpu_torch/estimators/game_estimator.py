@@ -9,7 +9,9 @@ coordinate descent, warm-started from the previous configuration's model.
 Every solve dispatches through ``solve_cache`` (algorithm/solve_cache.py);
 without one, the shared ``default_cache()``, whose entries (graphs, static
 buffers, the pinned fixed-effect features) ``fit`` releases when it returns.
-The out-of-core store and checkpointing are not ported yet.
+With ``re_device_budget_mb`` every dense random-effect coordinate trains out
+of core (algorithm/re_store.py): its blocks move to a host master once, at
+its first coordinate, and a budgeted working set is uploaded pass by pass.
 """
 
 from __future__ import annotations
@@ -97,10 +99,10 @@ class GameEstimator:
         re_active_set: bool = False,
         re_convergence_tol: float = 1e-4,
         re_device_budget_mb: Optional[float] = None,
+        re_spill_dir: Optional[str] = None,
+        re_spill_member: Optional[str] = None,
         solve_cache: Optional[SolveCache] = None,
     ):
-        if re_device_budget_mb:
-            raise NotImplementedError("the out-of-core random-effect store is not ported yet")
         self.task = task
         self.coordinate_configs = list(coordinate_configs)
         self.num_iterations = num_iterations
@@ -113,6 +115,13 @@ class GameEstimator:
         self.warm_start_model = warm_start_model
         self.re_active_set = bool(re_active_set)
         self.re_convergence_tol = float(re_convergence_tol)
+        # Out-of-core residency: the device byte budget of every random-effect
+        # coordinate's block data and in-flight coefficients (None: fully
+        # resident), the spill directory of the host master and the ring
+        # member whose ``host-<k>/`` layout the spill takes.
+        self.re_device_budget_bytes = int(re_device_budget_mb * (1 << 20)) if re_device_budget_mb else None
+        self.re_spill_dir = re_spill_dir
+        self.re_spill_member = re_spill_member
         self.solve_cache = solve_cache
         if self.ignore_threshold_for_new_models and warm_start_model is None:
             raise ValueError("'Ignore threshold for new models' flag set but no initial model provided "
@@ -150,7 +159,8 @@ class GameEstimator:
                     active_set=bool(cfg.active_set or self.re_active_set),
                     convergence_tol=(cfg.convergence_tol if cfg.convergence_tol is not None
                                      else self.re_convergence_tol),
-                    solve_cache=self.solve_cache,
+                    device_budget_bytes=self.re_device_budget_bytes, device_spill_dir=self.re_spill_dir,
+                    device_spill_member=self.re_spill_member, solve_cache=self.solve_cache,
                 )
             else:
                 raise TypeError(f"unknown coordinate config {type(cfg)}")

@@ -3,7 +3,10 @@ photon_tpu/models/game.py).
 
 A GameModel maps coordinate ids to submodels and scores a GameBatch as the
 sum of their scores. A RandomEffectModel is one dense (E, d) coefficient
-matrix; a sample scores the row of its entity (0 for entity -1). A
+matrix; a sample scores the row of its entity (0 for entity -1). Where the
+matrix is a host master (the out-of-core path's model) and the batch lies on
+the card, scoring copies the whole matrix to the batch's device, once a call
+(``TABLE_COPIES`` counts the copies and their bytes), and scores there. A
 ProjectedRandomEffectModel keeps each block's coefficients in the block's
 column subspace. Every score is a per-row product and sum, as
 ``Coefficients.compute_score`` takes it, never a matrix product, so scores
@@ -24,6 +27,18 @@ from photon_tpu_torch.models.glm import GeneralizedLinearModel
 from photon_tpu_torch.types import TaskType
 
 Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class TableCopies:
+    """Copies of a random-effect coefficient table to a batch on another
+    device, made by scoring."""
+
+    copies: int = 0
+    bytes: int = 0
+
+
+TABLE_COPIES = TableCopies()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +72,12 @@ class RandomEffectModel:
     def score(self, batch: GameBatch) -> Tensor:
         idx = batch.entity_ids[self.re_type]
         valid = idx >= 0
-        w = self.coefficients[torch.clamp(idx, min=0).long()]
+        table = self.coefficients
+        if table.device != idx.device:
+            table = table.to(idx.device)
+            TABLE_COPIES.copies += 1
+            TABLE_COPIES.bytes += table.numel() * table.element_size()
+        w = table[torch.clamp(idx, min=0).long()]
         feats = batch.features[self.feature_shard]
         if isinstance(feats, SparseFeatures):
             scores = torch.sum(feats.values * torch.take_along_dim(w, feats.indices.long(), dim=1), dim=-1)

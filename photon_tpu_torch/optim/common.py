@@ -11,6 +11,7 @@ by index, one row a lane, read only by whoever reports them.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -39,25 +40,42 @@ _REASONS = {
 
 
 class HostReads:
-    """Counter of device-to-host reads made by the solvers' loops."""
+    """Counter of device-to-host reads made by the solvers' loops (and by
+    the out-of-core store's download thread: the count is locked)."""
 
     def __init__(self) -> None:
         self.count = 0
+        self._lock = threading.Lock()
+
+    def _counted(self) -> None:
+        with self._lock:
+            self.count += 1
 
     def read(self, *tensors: Tensor) -> np.ndarray:
         """One transfer of the given scalars (stacked) to the host, as numpy
         scalars of their dtype."""
-        self.count += 1
+        self._counted()
         return torch.stack([t.reshape(()) for t in tensors]).cpu().numpy()
 
     def fetch(self, *tensors: Tensor) -> list:
         """One transfer of tensors of any shapes and dtypes to the host (one
         synchronization), as numpy arrays of their own shapes and dtypes."""
-        self.count += 1
+        self._counted()
         host = [t.detach().to("cpu", non_blocking=True) for t in tensors]
         if any(t.is_cuda for t in tensors):
             torch.cuda.synchronize()
         return [h.numpy().copy() if t.device.type == "cpu" else h.numpy() for t, h in zip(tensors, host)]
+
+    def fetch_after(self, event, stream, *tensors: Tensor) -> list:
+        """``fetch`` of CUDA tensors on ``stream`` once ``event`` has
+        completed there: it waits for the work before ``event`` and its own
+        copies, not for the whole card."""
+        self._counted()
+        with torch.cuda.stream(stream):
+            stream.wait_event(event)
+            host = [t.detach().to("cpu", non_blocking=True) for t in tensors]
+        stream.synchronize()
+        return [h.numpy() for h in host]
 
 
 HOST_READS = HostReads()

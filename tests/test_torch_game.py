@@ -608,8 +608,15 @@ def test_unported_machinery_raises_not_ported_yet(tmp_path):
     # Checkpointing is ported: a fit with a checkpoint dir writes cfg_0/.
     est.fit(batch, optimization_configs=[_reg(config)], checkpoint_dir=str(tmp_path))
     assert (tmp_path / "cfg_0" / "LATEST").exists()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        GameEstimator(TASK, _configs(config), re_device_budget_mb=1.0)
+    # The out-of-core store is ported: a budgeted fit trains its random
+    # effects from a host master, bit for bit the resident fit.
+    budgeted = GameEstimator(TASK, _configs(config), num_entities=data["num_entities"], re_device_budget_mb=0.001)
+    (got,) = budgeted.fit(batch, optimization_configs=[_reg(config)])
+    (want,) = est.fit(batch, optimization_configs=[_reg(config)])
+    for cid, model in want.model.models.items():
+        if hasattr(model, "coefficients"):
+            assert got.model.models[cid].coefficients.device.type == "cpu"
+            assert torch.equal(got.model.models[cid].coefficients, model.coefficients)
 
 
 def test_game_modules_import_without_jax():
@@ -622,6 +629,8 @@ def test_game_modules_import_without_jax():
         "import photon_tpu_torch.estimators.game_estimator, photon_tpu_torch.estimators.game_transformer\n"
         "import photon_tpu_torch.evaluation.suite, photon_tpu_torch.data.padding, photon_tpu_torch.interop\n"
         "import photon_tpu_torch.sampling.down_sampler, photon_tpu_torch.optim.problem\n"
+        "import photon_tpu_torch.algorithm.re_store, photon_tpu_torch.data.residency\n"
+        "import photon_tpu_torch.data.native_index\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'photon_tpu'"
         " or m.startswith('photon_tpu.')]\n"
         "print(bad)\n"

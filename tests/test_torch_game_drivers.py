@@ -577,27 +577,87 @@ def test_drivers_default_to_cuda_and_never_fall_back(runs, files, tmp_path, driv
     assert not (tmp_path / "o").exists()
 
 
-_TRAINING_UNPORTED = [
-    ["--telemetry-out", "t.jsonl"], ["--otlp-endpoint", "http://localhost:1"], ["--re-device-budget-mb", "1"],
-    ["--re-spill-dir", "spill"], ["--re-spill-member", "m0"],
-]
+_TRAINING_UNPORTED = [["--telemetry-out", "t.jsonl"], ["--otlp-endpoint", "http://localhost:1"]]
 _SCORING_UNPORTED = [["--telemetry-out", "t.jsonl"]]
 
 
 @pytest.mark.parametrize("driver,flag", [("game_training", f) for f in _TRAINING_UNPORTED]
-                         + [("game_scoring", f) for f in _SCORING_UNPORTED]
-                         + [("feature_indexing", ["--num-partitions", "3"])],
+                         + [("game_scoring", f) for f in _SCORING_UNPORTED],
                          ids=lambda v: v if isinstance(v, str) else v[0])
 def test_drivers_refuse_unported_flags(tmp_path, driver, flag):
     argv = {"game_training": ["--input-paths", "t.avro", "--coordinate-configurations", GLOBAL,
                               "--update-sequence", "global", "--device", "cpu"],
-            "game_scoring": ["--input-paths", "t.avro", "--model-input-dir", "m/best", "--device", "cpu"],
-            "feature_indexing": ["--input-paths", "t.avro"]}[driver]
-    module = {"game_training": game_training, "game_scoring": game_scoring, "feature_indexing": feature_indexing}
+            "game_scoring": ["--input-paths", "t.avro", "--model-input-dir", "m/best", "--device", "cpu"]}[driver]
+    module = {"game_training": game_training, "game_scoring": game_scoring}
     with pytest.raises(SystemExit) as exc:
         module[driver].main(argv + ["--output-dir", str(tmp_path / "o")] + flag)
     assert "not ported yet" in str(exc.value.code) and flag[0] in str(exc.value.code)
     assert not (tmp_path / "o").exists()
+
+
+def _decoded_coefficients(model_dir):
+    """{(coordinate, modelId): {(name, term): value}} of a model directory."""
+    return {(cid, mid): rec[0] for cid, recs in _coefficient_records(model_dir, read_avro_records).items()
+            for mid, rec in recs.items()}
+
+
+@pytest.mark.parametrize("spill", ["host_memory", "spill_member"])
+def test_out_of_core_training_driver_matches_resident_and_reference(files, tmp_path, spill):
+    """game_training with --re-device-budget-mb (and --re-spill-dir,
+    --re-spill-member): the port's model is its unbudgeted model bit for bit
+    (decoded records), and the reference's budgeted driver's within 1e-3;
+    the spill files lie under host-<k>/, one set a coordinate. (The
+    reference runs without the spill flags: its two random effects would
+    overwrite each other's mapped spill files, ROADMAP queue 3; a spill
+    changes no value.)"""
+    argv = ["--input-paths", files["train"], "--validation-paths", files["valid"], *SHARDS,
+            "--coordinate-configurations", GLOBAL, PER_USER, PER_ITEM,
+            "--update-sequence", "global,perUser,perItem", "--coordinate-descent-iterations", "2",
+            "--re-active-set", "--evaluators", "AUC", "--re-device-budget-mb", "0.001"]
+    spill_flags = []
+    if spill == "spill_member":
+        spill_flags = ["--re-spill-dir", str(tmp_path / "spill"), "--re-spill-member", "updater:3"]
+    resident = game_training.main(argv[:-2] + ["--output-dir", str(tmp_path / "resident"), "--device", "cpu"])
+    j_summary = j_game_training.run(j_game_training.build_parser().parse_args(
+        argv + ["--output-dir", str(tmp_path / "jax")]))
+    t_summary = game_training.main(argv + spill_flags + ["--output-dir", str(tmp_path / "port"), "--device", "cpu"])
+    assert t_summary["best"]["config"] == resident["best"]["config"]
+    assert _decoded_coefficients(tmp_path / "port" / "best") == _decoded_coefficients(tmp_path / "resident" / "best")
+    _assert_summaries_agree(j_summary, t_summary)
+    _assert_model_dirs_agree(tmp_path / "jax" / "best", tmp_path / "port" / "best")
+    if spill == "spill_member":
+        assert sorted(p.name for p in (tmp_path / "spill").iterdir()) == ["host-3"]
+        for cid in ("perUser", "perItem"):
+            assert list((tmp_path / "spill" / "host-3").glob(f"{cid}.block*_features.npy"))
+
+
+def test_feature_indexing_partitioned_stores_match_reference(files, tmp_path):
+    """feature_indexing --num-partitions 3 in both packages: the same
+    summary and store files byte for byte (tests/test_drivers.py:183-200),
+    each readable by the other package's reader."""
+    import filecmp
+
+    from photon_tpu.data.native_index import NativeIndexMap as JNativeIndexMap
+    from photon_tpu_torch.data.native_index import NativeIndexMap
+
+    shards = ["--feature-shard-configurations", "name=globalShard,feature.bags=features|itemFeatures",
+              "name=noIntercept,intercept=false", "--num-partitions", "3"]
+    j_out = j_feature_indexing.run(j_feature_indexing.build_parser().parse_args(
+        ["--input-paths", files["train"], "--output-dir", str(tmp_path / "jidx"), *shards]))
+    t_out = feature_indexing.main(["--input-paths", files["train"], "--output-dir", str(tmp_path / "tidx"), *shards])
+    assert t_out == j_out == {"globalShard": 10, "noIntercept": 6}
+    assert _layout(tmp_path / "tidx") == _layout(tmp_path / "jidx")
+    for rel in _layout(tmp_path / "jidx"):
+        assert filecmp.cmp(tmp_path / "jidx" / rel, tmp_path / "tidx" / rel, shallow=False), rel
+    for shard, size in t_out.items():
+        ours = NativeIndexMap(str(tmp_path / "tidx" / f"index-store-{shard}"), use_native=True)
+        theirs = JNativeIndexMap(str(tmp_path / "jidx" / f"index-store-{shard}"), use_native=False)
+        assert len(ours) == len(theirs) == size
+        for i in range(size):
+            name = ours.get_feature_name(i)
+            assert name == theirs.get_feature_name(i) and theirs.get_index(name) == i
+        ours.close()
+        theirs.close()
 
 
 @pytest.mark.parametrize("override", [False, True])

@@ -824,3 +824,126 @@ def test_real_out_of_memory_is_classified(cuda_device):
         torch.empty(free + (1 << 30), dtype=torch.uint8, device=cuda_device)
     assert resources.is_device_oom(ei.value)
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Out-of-core random effects (algorithm/re_store.py)
+# ---------------------------------------------------------------------------
+
+
+def _ooc_problem(device, seed=13, E=192, d=16):
+    import numpy as np
+
+    from photon_tpu_torch.data.game_data import GameBatch
+    from photon_tpu_torch.data.random_effect import RandomEffectDataConfig, build_random_effect_dataset
+
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(20, 90, size=E)
+    eids = np.repeat(np.arange(E, dtype=np.int32), counts)
+    n = eids.size
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    X[:, 0] = 1.0
+    y = (rng.uniform(size=n) < 0.5).astype(np.float32)
+    w = np.ones(n, np.float32)
+    cfg = RandomEffectDataConfig(re_type="userId", feature_shard="re", n_buckets=8)
+
+    def dataset():
+        return build_random_effect_dataset(eids, X, y, w, E, cfg, device=device)
+
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    batch = GameBatch(label=t(y), offset=torch.zeros(n, device=device), weight=t(w), features={"re": t(X)},
+                      entity_ids={"userId": t(eids)})
+    return dataset, batch
+
+
+def _ooc_coordinate(dataset, budget, cache, spill_dir=None):
+    from photon_tpu_torch.algorithm.random_effect import RandomEffectCoordinate
+    from photon_tpu_torch.ops.losses import LogisticLoss
+    from photon_tpu_torch.ops.objective import GLMObjective
+    from photon_tpu_torch.optim.factory import OptimizerSpec
+    from photon_tpu_torch.types import OptimizerType, TaskType
+
+    return RandomEffectCoordinate(
+        coordinate_id="per_user", dataset=dataset, task=TaskType.LOGISTIC_REGRESSION,
+        objective=GLMObjective(loss=LogisticLoss, l2_weight=1.0, intercept_index=0),
+        optimizer_spec=OptimizerSpec(optimizer=OptimizerType.NEWTON, max_iter=10), solve_cache=cache,
+        active_set=True, device_budget_bytes=budget, device_spill_dir=spill_dir)
+
+
+def _ooc_passes(coord, batch, passes=3):
+    model = None
+    for it in range(passes):
+        coord.begin_cd_pass(it)
+        model, _ = coord.train(batch, None, model)
+    return model
+
+
+@pytest.mark.parametrize("spill", [False, True], ids=["host_memory", "memmap_spill"])
+def test_budgeted_coordinate_on_card_is_bitwise_resident(cuda_device, tmp_path, spill):
+    """A budgeted coordinate on the card: pass 0 captures every block key
+    while the upload thread uploads (through the pinned staging buffers;
+    with a spill, from read-only memory-mapped arrays) and the download
+    thread downloads, raises no capture error, captures nothing after pass
+    0, and gives the resident coordinate's coefficients bit for bit."""
+    import numpy as np
+
+    from photon_tpu_torch.algorithm.re_store import block_device_cost
+    from photon_tpu_torch.algorithm.solve_cache import SolveCache
+
+    dataset, batch = _ooc_problem(cuda_device)
+    resident = _ooc_passes(_ooc_coordinate(dataset(), None, SolveCache()), batch)
+    ds = dataset()
+    budget = sum(block_device_cost(b) for b in ds.blocks) // 4
+    cache = SolveCache()
+    coord = _ooc_coordinate(ds, budget, cache, str(tmp_path) if spill else None)
+    assert all(isinstance(b.features, np.memmap) == spill for b in coord.dataset.blocks)
+    coord.begin_cd_pass(0)
+    model, _ = coord.train(batch, None, None)
+    mark = cache.trace_mark()
+    assert cache.stats.captures > 0
+    for it in (1, 2):
+        coord.begin_cd_pass(it)
+        model, _ = coord.train(batch, None, model)
+    torch.cuda.synchronize()
+    st = coord.last_residency_stats
+    assert cache.traces_since(mark) == 0
+    assert torch.equal(model.coefficients, resident.coefficients.cpu())
+    assert torch.equal(model.score(batch), resident.score(batch))
+    assert st["evictions"] > 0 and st["peak_bytes"] <= st["effective_budget_bytes"]
+    assert st["staging_bytes"] > 0 and st["uploads"] > 0
+
+
+def test_budgeted_capture_runs_beside_the_upload_thread(cuda_device):
+    """Pass 0 of a budgeted coordinate with blocks of many shapes: a new
+    key's capture runs while the upload thread has later blocks to copy
+    (the capture lock orders their CUDA calls); two runs evict the same
+    blocks in the same order."""
+    import threading
+
+    from photon_tpu_torch.algorithm import solve_cache
+    from photon_tpu_torch.algorithm.re_store import block_device_cost
+
+    dataset, batch = _ooc_problem(cuda_device, seed=14, E=384)
+    beside = []
+    capture = solve_cache._Entry._capture_locked
+
+    def watched(entry):
+        beside.append(any(t.name == "photon-pipe-h2d" for t in threading.enumerate()))
+        capture(entry)
+
+    logs = []
+    for _ in range(2):
+        ds = dataset()
+        cache = solve_cache.SolveCache()
+        coord = _ooc_coordinate(ds, sum(block_device_cost(b) for b in ds.blocks) // 3, cache)
+        solve_cache._Entry._capture_locked = watched
+        try:
+            _ooc_passes(coord, batch, passes=2)
+        finally:
+            solve_cache._Entry._capture_locked = capture
+        assert cache.stats.captures == len({tuple(b.features.shape) for b in ds.blocks}) > 1
+        logs.append(coord.last_residency_stats["eviction_log"])
+    # Captures ran while the upload thread lived (those of the last keys
+    # may come after it has uploaded everything and ended).
+    assert sum(beside) >= len(beside) // 2 > 0
+    assert logs[0] == logs[1] and logs[0]
