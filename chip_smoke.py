@@ -149,6 +149,29 @@ Phases, each of which must pass:
                 the card with equal bits, a real torch.cuda.OutOfMemoryError
                 classified by ``resources.is_device_oom``, and a SolveCache
                 capture after a streamed ingest has joined its threads.
+ 13. out of core — 13a 7b's model resident and with each random effect
+                budgeted at a quarter of its footprint, bitwise; 13b-d the
+                drivers with a budget and a spill, the partitioned index, an
+                injected OOM.
+ 14. multiple devices — torch.distributed ranks on this one card, sharing
+                7b's batch with the parent through CUDA IPC:
+                ``GameEstimator(mesh=...).fit`` of 7b's model (the fixed
+                effect on each rank's rows, K1 a row shard and one
+                all-reduce; the random effects entity-sharded, K3 on each
+                rank's shards) and a rows-sharded fixed-effect TRON solve
+                (K2) on 14a one NCCL rank (solves captured with their
+                all-reduce), 14b 2 and 4 gloo ranks (eager), 14c 2 gloo ranks
+                with every shard out of core at a quarter of its footprint;
+                14d config 6 with w over 1 and 2 gloo ranks. Per rank: K1/K2/K3
+                launches, each fixed-effect solve's route, peak memory, each
+                shard's store and static-buffer bytes. Fails unless K1, K2
+                and K3 ran on every rank, the random effects, fixed effect
+                and TRON solve of 14a-c are bitwise equal, the fixed effect
+                is within MR_FE_TOL of 7b's, 14a's random effects are within
+                MR_RE_TOL of the unsharded coordinates', 14a's TRON follows
+                the whole batch's step for step, and 14d (against one rank)
+                agrees at a seeded point and step for step. No check runs
+                on more than one GPU.
 Phases 4, 6b, 7b, 8 and 9 print, per pass, λ or driver, the host reads (every
 device-to-host read of the path, through ``HOST_READS``; validation apart),
 the solve cache's captures (programs; the keys, which count each λ, apart),
@@ -160,7 +183,7 @@ at K = 1, 2, 4 and 8, and fails at any K unless iterations and reasons are
 equal and coefficients within 1e-6; it fails if pass 2 captures anything or
 the two passes' coordinate updates make more than 60 host reads; 6b fails
 above SWEEP_READS reads for a λ solve. The order of the run is 1-7, 9, 11a,
-10, 8, 11b, 12; the whole run's wall is printed at its end.
+10, 8, 11b, 12, 13, 14; the whole run's wall is printed at its end.
 It prints the card's name and power limit, a JSON line of per-kernel numbers
 ("launches" and "ran": the launches of the main paths, and those of them
 that did their work; a K1 or K2 launch whose flag was off does not), and last {"ok": true, "device": {...}}. It exits non-zero, printing no
@@ -284,9 +307,32 @@ RESUME_TOL = 1e-6
 # largest block) and spill member; 13c: the index store's partitions.
 OOC_PASSES, OOC_BUCKETS, OOC_BUDGET_DIVISOR = 3, 16, 4
 OOC_DRIVER_BUDGET_MB, OOC_SPILL_MEMBER, OOC_PARTITIONS = "1", "updater:3", 4
+# Phase 14 (multiple devices: torch.distributed ranks on this one card).
+# 14b's gloo world sizes; each group's timeout (a dead rank fails its peers
+# within it) and each run's deadline; 14c's per-shard budget divisor (a
+# quarter of each shard's footprint, as 13a); 14d's L-BFGS iterations. The
+# fixed effect after 2 passes against 7b's: max |Δw| / max |w| below
+# MR_FE_TOL (3.668e-3 measured on the H100, the same in every run). 14a's
+# coordinates against the unsharded ones, one pass from 14a's model on the
+# same batch: every random-effect coefficient within MR_RE_TOL·(1 + |c|)
+# (the CPU tests' 1e-3 bar). Solves compared step for step (14a's TRON on
+# the rows-sharded batch against the whole batch's, 14d's fit on 2 ranks
+# against 1): each step's objectives within MR_TRAJECTORY_TOL and its step
+# or trust radius within MR_STEP_TOL relative (both interpolate differences
+# of f) until the first step where a decision (iteration, phase, search or
+# CG steps, reason) differs, if any; and 14a's TRON objectives within
+# MR_TRAJECTORY_TOL. Their coefficients are logged, not held: an f32
+# objective this size is flat to an ulp along directions where they part
+# (a tie on the last ulp of f ends one solve an iteration before the other).
+# 14d at a seeded point: value and gradient within MR_FEATURE_TOL relative.
+MR_WORLDS, MR_TIMEOUT_S, MR_DEADLINE_S, MR_BUDGET_DIVISOR = (2, 4), 300.0, 600.0, OOC_BUDGET_DIVISOR
+MR_FEATURE_ITERS, MR_FE_TOL, MR_FEATURE_TOL = 5, 1e-2, 1e-5
+MR_RE_TOL, MR_TRAJECTORY_TOL, MR_STEP_TOL = 1e-3, 1e-5, 1e-3
 # The optimization-log events of the drivers' runs (``record_event`` is
 # registered by dotted path with --event-listener).
 EVENTS: list = []
+# 7b's fixed-effect coefficients, which phase 14 is held against.
+PHASE7B: dict = {}
 
 
 def log(msg: str) -> None:
@@ -886,6 +932,7 @@ def game_phase(dev, smi: str, check, Xb, Xr, users, n_users: int):
     est.num_iterations = 1
     profiled("GAME pass from the trained model, profiled",
              lambda: est.fit(train, optimization_configs=[reg], initial_model=res.model))
+    PHASE7B["global"] = res.model.get("global").model.coefficients.means.float().cpu()
     return launches, train, valid, fe_auc
 
 
@@ -2556,6 +2603,396 @@ def out_of_core_phase(dev, smi: str, check, files: dict) -> dict:
     return launches
 
 
+def _shard_report(coord) -> list:
+    """Per shard of a sharded random effect on this rank: (shard, entities,
+    blocks, store bytes (its footprint; budgeted: budget, peak resident),
+    static-buffer bytes)."""
+    from photon_tpu_torch.algorithm.re_store import block_device_cost
+
+    rows = []
+    for s, c in sorted(coord.shards.items()):
+        st = c.last_residency_stats
+        rows.append(dict(shard=s, entities=int(coord.plan.counts[s]), blocks=len(c.dataset.blocks),
+                         footprint=int(sum(block_device_cost(b) for b in c.dataset.blocks)),
+                         budget=None if st is None else st["budget_bytes"],
+                         peak_resident=None if st is None else st["peak_bytes"],
+                         evictions=None if st is None else st["evictions"],
+                         static_bytes=_static_block_bytes(c.dataset.blocks)))
+    return rows
+
+
+def _unsharded_agreement(est, reg, train, model, coords, cache) -> dict:
+    """14a's random-effect coordinates against the unsharded ones on the same
+    batch: fresh coordinates of each kind, each trained one pass from 14a's
+    model against the same residual scores; per coordinate the largest
+    |Δc| / (1 + |c|) over the table (inf if the shapes differ)."""
+    plain_est, _ = _game_estimator(E, G_ITEMS, G_ITEM_CAP, 1)
+    plain_est.solve_cache = cache
+    scores = {cid: coords[cid].score(model.get(cid), train) for cid in ("global", "per_user", "per_item")}
+    total = sum(scores.values())
+    est._prepare_datasets(train)
+    plain_est._prepare_datasets(train)
+    fresh = (est._build_coordinates(train, reg), plain_est._build_coordinates(train, reg))
+    out = {}
+    for cid in ("per_user", "per_item"):
+        tables = []
+        for coords_of_kind in fresh:
+            c = coords_of_kind[cid]
+            c.begin_cd_pass(0)
+            trained, _ = c.train(train, total - scores[cid], model.get(cid))
+            tables.append(torch.as_tensor(trained.coefficients).double().cpu().numpy())
+        a, b = tables
+        out[cid] = float(np.max(np.abs(a - b) / (1.0 + np.abs(b)))) if a.shape == b.shape else float("inf")
+    return out
+
+
+def multi_rank_game(rank: int, world: int, device, train, budget_divisor: int, compare: bool = False) -> dict:
+    """Phase 14's rank program (14a-c): ``GameEstimator.fit`` of 7b's model
+    (fixed + per user + per item, 2 passes, active set) on the mesh of the
+    job's ranks, over ``train`` (7b's batch, shared from the parent's card):
+    the fixed effect on this rank's rows (K1 on each, one all-reduce), the
+    random effects entity-sharded (K3 on this rank's shards; with
+    ``budget_divisor`` each shard out of core at that fraction of its
+    footprint); then a fixed-effect TRON solve on this rank's rows (K1
+    trials, K2 products). With ``compare`` (one rank), the same coordinates
+    unsharded beside them (``_unsharded_agreement``, and TRON on the whole
+    batch), after the launches are read. Returns host arrays and counts."""
+    from photon_tpu_torch.algorithm.fixed_effect import FixedEffectCoordinate
+    from photon_tpu_torch.algorithm.re_store import block_device_cost
+    from photon_tpu_torch.algorithm.solve_cache import SolveCache
+    from photon_tpu_torch.ops import fused_newton, kernels
+    from photon_tpu_torch.ops.losses import LogisticLoss
+    from photon_tpu_torch.ops.objective import GLMObjective
+    from photon_tpu_torch.optim.factory import OptimizerSpec
+    from photon_tpu_torch.parallel.mesh import make_mesh
+    from photon_tpu_torch.parallel.train_step import full_precision_matmuls
+    from photon_tpu_torch.types import OptimizerType, TaskType
+
+    full_precision_matmuls()
+    mesh = make_mesh(device=device)
+    est, reg = _game_estimator(E, G_ITEMS, G_ITEM_CAP, G_PASSES)
+    est.mesh = mesh
+    cache = est.solve_cache = SolveCache()
+    if budget_divisor:
+        est.re_device_budget_bytes = lambda _s, ds: sum(block_device_cost(b) for b in ds.blocks) // budget_divisor
+    coords = {}
+    kernels.reset_launches()
+    fused_newton.LAUNCHES_BY_WIDTH.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (res,) = est.fit(train, optimization_configs=[reg],
+                     on_coordinate=lambda it, cid, coord, wall: coords.__setitem__(cid, coord))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = dict(launch_counts(), **{f"newton_system_d{d}": c
+                                             for d, c in fused_newton.LAUNCHES_BY_WIDTH.items()})
+    fe_routes = [(tuple(i["key"]), i["route"]) for i in cache.entry_info() if i["key"][0] == "fe"]
+    eager_calls = cache.stats.eager_calls
+    fit_peak = torch.cuda.max_memory_allocated()
+    model = res.model
+    out = dict(rank=rank, world=world, fit_s=fit_s, fit_peak=fit_peak, fit_launches=fit_launches,
+               fe_routes=fe_routes, fe_eager_calls=eager_calls,
+               fe=model.get("global").model.coefficients.means.float().cpu().numpy(),
+               users=model.get("per_user").coefficients.cpu().numpy(),
+               items=model.get("per_item").coefficients.cpu().numpy(),
+               shards={cid: _shard_report(coords[cid]) for cid in ("per_user", "per_item")},
+               busy={cid: coords[cid].device_busy_seconds() for cid in ("per_user", "per_item")},
+               fe_iterations=[int(t.iterations) for t in res.tracker["global"]])
+
+    # A fixed-effect TRON solve on this rank's rows.
+    kernels.reset_launches()
+    tron = FixedEffectCoordinate("global_tron", "global", TaskType.LOGISTIC_REGRESSION,
+                                 GLMObjective(loss=LogisticLoss, l2_weight=1.0, intercept_index=0),
+                                 OptimizerSpec(OptimizerType.TRON, max_iter=5, track_history=False),
+                                 solve_cache=cache, mesh=mesh)
+    t0 = time.perf_counter()
+    tron_model, tron_res = tron.train(train)
+    torch.cuda.synchronize()
+    out.update(tron_s=time.perf_counter() - t0, tron_launches=launch_counts(),
+               tron=tron_model.model.coefficients.means.float().cpu().numpy(),
+               tron_iterations=int(tron_res.iterations), peak=torch.cuda.max_memory_allocated(),
+               eager_calls=cache.stats.eager_calls)
+    if compare:
+        from photon_tpu_torch.parallel.distributed import shard_batch
+
+        whole = FixedEffectCoordinate("global_tron_whole", "global", TaskType.LOGISTIC_REGRESSION,
+                                      GLMObjective(loss=LogisticLoss, l2_weight=1.0, intercept_index=0),
+                                      OptimizerSpec(OptimizerType.TRON, max_iter=5, track_history=False),
+                                      solve_cache=cache)
+        whole_model, whole_res = whole.train(train)
+        out.update(tron_whole=whole_model.model.coefficients.means.float().cpu().numpy(),
+                   tron_value=float(tron_res.value), tron_whole_value=float(whole_res.value))
+        # Both solves stepped by hand (the coordinates' objective: fused on the card).
+        lb = train.labeled_batch("global")
+        obj = GLMObjective(loss=LogisticLoss, l2_weight=1.0, intercept_index=0, use_fused=True)
+        spec = OptimizerSpec(OptimizerType.TRON, max_iter=5, track_history=False)
+        w0 = torch.zeros(lb.features.shape[1], device=device)
+        out["tron_traces"] = [_tron_trace(obj, spec, w0, b)[1] for b in (shard_batch(lb, mesh), lb)]
+        out["unsharded"] = _unsharded_agreement(est, reg, train, model, coords, cache)
+    return out
+
+
+def _probe_point(device) -> torch.Tensor:
+    """14d's seeded point of config 6's coefficient space."""
+    g = torch.Generator(device=device).manual_seed(14)
+    return torch.randn(SP_D, device=device, generator=g) / 8.0
+
+
+def _search_state(ls: torch.Tensor) -> tuple:
+    """(search phase, trial step, trials) of an L-BFGS line-search state."""
+    from photon_tpu_torch.optim import linesearch
+
+    return int(ls[linesearch._PHASE]), float(ls[linesearch._A_CUR]), int(ls[linesearch._EVALS])
+
+
+def multi_rank_feature(rank: int, world: int, device, data, iters: int) -> dict:
+    """14d's rank program: config 6 (``data``: its sparse batch, shared from
+    the parent's card) with w sharded over a (1, world) feature mesh: the
+    value and gradient at ``_probe_point`` (the gradient gathered), then
+    ``iters`` L-BFGS iterations from zero through
+    ``train_fixed_effect_feature_sharded`` (objective at zero and at the
+    end, iterations, wall, peak memory), then the same solve stepped by hand
+    with its state read after every step (the trajectory 14d compares)."""
+    from photon_tpu_torch.ops.losses import LogisticLoss
+    from photon_tpu_torch.ops.objective import GLMObjective
+    from photon_tpu_torch.optim.common import OptimizerConfig
+    from photon_tpu_torch.optim.lbfgs import LBFGS
+    from photon_tpu_torch.optim.problem import CallableOracle
+    from photon_tpu_torch.parallel.feature_sharded import (
+        FeatureSpace, place_feature_sharded, sparse_value_and_grad_feature_sharded, train_fixed_effect_feature_sharded)
+    from photon_tpu_torch.parallel.mesh import FEATURE_AXIS, make_mesh
+
+    mesh = make_mesh(n_data=1, n_feature=world, device=device)
+    obj = GLMObjective(loss=LogisticLoss, l2_weight=1.0, intercept_index=0)
+    cfg = OptimizerConfig(max_iter=iters, track_history=False)
+    torch.cuda.reset_peak_memory_stats()
+    w_probe, b = place_feature_sharded(mesh, _probe_point(device), data)
+    val, g = sparse_value_and_grad_feature_sharded(obj, mesh, SP_D)(w_probe, b)
+    g = torch.cat(mesh.all_gather(g.contiguous(), FEATURE_AXIS))
+    w0, b = place_feature_sharded(mesh, torch.zeros(SP_D, device=device), data)
+    fit = train_fixed_effect_feature_sharded(mesh, obj, cfg, SP_D)
+    f0 = float(sparse_value_and_grad_feature_sharded(obj, mesh, SP_D)(w0, b)[0])
+    t0 = time.perf_counter()
+    res = fit(w0, b)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    w_fit = torch.cat(mesh.all_gather(res.w.contiguous(), FEATURE_AXIS))
+    del fit
+    vg = sparse_value_and_grad_feature_sharded(obj, mesh, SP_D)
+    prog = LBFGS(CallableOracle(lambda w: vg(w, b)), w0, cfg, None, FeatureSpace(mesh))
+    prog.init()
+    trace = []
+    for _ in range(prog.max_steps):
+        if not bool(prog.running()):
+            break
+        prog.step()
+        S = prog.s
+        trace.append((int(S["it"]), int(S["phase"]), float(S["f"])) + _search_state(S["ls"]))
+    prog.finish()
+    w_traced = torch.cat(mesh.all_gather(prog.result().w.contiguous(), FEATURE_AXIS))
+    return dict(rank=rank, world=world, wall=wall, f0=f0, value=float(res.value), iterations=int(res.iterations),
+                probe_value=float(val), probe_grad=g.cpu().numpy() if rank == 0 else None,
+                local=int(res.w.shape[0]), peak=peak, trace=trace, traced_equal=bool(torch.equal(w_fit, w_traced)),
+                w=w_fit.cpu().numpy() if rank == 0 else None)
+
+
+def _trajectories(one: list, two: list, decisions: tuple, values: tuple) -> dict:
+    """Where two solver traces part: the first step whose decision fields
+    (tuple positions ``decisions``) differ, or None, and the largest
+    relative difference of each field in ``values`` before it."""
+    parted, diff = None, {i: 0.0 for i in values}
+    for k, (a, b) in enumerate(zip(one, two)):
+        if tuple(a[i] for i in decisions) != tuple(b[i] for i in decisions):
+            parted = k
+            break
+        for i in values:
+            diff[i] = max(diff[i], abs(a[i] - b[i]) / max(abs(a[i]), 1e-30))
+    if parted is None and len(one) != len(two):
+        parted = min(len(one), len(two))
+    return dict(parted=parted, diff=diff, steps=(len(one), len(two)),
+                at=None if parted is None else (one[parted] if parted < len(one) else None,
+                                                two[parted] if parted < len(two) else None))
+
+
+def _tron_trace(objective, spec, w0, lb) -> tuple:
+    """A fixed-effect TRON solve stepped by hand, its state read after every
+    step: (result, [(iteration, phase, CG steps, reason, f, radius, trial
+    f)])."""
+    from photon_tpu_torch.optim.factory import fe_program
+
+    prog = fe_program(objective, spec, w0, lb)
+    prog.init()
+    trace = []
+    for _ in range(prog.max_steps):
+        if not bool(prog.running()):
+            break
+        prog.step()
+        S = prog.s
+        trace.append((int(S["it"]), int(S["phase"]), int(S["cg_it"]), int(S["reason"]), float(S["f"]),
+                      float(S["delta"]), float(S["f_t"])))
+    prog.finish()
+    return prog.result(), trace
+
+
+def multi_rank_phase(dev, smi: str, check) -> dict:
+    """Phase 14: multiple devices, as torch.distributed ranks on this one
+    card, over 7b's batch (made again from its seeds). 14a
+    ``GameEstimator.fit(mesh=)`` of 7b's model on one NCCL rank,
+    14b on 2 and 4 gloo ranks sharing the card, 14c on 2 gloo ranks with
+    each random-effect shard out of core at a quarter of its footprint (each
+    with a fixed-effect TRON solve on its rows after the fit), 14d config 6's
+    fixed effect feature-sharded over 2 gloo ranks. Fails unless every rank
+    of 14a-c launched K1, K2 and K3, the random effects are bitwise equal
+    across 14a and 14b's runs and 14c's are 14b's world-2 run's, the fixed
+    effect agrees with 7b's (MR_FE_TOL), 14a's coordinates agree with the
+    unsharded ones (MR_RE_TOL) and 14a's TRON follows the whole batch's
+    step for step (MR_TRAJECTORY_TOL, MR_STEP_TOL), and 14d's value and gradient
+    agree with one rank's (MR_FEATURE_TOL) and its fit follows one rank's
+    step for step (MR_TRAJECTORY_TOL, MR_STEP_TOL).
+    Returns the launches of 14a-c, summed over their ranks."""
+    from photon_tpu_torch.data.batch import LabeledBatch, SparseFeatures
+    from photon_tpu_torch.data.synthetic import make_data
+    from photon_tpu_torch.utils.virtual_devices import RankFailed, run_ranks
+
+    log(f"## phase 14: multiple devices (torch.distributed ranks on this one card: NCCL at world 1, gloo when ranks "
+        f"share the card; no check runs on more than one GPU); card {smi}")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    Xf, Xr, users, _y = make_data(N, D_FIX, D_RE, E, seed=0, device=dev)
+    train, _valid = _glmix_batches(dev, smi, Xf.to(torch.bfloat16), Xr, users, E, seed=7)
+    del Xf, Xr, users, _y, _valid
+    runs = {}
+    plan = [("14a", 1, "nccl", "cuda:0", 0)] + [(f"14b/{n}", n, "gloo", "cuda:0", 0) for n in MR_WORLDS] + [
+        ("14c", 2, "gloo", "cuda:0", MR_BUDGET_DIVISOR)]
+    for label, n, backend, device, divisor in plan:
+        t0 = time.perf_counter()
+        try:
+            runs[label] = run_ranks(multi_rank_game, n, backend=backend, device=device,
+                                    args=(train, divisor, label == "14a"), timeout_s=MR_TIMEOUT_S,
+                                    deadline_s=MR_DEADLINE_S)
+        except RankFailed as exc:
+            check(False, f"{label}: {n} {backend} rank(s) ran to their end ({str(exc)[-1500:]})")
+            continue
+        log(f"  {label}: {n} {backend} rank(s) on {device}{', each shard budgeted at 1/' + str(divisor) if divisor else ''}"
+            f": {time.perf_counter() - t0:.1f} s wall (spawn, dataset grouping, fit, TRON)")
+        for r in runs[label]:
+            k1, k2, k3 = (ran(r["fit_launches"], k) + ran(r["tron_launches"], k)
+                          for k in ("fused_value_grad", "fused_hvp", "newton_system"))
+            k3w = {k: v for k, v in r["fit_launches"].items() if k.startswith("newton_system_d")}
+            log(f"    rank {r['rank']}: fit {r['fit_s']:.3f} s ({r['fe_iterations']} fixed-effect iterations a pass), "
+                f"TRON {r['tron_s']:.3f} s ({r['tron_iterations']} iterations); K1 {k1}, K2 {k2}, K3 {k3} (by width "
+                f"{k3w}) launches that ran; fixed-effect solve routes {r['fe_routes']}, {r['eager_calls']} eager "
+                f"dispatches; peak memory {r['fit_peak'] / 2 ** 30:.2f} GiB (fit), {r['peak'] / 2 ** 30:.2f} GiB "
+                f"(with TRON); random-effect busy seconds by rank {r['busy']}")
+            for cid, shards in r["shards"].items():
+                log(f"      {cid} shards: " + "; ".join(
+                    f"{sh['shard']}: {sh['entities']} entities, {sh['blocks']} blocks, store "
+                    f"{sh['footprint'] / 2 ** 20:.1f} MiB"
+                    + ("" if sh["budget"] is None else f" (budget {sh['budget'] / 2 ** 20:.1f} MiB, peak resident "
+                       f"{sh['peak_resident'] / 2 ** 20:.1f} MiB, {sh['evictions']} evictions)")
+                    + f", static buffers {sh['static_bytes'] / 2 ** 20:.1f} MiB" for sh in shards))
+            check(k1 > 0 and k2 > 0 and k3 > 0, f"{label} rank {r['rank']}: K1 ({k1}), K2 ({k2}) and K3 ({k3}) "
+                                                f"launched and ran")
+    base = runs.get("14b/2")
+    if base is not None:
+        ref = base[0]
+        for label, rs in runs.items():
+            for r in rs:
+                same = {k: bool(np.array_equal(r[k], ref[k])) for k in ("users", "items", "fe", "tron")}
+                log(f"  {label} rank {r['rank']} vs 14b/2 rank 0, bitwise: {same}")
+                check(all(same.values()), f"{label} rank {r['rank']}: random-effect coefficients (per user, per "
+                                          f"item), the fixed effect and the TRON solve bitwise 14b's world-2 run's")
+        fe7 = PHASE7B.get("global")
+        if fe7 is not None:
+            err = float(np.abs(ref["fe"] - fe7.numpy()).max()) / max(float(np.abs(fe7.numpy()).max()), 1e-30)
+            check(err <= MR_FE_TOL, f"14 fixed effect after {G_PASSES} passes vs 7b's: max |Δw| / max |w| "
+                                    f"{err:.3e} (tolerance {MR_FE_TOL:g}; 14's fixed-effect sums run over 8 row shards, 7b's "
+                                    f"over the whole batch)")
+    one = runs.get("14a")
+    if one is not None:
+        r = one[0]
+        w_whole = r["tron_whole"]
+        tron_err = float(np.abs(r["tron"] - w_whole).max()) / max(float(np.abs(w_whole).max()), 1e-30)
+        value_rel = abs(r["tron_value"] - r["tron_whole_value"]) / abs(r["tron_whole_value"])
+        tr = _trajectories(*r["tron_traces"], (0, 1, 2, 3), (4, 5, 6))
+        log(f"  14a: TRON on the rows-sharded batch vs on the whole batch, step by step ({tr['steps']} steps): "
+            + ("no decision differs" if tr["parted"] is None else
+               f"the first decision that differs is at step {tr['parted']}: (iteration, phase, CG steps, reason, f, "
+               f"radius, trial f) {tr['at'][0]} sharded, {tr['at'][1]} whole")
+            + f"; before it f rel {tr['diff'][4]:.3e}, radius rel {tr['diff'][5]:.3e}, trial f rel "
+              f"{tr['diff'][6]:.3e}; the solves' objectives rel {value_rel:.3e}, max |Δw| / max |w| {tron_err:.3e}")
+        check(value_rel <= MR_TRAJECTORY_TOL and max(tr["diff"][4], tr["diff"][6]) <= MR_TRAJECTORY_TOL
+              and tr["diff"][5] <= MR_STEP_TOL,
+              f"14a: TRON on the rows-sharded batch follows the whole batch's step for step: f and trial f rel "
+              f"{max(tr['diff'][4], tr['diff'][6]):.3e} (tolerance {MR_TRAJECTORY_TOL:g}), radius rel "
+              f"{tr['diff'][5]:.3e} (tolerance {MR_STEP_TOL:g})"
+              + ("" if tr["parted"] is None else f" up to step {tr['parted']}, where a decision differs")
+              + f"; the solves' objectives rel {value_rel:.3e} (tolerance {MR_TRAJECTORY_TOL:g})")
+        check(max(r["unsharded"].values()) <= MR_RE_TOL,
+              f"14a: the sharded random-effect coordinates vs the unsharded ones, one pass from 14a's model on the "
+              f"same batch: max |Δc| / (1 + |c|) {', '.join(f'{k} {v:.3e}' for k, v in r['unsharded'].items())} "
+              f"(tolerance {MR_RE_TOL:g})")
+
+    # ---- 14d: config 6's fixed effect feature-sharded over 2 gloo ranks, against 1 ----
+    idx, vals, y = _sparse_wide_data()
+    data = LabeledBatch(torch.from_numpy(y).to(dev),
+                        SparseFeatures(torch.from_numpy(idx).to(dev), torch.from_numpy(vals).to(dev), SP_D))
+    feat = {}
+    for n in (1, 2):
+        t0 = time.perf_counter()
+        try:
+            feat[n] = run_ranks(multi_rank_feature, n, backend="gloo", device="cuda:0",
+                                args=(data, MR_FEATURE_ITERS), timeout_s=MR_TIMEOUT_S, deadline_s=MR_DEADLINE_S)
+        except RankFailed as exc:
+            check(False, f"14d: {n} gloo rank(s) ran to their end ({str(exc)[-1500:]})")
+            continue
+        log(f"  14d: config 6 (n = d = 2^{SP_D.bit_length() - 1}, {SP_K} nnz a row) with w over {n} gloo rank(s), "
+            f"{MR_FEATURE_ITERS} L-BFGS iterations: {time.perf_counter() - t0:.1f} s wall; " + "; ".join(
+                f"rank {r['rank']}: {r['local']} coefficients, fit {r['wall']:.3f} s, objective {r['f0']:.6f} -> "
+                f"{r['value']:.6f}, {r['iterations']} iterations, peak {r['peak'] / 2 ** 30:.2f} GiB" for r in feat[n]))
+        check(all(r["traced_equal"] and r["value"] == feat[n][0]["value"] and np.isfinite(r["value"])
+                  and r["value"] < r["f0"] for r in feat[n]),
+              f"14d/{n}: the fit lowers the objective, finite and equal on every rank, and the solve stepped by hand "
+              f"ends bitwise at the fit's coefficients")
+    if len(feat) == 2:
+        one, two = feat[1][0], feat[2][0]
+        dv = abs(two["probe_value"] - one["probe_value"]) / abs(one["probe_value"])
+        dg = float(np.abs(two["probe_grad"] - one["probe_grad"]).max()) / max(float(np.abs(one["probe_grad"]).max()),
+                                                                             1e-30)
+        check(dv <= MR_FEATURE_TOL and dg <= MR_FEATURE_TOL,
+              f"14d: value and gradient at a seeded point, w over 2 ranks vs one rank: value rel {dv:.3e}, gradient "
+              f"max |Δg| / max |g| {dg:.3e} (tolerance {MR_FEATURE_TOL:g})")
+        tr = _trajectories(one["trace"], two["trace"], (0, 1, 3, 5), (2, 4))
+        tr["df"], tr["da"] = tr["diff"][2], tr["diff"][4]
+        fit_rel = abs(two["value"] - one["value"]) / abs(one["value"])
+        w_rel = float(np.abs(two["w"] - one["w"]).max()) / max(float(np.abs(one["w"]).max()), 1e-30)
+        log(f"  14d: 2 ranks vs 1, step by step ({tr['steps']} steps): "
+            + (f"no decision differs" if tr["parted"] is None else
+               f"the first decision that differs is at step {tr['parted']}: (iteration, phase, objective, search phase, "
+               f"trial step, trials) {tr['at'][0]} with 1 rank, {tr['at'][1]} with 2")
+            + f"; before it objective rel {tr['df']:.3e}, trial step rel {tr['da']:.3e}; after the fit objective rel "
+              f"{fit_rel:.3e}, max |Δw| / max |w| {w_rel:.3e}")
+        if tr["parted"] is None:
+            # With every decision alike, the whole fit agrees.
+            check(fit_rel <= MR_TRAJECTORY_TOL,
+                  f"14d: the fit over 2 ranks vs one: objective rel {fit_rel:.3e} (tolerance {MR_TRAJECTORY_TOL:g})")
+        check(tr["df"] <= MR_TRAJECTORY_TOL and tr["da"] <= MR_STEP_TOL,
+              f"14d: the 2-rank fit follows the 1-rank fit step for step: objective rel {tr['df']:.3e} (tolerance "
+              f"{MR_TRAJECTORY_TOL:g}), trial step rel {tr['da']:.3e} (tolerance {MR_STEP_TOL:g})"
+              + ("" if tr["parted"] is None else f" up to step {tr['parted']}, where a decision differs"))
+    del data, train
+    launches: dict = {}
+    for rs in runs.values():
+        for r in rs:
+            for part in (r["fit_launches"], r["tron_launches"]):
+                for k, v in part.items():
+                    launches[k] = launches.get(k, 0) + v
+    log(f"  phase 14: {time.perf_counter() - t_phase:.1f} s wall on {smi}; launches (all ranks) {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs only on a GPU", file=sys.stderr)
@@ -2957,6 +3394,10 @@ def main() -> int:
     ooc_launches = out_of_core_phase(dev, smi, check, driver_files)
     shutil.rmtree(driver_files["work"], ignore_errors=True)
 
+    # ---------------- 14. multiple devices ----------------
+    torch.cuda.empty_cache()
+    multi_rank_launches = multi_rank_phase(dev, smi, check)
+
     # ---------------- report ----------------
     sources = {
         "fused_value_grad": ("photon_tpu_torch/csrc/fused_value_grad.cu", "photon_tpu/ops/pallas_glm.py:345"),
@@ -2981,7 +3422,8 @@ def main() -> int:
     # "ran": the launches that did their work (launches less those whose
     # launch flag was off; K3 has no flag).
     paths = (glmix_launches, tron_launches, glm_launches, game_launches, driver_launches, solver_launches,
-             sparse_launches, tuning_launches, tuning_driver_launches, durability_launches, ooc_launches)
+             sparse_launches, tuning_launches, tuning_driver_launches, durability_launches, ooc_launches,
+             multi_rank_launches)
     rows = []
     for name, (src, repl) in sources.items():
         rows.append(dict(name=name, route="cuda", source=src, replaces=repl,

@@ -9,6 +9,13 @@ optimum and taken to model space by the factors², as the reference
 coordinate does (unlike the reference's ``train_glm`` driver). The solve
 goes through the solve cache (``solve_cache``, else the shared
 ``default_cache()``), as the reference's does.
+
+With ``mesh`` (parallel/mesh.py) the coordinate trains on this rank's rows
+of the batch (every rank holds the whole batch; parallel/distributed.py::
+shard_batch), its objective's sums reduced over the mesh's data axes: K1 and
+K2 on each rank's rows, then one all-reduce, so every rank takes the same
+solve and holds the same model, which scores the whole batch. The solve is
+captured under NCCL and runs eagerly under gloo (solve_cache.py).
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import torch
 
 from photon_tpu_torch.algorithm.coordinate import Coordinate
 from photon_tpu_torch.algorithm.solve_cache import SolveCache, default_cache
+from photon_tpu_torch.data.batch import LabeledBatch
 from photon_tpu_torch.data.game_data import GameBatch
 from photon_tpu_torch.models.coefficients import Coefficients
 from photon_tpu_torch.models.game import FixedEffectModel
@@ -46,15 +54,36 @@ class FixedEffectCoordinate(Coordinate):
     dim: Optional[int] = None  # for zero_model
     solve_cache: Optional[SolveCache] = None
     device: Optional[object] = None  # of zero_model (the batch's)
+    mesh: Optional[object] = None  # rows-sharded training over its data axes
 
     def __post_init__(self):
         self.compute_variance = normalize_variance_type(self.compute_variance)
+        if self.mesh is not None and self.compute_variance != VarianceComputationType.NONE:
+            raise ValueError("a rows-sharded fixed effect does not compute coefficient variances")
+        self._local = None  # (whole X, whole label, this rank's batch) of the last pass
+
+    def _rows_sharded(self, lb: LabeledBatch) -> LabeledBatch:
+        """This rank's rows of ``lb``; its X and label are the same tensors
+        every pass while the batch's are (the solve cache keys them by
+        identity), its offsets and weights are this pass's."""
+        from photon_tpu_torch.parallel.distributed import local_rows, shard_batch
+
+        last = self._local
+        if last is None or last[0] is not lb.features or last[1] is not lb.label:
+            local = shard_batch(lb, self.mesh)
+            self._local = (lb.features, lb.label, local)
+            return local
+        local = last[2]
+        return LabeledBatch(local.label, local.features, local_rows(lb.offset, local.rows),
+                            local_rows(lb.weight, local.rows), local.rows)
 
     def train(self, batch: GameBatch, residual_scores: Optional[Tensor] = None,
               initial_model: Optional[FixedEffectModel] = None) -> Tuple[FixedEffectModel, OptimizeResult]:
         lb = batch.labeled_batch(self.feature_shard, residual_scores)
         if self.down_sampler is not None:
             lb = self.down_sampler.apply(lb)
+        if self.mesh is not None:
+            lb = self._rows_sharded(lb)
         d = lb.features.shape[1]
         w0 = (initial_model.model.coefficients.means if initial_model is not None
               else torch.zeros(d, dtype=lb.label.dtype, device=lb.label.device))

@@ -12,8 +12,10 @@ explicit TRON spec (the Pearson mask folded into the Hessian-vector
 product); then margin-space L-BFGS for the feature-masked (Pearson),
 shift-normalized and wider problems, and gradient-form L-BFGS where a mask
 meets shifts. Every lane keeps the reference's iteration count and reason.
-Per-device placement (``device=``) is not ported yet: a coordinate given
-one raises.
+With ``device=`` the coordinate's blocks, coefficient table and solves are
+committed to that device (the entity-sharded path,
+algorithm/sharded_random_effect.py): dense datasets only, no variances, as
+in the reference.
 
 With ``device_budget_bytes`` a dense coordinate trains out of core: its
 blocks become a host master (optionally memory-mapped under
@@ -260,6 +262,11 @@ def _block_variances_of(objective: GLMObjective, block: EntityBlock, offsets: Te
     return v
 
 
+def _block_to(block: EntityBlock, device) -> EntityBlock:
+    return dataclasses.replace(block, **{f.name: getattr(block, f.name).to(device)
+                                         for f in dataclasses.fields(block) if getattr(block, f.name) is not None})
+
+
 def _scatter_rows(table: Tensor, block: EntityBlock, rows: Tensor) -> None:
     """table[..., entity_idx, :] = rows[..., :, :d] for the block's real rows,
     in place; padding rows (entity_idx -1) are dropped."""
@@ -288,7 +295,8 @@ class RandomEffectCoordinate(Coordinate):
     # Host-owned spill layout: with a member id, spill files live under
     # ``<device_spill_dir>/host-<k>/`` (re_store.partition_spill_dir).
     device_spill_member: Optional[str] = None
-    # Per-device placement of the entity-sharded path: not ported yet.
+    # Per-device placement (the entity-sharded path): blocks, coefficients
+    # and solves on this device. None: where the blocks were built.
     device: Optional[object] = None
     # Newton-system routing (ops.fused_newton.RE_KERNELS), resolved against
     # the blocks' device: "auto" is the K3 kernel on the card.
@@ -298,13 +306,23 @@ class RandomEffectCoordinate(Coordinate):
     def __post_init__(self):
         self.compute_variance = normalize_variance_type(self.compute_variance)
         if self.device is not None:
-            raise NotImplementedError("per-device placement of random-effect blocks is not ported yet")
+            if self.dataset.projected:
+                raise ValueError("per-device placement supports dense RE datasets only (projected blocks route "
+                                 "through the default device)")
+            if self.compute_variance != VarianceComputationType.NONE:
+                raise ValueError("per-device placement does not support coefficient variance computation")
         blocks = self.dataset.blocks
         host_master = bool(blocks) and isinstance(blocks[0].features, np.ndarray)
-        if host_master:
+        if self.device is not None:
+            self._device = torch.device(self.device)
+        elif host_master:
             self._device = self.dataset.host_master_device
         else:
             self._device = blocks[0].features.device if blocks else torch.device("cpu")
+        if self.device is not None and not host_master and not self.device_budget_bytes:
+            # Commit every block to the owning device before derived state
+            # (Pearson masks follow the blocks).
+            self.dataset.blocks = blocks = [_block_to(b, self._device) for b in blocks]
         self._store = None
         self.last_residency_stats: Optional[dict] = None
         if self.device_budget_bytes:
@@ -522,6 +540,9 @@ class RandomEffectCoordinate(Coordinate):
     def train(self, batch: GameBatch, residual_scores: Optional[Tensor] = None,
               initial_model=None) -> Tuple[DatumScoringModel, RandomEffectTrackerStats]:
         total_offset = batch.offset if residual_scores is None else batch.offset + residual_scores
+        if self.device is not None:
+            # Every block gather stays on the owning device.
+            total_offset = total_offset.to(self._device)
         if self.dataset.projected:
             return self._train_projected(total_offset, initial_model)
         if self._store is not None:

@@ -44,7 +44,12 @@ Every route is a program: margin L-BFGS, TRON, OWL-QN, L-BFGS-B and
 gradient-form L-BFGS on the fixed effect (optim/factory.py::fe_program),
 and the same plus batched Newton on a block, one lane an entity
 (random_effect.py::block_program). A capture or replay that fails raises;
-nothing falls back to an eager solve.
+nothing falls back to an eager solve. A rows-sharded fixed effect
+(parallel/distributed.py) reduces over the mesh inside its steps: under
+NCCL those all-reduces are captured with the rest, under gloo (which cannot
+be captured) its entry runs eagerly on the card, by the backend and never
+because a capture failed; the route is in ``entry_info`` and counted
+(``eager_calls``).
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import logging
 import os
 import threading
 import time
@@ -67,6 +73,8 @@ from photon_tpu_torch.optim.common import REASON_DIVERGED
 from photon_tpu_torch.optim.program import Program, chunk_loop, run_chunked
 
 Tensor = torch.Tensor
+
+logger = logging.getLogger(__name__)
 
 # Bounded-cache opt-in: entry cap for every SolveCache constructed without an
 # explicit ``max_entries`` (default unbounded; a λ sweep is one entry per λ).
@@ -98,6 +106,9 @@ class SolveCacheStats:
     hits:     dispatches that reused an entry (calls - traces).
     trace_keys: shape/kind descriptor recorded at each trace.
     replays:  CUDA graph replays (init and chunks).
+    eager_calls: dispatches on the card that ran eagerly, not as graphs:
+              a rows-sharded fixed effect whose reductions run on a backend
+              that cannot be captured (gloo).
     copied_bytes: bytes copied into the static input buffers.
     x_passes_run: X passes the programs ran, masked steps and capture
               warm-ups included; a result's ``evals`` counts the passes of
@@ -111,6 +122,7 @@ class SolveCacheStats:
     evictions: int = 0
     trace_keys: List[Tuple] = dataclasses.field(default_factory=list)
     replays: int = 0
+    eager_calls: int = 0
     copied_bytes: int = 0
     x_passes_run: int = 0
 
@@ -229,7 +241,7 @@ class _Entry:
     solve from ``weights`` = (L2, L1)."""
 
     def __init__(self, cache: "SolveCache", prog: Program, slots: Dict[str, _Slot], post: Callable[[], tuple],
-                 chunk: int, inputs: Dict[str, Tensor], weights: Tuple[float, float]):
+                 chunk: int, inputs: Dict[str, Tensor], weights: Tuple[float, float], capturable: bool = True):
         # The cache by a weak reference (it holds its entries; a solver handle
         # that holds an entry holds the cache too).
         self._cache = weakref.ref(cache)
@@ -237,9 +249,13 @@ class _Entry:
         self.chunk = max(1, min(chunk, prog.max_steps))
         device = self.device = inputs["w0"].device
         self._load(inputs, weights)  # the warm-up solves the first call's problem
-        self.captured = device.type == "cuda"
+        self.captured = device.type == "cuda" and capturable
         self.flag = torch.zeros((), dtype=torch.bool, device=device)
-        self.info: Dict[str, Any] = dict(chunk=self.chunk)
+        self.route = ("captured" if self.captured else "eager" if device.type != "cuda"
+                      else "eager: its collectives cannot be captured")
+        self.info: Dict[str, Any] = dict(chunk=self.chunk, route=self.route)
+        if device.type == "cuda" and not capturable:
+            logger.info("solve on %s runs eagerly: its collectives cannot be captured", device)
         if self.captured:
             self._capture()
 
@@ -306,6 +322,8 @@ class _Entry:
         else:
             steps = run_chunked(self.prog, self.chunk)
             out = self.post()
+            if self.device.type == "cuda":
+                self._cache().stats.eager_calls += 1
         self._cache().stats.x_passes_run += self.prog.init_passes + steps * self.prog.step_passes
         return tuple(t.clone() for t in out)
 
@@ -522,18 +540,21 @@ class SolveCache:
         entries: Dict = {}
 
         def solve(w0: Tensor, lb) -> OptimizeResult:
-            X, label = lb.features, lb.label
+            X, label, rows = lb.features, lb.label, lb.rows
             # X's tensors (a sparse X's indices, values and plan) and the
-            # label are read in place: keyed by identity and signature.
+            # label are read in place: keyed by identity and signature; a
+            # rows-sharded batch also by its layout and mesh.
             xs = X.tensors() if isinstance(X, SparseFeatures) else (X,)
             key = base + tuple(("id", id(t)) for t in xs + (label,)) + tuple(
-                _sig(t) for t in xs + (label, lb.weight, lb.offset, w0))
+                _sig(t) for t in xs + (label, lb.weight, lb.offset, w0)) + (
+                None if rows is None else (rows, ("id", id(rows.mesh))),)
             inputs = dict(w0=w0, weight=lb.weight, offset=lb.offset)
 
             def build():
                 slots = self._slots_for(inputs)
                 t = {k: v.t for k, v in slots.items()}
-                prog = fe_program(objective, spec, t["w0"], LabeledBatch(label, X, t["offset"], t["weight"]), config)
+                prog = fe_program(objective, spec, t["w0"], LabeledBatch(label, X, t["offset"], t["weight"], rows),
+                                  config)
 
                 def post():
                     res = prog.result()
@@ -542,11 +563,15 @@ class SolveCache:
                             torch.where(ok, res.reason_code, REASON_DIVERGED).to(torch.int32), res.loss_history,
                             res.grad_norm_history, res.evals)
 
-                entry = _Entry(self, prog, slots, post, chunk_of(prog, True), inputs, weights)
+                # A rows-sharded solve's all-reduces are in its steps: NCCL's
+                # are captured with them, gloo's cannot be (the solve runs
+                # eagerly, its route logged and counted).
+                entry = _Entry(self, prog, slots, post, chunk_of(prog, True), inputs, weights,
+                               capturable=rows is None or rows.capturable)
                 entry.eval_unit = prog.eval_unit
                 return entry
 
-            entry = self._dispatch(entries, key, weights, build, (objective, spec, X, label) + xs,
+            entry = self._dispatch(entries, key, weights, build, (objective, spec, X, label, rows) + xs,
                                    ("fe", int(w0.shape[0])))
             return OptimizeResult(*entry(inputs, weights), eval_unit=entry.eval_unit)
 

@@ -203,6 +203,10 @@ class LabeledBatch:
     features: Features
     offset: Optional[Tensor] = None
     weight: Optional[Tensor] = None
+    # A rows-sharded batch's layout (parallel/distributed.py::RowShards):
+    # these are one rank's rows, and the objective's sums reduce over the
+    # mesh. None: the whole batch.
+    rows: Optional[object] = None
 
     def __post_init__(self):
         n = self.label.shape[0]
@@ -233,7 +237,7 @@ class LabeledBatch:
         return matvec(self.features, w) + self.offset
 
     def with_offset(self, offset: Tensor) -> "LabeledBatch":
-        return LabeledBatch(self.label, self.features, offset, self.weight)
+        return LabeledBatch(self.label, self.features, offset, self.weight, self.rows)
 
     def add_scores_to_offsets(self, scores: Tensor) -> "LabeledBatch":
         return self.with_offset(self.offset + scores)

@@ -82,7 +82,12 @@ class GameEstimator:
     ``intercept_indices`` and ``normalization`` are per feature shard;
     ``num_entities`` per random-effect type. ``solve_cache`` is the cache
     every coordinate dispatches through (None: the shared one, released at
-    the end of each ``fit``)."""
+    the end of each ``fit``). With ``mesh`` (parallel/mesh.py; every rank
+    calls ``fit`` with the whole batch) the fit is SPMD over the mesh's
+    ranks: each fixed effect trains on this rank's rows with its sums
+    reduced over the mesh, and each random effect is entity-sharded over the
+    ranks (algorithm/sharded_random_effect.py, the byte budget per shard);
+    every rank ends with the same model."""
 
     def __init__(
         self,
@@ -102,8 +107,10 @@ class GameEstimator:
         re_spill_dir: Optional[str] = None,
         re_spill_member: Optional[str] = None,
         solve_cache: Optional[SolveCache] = None,
+        mesh=None,
     ):
         self.task = task
+        self.mesh = mesh
         self.coordinate_configs = list(coordinate_configs)
         self.num_iterations = num_iterations
         self.intercept_indices = intercept_indices or {}
@@ -149,8 +156,19 @@ class GameEstimator:
                     down_sampler=down_sampler_for_task(self.task, rate) if rate is not None and rate < 1.0 else None,
                     compute_variance=self._variance_type(cfg),
                     dim=batch.features[cfg.feature_shard].shape[1], device=batch.label.device,
-                    solve_cache=self.solve_cache,
+                    solve_cache=self.solve_cache, mesh=self.mesh,
                 )
+            elif isinstance(cfg, RandomEffectCoordinateConfig) and self.mesh is not None:
+                from photon_tpu_torch.algorithm.sharded_random_effect import ShardedRandomEffectCoordinate
+
+                plan, datasets, data_cfg, dim = self._re_datasets[cfg.coordinate_id]
+                coords[cfg.coordinate_id] = ShardedRandomEffectCoordinate.from_datasets(
+                    cfg.coordinate_id, plan, datasets, dim, data_cfg, self.task, objective, cfg.optimizer_spec(),
+                    mesh=self.mesh, device=batch.label.device, solve_cache=self.solve_cache,
+                    active_set=bool(cfg.active_set or self.re_active_set),
+                    convergence_tol=(cfg.convergence_tol if cfg.convergence_tol is not None
+                                     else self.re_convergence_tol),
+                    device_budget_bytes=self.re_device_budget_bytes, device_spill_dir=self.re_spill_dir)
             elif isinstance(cfg, RandomEffectCoordinateConfig):
                 coords[cfg.coordinate_id] = RandomEffectCoordinate(
                     coordinate_id=cfg.coordinate_id, dataset=self._re_datasets[cfg.coordinate_id],
@@ -197,12 +215,25 @@ class GameEstimator:
                     src = _existing_entity_mask(prev_model)
                     k = min(E, src.shape[0])
                     existing[:k] = src[:k]
+            data_cfg = RandomEffectDataConfig(
+                re_type=cfg.re_type, feature_shard=cfg.feature_shard,
+                active_upper_bound=cfg.active_upper_bound, active_lower_bound=cfg.active_lower_bound,
+                features_to_samples_ratio=cfg.features_to_samples_ratio)
+            if self.mesh is not None:
+                from photon_tpu_torch.algorithm.sharded_random_effect import owned_shards, shard_datasets
+                from photon_tpu_torch.parallel.entity_shard import build_shard_plan
+
+                # Every rank builds the same plan and only its own shards.
+                plan = build_shard_plan(E)
+                datasets = shard_datasets(plan, owned_shards(plan, self.mesh), eids, x, host["label"],
+                                          host["weight"], data_cfg, batch.label.device, uid=host.get("uid"),
+                                          existing_model_mask=existing)
+                self._re_datasets[cfg.coordinate_id] = (plan, datasets, data_cfg,
+                                                        feats.dim if isinstance(feats, SparseFeatures)
+                                                        else feats.shape[1])
+                continue
             self._re_datasets[cfg.coordinate_id] = build_random_effect_dataset(
-                eids, x, host["label"], host["weight"], E,
-                RandomEffectDataConfig(
-                    re_type=cfg.re_type, feature_shard=cfg.feature_shard,
-                    active_upper_bound=cfg.active_upper_bound, active_lower_bound=cfg.active_lower_bound,
-                    features_to_samples_ratio=cfg.features_to_samples_ratio),
+                eids, x, host["label"], host["weight"], E, data_cfg,
                 uid=host.get("uid"),
                 existing_model_mask=existing, device=batch.label.device,
             )

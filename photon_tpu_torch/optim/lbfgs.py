@@ -39,7 +39,7 @@ from photon_tpu_torch.optim.common import (
     record,
 )
 from photon_tpu_torch.optim.linesearch import wolfe_alpha, wolfe_result, wolfe_running, wolfe_start, wolfe_update
-from photon_tpu_torch.optim.problem import CallableOracle, dot
+from photon_tpu_torch.optim.problem import LOCAL_SPACE, CallableOracle, dot
 from photon_tpu_torch.optim.program import EAGER_CHUNK, Commit, Program, lanewise, run_chunked
 
 Tensor = torch.Tensor
@@ -55,12 +55,13 @@ def _at(H: Tensor, slot: Tensor) -> Tensor:
 
 
 def two_loop_direction(grad: Tensor, s_hist: Tensor, y_hist: Tensor, rho_hist: Tensor,
-                       num_stored, head) -> Tensor:
+                       num_stored, head, dot=dot) -> Tensor:
     """Search direction −H·grad from circular histories: grad (..., d),
     s_hist/y_hist (..., m, d), rho_hist (..., m); ``head`` (...) is the slot
     of the most recent pair and ``num_stored`` (...) the filled count, host
     or device ints. As in the reference, every one of the m slots is
-    visited and the unfilled ones are masked, so nothing is read back."""
+    visited and the unfilled ones are masked, so nothing is read back.
+    ``dot``: the space's dot product (a feature-sharded space reduces it)."""
     m = s_hist.shape[-2]
     device = grad.device
     lead = grad.shape[:-1]
@@ -104,8 +105,8 @@ class CurvatureHistory:
         for t in (self.s, self.y, self.rho, self.num_stored, self.head):
             t.zero_()
 
-    def direction(self, g: Tensor) -> Tensor:
-        return two_loop_direction(g, self.s, self.y, self.rho, self.num_stored, self.head)
+    def direction(self, g: Tensor, dot=dot) -> Tensor:
+        return two_loop_direction(g, self.s, self.y, self.rho, self.num_stored, self.head, dot)
 
     def push(self, s: Tensor, y: Tensor, sy: Tensor, lanes=True) -> None:
         """Store the pair of every lane in ``lanes`` whose s·y > 1e-12."""
@@ -126,12 +127,15 @@ _START, _SEARCH, _FINAL = 0, 1, 2
 class LBFGS(Program):
     """Gradient-form L-BFGS over an oracle (optim/problem.py) from ``w0``
     (lanes, d), optionally inside ``box`` (lower, upper). ``evals`` counts
-    objective evaluations per lane."""
+    objective evaluations per lane. ``space``: the dots and norms of w's
+    space (optim/problem.py::LocalSpace; a feature-sharded solve reduces
+    them over the mesh)."""
 
     step_passes = 1
 
-    def __init__(self, oracle, w0: Tensor, config: OptimizerConfig = OptimizerConfig(), box: Box = None):
-        self.oracle, self.w0, self.config, self.box = oracle, w0, config, box
+    def __init__(self, oracle, w0: Tensor, config: OptimizerConfig = OptimizerConfig(), box: Box = None,
+                 space=LOCAL_SPACE):
+        self.oracle, self.w0, self.config, self.box, self.space = oracle, w0, config, box, space
         self.l2 = oracle.l2
         lanes, d, dtype, device = tuple(w0.shape[:-1]), w0.shape[-1], w0.dtype, w0.device
         # An iteration is its search's trials and the evaluation of its point.
@@ -154,7 +158,7 @@ class LBFGS(Program):
 
     def _gnorm(self, w: Tensor, g: Tensor) -> Tensor:
         """The gradient norm, or the projected-gradient norm under a box."""
-        return torch.linalg.norm(g if self.box is None else w - self._proj(w - g), dim=-1)
+        return self.space.norm(g if self.box is None else w - self._proj(w - g))
 
     def _lanes(self) -> Tensor:
         S = self.s
@@ -178,7 +182,7 @@ class LBFGS(Program):
         self.hist.reset()
 
     def step(self) -> None:
-        S, cfg, box = self.s, self.config, self.box
+        S, cfg, box, dot = self.s, self.config, self.box, self.space.dot
         run = self._lanes()
         w, f, g = S["w"], S["f"], S["g"]
 
@@ -189,14 +193,14 @@ class LBFGS(Program):
             eps = 1e-9
             frozen = ((w <= box[0] + eps) & (g > 0)) | ((w >= box[1] - eps) & (g < 0))
             g_dir = torch.where(frozen, 0.0, g)
-        p = self.hist.direction(g_dir)
+        p = self.hist.direction(g_dir, dot)
         if box is not None:
             p = torch.where(frozen, 0.0, p)
         dg0 = dot(p, g)
         bad = dg0 >= 0  # not a descent direction: (projected) steepest descent
         p = torch.where(lanewise(bad, p), -g_dir, p)
         dg0 = torch.where(bad, -dot(g_dir, g_dir), dg0)
-        first = torch.clamp(1.0 / torch.clamp(torch.linalg.norm(g, dim=-1), min=1e-12), max=1.0)
+        first = torch.clamp(1.0 / torch.clamp(self.space.norm(g), min=1e-12), max=1.0)
         init_alpha = torch.where(self.hist.num_stored == 0, first, torch.ones_like(first)).to(w.dtype)
         Commit(run & (S["phase"] == _START)).update(S, dict(
             p=p, dg0=dg0, ls=wolfe_start(f, dg0, init_alpha, self.true),
@@ -222,7 +226,7 @@ class LBFGS(Program):
                                          _FINAL).to(torch.int32)))
 
         # --- the end of the iteration at the accepted point ---
-        finite = torch.isfinite(f_x) & torch.isfinite(x).all(-1) & torch.isfinite(g_x).all(-1)
+        finite = torch.isfinite(f_x) & self.space.all_finite(x) & self.space.all_finite(g_x)
         keep = lambda new, old: torch.where(lanewise(finite, old), new, old)  # noqa: E731
         w_new, f_new, g_new = keep(x, w), keep(f_x, f), keep(g_x, g)
         s, y = w_new - w, g_new - g
@@ -250,11 +254,14 @@ def minimize_lbfgs(
     w0: Tensor,
     config: OptimizerConfig = OptimizerConfig(),
     box: Box = None,
+    space=LOCAL_SPACE,
 ) -> OptimizeResult:
     """Minimize a smooth function with L-BFGS, optionally inside a box
     (lower, upper). ``result.evals`` counts objective evaluations. Runs the
-    program eagerly, EAGER_CHUNK steps between host reads."""
-    prog = LBFGS(CallableOracle(value_and_grad), w0, config, box)
+    program eagerly, EAGER_CHUNK steps between host reads. ``space``: w's
+    (a feature-sharded solve's reduces over the mesh,
+    parallel/feature_sharded.py)."""
+    prog = LBFGS(CallableOracle(value_and_grad), w0, config, box, space)
     run_chunked(prog, EAGER_CHUNK)
     return prog.result()
 

@@ -23,7 +23,9 @@ A part that does not apply runs and keeps nothing. The solve cache
 ``minimize_lbfgs_margin`` runs the same steps eagerly, K between reads of
 the loop flag. The L2 weight is a device scalar (``l2``) the steps read, so
 one captured solve serves every weight (the solve cache fills it per
-solve). ``sweep_l2_lbfgs_margin`` solves one batch against k L2 weights as
+solve). On a rows-sharded batch the trials' sums over rows reduce over
+the mesh with the terms' other sums (GLMTerms.value_slope, one all-reduce a
+trial). ``sweep_l2_lbfgs_margin`` solves one batch against k L2 weights as
 k lanes of one program over the shared X, one weight a lane.
 """
 
@@ -110,7 +112,8 @@ class MarginLBFGS(Program):
             val, g, z = T.value_grad(w, margins=True)
         else:
             z = T.forward(w) + T.offset if z_carried is None else z_carried
-            val, g = T.data_value(z).to(self.dtype), T.transpose(T.dz(z)).to(self.dtype)
+            val, g = T.point(z)
+            val, g = val.to(self.dtype), g.to(self.dtype)
         if self.reg.on:
             g = g + self.reg.grad(w)
         return val + self.reg.value(w), g, z
@@ -171,8 +174,9 @@ class MarginLBFGS(Program):
             t = Commit(run & wolfe_running(ls, max_evals))
             a = wolfe_alpha(ls)
             za = z + lanewise(a, z) * u
-            val = T.data_value(za) + f_l2 + a * l2_a + 0.5 * a * a * l2_b
-            deriv = dot(u, T.dz(za)) + l2_a + a * l2_b
+            val, slope = T.value_slope(za, u)
+            val = val + f_l2 + a * l2_a + 0.5 * a * a * l2_b
+            deriv = slope + l2_a + a * l2_b
             t.set(ls, wolfe_update(ls, val, deriv, f, dg0))
 
         # --- finish: the second X pass, the history, the convergence test ---

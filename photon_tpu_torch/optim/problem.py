@@ -49,6 +49,49 @@ def dot(a: Tensor, b: Tensor) -> Tensor:
     return torch.sum(a * b, dim=-1)
 
 
+class LocalSpace:
+    """The coefficient space of a solver program whose w is whole on every
+    device: its dots, norms and finiteness tests over the last axis. A
+    feature-sharded solve (parallel/feature_sharded.py) gives its programs
+    one that reduces each over the mesh's feature axis."""
+
+    @staticmethod
+    def dot(a: Tensor, b: Tensor) -> Tensor:
+        return dot(a, b)
+
+    @staticmethod
+    def norm(a: Tensor) -> Tensor:
+        return torch.linalg.norm(a, dim=-1)
+
+    @staticmethod
+    def all_finite(a: Tensor) -> Tensor:
+        return torch.isfinite(a).all(-1)
+
+
+LOCAL_SPACE = LocalSpace()
+
+
+class WholeRows:
+    """The row layout of a batch that is not rows-sharded: one shard, the
+    whole batch (parallel/distributed.py::RowShards is a sharded one's)."""
+
+    @staticmethod
+    def split(t: Tensor) -> list:
+        return [t]
+
+    @staticmethod
+    def split_rows(t) -> list:
+        return [t]
+
+
+WHOLE_ROWS = WholeRows()
+
+
+def _cat(parts: list) -> Tensor:
+    """Per-shard per-row tensors joined along the rows (last) axis."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
 class L2Term:
     """½·l2·‖c∘w‖² over the last axis of w: ``l2`` a device scalar the
     programs' steps read (the solve cache fills it per solve, so one captured
@@ -99,6 +142,10 @@ class GLMTerms:
     fused: bool = False
     source: Optional[Tensor] = None
     col_mask: Optional[Tensor] = None
+    # A rows-sharded batch's layout (parallel/distributed.py::RowShards):
+    # every sum over rows is taken a row shard at a time and reduced over
+    # the mesh, one all-reduce a pass. None: the whole batch, one shard.
+    rows: Optional[object] = None
 
     @staticmethod
     def of_batch(objective, batch: LabeledBatch) -> "GLMTerms":
@@ -107,7 +154,7 @@ class GLMTerms:
         folded = norm is not None and not norm.is_identity
         return GLMTerms(objective.loss, batch.features, batch.label, batch.weight, batch.offset,
                         norm.factors if folded else None, norm.shifts if folded else None,
-                        objective._can_fuse(batch))
+                        objective._can_fuse(batch), rows=batch.rows)
 
     @staticmethod
     def of_block(objective, block, offsets: Tensor, col_mask: Optional[Tensor] = None) -> "GLMTerms":
@@ -136,35 +183,74 @@ class GLMTerms:
 
     # --- the linear map and its transpose ---
 
-    def forward(self, v: Tensor, rounded: bool = False) -> Tensor:
-        """A·v: (lanes, d) → (lanes, n). ``rounded``: a bf16 X takes v rounded
-        to bf16 with an f32 product (margin L-BFGS's direction pass)."""
+    def _forward(self, X, v: Tensor, rounded: bool) -> Tensor:
         ev = v if self.factors is None else v * self.factors
         if self.blocked:
             # Candidate lanes (q, E, d) over the shared block: one product.
-            u = (torch.bmm(self.X, ev.permute(1, 2, 0)).permute(2, 0, 1) if ev.dim() == 3
-                 else torch.bmm(self.X, ev[:, :, None])[:, :, 0])
+            u = (torch.bmm(X, ev.permute(1, 2, 0)).permute(2, 0, 1) if ev.dim() == 3
+                 else torch.bmm(X, ev[:, :, None])[:, :, 0])
         else:
-            u = matvec_rounded(self.X, ev) if rounded else matvec(self.X, ev)
+            u = matvec_rounded(X, ev) if rounded else matvec(X, ev)
         return u if self.shifts is None else u - dot(ev, self.shifts)[..., None]
 
-    def transpose(self, r: Tensor) -> Tensor:
-        """Aᵀ·r: (lanes, n) → (lanes, d)."""
+    def forward(self, v: Tensor, rounded: bool = False) -> Tensor:
+        """A·v: (lanes, d) → (lanes, n). ``rounded``: a bf16 X takes v rounded
+        to bf16 with an f32 product (margin L-BFGS's direction pass). Rows
+        sharded: a product a row shard, so that a row's margin never depends
+        on how many shards a rank holds."""
+        return _cat([self._forward(X, v, rounded) for X in self._layout.split_rows(self.X)])
+
+    def _transpose(self, X, r: Tensor) -> Tensor:
         if self.blocked:
-            g = torch.einsum("bnd,qbn->qbd" if r.dim() == 3 else "bnd,bn->bd", self.X, r)
+            g = torch.einsum("bnd,qbn->qbd" if r.dim() == 3 else "bnd,bn->bd", X, r)
         else:
-            g = rmatvec(self.X, r)
+            g = rmatvec(X, r)
         if self.shifts is not None:
             g = g - torch.sum(r, dim=-1, keepdim=True) * self.shifts
         return g if self.factors is None else g * self.factors
 
+    def transpose(self, r: Tensor) -> Tensor:
+        """Aᵀ·r: (lanes, n) → (lanes, d)."""
+        L = self._layout
+        return self._reduced([self._transpose(X, ri) for X, ri in zip(L.split_rows(self.X), L.split(r))])[0]
+
+    @property
+    def _layout(self):
+        return WHOLE_ROWS if self.rows is None else self.rows
+
+    def _reduced(self, *per_shard) -> list:
+        """Sums over every row shard of the job of several partials, in ONE
+        all-reduce: ``per_shard[j]`` holds this rank's partials of sum j,
+        one a shard it owns; each sum keeps its partials' dtype and shape.
+        The whole batch is one shard: its partials are the sums."""
+        firsts = [p[0] for p in per_shard]
+        if self.rows is None:
+            return firsts
+        dt = firsts[0].dtype
+        for t in firsts[1:]:
+            dt = torch.promote_types(dt, t.dtype)
+        packs = [torch.cat([p.reshape(-1).to(dt) for p in shard]) for shard in zip(*per_shard)]
+        total = self.rows.sum_parts(packs)
+        out, at = [], 0
+        for t in firsts:
+            k = t.numel()
+            out.append(total[at:at + k].reshape(t.shape).to(t.dtype))
+            at += k
+        return out
+
     # --- pointwise terms of the margins z ---
 
-    def data_value(self, z: Tensor) -> Tensor:
+    def _data_value(self, z: Tensor, weight: Tensor, label: Tensor) -> Tensor:
         # Summed in f64 and rounded once, so the value does not depend on the
         # CPU's vector width: near the optimum TRON's decrease is an ulp or
         # two of f, and a summation order must not decide its ratio test.
-        return torch.sum(self.weight * self.loss.value(z, self.label), dim=-1, dtype=torch.float64).to(z.dtype)
+        return torch.sum(weight * self.loss.value(z, label), dim=-1, dtype=torch.float64)
+
+    def data_value(self, z: Tensor) -> Tensor:
+        L = self._layout
+        parts = [self._data_value(zi, wi, yi) for zi, wi, yi in zip(L.split(z), L.split(self.weight),
+                                                                  L.split(self.label))]
+        return self._reduced(parts)[0].to(z.dtype)
 
     def dz(self, z: Tensor) -> Tensor:
         return self.weight * self.loss.dz(z, self.label)
@@ -173,28 +259,55 @@ class GLMTerms:
         """d2 = weight·loss″(z), the Hessian's per-sample multiplier."""
         return self.weight * self.loss.dzz(z, self.label)
 
+    def _shards(self, *per_row: Tensor):
+        """(X, and each per-row tensor of ``per_row`` and of the terms' label,
+        weight and offset) a row shard at a time."""
+        L = self._layout
+        cols = [L.split_rows(self.X)] + [L.split(t) for t in per_row + (self.label, self.weight, self.offset)]
+        return zip(*cols)
+
+    def point(self, z: Tensor):
+        """(data value, Aᵀ·dz) at the margins z (the margin L-BFGS's point
+        from carried margins)."""
+        parts = [(self._data_value(zi, wi, yi), self._transpose(X, wi * self.loss.dz(zi, yi)))
+                 for X, zi, yi, wi, _o in self._shards(z)]
+        val, g = self._reduced(*zip(*parts))
+        return val.to(z.dtype), g
+
+    def value_slope(self, za: Tensor, u: Tensor):
+        """(data value at the trial margins za, Σ u·dz(za)): a line-search
+        trial of the margin L-BFGS."""
+        parts = [(self._data_value(zi, wi, yi), dot(ui, wi * self.loss.dz(zi, yi)))
+                 for _X, zi, ui, yi, wi, _o in self._shards(za, u)]
+        val, slope = self._reduced(*zip(*parts))
+        return val.to(za.dtype), slope
+
     # --- one X pass each ---
+
+    def _fused_value_grad(self, X, ew, label, offset, weight, enable, margins):
+        return fused_value_grad(self.loss, ew, X, label, offset, weight, return_margins=margins, enable=enable)
 
     def value_grad(self, w: Tensor, enable: Optional[Tensor] = None, margins: bool = False):
         """(value, gradient, margins or None) at w; the gradient in w's dtype."""
         if self.fused:
             ew = w if self.factors is None else w * self.factors
-            out = fused_value_grad(self.loss, ew, self.X, self.label, self.offset, self.weight,
-                                   return_margins=margins, enable=enable)
-            val, g = out[0], out[1]
+            outs = [self._fused_value_grad(X, ew, yi, oi, wi, enable, margins) for X, yi, wi, oi in self._shards()]
+            val, g = self._reduced([o[0] for o in outs], [o[1] for o in outs])
             if self.factors is not None:
                 g = g * self.factors
-            return val.to(w.dtype), g.to(w.dtype), out[2] if margins else None
+            return val.to(w.dtype), g.to(w.dtype), _cat([o[2] for o in outs]) if margins else None
         z = self.forward(w) + self.offset
-        return self.data_value(z).to(w.dtype), self.transpose(self.dz(z)).to(w.dtype), z
+        val, g = self.point(z)
+        return val.to(w.dtype), g.to(w.dtype), z
 
     def hvp(self, d2: Tensor, v: Tensor, enable: Optional[Tensor] = None) -> Tensor:
         """Aᵀ·(d2 ∘ A·v)."""
         if self.fused:
             ev = v if self.factors is None else v * self.factors
-            out = fused_hvp(ev, self.X, d2, enable=enable)
+            out = self._reduced([fused_hvp(ev, X, di, enable=enable) for X, di, *_r in self._shards(d2)])[0]
             return (out if self.factors is None else out * self.factors).to(v.dtype)
-        return self.transpose(d2 * self.forward(v)).to(v.dtype)
+        parts = [self._transpose(X, di * self._forward(X, v, False)) for X, di, *_r in self._shards(d2)]
+        return self._reduced(parts)[0].to(v.dtype)
 
     def tron_pass(self, q: Tensor, trial: Tensor, d2: Tensor, enable: Optional[Tensor] = None):
         """One X pass at q: (value, gradient, margins) where ``trial`` (one
@@ -206,13 +319,24 @@ class GLMTerms:
             off = 1 - on
             if enable is not None:
                 on, off = on * enable, off * enable
-            val, g, z = self.value_grad(q, on, margins=True)
-            hv = self.hvp(d2, q, off)
-            return val, torch.where(trial, g, hv), z
+            eq = q if self.factors is None else q * self.factors
+            vals, outs, zs = [], [], []
+            for X, di, yi, wi, oi in self._shards(d2):
+                v_i, g_i, z_i = self._fused_value_grad(X, eq, yi, oi, wi, on, True)
+                vals.append(v_i)
+                outs.append(torch.where(trial, g_i, fused_hvp(eq, X, di, enable=off)))
+                zs.append(z_i)
+            val, out = self._reduced(vals, outs)
+            if self.factors is not None:
+                out = out * self.factors
+            return val.to(q.dtype), out.to(q.dtype), _cat(zs)
         u = self.forward(q)
         z = u + self.offset
         t = torch.where(trial[..., None], self.dz(z), d2 * u)
-        return self.data_value(z).to(q.dtype), self.transpose(t).to(q.dtype), z
+        parts = [(self._data_value(zi, wi, yi), self._transpose(X, ti))
+                 for X, zi, ti, yi, wi, _o in self._shards(z, t)]
+        val, out = self._reduced(*zip(*parts))
+        return val.to(q.dtype), out.to(q.dtype), z
 
 
 class GLMOracle:

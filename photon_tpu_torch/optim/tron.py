@@ -38,7 +38,7 @@ from photon_tpu_torch.optim.common import (
     project_to_box,
     record,
 )
-from photon_tpu_torch.optim.problem import CallableOracle, dot
+from photon_tpu_torch.optim.problem import LOCAL_SPACE, CallableOracle
 from photon_tpu_torch.optim.program import EAGER_CHUNK, Commit, Program, lanewise, run_chunked
 
 Tensor = torch.Tensor
@@ -55,13 +55,15 @@ _CG, _TRIAL, _RHO = 0, 1, 2
 class TRON(Program):
     """TRON over an oracle (optim/problem.py) from ``w0`` (lanes, d), one X
     pass a step. ``box`` (lower, upper) bounds the coefficients by
-    projection of the start and of every trial point."""
+    projection of the start and of every trial point. ``space``: the dots
+    and norms of w's space (optim/problem.py::LocalSpace)."""
 
     step_passes = 1
 
     def __init__(self, oracle, w0: Tensor, config: OptimizerConfig = TRON_DEFAULT_CONFIG, max_cg_iter: int = 20,
-                 box: Optional[Tuple[Tensor, Tensor]] = None):
+                 box: Optional[Tuple[Tensor, Tensor]] = None, space=LOCAL_SPACE):
         self.oracle, self.w0, self.config, self.max_cg, self.box = oracle, w0, config, max_cg_iter, box
+        self.space = space
         self.l2 = oracle.l2
         self.max_steps = config.max_iter * (max_cg_iter + 2)
         lanes, dtype, device = tuple(w0.shape[:-1]), w0.dtype, w0.device
@@ -90,7 +92,7 @@ class TRON(Program):
         s = 0, r = p = −g; a lane whose CG would not run goes to its trial."""
         S = self.s
         g = S["g"]
-        gn = torch.linalg.norm(g, dim=-1)
+        gn = self.space.norm(g)
         cg_tol = 0.1 * gn
         runs = (gn > cg_tol) & (self.max_cg > 0)
         Commit(lanes).update(S, dict(cg_s=torch.zeros_like(g), cg_r=-g, cg_p=-g, cg_it=torch.zeros_like(S["cg_it"]),
@@ -100,7 +102,7 @@ class TRON(Program):
         S, cfg = self.s, self.config
         w = project_to_box(self.w0, self.box)
         f, g, curv = self.oracle.tron_pass(w, self.true, S["curv"])
-        g0_norm = torch.linalg.norm(g, dim=-1)
+        g0_norm = self.space.norm(g)
         for k, v in dict(w=w, f=f, g=g, curv=curv, delta=g0_norm, g0_norm=g0_norm,
                          loss_hist=new_history(cfg, f), gnorm_hist=new_history(cfg, g0_norm)).items():
             S[k].copy_(v)
@@ -110,7 +112,7 @@ class TRON(Program):
         self._begin_cg(self.true)
 
     def step(self) -> None:
-        S, cfg = self.s, self.config
+        S, cfg, dot, norm = self.s, self.config, self.space.dot, self.space.norm
         run = self._lanes()
         phase = S["phase"]
         cg, trial, rho_lanes = run & (phase == _CG), run & (phase == _TRIAL), run & (phase == _RHO)
@@ -128,12 +130,12 @@ class TRON(Program):
         ss, sp, pp = dot(s, s), dot(s, p), dot(p, p)
         disc = torch.sqrt(torch.clamp(sp * sp + pp * (delta * delta - ss), min=0.0))
         tau = (disc - sp) / torch.clamp(pp, min=1e-30)
-        outside = (torch.linalg.norm(s_next, dim=-1) >= delta) | (pHp <= 0)
+        outside = (norm(s_next) >= delta) | (pHp <= 0)
         s_new = torch.where(lanewise(outside, s), s + lanewise(tau, s) * p, s_next)
         r_new = torch.where(lanewise(outside, r), r, r - lanewise(alpha, r) * out)
         beta = dot(r_new, r_new) / torch.clamp(rr, min=1e-30)
         cg_it = S["cg_it"] + 1
-        more = ~outside & (cg_it < self.max_cg) & (torch.linalg.norm(r_new, dim=-1) > S["cg_tol"])
+        more = ~outside & (cg_it < self.max_cg) & (norm(r_new) > S["cg_tol"])
         Commit(cg).update(S, dict(cg_s=s_new, cg_r=r_new, cg_p=r_new + lanewise(beta, p) * p, cg_it=cg_it,
                                   phase=torch.where(more, _CG, _TRIAL).to(torch.int32)))
 
@@ -145,7 +147,7 @@ class TRON(Program):
         f_t = S["f_t"]
         pred = -(dot(g, s_eff) + 0.5 * dot(s_eff, out))
         rho = (f - f_t) / torch.clamp(pred, min=1e-30)
-        snorm = torch.linalg.norm(s_eff, dim=-1)
+        snorm = norm(s_eff)
         accept = (rho > ETA0) & (pred > 0)
         delta_new = torch.where(
             rho < ETA1,
@@ -155,7 +157,7 @@ class TRON(Program):
         keep = lambda new, old: torch.where(lanewise(accept, old), new, old)  # noqa: E731
         f_new, g_new = keep(f_t, f), keep(S["g_t"], g)
         it = S["it"] + 1
-        gn = torch.linalg.norm(g_new, dim=-1)
+        gn = norm(g_new)
         reason = torch.where(
             accept,
             check_convergence(f_new, f, gn, S["g0_norm"], cfg.tol, it, cfg.max_iter),
@@ -169,7 +171,7 @@ class TRON(Program):
 
     def finish(self) -> None:
         S = self.s
-        self.out = finish_result(S["w"], S["f"], torch.linalg.norm(S["g"], dim=-1), S["it"], S["reason"],
+        self.out = finish_result(S["w"], S["f"], self.space.norm(S["g"]), S["it"], S["reason"],
                                  S["loss_hist"], S["gnorm_hist"], S["evals"])
 
     def result(self) -> OptimizeResult:

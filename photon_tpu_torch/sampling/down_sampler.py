@@ -42,7 +42,7 @@ class DownSampler:
     def apply(self, batch: LabeledBatch) -> LabeledBatch:
         keep = self._keep(batch, 0)
         new_w = torch.where(keep, batch.weight / self.rate, 0.0)
-        return LabeledBatch(batch.label, batch.features, batch.offset, new_w)
+        return LabeledBatch(batch.label, batch.features, batch.offset, new_w, batch.rows)
 
 
 @dataclasses.dataclass
@@ -59,7 +59,7 @@ class BinaryClassificationDownSampler(DownSampler):
         keep = self._keep(batch, 1)
         is_neg = batch.label <= 0
         new_w = torch.where(is_neg, torch.where(keep, batch.weight / self.rate, 0.0), batch.weight)
-        return LabeledBatch(batch.label, batch.features, batch.offset, new_w)
+        return LabeledBatch(batch.label, batch.features, batch.offset, new_w, batch.rows)
 
 
 def down_sampler_for_task(task: TaskType, rate: float, seed: int = 0) -> DownSampler:

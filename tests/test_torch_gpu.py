@@ -947,3 +947,58 @@ def test_budgeted_capture_runs_beside_the_upload_thread(cuda_device):
     # may come after it has uploaded everything and ended).
     assert sum(beside) >= len(beside) // 2 > 0
     assert logs[0] == logs[1] and logs[0]
+
+
+def _ranks():
+    import torch_ranks
+    from photon_tpu_torch.utils.virtual_devices import run_ranks
+
+    return torch_ranks, run_ranks
+
+
+def test_nccl_refuses_two_ranks_on_one_card(cuda_device):
+    torch_ranks, run_ranks = _ranks()
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match="NCCL"):
+        run_ranks(torch_ranks.report_rank, n, backend="nccl")
+
+
+def test_rows_sharded_fixed_effect_on_card(cuda_device):
+    """A rows-sharded fixed effect on one NCCL rank (captured, its all-reduce
+    in the graph) and on 2 gloo ranks sharing the card (eager): the same
+    coefficients bit for bit (8 row shards summed in one order), K1 and K2
+    run on every rank."""
+    torch_ranks, run_ranks = _ranks()
+    one = run_ranks(torch_ranks.card_rows_program, 1, backend="nccl", device="cuda", timeout_s=120.0)
+    two = run_ranks(torch_ranks.card_rows_program, 2, backend="gloo", device="cuda:0", timeout_s=120.0)
+    assert one[0]["routes"] == ["captured", "captured"]
+    assert all(r["routes"] == ["eager: its collectives cannot be captured"] * 2 for r in two)
+    for r in one + two:
+        assert r["ran"]["fused_value_grad"] > 0 and r["ran"]["fused_hvp"] > 0
+        for k in ("lbfgs", "tron"):
+            assert (r[k] == one[0][k]).all(), k
+
+
+def test_entity_sharded_on_card_bitwise_across_ranks(cuda_device):
+    """The entity-sharded coordinate on one NCCL rank and on 2 and 4 gloo
+    ranks sharing the card: bitwise the same, K3 on every rank, no capture
+    after the first pass."""
+    torch_ranks, run_ranks = _ranks()
+    runs = [run_ranks(torch_ranks.card_entity_program, 1, backend="nccl", device="cuda", timeout_s=120.0)]
+    runs += [run_ranks(torch_ranks.card_entity_program, n, backend="gloo", device="cuda:0", timeout_s=120.0)
+             for n in (2, 4)]
+    base = runs[0][0]["coefs"]
+    for rs in runs:
+        for r in rs:
+            assert (r["coefs"] == base).all() and r["marks"][1:] == [0, 0]
+            assert r["ran"]["newton_system"] > 0
+
+
+def test_mesh_defaults_to_the_ranks_card(cuda_device):
+    """Gloo ranks that joined on the card and build their mesh with no
+    device: the mesh, the placed inputs and every output of the sharded
+    GLMix step are on the card."""
+    torch_ranks, run_ranks = _ranks()
+    for r in run_ranks(torch_ranks.card_default_mesh_program, 2, backend="gloo", device="cuda:0", timeout_s=120.0):
+        assert r["mesh"] == "cuda:0"
+        assert r["placed"] == ["cuda:0"] * 3 and r["outs"] == ["cuda:0"] * 5
