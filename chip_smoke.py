@@ -259,6 +259,9 @@ PARITY_TOL = 1e-5
 # GLMix on the card (f32, kernels) vs the port's plain path in float64 on
 # the CPU, small input: scores, relative to max |score|.
 REFERENCE_TOL = 2e-3
+# 10a's scatter cut copy: its f32 objective where it stopped against the
+# float64 path's after the full iterations (~12 ulps of an f32 objective).
+CUT_OBJECTIVE_TOL = 1e-6
 # Phase 10 (the sparse wide fixed effect). 10a: bench_configs.py config 6
 # (:461-570), not cut: n = d = 2^20, 64 nnz a row in the padded-sparse
 # layout (column 0 the intercept), logistic, l2 = 1, margin L-BFGS for 30
@@ -306,6 +309,12 @@ RESUME_TOL = 1e-6
 # quarter); 13b: the drivers' budget (MiB: it floors at each coordinate's
 # largest block) and spill member; 13c: the index store's partitions.
 OOC_PASSES, OOC_BUCKETS, OOC_BUDGET_DIVISOR = 3, 16, 4
+# Phase 15: the engine's max batch, its client threads, the rows through
+# HTTP /v1/score-batch, requests a client in the load runs, the rows of the
+# bucket-invariance, promotion and device-shard checks, shadow scores before
+# a promotion.
+SERVE_MAX_BATCH, SERVE_CLIENTS, SERVE_HTTP_ROWS, SERVE_LOAD_REQUESTS = 64, 8, 4096, 64
+SERVE_INVARIANCE_ROWS, SERVE_SHADOW_QUOTA = 4096, 256
 OOC_DRIVER_BUDGET_MB, OOC_SPILL_MEMBER, OOC_PARTITIONS = "1", "updater:3", 4
 # Phase 14 (multiple devices: torch.distributed ranks on this one card).
 # 14b's gloo world sizes; each group's timeout (a dead rank fails its peers
@@ -1471,14 +1480,16 @@ def sparse_wide_phase(dev, smi: str, check) -> dict:
            for dt, d_ in ((torch.float32, dev), (torch.float64, "cpu"))}
     ref = make_optimizer(obj, spec)(torch.zeros(SP_CUT, dtype=torch.float64), cut[torch.float64])
     want = cut[torch.float64].margins(ref.w)
-    for plan in (False, True):
-        X = cut[torch.float32].features
-        lb = LabeledBatch(cut[torch.float32].label, X.with_transpose_plan() if plan else X)
-        got = SolveCache().fe_solver(obj, spec)(torch.zeros(SP_CUT, device=dev), lb)
-        _, r = rel_err(lb.margins(got.w).cpu(), want)
-        check(r <= REFERENCE_TOL, f"10a cut copy (n = d = {SP_CUT}, {'segsum' if plan else 'scatter'}) captured on the "
-                                  f"card (f32) vs float64 plain path on the CPU: margins rel {r:.3e} (tolerance "
-                                  f"{REFERENCE_TOL:g})")
+    X = cut[torch.float32].features
+    lb = LabeledBatch(cut[torch.float32].label, X.with_transpose_plan())
+    got = SolveCache().fe_solver(obj, spec)(torch.zeros(SP_CUT, device=dev), lb)
+    _, r = rel_err(lb.margins(got.w).cpu(), want)
+    check(r <= REFERENCE_TOL, f"10a cut copy (n = d = {SP_CUT}, segsum) captured on the card (f32) vs float64 plain "
+                              f"path on the CPU: margins rel {r:.3e} (tolerance {REFERENCE_TOL:g})")
+    lb = LabeledBatch(cut[torch.float32].label, X)
+    got = SolveCache().fe_solver(obj, spec)(torch.zeros(SP_CUT, device=dev), lb)
+    ok, text = cut_scatter_verdict(obj, spec, cut[torch.float64], ref, lb, got)
+    check(ok, text)
 
     # The λ sweep over the same data, run to convergence: one program, a
     # lane a weight, against four single solves.
@@ -1507,6 +1518,35 @@ def sparse_wide_phase(dev, smi: str, check) -> dict:
                           f"(tolerance 1e-4); margins rel {r:.3e}")
     out.update(sweep_s=sweep_s, singles_s=singles_s, fastest=fastest)
     return out
+
+
+def cut_scatter_verdict(obj, spec, cut64, ref, lb, got) -> tuple:
+    """10a's check of the cut copy's captured f32 scatter solve ``got`` (on
+    ``lb``) against the CPU float64 plain path (``ref``: ``spec``'s
+    iterations on ``cut64``). The scatter's float atomics decide 1-ulp
+    line-search ties, so where the f32 solve stops moves run to run: its
+    margins are held against the float64 path run for exactly its k
+    iterations, relative to max |margin| (REFERENCE_TOL); its stop reason must
+    be a convergence or the iteration limit; its objective must be within
+    CUT_OBJECTIVE_TOL relative of ``ref``'s. Returns (passed, text); the text
+    also gives the check this replaced (margins against ``ref``'s,
+    REFERENCE_TOL)."""
+    from photon_tpu_torch.optim.factory import make_optimizer
+    from photon_tpu_torch.types import ConvergenceReason
+
+    k, reason = int(got.iterations), got.convergence_reason
+    same_k = make_optimizer(obj, dataclasses.replace(spec, max_iter=k))(torch.zeros_like(ref.w), cut64)
+    _, r = rel_err(lb.margins(got.w).cpu(), cut64.margins(same_k.w))
+    _, r_old = rel_err(lb.margins(got.w).cpu(), cut64.margins(ref.w))
+    off = abs(float(got.value) - float(ref.value)) / abs(float(ref.value))
+    stopped = reason in (ConvergenceReason.MAX_ITERATIONS, ConvergenceReason.FUNCTION_VALUES_CONVERGED,
+                         ConvergenceReason.GRADIENT_CONVERGED)
+    ok = r <= REFERENCE_TOL and stopped and off <= CUT_OBJECTIVE_TOL
+    return ok, (f"10a cut copy (n = d = {SP_CUT}, scatter) captured on the card (f32), {k} iterations, "
+                f"{reason.value}: margins vs the float64 plain path run {k} iterations rel {r:.3e} (tolerance "
+                f"{REFERENCE_TOL:g}); objective rel {off:.3e} of the float64 path's after {int(ref.iterations)} "
+                f"(tolerance {CUT_OBJECTIVE_TOL:g}); the replaced check (margins vs the float64 path's after "
+                f"{int(ref.iterations)}) reads {r_old:.3e}, {'pass' if r_old <= REFERENCE_TOL else 'FAIL'}")
 
 
 def sparse_game_phase(dev, smi: str, check, train, valid) -> dict:
@@ -2277,8 +2317,9 @@ def _ooc_coordinates(dev, host_ds: dict, budgets, cache) -> dict:
 
 
 def _static_block_bytes(blocks) -> int:
-    """Bytes of the solve cache's static buffers for ``blocks``: one block
-    of each distinct geometry, with its offsets and warm start."""
+    """Bytes the solve cache's static buffers took for ``blocks`` in their
+    former layout, one set a block geometry: one block of each distinct
+    geometry, with its offsets and warm start."""
     from photon_tpu_torch.algorithm.re_store import block_data_bytes
 
     seen = {}
@@ -2380,6 +2421,388 @@ def _ooc_run(label: str, dev, smi: str, train, valid, host_ds: dict, budgets, ca
     return out
 
 
+def _serving_rows(files: dict, model_dir: Path):
+    """Phase 8's validation rows as the serving engine takes them: the rows
+    game_scoring reads (read_merged on the CPU, the model's index maps and
+    entity indexes, no new entities), each shard a dense float32 matrix,
+    entity ids interned, in game_scoring's row order (its scores file's)."""
+    from photon_tpu_torch.cli.common import parse_feature_shard_config
+    from photon_tpu_torch.data.index_map import EntityIndex, IndexMap
+    from photon_tpu_torch.io.data_reader import read_merged
+    from photon_tpu_torch.io.model_io import model_re_types, read_model_metadata
+
+    artifacts = model_dir.parent
+    shard_configs: dict = {}
+    for spec in files["shards"][1:]:
+        shard_configs.update(parse_feature_shard_config(spec))
+    imaps = {s: IndexMap.load(str(artifacts / f"index-map-{s}.json")) for s in shard_configs}
+    re_types = model_re_types(read_model_metadata(str(model_dir)))
+    eidx = {rt: EntityIndex.load(str(artifacts / f"entity-index-{rt}.json")) for rt in re_types}
+    batch, _, _ = read_merged([str(files["valid"])], shard_configs,
+                              index_maps=imaps, entity_id_columns={rt: rt for rt in re_types}, entity_indexes=eidx,
+                              intern_new_entities=False, device="cpu")
+    feats = {s: batch.features[s].numpy() for s in shard_configs}
+    ids = {rt: batch.entity_ids[rt].numpy() for rt in re_types}
+    return feats, ids, batch.offset.numpy()
+
+
+def _driver_scores(path: Path) -> np.ndarray:
+    """game_scoring's scores, in its row order."""
+    from photon_tpu_torch.io.scores import load_scores
+
+    return np.asarray([r["predictionScore"] for r in load_scores(str(path))], np.float32)
+
+
+def _requests(feats, ids, offsets, rows):
+    from photon_tpu_torch.serve import ScoreRequest
+
+    return [ScoreRequest({s: m[i] for s, m in feats.items()}, {rt: int(v[i]) for rt, v in ids.items()},
+                         float(offsets[i])) for i in rows]
+
+
+def _submit_all(eng, reqs, clients: int) -> tuple:
+    """Every request (a copy: the engine stamps the version that scored it)
+    through ``eng.submit`` from ``clients`` threads, each its share in turn,
+    waiting for each answer; (scores, failures, latencies s, wall s)."""
+    import threading
+
+    scores = np.full(len(reqs), np.nan, np.float32)
+    lat = np.zeros(len(reqs))
+    failed = []
+
+    def client(k):
+        for i in range(k, len(reqs), clients):
+            t0 = time.perf_counter()
+            try:
+                scores[i] = eng.submit(dataclasses.replace(reqs[i])).result(timeout=120)
+            except Exception as exc:  # noqa: BLE001 — counted and reported
+                failed.append(repr(exc))
+            lat[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return scores, failed, lat, time.perf_counter() - t0
+
+
+def _http_all(port: int, lines, clients: int) -> tuple:
+    """``lines`` (JSON request bodies) through POST /v1/score from
+    ``clients`` threads on keep-alive connections; (scores, failures,
+    latencies s, wall s)."""
+    import http.client
+    import threading
+
+    scores = np.full(len(lines), np.nan, np.float32)
+    lat = np.zeros(len(lines))
+    failed = []
+
+    def client(k):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            for i in range(k, len(lines), clients):
+                t0 = time.perf_counter()
+                try:
+                    conn.request("POST", "/v1/score", body=lines[i], headers={"Content-Type": "application/json"})
+                    resp = conn.getresponse()
+                    body = resp.read()
+                    if resp.status != 200:
+                        raise RuntimeError(f"HTTP {resp.status}: {body[:200]!r}")
+                    scores[i] = json.loads(body)["score"]
+                except Exception as exc:  # noqa: BLE001 — counted and reported
+                    failed.append(repr(exc))
+                lat[i] = time.perf_counter() - t0
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return scores, failed, lat, time.perf_counter() - t0
+
+
+def _http_server(eng):
+    import threading
+
+    from photon_tpu_torch.cli.game_serving import make_handler
+    from photon_tpu_torch.serve.frontend import ServingHTTPServer
+
+    server = ServingHTTPServer(("127.0.0.1", 0), make_handler(eng))
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    return server, t
+
+
+def _stop_http(server, t) -> None:
+    server.shutdown()
+    server.server_close()
+    t.join(timeout=30)
+
+
+def _load_text(label: str, n: int, lat: np.ndarray, wall: float) -> str:
+    return (f"{label}: {n / wall:.1f} requests/s, p50 {np.percentile(lat, 50) * 1e3:.3f} ms, p99 "
+            f"{np.percentile(lat, 99) * 1e3:.3f} ms")
+
+
+def _replay_ms(eng) -> dict:
+    """The primary version's graph replay ms per row bucket (CUDA events,
+    50 replays a reading)."""
+    out = {}
+    for rows, b in sorted(eng._state.scorer.buckets.items()):
+        out[rows] = cuda_ms(b.graph.replay, iters=50, warmup=3)
+    return out
+
+
+def serving_phase(dev, smi: str, check, files: dict) -> dict:
+    """Phase 15: online serving on the card, on phase 8's files. The
+    engine (``load_engine`` of phase 8's best/ model, its index maps and
+    entity indexes) at two hot budgets, one that pins every table and one
+    that holds a quarter of the per-item table: phase 8's validation rows
+    through ``submit`` from 8 client threads and a share of them through
+    HTTP /v1/score-batch, each score equal to game_scoring's bit for bit;
+    max_batch_size 1 against 64; nothing captured or allocated after
+    warm-up; requests/s and p50/p99 at 1, 8 and 64 clients through
+    ``submit`` and HTTP; uploads under the quarter budget; replay ms per row
+    bucket. Then a second generation trained here by game_training (another
+    λ, 1 pass: K1 and K3), published through gate_and_publish and LATEST,
+    shadowed, promoted by the reload watcher under load and rolled back,
+    with no failed request and, after the promotion, game_scoring's scores
+    of that generation. Then device_shards=8 against the plain engine.
+    Returns the launches of its main path (the second generation's
+    training)."""
+    import threading
+
+    from photon_tpu_torch.cli import game_scoring, game_training
+    from photon_tpu_torch.cli.game_serving import RolloutOptions, _reload_watcher
+    from photon_tpu_torch.io.model_io import gate_and_publish, write_generation_manifest
+    from photon_tpu_torch.ops import fused_newton, kernels
+    from photon_tpu_torch.serve import ServeConfig
+    from photon_tpu_torch.serve.engine import load_engine
+
+    log("## phase 15: online serving (store, batcher, engine, HTTP front end, reload watcher)")
+    t_phase = time.perf_counter()
+    out, work = Path(files["out"]), Path(files["work"])
+    model_dir = out / "best"
+    t0 = time.perf_counter()
+    feats, ids, offsets = _serving_rows(files, model_dir)
+    n = offsets.shape[0]
+    want = _driver_scores(Path(files["scores"]) / "scores.avro")
+    check(want.shape == (n,), f"15 game_scoring scored the {n} rows read for serving")
+    log(f"  {n} validation rows of phase 8 read for serving in {time.perf_counter() - t0:.1f} s; shards "
+        f"{ {s: m.shape[1] for s, m in feats.items()} }, entity types {list(ids)}")
+    reqs = _requests(feats, ids, offsets, range(n))
+    n_http = min(n, SERVE_HTTP_ROWS)
+    lines_http = [json.dumps({"features": {s: m[i].tolist() for s, m in feats.items()},
+                              "entityIds": {rt: int(v[i]) for rt, v in ids.items()},
+                              "offset": float(offsets[i])}) for i in range(n_http)]
+    item_table = None
+    torch.cuda.reset_peak_memory_stats()
+    for budget_label in ("pinned", "quarter item table"):
+        if budget_label == "pinned":
+            hot = 1 << 40
+        else:
+            from photon_tpu_torch.io.model_io import read_model_metadata
+
+            meta = read_model_metadata(str(model_dir))["coordinates"]
+            item = next(c for c in meta.values() if c.get("reType") == "itemId")
+            item_table = 4 * item["dim"] * item["numEntities"]
+            user = [c for c in meta.values() if c.get("reType") == "userId"]
+            # The budget splits across types by table size: the item share
+            # is a quarter of its table.
+            hot = (item_table + sum(4 * c["dim"] * c["numEntities"] for c in user)) // 4
+        t0 = time.perf_counter()
+        eng = load_engine(str(model_dir), artifacts_dir=str(out),
+                          config=ServeConfig(max_batch_size=SERVE_MAX_BATCH, max_delay_ms=1.0, hot_bytes=hot,
+                                             queue_cap=1 << 16))
+        try:
+            info = eng.stats()["warm_up"][eng.model_version]
+            store = eng.stats()["store"]
+            log(f"  15 {budget_label} (hot budget {hot / 2 ** 20:.1f} MiB): engine built and warmed in "
+                f"{time.perf_counter() - t0:.2f} s (warm-up {info['warm_up_s']:.3f} s, {info['graphs']} graphs for "
+                f"row buckets {info['buckets']}); store " + "; ".join(
+                    f"{rt}: {st['entities']} entities, {st['hot_capacity']} hot rows, pinned {st['pinned']}"
+                    for rt, st in store.items()))
+            up0 = eng._state.store.upload_stats()
+            got, failed, lat, wall = _submit_all(eng, reqs, SERVE_CLIENTS)
+            up = eng._state.store.upload_stats()
+            check(not failed and np.array_equal(got, want),
+                  f"15 {budget_label}: {n} rows through submit from {SERVE_CLIENTS} client threads equal "
+                  f"game_scoring's scores bit for bit ({len(failed)} failed, max |diff| "
+                  f"{float(np.nanmax(np.abs(got - want))):.3e}); " + _load_text("load", n, lat, wall))
+            if budget_label != "pinned":
+                rows_up = up["rows"] - up0["rows"]
+                secs = up["seconds"] - up0["seconds"]
+                log(f"  15 {budget_label}: hot-store uploads {rows_up} rows, {(up['bytes'] - up0['bytes']) / 1e6:.1f} "
+                    f"MB in {secs:.3f} s: {rows_up / max(secs, 1e-9):.0f} rows/s, "
+                    f"{(up['bytes'] - up0['bytes']) / max(secs, 1e-9) / 1e9:.3f} GB/s (host gather, pinned copy, "
+                    f"index_copy_, synchronized); store {eng.stats()['store']}")
+                check(rows_up > 0 and not eng.stats()["store"]["itemId"]["pinned"],
+                      f"15 {budget_label}: the per-item table is not pinned and the miss path uploaded rows")
+            server, t = _http_server(eng)
+            try:
+                import urllib.request
+
+                body = "".join(line + "\n" for line in lines_http).encode()
+                req = urllib.request.Request(f"http://127.0.0.1:{server.server_address[1]}/v1/score-batch",
+                                             data=body, method="POST")
+                with urllib.request.urlopen(req, timeout=600) as resp:
+                    raw = resp.read().decode()
+                got_http = np.asarray([json.loads(x).get("score", np.nan) for x in raw.splitlines()], np.float32)
+                check(got_http.shape == (n_http,) and np.array_equal(got_http, want[:n_http]),
+                      f"15 {budget_label}: {n_http} rows through HTTP /v1/score-batch equal game_scoring's scores bit "
+                      f"for bit")
+                for clients in (1, 8, 64):
+                    k = min(n, SERVE_LOAD_REQUESTS * clients)
+                    s, failed, lat, wall = _submit_all(eng, reqs[:k], clients)
+                    log(f"  15 {budget_label} load, " + _load_text(f"submit, {clients} clients, {k} requests", k,
+                                                                   lat, wall) + f" ({len(failed)} failed)")
+                    kh = min(n_http, SERVE_LOAD_REQUESTS * clients)
+                    s, failed_h, lat, wall = _http_all(server.server_address[1], lines_http[:kh], clients)
+                    log(f"  15 {budget_label} load, " + _load_text(f"HTTP /v1/score, {clients} clients, {kh} "
+                                                                   f"requests", kh, lat, wall)
+                        + f" ({len(failed_h)} failed{': ' + failed_h[0] if failed_h else ''})")
+                    check(not failed and not failed_h and np.array_equal(s, want[:kh]),
+                          f"15 {budget_label}: {clients} clients, no failed request, HTTP scores equal game_scoring's")
+            finally:
+                _stop_http(server, t)
+            replay = _replay_ms(eng)
+            log(f"  15 {budget_label}: graph replay ms per row bucket {{" + ", ".join(
+                f"{k}: {v:.4f}" for k, v in replay.items()) + f"}} on {smi}")
+            retr = eng.retraces_since_warmup
+            check(retr == 0, f"15 {budget_label}: retraces_since_warmup {retr} after all traffic (graph captures "
+                             f"after warm-up plus new allocator segments)")
+        finally:
+            eng.close()
+        torch.cuda.empty_cache()
+
+    # Bucket invariance: the same rows at max_batch_size 1 and 64.
+    sub = reqs[:SERVE_INVARIANCE_ROWS]
+    outs = {}
+    for mb in (1, 64):
+        eng = load_engine(str(model_dir), artifacts_dir=str(out),
+                          config=ServeConfig(max_batch_size=mb, max_delay_ms=1.0, hot_bytes=1 << 40))
+        try:
+            outs[mb], failed, _, _ = _submit_all(eng, _requests(feats, ids, offsets, range(len(sub))), 8)
+            check(eng.retraces_since_warmup == 0 and not failed, f"15 max_batch_size {mb}: nothing captured after "
+                                                                 f"warm-up, no failed request")
+        finally:
+            eng.close()
+    check(np.array_equal(outs[1], outs[64]) and np.array_equal(outs[1], want[:len(sub)]),
+          f"15 scores of {len(sub)} rows at max_batch_size 1 and 64 are equal bit for bit (and game_scoring's)")
+
+    # ---- reload under load: a second generation, shadowed, promoted, rolled back ----
+    coords = list(files["coords"])
+    i = coords.index("--coordinate-descent-iterations")
+    coords[i + 1] = "1"
+    coords = [c.replace("reg.weights=1|10", "reg.weights=3") for c in coords]
+    kernels.reset_launches()
+    fused_newton.LAUNCHES_BY_WIDTH.clear()
+    t0 = time.perf_counter()
+    gen_train = work / "gen-2-train"
+    summary = game_training.main(["--input-paths", files["train"], "--validation-paths", files["valid"],
+                                  "--output-dir", str(gen_train), "--feature-index-dir", str(files["index"]),
+                                  "--device", "cuda"] + list(files["shards"]) + coords)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    launches.update({f"newton_system_d{d}": c for d, c in fused_newton.LAUNCHES_BY_WIDTH.items()})
+    log(f"  15 second generation: game_training (global λ = 3, 1 pass) in {time.perf_counter() - t0:.2f} s; "
+        f"launches {launches}")
+    check(launches.get("fused_value_grad", 0) > 0 and launches.get(f"newton_system_d{G_D_ITEM}", 0) > 0,
+          "15 the second generation's training launched K1 and K3")
+    shutil.copytree(gen_train / "best", out / "gen-2")
+    auc = summary["configs"][0]["metrics"]["AUC"]
+    write_generation_manifest(str(out / "gen-2"), parent="best", holdout_metrics={"AUC": auc})
+    gen2_scored = work / "gen-2-scores"
+    game_scoring.main(["--input-paths", files["valid"], "--output-dir", str(gen2_scored), "--model-input-dir",
+                       str(out / "gen-2"), "--device", "cuda"] + list(files["shards"]))
+    want2 = _driver_scores(gen2_scored / "scores.avro")
+    eng = load_engine(str(model_dir), artifacts_dir=str(out),
+                      config=ServeConfig(max_batch_size=SERVE_MAX_BATCH, max_delay_ms=1.0, hot_bytes=1 << 40,
+                                         queue_cap=1 << 16, max_versions=2, promotion_settle_s=0))
+    stop = threading.Event()
+    watcher = threading.Thread(target=_reload_watcher, args=(eng, str(out), 0.05, stop, RolloutOptions(
+        shadow_fraction=0.25, shadow_quota=SERVE_SHADOW_QUOTA, divergence_bound=1e9)), daemon=True)
+    watcher.start()
+    load_stop = threading.Event()
+    load_failed, load_count = [], [0]
+
+    def load():
+        k = 0
+        while not load_stop.is_set():
+            try:
+                eng.submit(dataclasses.replace(reqs[k % n])).result(timeout=120)
+                load_count[0] += 1
+            except Exception as exc:  # noqa: BLE001 — counted and reported
+                load_failed.append(repr(exc))
+            k += 7
+
+    loaders = [threading.Thread(target=load) for _ in range(SERVE_CLIENTS)]
+    for t in loaders:
+        t.start()
+    try:
+        time.sleep(0.5)
+        t_pub = time.perf_counter()
+        gate = gate_and_publish(str(out), "gen-2")
+        check(gate.ok, f"15 gate_and_publish of gen-2: {gate.reason or 'passed'}; LATEST -> gen-2")
+        deadline = time.monotonic() + 120
+        while eng.shadow_version is None and not eng.model_version.endswith("gen-2") and time.monotonic() < deadline:
+            time.sleep(0.01)
+        t_shadow = time.perf_counter()
+        while not eng.model_version.endswith("gen-2") and time.monotonic() < deadline:
+            time.sleep(0.01)
+        t_promoted = time.perf_counter()
+        st = eng.stats()
+        promoted = eng.model_version.endswith("gen-2")
+        log(f"  15 reload: shadow resident {t_shadow - t_pub:.2f} s after the publish (build and warm-up of the "
+            f"version {st['warm_up'].get(str(out / 'gen-2'), {})}), promoted {t_promoted - t_pub:.2f} s after it, "
+            f"{load_count[0]} requests served meanwhile")
+        check(promoted, f"15 the watcher shadowed gen-2 ({SERVE_SHADOW_QUOTA} shadow scores) and promoted it")
+        got2, failed, _, _ = _submit_all(eng, reqs[:SERVE_INVARIANCE_ROWS], 8)
+        check(not failed and np.array_equal(got2, want2[:SERVE_INVARIANCE_ROWS]),
+              f"15 after the promotion: {SERVE_INVARIANCE_ROWS} rows equal game_scoring's scores of gen-2 bit for bit")
+        t0 = time.perf_counter()
+        demoted = eng.rollback("chip_smoke phase 15")
+        swap = time.perf_counter() - t0
+        got1, failed, _, _ = _submit_all(eng, reqs[:SERVE_INVARIANCE_ROWS], 8)
+        check(demoted is not None and demoted.endswith("gen-2") and not failed
+              and np.array_equal(got1, want[:SERVE_INVARIANCE_ROWS]),
+              f"15 rollback to best in {swap * 1e3:.3f} ms: scores equal game_scoring's of best again")
+    finally:
+        load_stop.set()
+        for t in loaders:
+            t.join(timeout=120)
+        stop.set()
+        watcher.join(timeout=30)
+        retr = eng.retraces_since_warmup
+        eng.close()
+    check(not load_failed and load_count[0] > 0 and retr == 0,
+          f"15 reload under load: {load_count[0]} requests from {SERVE_CLIENTS} threads across the publish, shadow, "
+          f"promotion and rollback, {len(load_failed)} failed {load_failed[:2]}; retraces_since_warmup {retr}")
+
+    # ---- device shards ----
+    sub = reqs[:SERVE_INVARIANCE_ROWS]
+    eng = load_engine(str(model_dir), artifacts_dir=str(out),
+                      config=ServeConfig(max_batch_size=SERVE_MAX_BATCH, max_delay_ms=1.0, hot_bytes=hot,
+                                         device_shards=8))
+    try:
+        got_s, failed, _, _ = _submit_all(eng, sub, 8)
+        retr = eng.retraces_since_warmup
+        shards = {rt: (st.get("device_shards"), st.get("shard_rows")) for rt, st in eng.stats()["store"].items()}
+    finally:
+        eng.close()
+    check(not failed and retr == 0 and np.array_equal(got_s, want[:len(sub)]),
+          f"15 device_shards=8 (segments {shards}) at the quarter budget: {len(sub)} rows equal the plain engine's "
+          f"(game_scoring's) scores bit for bit, retraces_since_warmup {retr}")
+    log(f"  15 peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; phase "
+        f"{time.perf_counter() - t_phase:.1f} s on {smi}")
+    return launches
+
+
 def out_of_core_phase(dev, smi: str, check, files: dict) -> dict:
     """Phase 13: out-of-core random effects. 13a in process at 7b's full
     width, fully resident and then twice with a quarter of each random
@@ -2393,7 +2816,7 @@ def out_of_core_phase(dev, smi: str, check, files: dict) -> dict:
 
     from photon_tpu_torch.algorithm.re_store import block_device_cost
     from photon_tpu_torch.algorithm.random_effect import RandomEffectCoordinate
-    from photon_tpu_torch.algorithm.solve_cache import SolveCache
+    from photon_tpu_torch.algorithm.solve_cache import SolveCache, block_input_bytes
     from photon_tpu_torch.cli import feature_indexing, game_scoring, game_training
     from photon_tpu_torch.data import native_index
     from photon_tpu_torch.data.index_map import IndexMap
@@ -2423,14 +2846,17 @@ def out_of_core_phase(dev, smi: str, check, files: dict) -> dict:
     footprint = {c: sum(block_device_cost(b) for b in ds.blocks) for c, ds in host_ds.items()}
     largest = {c: max(block_device_cost(b) for b in ds.blocks) for c, ds in host_ds.items()}
     budgets = {c: footprint[c] // OOC_BUDGET_DIVISOR for c in host_ds}
+    static = {c: block_input_bytes(ds.blocks) for c, ds in host_ds.items()}
     for c, ds in host_ds.items():
-        static = _static_block_bytes(ds.blocks)
+        before = _static_block_bytes(ds.blocks)
         log(f"  13a {c}: {len(ds.blocks)} blocks {sorted({tuple(b.features.shape) for b in ds.blocks})}; footprint "
             f"{footprint[c] / 1e6:.1f} MB, largest block {largest[c] / 1e6:.1f} MB, budget {budgets[c] / 1e6:.1f} MB; "
-            f"the solve cache's static buffers for its geometries {static / 1e6:.1f} MB "
-            f"({static / footprint[c]:.1%} of the footprint; outside the budget)")
-    check(all(largest[c] <= budgets[c] for c in host_ds),
-          "13a each random effect's largest block fits under its budget (the effective budget is the configured one)")
+            f"the solve cache's static buffers: one set a geometry (the former layout, outside the budget) "
+            f"{before / 1e6:.1f} MB ({before / footprint[c]:.1%} of the footprint), one flat buffer an input (inside "
+            f"the budget) {static[c] / 1e6:.1f} MB ({static[c] / footprint[c]:.1%})")
+    fits = {c: largest[c] + static[c] <= budgets[c] for c in host_ds}
+    log(f"  13a the largest block plus the static buffers fit under the configured budget (else the effective budget "
+        f"floors there): {fits}")
 
     resident_cache = SolveCache()
     resident = _ooc_run("13a resident", dev, smi, train, valid, host_ds, None, resident_cache)
@@ -2447,10 +2873,14 @@ def out_of_core_phase(dev, smi: str, check, files: dict) -> dict:
         st = budgeted["stats"][c]
         check(torch.equal(budgeted["coefs"][c], resident["coefs"][c]),
               f"13a {c}: budgeted coefficients equal the resident ones bit for bit")
-        check(st["evictions"] > 0 and st["peak_bytes"] <= st["budget_bytes"] == st["effective_budget_bytes"],
+        floor = largest[c] + static[c]
+        check(st["evictions"] > 0 and st["peak_total_bytes"] <= st["effective_budget_bytes"]
+              == max(st["budget_bytes"], floor) and st["static_bytes"] == static[c],
               f"13a {c}: {st['evictions']} evictions (passes {st['pass_evictions']}), store peak "
-              f"{st['peak_bytes'] / 1e6:.1f} MB <= budget {st['budget_bytes'] / 1e6:.1f} MB (effective "
-              f"{st['effective_budget_bytes'] / 1e6:.1f} MB), {st['uploads']} uploads, {st['upload_hits']} hits")
+              f"{st['peak_bytes'] / 1e6:.1f} MB + static buffers held {st['static_bytes'] / 1e6:.1f} MB: peak "
+              f"{st['peak_total_bytes'] / 1e6:.1f} MB <= effective budget {st['effective_budget_bytes'] / 1e6:.1f} MB "
+              f"(configured {st['budget_bytes'] / 1e6:.1f} MB, floor {floor / 1e6:.1f} MB), {st['uploads']} uploads, "
+              f"{st['upload_hits']} hits")
         check(st["eviction_log"] == again["stats"][c]["eviction_log"],
               f"13a {c}: two budgeted runs evict the same blocks in the same order ({len(st['eviction_log'])})")
     check(torch.equal(budgeted["scores"], resident["scores"]),
@@ -2461,11 +2891,13 @@ def out_of_core_phase(dev, smi: str, check, files: dict) -> dict:
     check(la["fused_value_grad"] > 0 and la.get(f"newton_system_d{D_RE}", 0) > 0
           and la.get(f"newton_system_d{G_D_ITEM}", 0) > 0,
           f"13a the budgeted run launched K1, and K3 at d = {D_RE} and d = {G_D_ITEM}")
-    saved = sum(footprint[c] - budgets[c] for c in host_ds)
+    # The resident run holds every block and the static buffers; the
+    # budgeted one at most its effective budget of the two.
+    saved = sum(footprint[c] + static[c] - max(budgets[c], largest[c] + static[c]) for c in host_ds)
     check(budgeted["peak"] <= resident["peak"] - saved / 2,
           f"13a peak memory of the passes from after construction: budgeted {budgeted['peak'] / 2 ** 30:.3f} GiB, "
           f"resident {resident['peak'] / 2 ** 30:.3f} GiB, {(resident['peak'] - budgeted['peak']) / 1e6:.1f} MB less "
-          f">= half of sum(footprint - budget) = {saved / 2e6:.1f} MB")
+          f">= half of sum(footprint + static buffers - effective budget) = {saved / 2e6:.1f} MB")
     log(f"  13a budgeted/resident wall: {sum(budgeted['walls']) / sum(resident['walls']):.3f} (passes "
         + ", ".join(f"{b / r:.3f}" for b, r in zip(budgeted["walls"], resident["walls"])) + "; not gated)")
     launches_a = budgeted["launches"]
@@ -2494,11 +2926,14 @@ def out_of_core_phase(dev, smi: str, check, files: dict) -> dict:
     want, _ = user_pass(None)
     budget_u = sum(block_device_cost(b) for b in user_host.blocks) // OOC_BUDGET_DIVISOR
     got, st = user_pass(budget_u, [faults.FaultRule("re_store.upload", kind="oom", at=(2,), max_count=1)])
-    check(torch.equal(got, want) and st["budget_shrinks"] == 1
-          and st["effective_budget_bytes"] == max(st["max_block_bytes"], budget_u // 2),
-          f"13d an injected OOM at the third upload of a budgeted per-user pass: the budget halved "
-          f"({budget_u / 1e6:.1f} -> {st['effective_budget_bytes'] / 1e6:.1f} MB), the pass finished, coefficients "
-          f"bitwise the unbudgeted pass's")
+    floor = st["max_block_bytes"] + st["static_bytes"]
+    eff0 = max(budget_u, floor)
+    check(torch.equal(got, want) and st["budget_shrinks"] == int(eff0 > floor)
+          and st["effective_budget_bytes"] == (max(floor, eff0 // 2) if eff0 > floor else eff0),
+          f"13d an injected OOM at the third upload of a budgeted per-user pass: the budget halved toward its floor "
+          f"(the largest block and the static buffers, {floor / 1e6:.1f} MB): {eff0 / 1e6:.1f} -> "
+          f"{st['effective_budget_bytes'] / 1e6:.1f} MB, the pass finished, coefficients bitwise the unbudgeted "
+          f"pass's")
     err = None
     try:
         user_pass(1, [faults.FaultRule("re_store.upload", kind="oom", p=1.0)])
@@ -2537,8 +2972,9 @@ def out_of_core_phase(dev, smi: str, check, files: dict) -> dict:
                  if e.name == "PhotonOptimizationLogEvent" and e.payload.get("residency")]
     for cid, it, r in residency:
         log(f"    13b {cid} pass {it}: budget {r['budget_bytes'] / 1e6:.2f} MB (effective "
-            f"{r['effective_budget_bytes'] / 1e6:.2f} MB, the largest block), {r['uploads']} uploads, "
-            f"{r['evictions']} evictions, store peak {r['peak_bytes'] / 1e6:.2f} MB")
+            f"{r['effective_budget_bytes'] / 1e6:.2f} MB, the largest block and the static buffers), {r['uploads']} "
+            f"uploads, {r['evictions']} evictions, store peak {r['peak_bytes'] / 1e6:.2f} MB + static buffers "
+            f"{r['static_bytes'] / 1e6:.2f} MB")
     want, got = _model_coefficients(files["out"]), _model_coefficients(out)
     same = {cid: torch.equal(got[cid], w) for cid, w in want.items()}
     log(f"  13b game_training out of core: {t_train:.2f} s wall; launches {launches_b}")
@@ -2615,7 +3051,10 @@ def _shard_report(coord) -> list:
         rows.append(dict(shard=s, entities=int(coord.plan.counts[s]), blocks=len(c.dataset.blocks),
                          footprint=int(sum(block_device_cost(b) for b in c.dataset.blocks)),
                          budget=None if st is None else st["budget_bytes"],
+                         effective=None if st is None else st["effective_budget_bytes"],
                          peak_resident=None if st is None else st["peak_bytes"],
+                         peak_total=None if st is None else st["peak_total_bytes"],
+                         static_held=None if st is None else st["static_bytes"],
                          evictions=None if st is None else st["evictions"],
                          static_bytes=_static_block_bytes(c.dataset.blocks)))
     return rows
@@ -2890,9 +3329,16 @@ def multi_rank_phase(dev, smi: str, check) -> dict:
                 log(f"      {cid} shards: " + "; ".join(
                     f"{sh['shard']}: {sh['entities']} entities, {sh['blocks']} blocks, store "
                     f"{sh['footprint'] / 2 ** 20:.1f} MiB"
-                    + ("" if sh["budget"] is None else f" (budget {sh['budget'] / 2 ** 20:.1f} MiB, peak resident "
-                       f"{sh['peak_resident'] / 2 ** 20:.1f} MiB, {sh['evictions']} evictions)")
-                    + f", static buffers {sh['static_bytes'] / 2 ** 20:.1f} MiB" for sh in shards))
+                    + ("" if sh["budget"] is None else f" (budget {sh['budget'] / 2 ** 20:.1f} MiB, effective "
+                       f"{sh['effective'] / 2 ** 20:.1f} MiB, peak resident {sh['peak_resident'] / 2 ** 20:.1f} MiB "
+                       f"+ static buffers held {sh['static_held'] / 2 ** 20:.1f} MiB = peak "
+                       f"{sh['peak_total'] / 2 ** 20:.1f} MiB, {sh['evictions']} evictions)")
+                    + f", static buffers one set a geometry (the former layout) {sh['static_bytes'] / 2 ** 20:.1f} MiB"
+                    for sh in shards))
+                if any(sh["budget"] is not None for sh in shards):
+                    check(all(sh["peak_total"] <= sh["effective"] for sh in shards if sh["budget"] is not None),
+                          f"{label} rank {r['rank']} {cid}: every budgeted shard's resident blocks plus its static "
+                          f"buffers stay at or under its effective budget")
             check(k1 > 0 and k2 > 0 and k3 > 0, f"{label} rank {r['rank']}: K1 ({k1}), K2 ({k2}) and K3 ({k3}) "
                                                 f"launched and ran")
     base = runs.get("14b/2")
@@ -3392,6 +3838,10 @@ def main() -> int:
     # ---------------- 13. out-of-core random effects ----------------
     torch.cuda.empty_cache()
     ooc_launches = out_of_core_phase(dev, smi, check, driver_files)
+
+    # ---------------- 15. online serving ----------------
+    torch.cuda.empty_cache()
+    serving_launches = serving_phase(dev, smi, check, driver_files)
     shutil.rmtree(driver_files["work"], ignore_errors=True)
 
     # ---------------- 14. multiple devices ----------------
@@ -3423,7 +3873,7 @@ def main() -> int:
     # launch flag was off; K3 has no flag).
     paths = (glmix_launches, tron_launches, glm_launches, game_launches, driver_launches, solver_launches,
              sparse_launches, tuning_launches, tuning_driver_launches, durability_launches, ooc_launches,
-             multi_rank_launches)
+             multi_rank_launches, serving_launches)
     rows = []
     for name, (src, repl) in sources.items():
         rows.append(dict(name=name, route="cuda", source=src, replaces=repl,

@@ -553,6 +553,9 @@ class RandomEffectCoordinate(Coordinate):
         return self.solve_cache if self.solve_cache is not None else default_cache()
 
     def _solver(self, objective: GLMObjective, tol: Optional[float], has_mask: bool):
+        # The cache's block buffers, sized for this coordinate's largest
+        # block before its first solve (no later block grows them).
+        self._cache().reserve_block_inputs(self.dataset.blocks, self._device, has_mask)
         return self._cache().block_solver(objective, self.optimizer_spec, self._config, has_mask, convergence_tol=tol,
                                   re_kernel=self._re_kernel)
 

@@ -39,10 +39,13 @@ Invariants (the reference's):
   (``_settled_victims``), so the ``eviction_log`` does not depend on how
   far the downloads have got.
 * **Budget honesty** — a block's cost counts its data arrays plus the warm
-  start and result coefficients that coexist with it in flight; the peak of
-  the admitted cost stays at or under the effective budget (floored at the
-  largest block, with a warning). The solve cache's static buffers (one
-  block a signature) and its graph pool lie outside the budget.
+  start and result coefficients that coexist with it in flight, and the
+  solve cache's static buffers count too: one flat buffer per input, sized
+  for the coordinate's largest block (``solve_cache.block_input_bytes``),
+  held for the whole fit, so the blocks are admitted against the budget
+  less those bytes. Resident blocks plus the buffers stay at or under the
+  effective budget, floored (with a warning) at the largest block plus the
+  buffers. The graph pool lies outside the budget.
 
 The reference's metrics registry is not ported: every number it published
 is in ``stats()``.
@@ -60,7 +63,7 @@ from typing import Dict, Hashable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from photon_tpu_torch.algorithm.solve_cache import CAPTURE_LOCK
+from photon_tpu_torch.algorithm.solve_cache import CAPTURE_LOCK, block_input_bytes
 from photon_tpu_torch.data.random_effect import EntityBlock
 from photon_tpu_torch.data.residency import ByteBudgetLru
 from photon_tpu_torch.optim.common import HOST_READS
@@ -271,13 +274,18 @@ class ReDeviceStore:
         self.block_cost = [block_device_cost(b) for b in self.blocks]
         self.total_cost = int(sum(self.block_cost))
         self.budget = int(budget_bytes)
+        # The solve cache's static buffers of these blocks (held all fit).
+        self.static_bytes = block_input_bytes(self.blocks)
         max_cost = max(self.block_cost, default=0)
         self._max_cost = max_cost
-        self.effective_budget = max(self.budget, max_cost)
+        self._floor = max_cost + self.static_bytes
+        self.effective_budget = max(self.budget, self._floor)
         if self.effective_budget > self.budget:
-            logger.warning("re_store[%s]: budget %d B below largest block %d B; flooring effective budget there",
-                           coordinate_id, self.budget, max_cost)
-        self.lru = ByteBudgetLru(self.effective_budget)
+            logger.warning("re_store[%s]: budget %d B below the largest block %d B plus the static buffers %d B; "
+                           "flooring the effective budget there", coordinate_id, self.budget, max_cost,
+                           self.static_bytes)
+        self.lru = ByteBudgetLru(self.effective_budget - self.static_bytes)
+        self.peak_total_bytes = 0
         self._resident: Dict[Hashable, EntityBlock] = {}
         self._protected: set = set()
         self._transient: Dict[Hashable, int] = {}  # in-flight transient key -> its cost
@@ -365,6 +373,7 @@ class ReDeviceStore:
                     break
                 self._cond.wait(0.05)
             self._protected.add(key)
+            self.peak_total_bytes = max(self.peak_total_bytes, self.lru.resident_bytes + self.static_bytes)
             if not cacheable:
                 self._transient[key] = cost
             overlapped = self._inflight_solves > 0
@@ -480,8 +489,8 @@ class ReDeviceStore:
     def _upload_contained(self, upload, what: str):
         """Run a device upload with OOM containment: on a device OOM, evict
         every unprotected resident block, halve the effective budget toward
-        the floor (the largest single block: admitting less would
-        deadlock), release the dropped buffers and retry. The allocator can
+        the floor (the largest single block plus the static buffers:
+        admitting less would deadlock), release the dropped buffers and retry. The allocator can
         fail before the budget does (it also serves fragments, graphs and
         other coordinates' working sets), and training is value-identical at
         any budget, so shrinking is bit-safe. A
@@ -501,7 +510,8 @@ class ReDeviceStore:
                     if not floor_retry:
                         raise resources.DeviceMemoryError(
                             f"re_store[{self.coordinate_id}]: device OOM uploading {what} at the floor budget "
-                            f"({self._max_cost} B — the largest single block). Containment already evicted the "
+                            f"({self._floor} B — the largest single block and the static buffers). Containment "
+                            "already evicted the "
                             "whole working set; shrink the block geometry or add device memory.") from exc
                     floor_retry = False
                 logger.warning("re_store[%s]: device OOM uploading %s; evicted working set, effective budget now "
@@ -511,7 +521,8 @@ class ReDeviceStore:
 
     def _evict_harder_and_shrink(self) -> bool:
         """OOM response: drop every unprotected resident block and halve
-        the effective budget (floored at the largest single block). Returns
+        the effective budget (floored at the largest single block plus the
+        static buffers). Returns
         False when the budget was already at the floor: the caller gets one
         more eviction-only retry before failing hard."""
         dropped = []
@@ -521,10 +532,10 @@ class ReDeviceStore:
                     continue
                 if self.lru.evict(victim):
                     dropped.append(self._resident.pop(victim, None))
-            shrunk = self.effective_budget > self._max_cost
+            shrunk = self.effective_budget > self._floor
             if shrunk:
-                self.effective_budget = max(self._max_cost, self.effective_budget // 2)
-                self.lru.budget = self.effective_budget
+                self.effective_budget = max(self._floor, self.effective_budget // 2)
+                self.lru.budget = self.effective_budget - self.static_bytes
                 self.budget_shrinks += 1
             self._cond.notify_all()
         self._free(dropped)
@@ -596,6 +607,8 @@ class ReDeviceStore:
             max_block_bytes=self._max_cost,
             resident_bytes=self.lru.resident_bytes,
             peak_bytes=self.lru.peak_bytes,
+            static_bytes=self.static_bytes,
+            peak_total_bytes=self.peak_total_bytes,
             resident_blocks=len(self.lru),
             evictions=self.lru.evictions,
             eviction_log=list(self.lru.eviction_log),

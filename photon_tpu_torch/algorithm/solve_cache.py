@@ -34,7 +34,13 @@ weights, warm starts, the random-effect blocks, which the active-set repack
 rebuilds) is copied into static buffers, one per input name and signature
 in a cache, shared by the programs that read such an input (they replay in
 turn, each loading its inputs first); a copy is skipped when the source is
-the tensor the buffer loaded last, unchanged. A caller's warm start is
+the tensor the buffer loaded last, unchanged. A random-effect block's
+inputs share one flat buffer per input name and dtype, sized for the
+largest block (``reserve_block_inputs``): each program reads a view of its
+block's exact shape at the buffer's front, so the buffers cost one block
+whatever the number of block geometries, and no solve pads. The
+out-of-core store counts them inside its budget (``block_input_bytes``).
+A caller's warm start is
 copied in, never aliased (the reference's donation), and outputs are
 cloned, since the next replay overwrites them. ``release`` drops every
 entry with its graphs, buffers and pinned tensors: the GAME estimator and
@@ -58,6 +64,7 @@ import contextlib
 import ctypes
 import dataclasses
 import logging
+import math
 import os
 import threading
 import time
@@ -65,6 +72,7 @@ import weakref
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from photon_tpu_torch.data.batch import LabeledBatch, SparseFeatures
@@ -170,20 +178,52 @@ def _gate(w: Tensor, w0: Tensor, reasons: Tensor, entity_idx: Tensor, tol: Optio
     return w, reasons, (delta > tol * ref) & valid, (reasons == REASON_DIVERGED) & valid
 
 
-class _Slot:
-    """A static input buffer, shared by the programs of a cache whose input
-    of one name has one signature."""
+_BLOCK_INPUTS = ("features", "label", "weight", "offsets", "w0", "train_mask", "entity_idx", "feature_mask")
 
-    def __init__(self, like: Tensor):
-        self.t = torch.empty_like(like, memory_format=torch.contiguous_format)
+
+def _block_input_sizes(block, has_mask: bool = False) -> Dict[str, Tuple[int, int]]:
+    """(elements, bytes an element) of each input a solve of ``block``
+    reads (host numpy or torch blocks): offsets and the warm start in the
+    label's type."""
+    size = lambda t: t.dtype.itemsize if isinstance(t, np.ndarray) else t.element_size()  # noqa: E731
+    E, n, d = block.num_entities, block.n_max, block.dim
+    out = dict(features=(E * n * d, size(block.features)), label=(E * n, size(block.label)),
+               weight=(E * n, size(block.weight)), offsets=(E * n, size(block.label)), w0=(E * d, size(block.label)),
+               train_mask=(E, 1), entity_idx=(E, size(block.entity_idx)))
+    if has_mask:
+        out["feature_mask"] = (E * d, size(block.label))
+    return out
+
+
+def block_input_bytes(blocks, has_mask: bool = False) -> int:
+    """Device bytes of the static buffers the solves of ``blocks`` read: per
+    input, its largest block's."""
+    most: Dict[str, int] = {}
+    for b in blocks:
+        for name, (k, item) in _block_input_sizes(b, has_mask).items():
+            most[name] = max(most.get(name, 0), k * item)
+    return int(sum(most.values()))
+
+
+class _Slot:
+    """A static input buffer: flat storage that programs of a cache reading
+    an input of one name (and dtype) share; each reads a view of its input's
+    shape at the front, loading its input first (they replay in turn on one
+    stream)."""
+
+    def __init__(self, numel: int, dtype: torch.dtype, device):
+        self.t = torch.empty(max(int(numel), 1), dtype=dtype, device=device)
         self._src: Optional[Tuple[Any, int]] = None  # (weak ref to the tensor loaded last, its version)
+
+    def view(self, shape) -> Tensor:
+        return self.t[:math.prod(shape)].view(tuple(shape))
 
     def load(self, v: Tensor) -> int:
         """Copy ``v`` in; returns the bytes copied (none when ``v`` is the
         tensor loaded last, unchanged since)."""
         if self._src is not None and self._src[0]() is v and self._src[1] == v._version:
             return 0
-        self.t.copy_(v)
+        self.view(v.shape).copy_(v)
         self._src = (weakref.ref(v), v._version)
         return v.numel() * v.element_size()
 
@@ -350,6 +390,7 @@ class SolveCache:
         # Programs and buffers live while an entry (or a solver handle) uses them.
         self._programs: "weakref.WeakValueDictionary[Tuple, _Entry]" = weakref.WeakValueDictionary()
         self._slots: "weakref.WeakValueDictionary[Tuple, _Slot]" = weakref.WeakValueDictionary()
+        self._reserved: List[_Slot] = []  # buffers sized ahead of their first program
         self._pools: Dict[Any, Any] = {}
         self._built: List[Dict[str, Any]] = []
         self._lock = threading.Lock()
@@ -414,16 +455,47 @@ class SolveCache:
             _WARMUP_STREAMS[device] = torch.cuda.Stream(device)
         return self._pools[device], _WARMUP_STREAMS[device]
 
-    def _slots_for(self, inputs: Dict[str, Tensor]) -> Dict[str, _Slot]:
-        """The static buffers of ``inputs``: one per name and signature."""
+    def _slots_for(self, inputs: Dict[str, Tensor], shared: bool = False) -> Dict[str, _Slot]:
+        """The static buffers of ``inputs``: one per name and signature, or
+        with ``shared`` (a block's inputs) one per name and dtype, grown to
+        the largest input it has held (``reserve_block_inputs`` sizes it
+        for a coordinate's largest block up front)."""
         out = {}
         for name, v in inputs.items():
-            k = (name, _sig(v))
-            slot = self._slots.get(k)
-            if slot is None:
-                slot = self._slots[k] = _Slot(v)
+            k = ("block", name, str(v.dtype), str(v.device)) if shared else (name, _sig(v))
+            with self._lock:
+                slot = self._slots.get(k)
+                if slot is None or slot.t.numel() < v.numel():
+                    slot = self._slots[k] = _Slot(v.numel(), v.dtype, v.device)
             out[name] = slot
         return out
+
+    def reserve_block_inputs(self, blocks, device, has_mask: bool = False) -> None:
+        """Size the shared block buffers for the largest of ``blocks`` (on
+        ``device``), so that no later block grows them: a grown buffer is a
+        new one, while the programs built on the old one keep it."""
+        if not blocks:
+            return
+        most: Dict[str, int] = {}
+        for b in blocks:
+            for name, (k, _item) in _block_input_sizes(b, has_mask).items():
+                most[name] = max(most.get(name, 0), k)
+
+        def as_torch(x) -> torch.dtype:
+            return x.dtype if isinstance(x, torch.Tensor) else torch.from_numpy(np.empty(0, x.dtype)).dtype
+
+        b = blocks[0]
+        data = as_torch(b.label)
+        dtypes = dict(features=as_torch(b.features), label=data, weight=as_torch(b.weight), offsets=data, w0=data,
+                      train_mask=torch.bool, entity_idx=as_torch(b.entity_idx), feature_mask=data)
+        device = torch.device(device)
+        with self._lock:
+            for name, k in most.items():
+                key = ("block", name, str(dtypes[name]), str(device))
+                slot = self._slots.get(key)
+                if slot is None or slot.t.numel() < k:
+                    slot = self._slots[key] = _Slot(k, dtypes[name], device)
+                    self._reserved.append(slot)
 
     def _get_or_build(self, pkey: Tuple, weights: Tuple[float, float], build: Callable[[], Any], pins: Tuple,
                       trace_key: Tuple):
@@ -504,8 +576,8 @@ class SolveCache:
                 inputs["feature_mask"] = feature_mask
 
             def build():
-                slots = self._slots_for(inputs)
-                t = {k: v.t for k, v in slots.items()}
+                slots = self._slots_for(inputs, shared=True)
+                t = {k: slot.view(inputs[k].shape) for k, slot in slots.items()}
                 blk = dataclasses.replace(block, **{k: t[k] for k in ("features", "label", "weight", "train_mask",
                                                                       "entity_idx")})
                 mask = t.get("feature_mask")
@@ -552,7 +624,7 @@ class SolveCache:
 
             def build():
                 slots = self._slots_for(inputs)
-                t = {k: v.t for k, v in slots.items()}
+                t = {k: slot.view(inputs[k].shape) for k, slot in slots.items()}
                 prog = fe_program(objective, spec, t["w0"], LabeledBatch(label, X, t["offset"], t["weight"], rows),
                                   config)
 
@@ -596,7 +668,7 @@ class SolveCache:
 
             def build():
                 slots = self._slots_for(inputs)
-                prog, start, post = make({k: v.t for k, v in slots.items()})
+                prog, start, post = make({k: slot.view(inputs[k].shape) for k, slot in slots.items()})
                 return _Entry(self, _Started(prog, start), slots, post, chunk_of(prog, fixed_effect), inputs, none)
 
             entry = self._dispatch(entries, key, none, build, pins, ("lanes", str(name[0])) + tuple(inputs["w0"].shape))
@@ -632,7 +704,7 @@ class SolveCache:
 
     def static_bytes(self) -> int:
         """Device bytes of the live static input buffers (one a name and
-        signature)."""
+        signature; a block's, one a name and dtype)."""
         with self._lock:
             slots = list(self._slots.values())
         return sum(s.t.numel() * s.t.element_size() for s in slots)
@@ -650,6 +722,7 @@ class SolveCache:
             self._entries.clear()
             self._pins.clear()
             self._pools.clear()
+            self._reserved.clear()
 
     def clear(self) -> None:
         self.release()

@@ -1,7 +1,8 @@
 """GameTransformer: batch scoring with a trained GameModel (port of
 photon_tpu/estimators/game_transformer.py). PyTorch runs eagerly, so there
 is no compiled scorer: ``warm_up`` scores each row-count bucket once and
-counts the buckets it had not scored before."""
+counts the buckets it had not scored before, and ``trace_count`` counts the
+distinct row counts scored (the reference's traces, one a shape)."""
 
 from __future__ import annotations
 
@@ -30,10 +31,15 @@ class GameTransformer:
         """Per-sample total scores (model + offsets); with a suite, also
         evaluates them into ``last_metrics``."""
         scores = (self.model if model is None else model).score_with_offset(batch)
+        self._buckets.add(batch.n)
         if self.evaluation_suite is not None:
             self.last_metrics = self.evaluation_suite.evaluate_scores(scores, batch)
             logger.info("scoring evaluation: %s", self.last_metrics)
         return scores
+
+    @property
+    def trace_count(self) -> int:
+        return len(self._buckets)
 
     def warm_up(self, template: GameBatch, row_buckets) -> int:
         """Score ``template`` padded to every bucket size (weight-0 rows,

@@ -9,16 +9,31 @@ holding one ``BayesianLinearModelAvro`` record and ``fixed-effect/
 type, feature shard); and a JSON ``model-metadata.json``. Coefficients
 whose magnitude is not above the sparsity threshold are not written.
 Directories written here load in the JAX package and the other way round.
-Generation manifests, deltas and gates are not ported yet.
+
+The generation half (the reference's rollout files): a generation is a model
+directory under a publish root with a ``generation-manifest.json`` (sha256
+of every file, parent, holdout metrics, gate verdict); ``LATEST`` names the
+current one, ``poisoned-generations.json`` the generations never to load
+again; a delta generation holds the changed entities' rows only and names
+its base in its metadata. Manifests, checksums and delta chains are the
+reference's byte for byte, so either package publishes what the other
+serves. Its metrics are not ported: ``PUBLISH_COUNTS`` counts publications
+and refusals.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import dataclasses
+import hashlib
 import json
+import logging
+import math
 import os
 import threading
-from typing import Dict, Optional, Tuple
+import time
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +52,14 @@ RANDOM_DIR = "random-effect"
 METADATA_FILE = "model-metadata.json"
 ID_INFO_FILE = "id-info"
 COEFF_DIR = "coefficients"
+MANIFEST_FILE = "generation-manifest.json"
+POISON_FILE = "poisoned-generations.json"
+
+logger = logging.getLogger(__name__)
+
+# Generations published and refused by the gate (the reference's
+# model_generations_published_total and model_gate_failures_total).
+PUBLISH_COUNTS: "collections.Counter" = collections.Counter()
 
 # The reference loader instantiates models by class name, so the records
 # carry its fully qualified names (the smoothed hinge has no model class
@@ -213,6 +236,639 @@ def publish_latest_pointer(publish_root: str, generation: str) -> str:
     except OSError:
         pass
     return path
+
+
+# ---------------------------------------------------------------------------
+# Generations: manifests, the validation gate, the poison list, names, locks
+# and delta layers (port of the reference's rollout half of
+# photon_tpu/io/model_io.py; framework-free but for the delta model's
+# tensors). A failing generation stays on disk, never pointed to, with the
+# refusal reason in its own manifest.
+# ---------------------------------------------------------------------------
+
+
+def _file_sha256(path: str, chunk: int = 1 << 20) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while True:
+            block = f.read(chunk)
+            if not block:
+                break
+            h.update(block)
+    return h.hexdigest()
+
+
+def generation_checksums(model_dir: str) -> Dict[str, str]:
+    """relpath → sha256 over every payload file of a generation (the
+    manifest itself excluded: it cannot checksum its own content)."""
+    out: Dict[str, str] = {}
+    for root, _dirs, files in os.walk(model_dir):
+        for fn in sorted(files):
+            rel = os.path.relpath(os.path.join(root, fn), model_dir)
+            if rel == MANIFEST_FILE:
+                continue
+            out[rel] = _file_sha256(os.path.join(root, fn))
+    return out
+
+
+def _write_json_durable(path: str, obj: dict) -> None:
+    """tmp + fsync + rename, the discipline of ``LATEST``."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f, indent=2)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def write_generation_manifest(model_dir: str, parent: Optional[str] = None,
+                              holdout_metrics: Optional[Dict[str, float]] = None,
+                              extra: Optional[dict] = None) -> dict:
+    """Record a generation's identity (per-file checksums and sizes, parent,
+    holdout metrics), after the model is saved and before the gate, which
+    verifies it against the files. The fault site
+    ``model.corrupt_manifest`` flips one recorded checksum (bit-rot that
+    still parses), which the gate must refuse."""
+    from photon_tpu_torch.utils import faults
+
+    checksums = generation_checksums(model_dir)
+    sizes = {rel: os.path.getsize(os.path.join(model_dir, rel)) for rel in checksums}
+    manifest = {
+        "generation": os.path.basename(model_dir.rstrip("/")),
+        "parent": parent,
+        "createdAt": time.time(),
+        "holdoutMetrics": dict(holdout_metrics or {}),
+        "files": checksums,
+        # A delta layer's totalBytes is a small share of its base's.
+        "fileBytes": sizes,
+        "totalBytes": int(sum(sizes.values())),
+        "gate": {"status": "candidate", "reason": None},
+        **(extra or {}),
+    }
+    if faults.injector().fire("model.corrupt_manifest") is not None and manifest["files"]:
+        rel = sorted(manifest["files"])[0]
+        manifest["files"][rel] = "0" * 64
+        logger.warning("fault model.corrupt_manifest: flipped checksum of %r in %s", rel, model_dir)
+    _write_json_durable(os.path.join(model_dir, MANIFEST_FILE), manifest)
+    return manifest
+
+
+def load_generation_manifest(model_dir: str) -> Optional[dict]:
+    path = os.path.join(model_dir, MANIFEST_FILE)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def update_generation_manifest(model_dir: str, patch: dict) -> Optional[dict]:
+    """Durably merge top-level keys into a generation's manifest (a dict
+    value merges into a dict one). The manifest is not in its own
+    checksums, so a patch never fails the gate. None without a manifest."""
+    manifest = load_generation_manifest(model_dir)
+    if manifest is None:
+        return None
+    for key, val in patch.items():
+        if isinstance(val, dict) and isinstance(manifest.get(key), dict):
+            manifest[key] = {**manifest[key], **val}
+        else:
+            manifest[key] = val
+    _write_json_durable(os.path.join(model_dir, MANIFEST_FILE), manifest)
+    return manifest
+
+
+def experiment_generations(publish_root: str, experiment_id: Optional[str] = None) -> List[dict]:
+    """Every generation manifest under ``publish_root`` with an
+    ``experiment`` tag (of ``experiment_id`` when given), sorted by (round,
+    generation): the tag plus ``generation``, ``gate`` and ``createdAt``."""
+    out: List[dict] = []
+    try:
+        names = sorted(os.listdir(publish_root))
+    except OSError:
+        return out
+    for name in names:
+        model_dir = os.path.join(publish_root, name)
+        if not os.path.isdir(model_dir):
+            continue
+        manifest = load_generation_manifest(model_dir)
+        exp = (manifest or {}).get("experiment")
+        if not isinstance(exp, dict) or (experiment_id is not None and exp.get("id") != experiment_id):
+            continue
+        out.append(dict(exp, generation=manifest.get("generation", name), gate=manifest.get("gate"),
+                        createdAt=manifest.get("createdAt")))
+    out.sort(key=lambda e: (int(e.get("round", 0)), str(e["generation"])))
+    return out
+
+
+def delta_info(model_dir: str) -> Optional[dict]:
+    """The ``delta`` block of a generation's metadata ({"base", ...}), or
+    None for a full generation."""
+    path = os.path.join(model_dir, METADATA_FILE)
+    if not os.path.exists(path):
+        return None
+    try:
+        with open(path) as f:
+            return json.load(f).get("delta")
+    except (OSError, ValueError):
+        return None
+
+
+def resolve_delta_chain(model_dir: str, publish_root: Optional[str] = None, max_depth: int = 128) -> list:
+    """A generation's chain, base first: ``[full_base, delta_1, ...,
+    model_dir]`` (``[model_dir]`` for a full one). Bases are siblings under
+    ``publish_root`` (default: the generation's parent directory). A missing
+    base raises FileNotFoundError, a cycle or an over-deep chain
+    ValueError."""
+    publish_root = publish_root or os.path.dirname(os.path.abspath(model_dir.rstrip("/")))
+    chain: list = []
+    seen = set()
+    cur = model_dir
+    while True:
+        name = os.path.basename(cur.rstrip("/"))
+        if name in seen:
+            raise ValueError(f"delta chain cycle at {name!r}")
+        seen.add(name)
+        chain.append(cur)
+        if len(chain) > max_depth:
+            raise ValueError(f"delta chain deeper than {max_depth} from {model_dir!r}")
+        info = delta_info(cur)
+        if not info:
+            chain.reverse()
+            return chain
+        base = info.get("base")
+        if not base:
+            raise ValueError(f"delta generation {name!r} names no base")
+        cand = base if os.path.isabs(base) else os.path.join(publish_root, base)
+        if not os.path.isdir(cand):
+            raise FileNotFoundError(f"delta base {base!r} of {name!r} missing under {publish_root!r}")
+        cur = cand
+
+
+def delta_row_ids(model_dir: str) -> Dict[str, set]:
+    """Per coordinate, the model ids a delta layer carries (``{"__fixed__"}``
+    for a fixed effect); {} for a full generation."""
+    if delta_info(model_dir) is None:
+        return {}
+    out: Dict[str, set] = {}
+    for cid, info in read_model_metadata(model_dir)["coordinates"].items():
+        if info.get("type") == "fixed":
+            out[cid] = {"__fixed__"}  # a layer that retrains the fixed effect commutes with nothing
+            continue
+        out[cid] = {rec["modelId"] for rec in _records(os.path.join(model_dir, RANDOM_DIR, cid))}
+    return out
+
+
+def layers_commute(dir_a: str, dir_b: str) -> bool:
+    """True iff two delta layers touch disjoint entities in every
+    coordinate (and neither retrains the fixed effect): row-overwrite
+    application is then order-independent."""
+    rows_a, rows_b = delta_row_ids(dir_a), delta_row_ids(dir_b)
+    return not any(rows_a[cid] & rows_b[cid] for cid in set(rows_a) & set(rows_b))
+
+
+def _resolved_coordinate_records(model_dir: str, publish_root: Optional[str] = None):
+    """A chain resolved into ``(coordinates, {cid: {modelId: record}})``,
+    later layers' records replacing earlier ones row by row."""
+    coordinates: Dict[str, dict] = {}
+    records: Dict[str, dict] = {}
+    for layer in resolve_delta_chain(model_dir, publish_root):
+        for cid, info in read_model_metadata(layer)["coordinates"].items():
+            coordinates.setdefault(cid, dict(info))
+            sub = FIXED_DIR if info.get("type") == "fixed" else RANDOM_DIR
+            per = records.setdefault(cid, {})
+            for rec in _records(os.path.join(layer, sub, cid)):
+                per[rec["modelId"]] = rec
+    return coordinates, records
+
+
+def _norms_over_records(recs) -> dict:
+    sq, n, finite = 0.0, 0, True
+    for rec in recs:
+        n += 1
+        for ntv in rec.get("means") or ():
+            v = float(ntv["value"])
+            if not math.isfinite(v):
+                finite = False
+            else:
+                sq += v * v
+        for ntv in rec.get("variances") or ():
+            if not math.isfinite(float(ntv["value"])):
+                finite = False
+    return {"l2": math.sqrt(sq), "records": n, "finite": finite}
+
+
+def coordinate_norms(model_dir: str, resolve_deltas: bool = True) -> Dict[str, dict]:
+    """Per coordinate, straight off the Avro part files: the L2 norm of all
+    recorded means, the record count and whether every value is finite (the
+    gate's coefficient check; a delta generation over its resolved
+    chain)."""
+    if resolve_deltas and delta_info(model_dir) is not None:
+        _coords, records = _resolved_coordinate_records(model_dir)
+        return {cid: _norms_over_records(per.values()) for cid, per in records.items()}
+    out: Dict[str, dict] = {}
+    for cid, info in read_model_metadata(model_dir).get("coordinates", {}).items():
+        sub = FIXED_DIR if info.get("type") == "fixed" else RANDOM_DIR
+        out[cid] = _norms_over_records(_records(os.path.join(model_dir, sub, cid)))
+    return out
+
+
+@dataclasses.dataclass
+class GateResult:
+    """The validation gate's verdict on one candidate generation."""
+
+    ok: bool
+    reason: Optional[str]
+    checks: Dict[str, object] = dataclasses.field(default_factory=dict)
+
+
+def _metric_regressed(name: str, new: float, old: float, tol: float) -> bool:
+    """``new`` worse than ``old`` by more than ``tol`` in the metric's own
+    direction; a metric the evaluator grammar does not know is not judged;
+    a non-finite new value always regresses."""
+    if not (math.isfinite(new) and math.isfinite(old)):
+        return not math.isfinite(new)
+    try:
+        from photon_tpu_torch.evaluation.suite import EvaluatorSpec
+
+        better = EvaluatorSpec.parse(name).better()
+    except Exception:  # noqa: BLE001 — unknown metric: no verdict
+        return False
+    if better(1.0, 0.0):
+        return new < old - tol
+    return new > old + tol
+
+
+def verify_generation(model_dir: str, parent_dir: Optional[str] = None, metric_tolerance: float = 0.02,
+                      norm_drift_bound: float = 10.0) -> GateResult:
+    """The validation gate: (1) every file of the manifest exists and hashes
+    to its recorded sha256, and a delta's chain resolves with no poisoned
+    base; (2) every coefficient is finite and each coordinate's L2 norm
+    within ``norm_drift_bound`` relative drift of the parent's; (3) no
+    holdout metric of both manifests is worse than the parent's by more than
+    ``metric_tolerance``. Never raises on bad content."""
+    checks: Dict[str, object] = {}
+    try:
+        manifest = load_generation_manifest(model_dir)
+    except (OSError, ValueError) as exc:
+        return GateResult(False, f"manifest_unreadable: {exc}", checks)
+    if manifest is None:
+        return GateResult(False, "manifest_missing", checks)
+    recorded = manifest.get("files") or {}
+    for rel, digest in sorted(recorded.items()):
+        path = os.path.join(model_dir, rel)
+        if not os.path.exists(path):
+            return GateResult(False, f"missing_file: {rel}", checks)
+        if _file_sha256(path) != digest:
+            return GateResult(False, f"checksum_mismatch: {rel}", checks)
+    checks["files_verified"] = len(recorded)
+    if delta_info(model_dir) is not None:
+        publish_root = os.path.dirname(os.path.abspath(model_dir.rstrip("/")))
+        try:
+            chain = resolve_delta_chain(model_dir, publish_root)
+        except (OSError, ValueError) as exc:
+            return GateResult(False, f"delta_chain_unresolvable: {exc}", checks)
+        checks["delta_chain"] = [os.path.basename(p.rstrip("/")) for p in chain]
+        for layer in chain[:-1]:
+            if is_poisoned(publish_root, layer):
+                return GateResult(False, f"delta_base_poisoned: {os.path.basename(layer.rstrip('/'))}", checks)
+    try:
+        norms = coordinate_norms(model_dir)
+    except Exception as exc:  # noqa: BLE001 — unreadable coefficients fail the gate
+        return GateResult(False, f"coefficients_unreadable: {exc}", checks)
+    checks["coordinate_norms"] = {c: round(v["l2"], 6) for c, v in norms.items()}
+    for cid, info in norms.items():
+        if not info["finite"]:
+            return GateResult(False, f"non_finite_coefficients: {cid}", checks)
+    parent_manifest = None
+    if parent_dir:
+        try:
+            parent_manifest = load_generation_manifest(parent_dir)
+            parent_norms = coordinate_norms(parent_dir)
+        except Exception:  # noqa: BLE001 — an unreadable parent cannot bound us
+            parent_norms = {}
+        for cid, info in norms.items():
+            old = parent_norms.get(cid, {}).get("l2")
+            if old is None or old <= 1e-9:
+                continue
+            drift = abs(info["l2"] - old) / old
+            if drift > norm_drift_bound:
+                return GateResult(False, f"norm_drift: {cid} drifted {drift:.2f}x (bound {norm_drift_bound})",
+                                  checks)
+    new_metrics = manifest.get("holdoutMetrics") or {}
+    old_metrics = (parent_manifest or {}).get("holdoutMetrics") or {}
+    compared = {}
+    for name, new_v in new_metrics.items():
+        old_v = old_metrics.get(name)
+        if old_v is None:
+            continue
+        compared[name] = {"new": new_v, "parent": old_v}
+        if _metric_regressed(name, float(new_v), float(old_v), metric_tolerance):
+            checks["holdout_compared"] = compared
+            return GateResult(False, f"holdout_regression: {name} {new_v:.6g} vs parent {old_v:.6g} "
+                                     f"(tolerance {metric_tolerance})", checks)
+    checks["holdout_compared"] = compared
+    return GateResult(True, None, checks)
+
+
+def gate_and_publish(publish_root: str, generation: str, metric_tolerance: float = 0.02,
+                     norm_drift_bound: float = 10.0) -> GateResult:
+    """Gate ``generation`` (a subdirectory of ``publish_root``) against the
+    current ``LATEST`` and flip the pointer on a pass only; the verdict goes
+    into the generation's own manifest either way."""
+    model_dir = os.path.join(publish_root, generation)
+    parent_dir = None
+    latest = os.path.join(publish_root, "LATEST")
+    if os.path.isfile(latest):
+        with open(latest) as f:
+            name = f.read().strip()
+        if name and name != generation:
+            cand = name if os.path.isabs(name) else os.path.join(publish_root, name)
+            if os.path.isdir(cand):
+                parent_dir = cand
+    result = verify_generation(model_dir, parent_dir, metric_tolerance=metric_tolerance,
+                               norm_drift_bound=norm_drift_bound)
+    manifest = load_generation_manifest(model_dir)
+    if manifest is not None:
+        manifest["gate"] = {"status": "published" if result.ok else "rejected", "reason": result.reason,
+                            "checkedAt": time.time()}
+        _write_json_durable(os.path.join(model_dir, MANIFEST_FILE), manifest)
+    if result.ok:
+        publish_latest_pointer(publish_root, generation)
+        PUBLISH_COUNTS["published"] += 1
+        logger.info("generation %s passed the gate; LATEST -> %s", generation, generation)
+    else:
+        PUBLISH_COUNTS["gate_failures"] += 1
+        logger.warning("generation %s REFUSED by the validation gate (%s); LATEST unchanged", generation,
+                       result.reason)
+    return result
+
+
+def _flock(lockf) -> None:
+    try:
+        import fcntl
+
+        fcntl.flock(lockf.fileno(), fcntl.LOCK_EX)
+    except ImportError:  # non-POSIX: best effort, one writer only
+        pass
+
+
+def load_poison_list(publish_root: str) -> Dict[str, str]:
+    path = os.path.join(publish_root, POISON_FILE)
+    if not os.path.exists(path):
+        return {}
+    try:
+        with open(path) as f:
+            obj = json.load(f)
+        return {str(k): str(v) for k, v in obj.items()}
+    except (OSError, ValueError):
+        return {}
+
+
+def mark_poisoned(publish_root: str, generation: str, reason: str) -> None:
+    """Durably add ``generation`` to the publish root's poison list, the
+    read-modify-write under an exclusive flock of a sidecar file (a publish
+    root is shared by processes)."""
+    generation = os.path.basename(generation.rstrip("/"))
+    with open(os.path.join(publish_root, POISON_FILE + ".lock"), "a") as lockf:
+        _flock(lockf)
+        poisoned = load_poison_list(publish_root)
+        poisoned[generation] = reason
+        _write_json_durable(os.path.join(publish_root, POISON_FILE), poisoned)
+    logger.warning("generation %s marked POISONED: %s", generation, reason)
+
+
+def is_poisoned(publish_root: str, generation: str) -> bool:
+    return os.path.basename(generation.rstrip("/")) in load_poison_list(publish_root)
+
+
+def next_generation_name(publish_root: str, prefix: str = "gen-") -> str:
+    """The first unused ``<prefix><N>`` (N past the largest existing one,
+    poisoned ones included)."""
+    best = 0
+    if os.path.isdir(publish_root):
+        for name in os.listdir(publish_root):
+            if name.startswith(prefix):
+                try:
+                    best = max(best, int(name[len(prefix):]))
+                except ValueError:
+                    continue
+    return f"{prefix}{best + 1}"
+
+
+def allocate_generation(publish_root: str, prefix: str = "gen-") -> str:
+    """Claim the next generation name: the scan and the directory's creation
+    under an exclusive flock, so two publishers never share a name."""
+    os.makedirs(publish_root, exist_ok=True)
+    with open(os.path.join(publish_root, ".generation-allocate.lock"), "a") as lockf:
+        _flock(lockf)
+        name = next_generation_name(publish_root, prefix)
+        os.makedirs(os.path.join(publish_root, name))
+    return name
+
+
+@contextlib.contextmanager
+def publish_lock(publish_root: str):
+    """Exclusive flock over the save → manifest → gate → flip tail of a
+    publish, so concurrent publishers rebase onto the true predecessor."""
+    os.makedirs(publish_root, exist_ok=True)
+    with open(os.path.join(publish_root, ".streaming-publish.lock"), "a") as lockf:
+        _flock(lockf)
+        yield
+
+
+def save_delta_model(model: GameModel, changed_entities: Dict[str, np.ndarray], output_dir: str,
+                     index_maps: Dict[str, IndexMap], entity_indexes: Dict[str, EntityIndex], base: str,
+                     sparsity_threshold: float = 0.0, include_fixed: bool = False,
+                     extra_metadata: Optional[dict] = None) -> Dict[str, int]:
+    """Write a delta generation: only the rows ``changed_entities`` names
+    (``{re_type: bool mask or index array}``), in a full generation's
+    layout, with ``{"delta": {"base": <generation>, "changedEntities"}}`` in
+    its metadata. The default threshold 0 keeps every nonzero coefficient,
+    so resolving the layer equals publishing the whole model. Fixed effects
+    only with ``include_fixed``. Returns the records written a
+    coordinate."""
+    os.makedirs(output_dir, exist_ok=True)
+    base = os.path.basename(base.rstrip("/"))
+    written: Dict[str, int] = {}
+    meta: dict = {"coordinates": {}, **(extra_metadata or {})}
+    changed_counts: Dict[str, int] = {}
+    for cid, sub in model.models.items():
+        if isinstance(sub, FixedEffectModel):
+            if not include_fixed:
+                continue
+            cdir = os.path.join(output_dir, FIXED_DIR, cid, COEFF_DIR)
+            os.makedirs(cdir, exist_ok=True)
+            with open(os.path.join(output_dir, FIXED_DIR, cid, ID_INFO_FILE), "w") as f:
+                f.write(sub.feature_shard + "\n")
+            coefs = sub.model.coefficients
+            rec = _coeffs_to_avro(cid, _host(coefs.means), _host(coefs.variances), index_maps[sub.feature_shard],
+                                  sub.model.task, sparsity_threshold)
+            write_avro_records(os.path.join(cdir, "part-00000.avro"), BAYESIAN_LINEAR_MODEL_SCHEMA, [rec])
+            meta["coordinates"][cid] = {"type": "fixed", "featureShard": sub.feature_shard,
+                                        "task": sub.model.task.value, "dim": int(coefs.dim)}
+            written[cid] = 1
+        elif isinstance(sub, RandomEffectModel):
+            mask = changed_entities.get(sub.re_type)
+            if mask is None:
+                continue
+            coefs = _host(sub.coefficients)
+            mask = np.asarray(mask)
+            idx = np.flatnonzero(mask) if mask.dtype == bool else np.unique(mask.astype(np.int64))
+            idx = idx[idx < coefs.shape[0]]
+            if idx.size == 0:
+                continue
+            cdir = os.path.join(output_dir, RANDOM_DIR, cid)
+            os.makedirs(os.path.join(cdir, COEFF_DIR), exist_ok=True)
+            with open(os.path.join(cdir, ID_INFO_FILE), "w") as f:
+                f.write(sub.re_type + "\n" + sub.feature_shard + "\n")
+            eidx = entity_indexes.get(sub.re_type)
+            variances = _host(sub.variances)
+            records = [_coeffs_to_avro(eidx.entity_id(int(e)) if eidx is not None else str(int(e)), coefs[e],
+                                       None if variances is None else variances[e], index_maps[sub.feature_shard],
+                                       sub.task, sparsity_threshold)
+                       for e in idx]
+            write_avro_records(os.path.join(cdir, COEFF_DIR, "part-00000.avro"), BAYESIAN_LINEAR_MODEL_SCHEMA,
+                               records)
+            meta["coordinates"][cid] = {"type": "random", "reType": sub.re_type, "featureShard": sub.feature_shard,
+                                        "task": sub.task.value, "dim": int(coefs.shape[1]),
+                                        "numEntities": int(idx.size)}
+            written[cid] = int(idx.size)
+            changed_counts[sub.re_type] = changed_counts.get(sub.re_type, 0) + int(idx.size)
+        elif isinstance(sub, ProjectedRandomEffectModel):
+            raise ValueError(f"coordinate {cid!r}: projected random effects do not support delta layers — "
+                             "publish a full generation")
+    if not written:
+        raise ValueError("delta generation would be empty: no changed entities named and fixed effects excluded")
+    tasks = [c["task"] for c in meta["coordinates"].values()]
+    if tasks:
+        meta.setdefault("modelType", tasks[0])
+    meta["delta"] = {"base": base, "changedEntities": changed_counts}
+    with open(os.path.join(output_dir, METADATA_FILE), "w") as f:
+        json.dump(meta, f, indent=2)
+    return written
+
+
+def read_delta_rows(model_dir: str, index_maps: Dict[str, IndexMap], entity_indexes: Dict[str, EntityIndex]) -> dict:
+    """One delta layer as the serving store's overlay: ``{"base", "re_rows":
+    {cid: (entity_idx int64[m], rows float32[m, d])}, "fixed": {cid: means
+    float32[d]}}``. An entity id unknown to ``entity_indexes`` raises
+    ValueError (the caller then loads the resolved model whole)."""
+    info = delta_info(model_dir)
+    if info is None:
+        raise ValueError(f"{model_dir!r} is not a delta generation")
+    out: dict = {"base": info.get("base"), "re_rows": {}, "fixed": {}}
+    for cid, cinfo in read_model_metadata(model_dir)["coordinates"].items():
+        imap = index_maps[cinfo["featureShard"]]
+        dim = cinfo.get("dim", len(imap))
+        if cinfo["type"] == "fixed":
+            recs = _records(os.path.join(model_dir, FIXED_DIR, cid))
+            if len(recs) != 1:
+                raise ValueError(f"delta fixed-effect {cid!r}: expected one record, got {len(recs)}")
+            out["fixed"][cid] = _avro_to_coeffs(recs[0], imap, dim)[0]
+            continue
+        cdir = os.path.join(model_dir, RANDOM_DIR, cid)
+        with open(os.path.join(cdir, ID_INFO_FILE)) as f:
+            re_type = f.read().split()[0]
+        eidx = entity_indexes.get(re_type)
+        if eidx is None:
+            raise ValueError(f"delta coordinate {cid!r}: no entity index for {re_type!r}")
+        idx, rows = [], []
+        for rec in _records(cdir):
+            e = eidx.lookup(rec["modelId"])
+            if e < 0:
+                raise ValueError(f"delta coordinate {cid!r}: entity {rec['modelId']!r} unknown to the serving "
+                                 "entity index")
+            idx.append(e)
+            rows.append(_avro_to_coeffs(rec, imap, dim)[0])
+        if idx:
+            out["re_rows"][cid] = (np.asarray(idx, np.int64), np.stack(rows).astype(np.float32))
+    return out
+
+
+def load_resolved_game_model(model_dir: str, index_maps: Dict[str, IndexMap],
+                             entity_indexes: Optional[Dict[str, EntityIndex]] = None, to_device: bool = True,
+                             publish_root: Optional[str] = None, device="cuda") -> GameModel:
+    """A generation with its delta chain applied: the full base loads on the
+    host, each layer's records overwrite their entities' rows (a layer may
+    add entities), then the model moves to ``device`` unless ``to_device``
+    is False (the serving store's host master: CPU tensors). Equal to
+    loading the equivalent whole-model publish."""
+    chain = resolve_delta_chain(model_dir, publish_root)
+    entity_indexes = entity_indexes if entity_indexes is not None else {}
+    model = load_game_model(chain[0], index_maps, entity_indexes, device="cpu")
+    for layer in chain[1:]:
+        model = _apply_delta_layer(model, layer, index_maps, entity_indexes)
+    if not to_device:
+        return model
+    return GameModel({cid: _submodel_to(sub, device) for cid, sub in model.models.items()})
+
+
+def _submodel_to(sub, device):
+    to = lambda t: None if t is None else t.to(device)  # noqa: E731
+    if isinstance(sub, FixedEffectModel):
+        c = sub.model.coefficients
+        return FixedEffectModel(GeneralizedLinearModel(Coefficients(to(c.means), to(c.variances)), sub.model.task),
+                                sub.feature_shard)
+    if isinstance(sub, RandomEffectModel):
+        return dataclasses.replace(sub, coefficients=to(sub.coefficients), variances=to(sub.variances),
+                                   present_entities=to(sub.present_entities))
+    return sub
+
+
+def _apply_delta_layer(model: GameModel, layer_dir: str, index_maps: Dict[str, IndexMap],
+                       entity_indexes: Dict[str, EntityIndex]) -> GameModel:
+    """Overwrite ``model``'s rows (CPU tensors) with one delta layer's
+    records, growing an entity space when the layer adds ids."""
+    models = dict(model.models)
+    for cid, info in read_model_metadata(layer_dir)["coordinates"].items():
+        imap = index_maps[info["featureShard"]]
+        dim = info.get("dim", len(imap))
+        old = models.get(cid)
+        if info["type"] == "fixed":
+            recs = _records(os.path.join(layer_dir, FIXED_DIR, cid))
+            if len(recs) != 1:
+                raise ValueError(f"delta fixed-effect {cid!r}: expected one record, got {len(recs)}")
+            if not isinstance(old, FixedEffectModel):
+                raise ValueError(f"delta fixed-effect {cid!r} has no fixed base coordinate")
+            means, variances, _task = _avro_to_coeffs(recs[0], imap, dim)
+            oldv = old.model.coefficients.variances
+            models[cid] = FixedEffectModel(
+                GeneralizedLinearModel(Coefficients(torch.from_numpy(means), torch.from_numpy(variances)
+                                                    if variances is not None else oldv), old.model.task),
+                old.feature_shard)
+            continue
+        cdir = os.path.join(layer_dir, RANDOM_DIR, cid)
+        with open(os.path.join(cdir, ID_INFO_FILE)) as f:
+            re_type = f.read().split()[0]
+        if not isinstance(old, RandomEffectModel):
+            raise ValueError(f"delta coordinate {cid!r} has no random-effect base coordinate")
+        eidx = entity_indexes.setdefault(re_type, EntityIndex())
+        recs = _records(cdir)
+        for rec in recs:
+            eidx.intern(rec["modelId"])
+        E = len(eidx)
+        coefs = _host(old.coefficients).copy()
+        present = (np.zeros((coefs.shape[0],), bool) if old.present_entities is None
+                   else _host(old.present_entities).copy())
+        variances_arr = None if old.variances is None else _host(old.variances).copy()
+        if E > coefs.shape[0]:  # the layer added entities
+            grow = E - coefs.shape[0]
+            coefs = np.vstack([coefs, np.zeros((grow, coefs.shape[1]), coefs.dtype)])
+            present = np.concatenate([present, np.zeros((grow,), bool)])
+            if variances_arr is not None:
+                variances_arr = np.vstack([variances_arr, np.zeros((grow, variances_arr.shape[1]),
+                                                                   variances_arr.dtype)])
+        for rec in recs:
+            e = eidx.lookup(rec["modelId"])
+            means, variances, _task = _avro_to_coeffs(rec, imap, dim)
+            coefs[e] = means
+            present[e] = True
+            if variances is not None and variances_arr is not None:
+                variances_arr[e] = variances
+        models[cid] = RandomEffectModel(torch.from_numpy(coefs), re_type, old.feature_shard, old.task,
+                                        None if variances_arr is None else torch.from_numpy(variances_arr),
+                                        present_entities=torch.from_numpy(present))
+    return GameModel(models)
 
 
 def _scan_model_dir(model_dir: str, meta: dict) -> Dict[str, dict]:

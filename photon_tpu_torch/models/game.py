@@ -8,9 +8,10 @@ matrix is a host master (the out-of-core path's model) and the batch lies on
 the card, scoring copies the whole matrix to the batch's device, once a call
 (``TABLE_COPIES`` counts the copies and their bytes), and scores there. A
 ProjectedRandomEffectModel keeps each block's coefficients in the block's
-column subspace. Every score is a per-row product and sum, as
-``Coefficients.compute_score`` takes it, never a matrix product, so scores
-do not depend on the batch size. A sparse shard scores by gathering each
+column subspace. Every dense score is a per-row product and a fixed-order
+row sum (``coefficients.row_sum``), as ``Coefficients.compute_score`` takes
+it, never a matrix product or a reduction kernel, so scores do not depend
+on the batch size. A sparse shard scores by gathering each
 entry's coefficient (through the block's inverse map when projected).
 """
 
@@ -22,6 +23,7 @@ from typing import Dict, Optional, Union
 import torch
 
 from photon_tpu_torch.data.batch import SparseFeatures
+from photon_tpu_torch.models.coefficients import row_sum
 from photon_tpu_torch.data.game_data import GameBatch
 from photon_tpu_torch.models.glm import GeneralizedLinearModel
 from photon_tpu_torch.types import TaskType
@@ -82,7 +84,7 @@ class RandomEffectModel:
         if isinstance(feats, SparseFeatures):
             scores = torch.sum(feats.values * torch.take_along_dim(w, feats.indices.long(), dim=1), dim=-1)
         else:
-            scores = torch.sum(feats * w, dim=-1)
+            scores = row_sum(feats * w)
         return torch.where(valid, scores, torch.zeros((), dtype=scores.dtype, device=scores.device))
 
 
@@ -125,7 +127,7 @@ class ProjectedRandomEffectModel:
                 got = torch.take_along_dim(w, torch.clamp(loc, min=0), dim=1)
                 s = torch.sum(torch.where(loc >= 0, feats.values * got, 0.0), dim=-1)
             else:
-                s = torch.sum(feats[:, self.col_maps[b].long()].to(w.dtype) * w, dim=-1)
+                s = row_sum(feats[:, self.col_maps[b].long()].to(w.dtype) * w)
             total = total + torch.where(in_b, s, 0.0)
         return total
 

@@ -324,3 +324,153 @@ def test_stack_shard_blocks_rejects_mismatched_geometry():
                                     np.zeros(24), np.ones(24), 4, cfg, device="cpu").blocks[0]
     with pytest.raises(ValueError):
         stack_shard_blocks([a, b])
+
+
+# ---------------------------------------------------------------------------
+# Sharded serving: the store's device_shards and the engine on them
+# ---------------------------------------------------------------------------
+
+S_FIX = 6
+
+
+def _serving_model(seed=41):
+    from photon_tpu_torch.models.coefficients import Coefficients
+    from photon_tpu_torch.models.game import FixedEffectModel, GameModel, RandomEffectModel
+    from photon_tpu_torch.models.glm import GeneralizedLinearModel
+    from photon_tpu_torch.types import TaskType
+
+    rng = np.random.default_rng(seed)
+    w_fix = np.linspace(-1, 1, S_FIX).astype(np.float32)
+    w_re = rng.normal(size=(E, D_RE)).astype(np.float32)
+    return GameModel({
+        "global": FixedEffectModel(GeneralizedLinearModel(Coefficients(torch.as_tensor(w_fix)),
+                                                          TaskType.LOGISTIC_REGRESSION), "shardA"),
+        "per_user": RandomEffectModel(torch.as_tensor(w_re), "userId", "shardB", TaskType.LOGISTIC_REGRESSION),
+    }), w_re
+
+
+def _serving_index():
+    from photon_tpu_torch.data.index_map import EntityIndex
+
+    eidx = EntityIndex()
+    for e in range(E):
+        eidx.intern(f"user{e}")
+    return eidx
+
+
+def _serving_inputs(seed=5, n=48):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, E, size=n), rng.normal(size=(n, S_FIX)).astype(np.float32),
+            rng.normal(size=(n, D_RE)).astype(np.float32))
+
+
+def _score_via(store, users, xa, xb):
+    from photon_tpu_torch.data.game_data import GameBatch
+    from photon_tpu_torch.estimators.game_transformer import GameTransformer
+
+    n = len(users)
+    slots = store.resolve("userId", [f"user{u}" for u in users])
+    b = GameBatch(label=torch.zeros(n), offset=torch.zeros(n), weight=torch.ones(n),
+                  features={"shardA": torch.as_tensor(xa), "shardB": torch.as_tensor(xb)},
+                  entity_ids={"userId": torch.as_tensor(slots, dtype=torch.int32)})
+    return GameTransformer(store.scoring_model()).transform(b).numpy()
+
+
+def test_store_sharded_pinned_parity_and_layout():
+    from photon_tpu_torch.serve import HotColdEntityStore
+
+    model, _ = _serving_model()
+    eidx = _serving_index()
+    users, xa, xb = _serving_inputs()
+    ref = HotColdEntityStore(model, {"userId": eidx}, hot_bytes=1 << 30, device="cpu")
+    sh = HotColdEntityStore(model, {"userId": eidx}, hot_bytes=1 << 30, device_shards=8, device="cpu")
+    assert ref.group("userId").pinned and sh.group("userId").pinned
+    np.testing.assert_array_equal(_score_via(ref, users, xa, xb), _score_via(sh, users, xa, xb))
+    # Eight equal entity segments of one table on the store's one device.
+    tab = sh.group("userId").tables["per_user"]
+    assert tab.device == torch.device("cpu") and tab.shape[0] % 8 == 0
+    st = sh.stats()["userId"]
+    assert st["device_shards"] == 8 and st["shard_rows"] * 8 == tab.shape[0]
+
+
+def test_store_sharded_unpinned_parity_and_demotion():
+    from photon_tpu_torch.serve import HotColdEntityStore
+
+    model, w_re = _serving_model()
+    eidx = _serving_index()
+    users, xa, xb = _serving_inputs()
+    ref = HotColdEntityStore(model, {"userId": eidx}, hot_bytes=1, min_hot_rows=64, device="cpu")
+    sh = HotColdEntityStore(model, {"userId": eidx}, hot_bytes=1, min_hot_rows=64, device_shards=8, device="cpu")
+    assert not sh.group("userId").pinned
+    sh.warm_uploads(64)
+    np.testing.assert_array_equal(_score_via(ref, users, xa, xb), _score_via(sh, users, xa, xb))
+    users2 = np.random.default_rng(9).integers(0, E, size=48)
+    slots = sh.resolve("userId", [f"user{u}" for u in users2])
+    tab = sh.group("userId").tables["per_user"].numpy()
+    for u, s in zip(users2, slots):
+        np.testing.assert_array_equal(tab[s], w_re[u])
+
+
+def test_store_shard_snapshot_matches_training_plan_and_reference():
+    from photon_tpu.data.index_map import EntityIndex as JEntityIndex
+    from photon_tpu.parallel.entity_shard import build_shard_plan as j_build_shard_plan
+
+    from photon_tpu_torch.parallel.entity_shard import build_shard_plan
+    from photon_tpu_torch.serve import HotColdEntityStore
+
+    model, _ = _serving_model()
+    eidx = _serving_index()
+    sh = HotColdEntityStore(model, {"userId": eidx}, hot_bytes=1 << 30, device_shards=8, device="cpu")
+    jidx = JEntityIndex()
+    for e in range(E):
+        jidx.intern(f"user{e}")
+    snap = sh.shard_snapshot("userId")
+    assert snap == build_shard_plan(E, 8, entity_index=eidx).snapshot()
+    assert snap == j_build_shard_plan(E, 8, entity_index=jidx).snapshot()
+
+
+def test_store_sharded_clone_with_delta():
+    from photon_tpu_torch.serve import HotColdEntityStore
+
+    model, _ = _serving_model()
+    eidx = _serving_index()
+    idx = np.array([3, 17], np.int64)
+    rows = np.random.default_rng(13).normal(size=(2, D_RE)).astype(np.float32)
+    sh = HotColdEntityStore(model, {"userId": eidx}, hot_bytes=1 << 30, device_shards=8, device="cpu")
+    c1 = sh.clone_with_delta({"per_user": (idx, rows)})
+    tab, perm = c1.group("userId").tables["per_user"].numpy(), c1.group("userId").perm
+    np.testing.assert_array_equal(tab[perm[3]], rows[0])
+    np.testing.assert_array_equal(tab[perm[17]], rows[1])
+    # The base's table is not written.
+    assert not np.array_equal(sh.group("userId").tables["per_user"].numpy()[perm[3]], rows[0])
+    sh2 = HotColdEntityStore(model, {"userId": eidx}, hot_bytes=1, min_hot_rows=64, device_shards=8, device="cpu")
+    c2 = sh2.clone_with_delta({"per_user": (idx, rows)})
+    slots = c2.resolve("userId", ["user3", "user17"])
+    tab2 = c2.group("userId").tables["per_user"].numpy()
+    np.testing.assert_array_equal(tab2[slots[0]], rows[0])
+    np.testing.assert_array_equal(tab2[slots[1]], rows[1])
+
+
+@pytest.mark.parametrize("hot_bytes", [1 << 30, 1])
+def test_engine_device_shards_end_to_end(hot_bytes):
+    """The counterpart of the reference's test of the same name: the
+    8-segment engine scores exactly as the plain engine, with no row bucket
+    first scored after warm-up (the reference's sharded engine compiles once
+    on live traffic there: ROADMAP queue 3)."""
+    from photon_tpu_torch.serve import ScoreRequest, ServeConfig, ServingEngine
+
+    model, _ = _serving_model()
+    users, xa, xb = _serving_inputs(n=32)
+    reqs = [ScoreRequest({"shardA": xa[i], "shardB": xb[i]}, {"userId": f"user{users[i]}"}) for i in range(len(users))]
+    out = {}
+    for shards in (8, None):
+        eng = ServingEngine(model, entity_indexes={"userId": _serving_index()},
+                            config=ServeConfig(max_batch_size=8, max_delay_ms=1.0, hot_bytes=hot_bytes,
+                                               device_shards=shards, device="cpu"))
+        try:
+            out[shards] = np.asarray([np.float32(eng.submit(r).result(timeout=30)) for r in reqs], np.float32)
+            assert eng.retraces_since_warmup == 0, eng.stats()
+            assert eng._state.store.device_shards == shards
+        finally:
+            eng.close()
+    np.testing.assert_array_equal(out[8], out[None])

@@ -909,7 +909,7 @@ def test_budgeted_coordinate_on_card_is_bitwise_resident(cuda_device, tmp_path, 
     assert cache.traces_since(mark) == 0
     assert torch.equal(model.coefficients, resident.coefficients.cpu())
     assert torch.equal(model.score(batch), resident.score(batch))
-    assert st["evictions"] > 0 and st["peak_bytes"] <= st["effective_budget_bytes"]
+    assert st["evictions"] > 0 and st["peak_total_bytes"] <= st["effective_budget_bytes"]
     assert st["staging_bytes"] > 0 and st["uploads"] > 0
 
 
@@ -1002,3 +1002,98 @@ def test_mesh_defaults_to_the_ranks_card(cuda_device):
     for r in run_ranks(torch_ranks.card_default_mesh_program, 2, backend="gloo", device="cuda:0", timeout_s=120.0):
         assert r["mesh"] == "cuda:0"
         assert r["placed"] == ["cuda:0"] * 3 and r["outs"] == ["cuda:0"] * 5
+
+
+# ---------------------------------------------------------------------------
+# Serving on the card: bucket graphs, nothing captured or allocated after
+# warm-up, scores that do not depend on the row bucket
+# ---------------------------------------------------------------------------
+
+
+def _serving_model(E=96, d_fix=24, d_re=8, seed=3):
+    import numpy as np
+
+    from photon_tpu_torch.data.index_map import EntityIndex
+    from photon_tpu_torch.models.coefficients import Coefficients
+    from photon_tpu_torch.models.game import FixedEffectModel, GameModel, RandomEffectModel
+    from photon_tpu_torch.models.glm import GeneralizedLinearModel
+    from photon_tpu_torch.types import TaskType
+
+    g = np.random.default_rng(seed)
+    model = GameModel({
+        "global": FixedEffectModel(GeneralizedLinearModel(
+            Coefficients(torch.as_tensor(g.normal(size=d_fix).astype(np.float32))), TaskType.LOGISTIC_REGRESSION),
+            "a"),
+        "per_user": RandomEffectModel(torch.as_tensor(g.normal(size=(E, d_re)).astype(np.float32)), "userId", "b",
+                                      TaskType.LOGISTIC_REGRESSION),
+    })
+    eidx = EntityIndex()
+    for e in range(E):
+        eidx.intern(f"u{e}")
+    return model, eidx
+
+
+@pytest.mark.parametrize("hot_bytes", [1 << 30, 1], ids=["pinned", "lru"])
+def test_serving_engine_bucket_graphs_on_card(cuda_device, hot_bytes):
+    """The engine captures one graph a row bucket at warm-up; traffic of
+    every batch size, promotions included, captures and allocates nothing
+    after it; each score equals the batch path's on the card (the full
+    tables, all rows in one batch) bit for bit, at max_batch_size 1 and 64
+    alike."""
+    import numpy as np
+
+    from photon_tpu_torch.data.game_data import GameBatch
+    from photon_tpu_torch.data.padding import bucket_grid
+    from photon_tpu_torch.estimators.game_transformer import GameTransformer
+    from photon_tpu_torch.serve import ScoreRequest, ServeConfig, ServingEngine
+
+    model, eidx = _serving_model()
+    n = 200
+    g = np.random.default_rng(8)
+    xa, xb = g.normal(size=(n, 24)).astype(np.float32), g.normal(size=(n, 8)).astype(np.float32)
+    users = g.integers(-1, 96, size=n)
+    dev_model = _model_on(model, cuda_device)
+    want = GameTransformer(dev_model).transform(GameBatch(
+        label=torch.zeros(n, device=cuda_device), offset=torch.zeros(n, device=cuda_device),
+        weight=torch.ones(n, device=cuda_device),
+        features={"a": torch.as_tensor(xa, device=cuda_device), "b": torch.as_tensor(xb, device=cuda_device)},
+        entity_ids={"userId": torch.as_tensor(users, dtype=torch.int32, device=cuda_device)})).cpu().numpy()
+    for max_batch in (1, 64):
+        eng = ServingEngine(model, entity_indexes={"userId": eidx},
+                            config=ServeConfig(max_batch_size=max_batch, max_delay_ms=1.0, hot_bytes=hot_bytes))
+        try:
+            st = eng.stats()["warm_up"][eng.model_version]
+            assert st["graphs"] == len(bucket_grid(max_batch))
+            futs = [eng.submit(ScoreRequest({"a": xa[i], "b": xb[i]}, {"userId": f"u{users[i]}" if users[i] >= 0
+                                                                       else "cold"})) for i in range(n)]
+            got = np.asarray([f.result(timeout=60) for f in futs], np.float32)
+            assert eng.retraces_since_warmup == 0, eng.stats()
+            np.testing.assert_array_equal(got, want)
+        finally:
+            eng.close()
+
+
+def _model_on(model, device):
+    from photon_tpu_torch.io.model_io import _submodel_to
+    from photon_tpu_torch.models.game import GameModel
+
+    return GameModel({cid: _submodel_to(sub, device) for cid, sub in model.models.items()})
+
+
+def test_budgeted_static_buffers_within_budget_on_card(cuda_device):
+    """On the card the solve cache's static buffers of a budgeted
+    coordinate are inside its budget: resident blocks plus held buffers
+    peak at or under the effective budget, and the cache's live buffers are
+    no more than the store counts."""
+    from photon_tpu_torch.algorithm.re_store import block_device_cost
+    from photon_tpu_torch.algorithm.solve_cache import SolveCache
+
+    dataset, batch = _ooc_problem(cuda_device)
+    ds = dataset()
+    cache = SolveCache()
+    coord = _ooc_coordinate(ds, sum(block_device_cost(b) for b in ds.blocks) // 2, cache)
+    _ooc_passes(coord, batch, passes=2)
+    torch.cuda.synchronize()
+    st = coord.last_residency_stats
+    assert st["static_bytes"] > 0 and cache.static_bytes() <= st["static_bytes"]
+    assert st["peak_total_bytes"] <= st["effective_budget_bytes"]

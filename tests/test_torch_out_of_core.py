@@ -41,7 +41,7 @@ from photon_tpu.types import TaskType as JTaskType
 from photon_tpu_torch.algorithm import re_store
 from photon_tpu_torch.algorithm.random_effect import RandomEffectCoordinate
 from photon_tpu_torch.algorithm.re_store import ReDeviceStore, block_device_cost, host_entity_block
-from photon_tpu_torch.algorithm.solve_cache import SolveCache
+from photon_tpu_torch.algorithm.solve_cache import SolveCache, block_input_bytes
 from photon_tpu_torch.data import random_effect as tre
 from photon_tpu_torch.data import residency
 from photon_tpu_torch.data.game_data import GameBatch
@@ -369,7 +369,8 @@ def test_ooc_eviction_log_independent_of_download_timing(transient_released_firs
     import threading
 
     block = _dataset().blocks[0]
-    store = ReDeviceStore([block] * 3, 2 * block_device_cost(block), "timing_test")
+    # Room for two blocks beside the static buffers of their geometry.
+    store = ReDeviceStore([block] * 3, 2 * block_device_cost(block) + block_input_bytes([block]), "timing_test")
     w0 = _w0(store.blocks[0])
     store.begin_pass(0)
     for k in (0, 1):
@@ -426,9 +427,13 @@ def test_ooc_spill_member_layout(tmp_path):
 
 
 def test_ooc_budget_floors_at_largest_block():
+    """The floor is the largest block plus the solve cache's static buffers
+    (one flat buffer per input, sized for the largest block), which the
+    budget holds too."""
     blocks = _dataset().blocks
     store = ReDeviceStore(blocks, 1, "floor_test")
-    assert store.effective_budget == max(block_device_cost(b) for b in blocks)
+    assert store.static_bytes == block_input_bytes(blocks) > 0
+    assert store.effective_budget == max(block_device_cost(b) for b in blocks) + store.static_bytes
     assert store.budget == 1
 
 
@@ -651,3 +656,45 @@ def test_estimator_budgeted_resume_equals_unbroken(tmp_path, monkeypatch):
         assert torch.equal(got.models["global"].model.coefficients.means,
                            resident.models["global"].model.coefficients.means)
     assert unbroken.models["per_user"].coefficients.device.type == "cpu"
+
+
+def test_ooc_static_buffers_count_inside_the_budget(ooc_run):
+    """The solve cache's static buffers of a budgeted coordinate are in its
+    budget: resident blocks plus the buffers peak at or under the effective
+    budget, and the buffers the cache really holds for the coordinate's
+    blocks are the ones counted (one flat buffer per input, sized for the
+    largest block)."""
+    _, coord, _, _ = ooc_run
+    st = coord.last_residency_stats
+    blocks = coord.dataset.blocks
+    assert st["static_bytes"] == block_input_bytes(blocks)
+    assert coord.solve_cache.static_bytes() == st["static_bytes"]
+    assert st["peak_bytes"] + st["static_bytes"] == st["peak_total_bytes"] <= st["effective_budget_bytes"]
+    assert st["evictions"] > 0
+
+
+def test_block_buffers_are_shared_across_geometries():
+    """Blocks of different geometries solve through one flat buffer per
+    input (each program reads a view of its block's shape), sized for the
+    largest block up front: one cache holds 7 buffers for all of them, the
+    bytes of the largest block's inputs, and each solve equals a solve in a
+    cache of its own bit for bit."""
+    from photon_tpu_torch.optim.common import OptimizerConfig
+
+    blocks = _dataset().blocks
+    assert len({tuple(b.features.shape) for b in blocks}) > 1
+    obj = GLMObjective(loss=LogisticLoss, l2_weight=0.5)
+    spec = OptimizerSpec(**dict(SPEC, optimizer=OptimizerType.NEWTON))
+    cfg = OptimizerConfig(max_iter=25, tol=1e-9)
+    shared = SolveCache()
+    shared.reserve_block_inputs(blocks, "cpu")
+    for b in blocks:
+        offs = torch.zeros((b.num_entities, b.n_max))
+        w0 = torch.zeros((b.num_entities, b.dim))
+        got = shared.block_solver(obj, spec, cfg, has_mask=False)(b, offs, w0)
+        alone = SolveCache().block_solver(obj, spec, cfg, has_mask=False)(b, offs, w0)
+        for x, y in zip(got, alone):
+            assert torch.equal(x, y)
+    assert len(shared._slots) == 7
+    assert shared.static_bytes() == block_input_bytes(blocks)
+    assert shared.stats.captures == len({tuple(b.features.shape) for b in blocks})

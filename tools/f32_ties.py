@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where two f32 solves of the same problem part, on one CUDA card.
 
-    python3 tools/f32_ties.py [--repeats N]
+    python3 tools/f32_ties.py [--repeats N] [--parts cut,tron]
 
 Run from the root of a checkout (it imports ``chip_smoke`` for the data).
 Two parts, each printing what it found:
@@ -11,7 +11,11 @@ Two parts, each printing what it found:
   atomics) N times captured and N times eagerly, each against the CPU
   float64 path's margins (the check's 2e-3 bar): per solve the margins'
   relative error, iterations, stop reason and objective; for one solve
-  over the bar and one under it, the first step where their traces part.
+  over the bar and one under it, the first step where their traces part;
+  and for the captured solves, how many pass 10a's check
+  (``chip_smoke.cut_scatter_verdict``: margins against the float64 path run
+  for the same iterations, the stop reason, the objective) and how many the
+  check it replaced would have failed.
 - tron: phase 14a's fixed-effect TRON solve (7b's batch, max_iter 5) on the
   batch cut into 8 row shards and on the whole batch, with the plain and
   the fused (K1/K2) objective, captured and stepped by hand: the solves'
@@ -86,10 +90,14 @@ def cut_part(cs, dev, repeats):
         return (int(S["it"]), int(ls[_PHASE]), int(ls[_EVALS]), int(S["reason"]), float(S["f"]), float(ls[_A_CUR]))
 
     runs = {"captured": [], "eager": []}
+    verdicts = []
     for _ in range(repeats):
         got = SolveCache().fe_solver(obj, spec)(torch.zeros(n, device=dev), lb)
         runs["captured"].append((rel(lb.margins(got.w).cpu(), want), int(got.iterations), int(got.reason_code),
                                  float(got.value), None))
+        ok, text = cs.cut_scatter_verdict(obj, spec, cut64, ref, lb, got)
+        verdicts.append(ok)
+        print(f"cut: captured solve {len(verdicts)}: {'pass' if ok else 'FAIL'}: {text}")
         res, tr = traced(fe_program(obj, spec, torch.zeros(n, device=dev), lb), fields)
         runs["eager"].append((rel(lb.margins(res.w).cpu(), want), int(res.iterations), int(res.reason_code),
                               float(res.value), tr))
@@ -97,6 +105,8 @@ def cut_part(cs, dev, repeats):
         over = sum(r[0] > 2e-3 for r in rs)
         print(f"cut: {mode} scatter, {over} of {len(rs)} solves over 2e-3 (margins rel, iterations, reason, "
               f"objective): {[r[:4] for r in rs]}")
+    print(f"cut: 10a's check passed {sum(verdicts)} of {len(verdicts)} captured solves; the replaced check "
+          f"would have failed {sum(r[0] > 2e-3 for r in runs['captured'])} of them")
     good = [r for r in runs["eager"] if r[0] <= 2e-3]
     bad = [r for r in runs["eager"] if r[0] > 2e-3]
     if good and bad:
@@ -146,7 +156,9 @@ def tron_part(cs, dev):
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--repeats", type=int, default=14, help="cut copy solves of each mode")
+    p.add_argument("--parts", default="cut,tron", help="which parts to run, comma-separated")
     args = p.parse_args()
+    parts = set(args.parts.split(","))
     if not torch.cuda.is_available():
         print("tools/f32_ties.py: needs a CUDA card", file=sys.stderr)
         return 1
@@ -156,8 +168,10 @@ def main() -> int:
     full_precision_matmuls()
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    cut_part(cs, dev, args.repeats)
-    tron_part(cs, dev)
+    if "cut" in parts:
+        cut_part(cs, dev, args.repeats)
+    if "tron" in parts:
+        tron_part(cs, dev)
     print(f"wall {time.perf_counter() - t0:.1f} s on {torch.cuda.get_device_name(0)}")
     return 0
 
