@@ -172,6 +172,28 @@ Phases, each of which must pass:
                 the whole batch's step for step, and 14d (against one rank)
                 agrees at a seeded point and step for step. No check runs
                 on more than one GPU.
+ 15. online serving — phase 8's model behind the serving engine (hot/cold
+                store, micro-batcher, admission, HTTP front end): scores
+                equal game_scoring's bit for bit, nothing captured after
+                warm-up, load at 1, 8 and 64 clients, and a second
+                generation shadowed, promoted and rolled back under load.
+ 16. telemetry — 16a phase 8's game_training with --telemetry-out and
+                --otlp-endpoint (an in-process MockCollector on localhost):
+                every report line validates, each coordinate has its pass
+                spans with solve and score, the collector received spans
+                and metrics, the model files (Avro records, other bytes)
+                are phase 8's, and the host reads up to the report's
+                finalize and the K1 and K3 launches by width are phase 8's;
+                16b phase 15's engine on phase 8's model with an exporter,
+                a report flusher and the SLO-gated watcher (on) against
+                none of them (off): /metrics parses and carries the serve_*
+                families, a request with a traceparent comes back from
+                /v1/traces with its spans, stats() has the slo block, the
+                scores are game_scoring's bit for bit, nothing is captured
+                or allocated after warm-up, and submit requests/s and
+                p50/p99 at 1 and 64 clients, on beside off; 16c
+                ``python -m photon_tpu_torch.cli.obs_tool`` summarizes 16a's
+                report and scrapes 16b's /metrics.
 Phases 4, 6b, 7b, 8 and 9 print, per pass, λ or driver, the host reads (every
 device-to-host read of the path, through ``HOST_READS``; validation apart),
 the solve cache's captures (programs; the keys, which count each λ, apart),
@@ -183,7 +205,7 @@ at K = 1, 2, 4 and 8, and fails at any K unless iterations and reasons are
 equal and coefficients within 1e-6; it fails if pass 2 captures anything or
 the two passes' coordinate updates make more than 60 host reads; 6b fails
 above SWEEP_READS reads for a λ solve. The order of the run is 1-7, 9, 11a,
-10, 8, 11b, 12, 13, 14; the whole run's wall is printed at its end.
+10, 8, 16, 11b, 12, 13, 15, 14; the whole run's wall is printed at its end.
 It prints the card's name and power limit, a JSON line of per-kernel numbers
 ("launches" and "ran": the launches of the main paths, and those of them
 that did their work; a K1 or K2 launch whose flag was off does not), and last {"ok": true, "device": {...}}. It exits non-zero, printing no
@@ -193,6 +215,7 @@ products run in full f32 (TF32 off).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import shutil
@@ -315,6 +338,9 @@ OOC_PASSES, OOC_BUCKETS, OOC_BUDGET_DIVISOR = 3, 16, 4
 # a promotion.
 SERVE_MAX_BATCH, SERVE_CLIENTS, SERVE_HTTP_ROWS, SERVE_LOAD_REQUESTS = 64, 8, 4096, 64
 SERVE_INVARIANCE_ROWS, SERVE_SHADOW_QUOTA = 4096, 256
+# Phase 16: requests a client in the telemetry on/off load runs, and the
+# seconds between the run-report flushes and OTLP metric exports while on.
+TELEMETRY_LOAD_REQUESTS, TELEMETRY_FLUSH_S = 256, 1.0
 OOC_DRIVER_BUDGET_MB, OOC_SPILL_MEMBER, OOC_PARTITIONS = "1", "updater:3", 4
 # Phase 14 (multiple devices: torch.distributed ranks on this one card).
 # 14b's gloo world sizes; each group's timeout (a dead rank fails its peers
@@ -1157,6 +1183,26 @@ def read_paths_since(snap: dict) -> dict:
     return {k: v - snap.get(k, 0) for k, v in READ_PATHS.counts.items() if v != snap.get(k, 0)}
 
 
+@contextlib.contextmanager
+def reads_to_finalize():
+    """Yields a dict that gets "reads": the host reads (``HOST_READS``) from
+    entry up to the run report's first collection, the driver's finalize."""
+    from photon_tpu_torch.obs import report
+    from photon_tpu_torch.optim.common import HOST_READS
+
+    real, box, start = report.collect_run_records, {}, HOST_READS.count
+
+    def counting(*args, **kwargs):
+        box.setdefault("reads", HOST_READS.count - start)
+        return real(*args, **kwargs)
+
+    report.collect_run_records = counting
+    try:
+        yield box
+    finally:
+        report.collect_run_records = real
+
+
 def game_drivers_phase(dev, smi: str, check) -> tuple:
     """Phase 8: the GAME drivers end to end on files: feature_indexing,
     game_training and game_scoring, as a user calls them. Returns the kernel
@@ -1199,11 +1245,14 @@ def game_drivers_phase(dev, smi: str, check) -> tuple:
               "--re-active-set", "--evaluators", "AUC", "--variance-computation", "SIMPLE"]
     out, idx, scored = work / "out", work / "index", work / "scores"
 
-    def stages(label, wall, reads, counts0):
+    def stages(label, wall, reads, counts0=None):
+        """``counts0`` None: a driver that reset the shared cache's counters
+        at its entry (``begin_run``), whose counts are the counters now."""
         by_stage = ", ".join(f"{k[len('driver/'):]} {v:.2f} s" for k, v in Timed.records.items()
                              if k.startswith("driver/"))
+        counts = default_cache().stats.counts() if counts0 is None else default_cache().stats.since(counts0)
         log(f"  {label}: {wall:.2f} s wall, {reads} host reads" + (f"; by stage {by_stage}" if by_stage else "")
-            + f"; {cache_text(default_cache().stats.since(counts0))}; {peak_text()}")
+            + f"; {cache_text(counts)}; {peak_text()}")
         torch.cuda.reset_peak_memory_stats()
 
     # The main path, counted: the three drivers, in the order a user runs them.
@@ -1217,14 +1266,16 @@ def game_drivers_phase(dev, smi: str, check) -> tuple:
     stages(f"feature_indexing {sizes}", time.perf_counter() - t0, 0, counts0)
     Timed.reset()
     snap = dict(READ_PATHS.counts)
-    reads0, counts0, t0 = HOST_READS.count, default_cache().stats.counts(), time.perf_counter()
+    reads0, t0 = HOST_READS.count, time.perf_counter()
     EVENTS.clear()
-    summary = game_training.main(["--input-paths", train_dir, "--validation-paths", valid_dir,
-                                  "--output-dir", str(out), "--feature-index-dir", str(idx), "--device", "cuda",
-                                  "--event-listener", f"{__name__}:record_event"] + shards + coords)
+    with reads_to_finalize() as until_finalize:
+        summary = game_training.main(["--input-paths", train_dir, "--validation-paths", valid_dir,
+                                      "--output-dir", str(out), "--feature-index-dir", str(idx), "--device", "cuda",
+                                      "--event-listener", f"{__name__}:record_event"] + shards + coords)
     train_events = list(EVENTS)
     torch.cuda.synchronize()
-    stages("game_training", time.perf_counter() - t0, HOST_READS.count - reads0, counts0)
+    train_wall = time.perf_counter() - t0
+    stages("game_training", train_wall, HOST_READS.count - reads0)
     took_train = read_paths_since(snap)
     # (The driver's two reads share one count of paths.)
     read_report("8 game_training training set", train_paths, H_TRAIN_ROWS, Timed.records["driver/read-train"],
@@ -1235,11 +1286,11 @@ def game_drivers_phase(dev, smi: str, check) -> tuple:
     trained = dict(kernels.LAUNCHES, by_width=dict(fused_newton.LAUNCHES_BY_WIDTH))
     Timed.reset()
     snap = dict(READ_PATHS.counts)
-    reads0, counts0, t0 = HOST_READS.count, default_cache().stats.counts(), time.perf_counter()
+    reads0, t0 = HOST_READS.count, time.perf_counter()
     result = game_scoring.main(["--input-paths", valid_dir, "--output-dir", str(scored), "--model-input-dir",
                                 str(out / "best"), "--evaluators", "AUC", "--device", "cuda"] + shards)
     torch.cuda.synchronize()
-    stages("game_scoring", time.perf_counter() - t0, HOST_READS.count - reads0, counts0)
+    stages("game_scoring", time.perf_counter() - t0, HOST_READS.count - reads0)
     took_score = read_paths_since(snap)
     read_report("8 game_scoring", valid_paths, H_VALID_ROWS, Timed.records["driver/read"], took_score)
     launches = launch_counts()
@@ -1308,7 +1359,8 @@ def game_drivers_phase(dev, smi: str, check) -> tuple:
                                   f"--device cuda vs --device cpu: best/ coefficients rel {worst:.3e} "
                                   f"(tolerance {REFERENCE_TOL:g})")
     return launches, dict(work=work, train=train_dir, valid=valid_dir, index=idx, out=out, scores=scored,
-                          shards=shards, coords=coords, events=train_events, train_paths=train_paths)
+                          shards=shards, coords=coords, events=train_events, train_paths=train_paths,
+                          training=dict(wall=train_wall, reads=until_finalize["reads"], launches=trained))
 
 
 def _sparse_wide_data(seed: int = SP_SEED, n: int = 0, d: int = 0):
@@ -1950,7 +2002,7 @@ def tuning_driver_phase(dev, smi: str, check, files: dict) -> dict:
     fused_newton.LAUNCHES_BY_WIDTH.clear()
     Timed.reset()
     snap = dict(READ_PATHS.counts)
-    reads0, counts0, t0 = HOST_READS.count, default_cache().stats.counts(), time.perf_counter()
+    reads0, t0 = HOST_READS.count, time.perf_counter()
     try:
         summary = game_training.main(argv)
     finally:
@@ -1958,8 +2010,9 @@ def tuning_driver_phase(dev, smi: str, check, files: dict) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     by_stage = ", ".join(f"{k[len('driver/'):]} {v:.2f} s" for k, v in Timed.records.items() if k.startswith("driver/"))
+    # The driver's begin_run zeroed the shared cache's counters: they are its own.
     log(f"  game_training: {wall:.2f} s wall, {HOST_READS.count - reads0} host reads; by stage {by_stage}; "
-        f"{cache_text(default_cache().stats.since(counts0))}; {peak_text()}")
+        f"{cache_text(default_cache().stats.counts())}; {peak_text()}")
     records = json.loads((work / "tuned" / "hyperparameter-observations.json").read_text())["records"]
     for rec in records:
         log(f"    observed log10 λ global {rec['global.weight']:+.4f}, perUser {rec['perUser.weight']:+.4f}: "
@@ -2800,6 +2853,245 @@ def serving_phase(dev, smi: str, check, files: dict) -> dict:
           f"(game_scoring's) scores bit for bit, retraces_since_warmup {retr}")
     log(f"  15 peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; phase "
         f"{time.perf_counter() - t_phase:.1f} s on {smi}")
+    return launches
+
+
+def _model_files(model_dir: Path) -> dict:
+    """Every file of a model directory: an Avro container's decoded records
+    (its sync marker is random), any other file's bytes."""
+    from photon_tpu_torch.io.avro import read_avro_records
+
+    return {str(p.relative_to(model_dir)): (read_avro_records(str(p)) if p.suffix == ".avro" else p.read_bytes())
+            for p in sorted(model_dir.rglob("*")) if p.is_file()}
+
+
+def _get(url: str) -> tuple:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return resp.status, resp.headers.get("Content-Type"), resp.read()
+
+
+def telemetry_phase(dev, smi: str, check, files: dict) -> dict:
+    """Phase 16: the telemetry core on the card, on phase 8's files and
+    model. 16a phase 8's game_training with a run report and an OTLP
+    exporter against phase 8's run; 16b phase 15's engine with telemetry on
+    (an exporter, a run-report flusher and the SLO-gated watcher) against
+    off, and its /metrics and /v1/traces; 16c obs_tool on both. Returns the
+    kernel launches of 16a's training."""
+    import re
+    import threading
+
+    from photon_tpu_torch.cli import game_training
+    from photon_tpu_torch.cli.game_serving import RolloutOptions, _reload_watcher
+    from photon_tpu_torch.obs import MockCollector, install_exporter, uninstall_exporter, validate_record
+    from photon_tpu_torch.obs.export import OTLPExporter
+    from photon_tpu_torch.obs.report import collect_run_records, write_run_report
+    from photon_tpu_torch.ops import fused_newton, kernels
+    from photon_tpu_torch.serve import ServeConfig
+    from photon_tpu_torch.serve.engine import load_engine
+
+    log("## phase 16: telemetry (run report, OTLP export, /metrics, /v1/traces, SLO gate, obs_tool)")
+    t_phase = time.perf_counter()
+    out, work = Path(files["out"]), Path(files["work"]) / "telemetry"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    p8 = files["training"]
+
+    # ---- 16a: game_training with a run report and an OTLP exporter ----
+    report_path, out16 = work / "run.jsonl", work / "out"
+    collector = MockCollector()
+    try:
+        kernels.reset_launches()
+        fused_newton.LAUNCHES_BY_WIDTH.clear()
+        t0 = time.perf_counter()
+        with reads_to_finalize() as until_finalize:
+            game_training.main(["--input-paths", files["train"], "--validation-paths", files["valid"],
+                                "--output-dir", str(out16), "--feature-index-dir", str(files["index"]),
+                                "--device", "cuda", "--event-listener", f"{__name__}:record_event",
+                                "--telemetry-out", str(report_path), "--otlp-endpoint", collector.endpoint]
+                               + list(files["shards"]) + list(files["coords"]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        launches.update({f"newton_system_d{d}": c for d, c in fused_newton.LAUNCHES_BY_WIDTH.items()})
+        got_spans, got_metrics = collector.spans(), collector.metrics()
+    finally:
+        collector.close()
+    trained = dict(kernels.LAUNCHES, by_width=dict(fused_newton.LAUNCHES_BY_WIDTH))
+    records = [json.loads(line) for line in report_path.read_text().splitlines()]
+    bad = []
+    for rec in records:
+        try:
+            validate_record(rec)
+        except ValueError as exc:
+            bad.append(str(exc))
+    kinds = {}
+    for rec in records:
+        kinds[rec["record"]] = kinds.get(rec["record"], 0) + 1
+    log(f"  16a game_training with --telemetry-out and --otlp-endpoint: {wall:.2f} s wall (phase 8 without: "
+        f"{p8['wall']:.2f} s) on {smi}; report {report_path.stat().st_size} bytes, records {kinds}; collector "
+        f"{len(got_spans)} spans, {len(got_metrics)} metrics")
+    check(records and not bad, f"16a every one of the {len(records)} report lines passes validate_record {bad[:2]}")
+    names = {r["name"].split("]/", 1)[-1] for r in records if r["record"] == "span"}
+    missing = [f"cd/iter{it}/{cid}{leaf}" for it in (0, 1) for cid in ("global", "perUser", "perItem")
+               for leaf in ("", "/solve", "/score") if f"cd/iter{it}/{cid}{leaf}" not in names]
+    check(not missing, f"16a a cd/iter<pass>/<coordinate> span with solve and score under it for both passes of "
+                       f"each coordinate (missing {missing[:3]})")
+    check(bool(got_spans) and bool(got_metrics),
+          f"16a the OTLP collector received spans ({len(got_spans)}) and metrics ({len(got_metrics)})")
+    same = _model_files(out16 / "best") == _model_files(out / "best")
+    check(same, "16a best/ equals phase 8's (every Avro record, every other file's bytes)")
+    check(until_finalize["reads"] == p8["reads"],
+          f"16a host reads up to the report's finalize {until_finalize['reads']} = phase 8's {p8['reads']}")
+    check(trained["fused_value_grad"] == p8["launches"]["fused_value_grad"]
+          and trained["by_width"] == p8["launches"]["by_width"] and trained["fused_value_grad"] > 0,
+          f"16a K1 launches {trained['fused_value_grad']} and K3 launches by width {trained['by_width']} = phase "
+          f"8's ({p8['launches']['fused_value_grad']}, {p8['launches']['by_width']})")
+
+    # ---- 16b: the serving engine with telemetry off and on ----
+    model_dir = out / "best"
+    feats, ids, offsets = _serving_rows(files, model_dir)
+    n = offsets.shape[0]
+    want = _driver_scores(Path(files["scores"]) / "scores.avro")
+    reqs = _requests(feats, ids, offsets, range(n))
+    eng = load_engine(str(model_dir), artifacts_dir=str(out),
+                      config=ServeConfig(max_batch_size=SERVE_MAX_BATCH, max_delay_ms=1.0, hot_bytes=1 << 40,
+                                         queue_cap=1 << 16))
+    server = t_http = None
+    stop = threading.Event()
+    serve_report = work / "serve.jsonl"
+    collector = MockCollector()
+    on = None
+
+    def flush_report():
+        write_run_report(str(serve_report), collect_run_records("game_serving"), max_bytes=64 << 20)
+
+    def telemetry_on(report: bool):
+        """What game_serving's --otlp-endpoint, --slo-gate and (``report``)
+        --telemetry-out with a flush interval start: an exporter, the
+        SLO-gated reload watcher and a report flusher."""
+        exporter = install_exporter(OTLPExporter(collector.endpoint, service_name="photon-tpu-serving",
+                                                 metrics_interval_s=TELEMETRY_FLUSH_S))
+
+        def flush():
+            while not stop.wait(TELEMETRY_FLUSH_S):
+                flush_report()
+
+        threads = [threading.Thread(target=_reload_watcher, args=(eng, str(out), 0.05, stop,
+                                                                  RolloutOptions(slo_gate=True)), daemon=True)]
+        if report:
+            threads.append(threading.Thread(target=flush, daemon=True))
+        for th in threads:
+            th.start()
+        return exporter, threads
+
+    def telemetry_off(state):
+        """Stop them, as game_serving's shutdown does: a last report and a
+        last metrics export."""
+        exporter, threads = state
+        stop.set()
+        for th in threads:
+            th.join(timeout=30)
+        stop.clear()
+        flush_report()
+        exporter.export_metrics()
+        exporter.flush(timeout_s=3.0)
+        uninstall_exporter()
+
+    try:
+        got, failed, _, _ = _submit_all(eng, reqs, SERVE_CLIENTS)
+        check(not failed and np.array_equal(got, want),
+              f"16b {n} rows through submit equal game_scoring's scores bit for bit ({len(failed)} failed)")
+        # "on": exporter, SLO-gated watcher and report flusher; "export": the
+        # same without the report flusher, to tell their costs apart.
+        readings = {}
+        states = ("off", "on", "export", "off", "on", "export")
+        for state in states:
+            if on is not None:
+                telemetry_off(on)
+                on = None
+            if state != "off":
+                on = telemetry_on(report=state == "on")
+            for clients in (1, 64):
+                k = min(n, TELEMETRY_LOAD_REQUESTS * clients)
+                s, failed, lat, wall = _submit_all(eng, reqs[:k], clients)
+                readings.setdefault((state, clients), []).append((k / wall, np.percentile(lat, 50) * 1e3,
+                                                                  np.percentile(lat, 99) * 1e3))
+                check(not failed and np.array_equal(s, want[:k]),
+                      f"16b telemetry {state}, {clients} clients: {k} requests, none failed, scores game_scoring's")
+        for clients in (1, 64):
+            text = "; ".join(f"{state} " + ", ".join(f"{r:.1f} requests/s p50 {p50:.3f} ms p99 {p99:.3f} ms"
+                                                     for r, p50, p99 in readings[(state, clients)])
+                             for state in ("off", "on", "export"))
+            log(f"  16b submit, {clients} clients, {min(n, TELEMETRY_LOAD_REQUESTS * clients)} requests a run "
+                f"({', '.join(states)}): {text} on {smi}")
+        server, t_http = _http_server(eng)
+        port = server.server_address[1]
+        tid = "5e" * 16
+        import urllib.request
+
+        body = json.dumps({"features": {s: m[0].tolist() for s, m in feats.items()},
+                           "entityIds": {rt: int(v[0]) for rt, v in ids.items()}, "offset": float(offsets[0])})
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/score", data=body.encode(), method="POST",
+                                     headers={"Content-Type": "application/json",
+                                              "traceparent": f"00-{tid}-{'7a' * 8}-01"})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            score = json.loads(resp.read())["score"]
+        check(np.float32(score) == want[0], f"16b POST /v1/score with a traceparent: {score} = game_scoring's")
+        _, _, raw = _get(f"http://127.0.0.1:{port}/v1/traces?limit=100")
+        mine = [e for e in json.loads(raw)["traces"] if e["traceId"] == tid]
+        spans = {s["name"] for e in mine for s in e["spans"]}
+        check(len(mine) == 1 and {"http/v1/score", "engine/score"} <= spans,
+              f"16b /v1/traces returns the request's trace with its spans {sorted(spans)}")
+        status, ctype, raw = _get(f"http://127.0.0.1:{port}/metrics")
+        text = raw.decode()
+        sample = re.compile(r'^[A-Za-z_:][A-Za-z0-9_:]*(\{[^}]*\})? [^ ]+( # \{[^}]*\} [^ ]+)?$')
+        unparsed = [ln for ln in text.splitlines() if ln and not ln.startswith("#") and not sample.match(ln)]
+        families = sorted({ln.split()[2] for ln in text.splitlines() if ln.startswith("# TYPE serve_")})
+        check(status == 200 and ctype.startswith("text/plain") and not unparsed
+              and {"serve_requests_total", "serve_request_latency_s", "serve_batches_total"} <= set(families),
+              f"16b /metrics: Prometheus text ({len(text.splitlines())} lines, {len(unparsed)} unparsed "
+              f"{unparsed[:1]}), serve_* families {families}")
+        slo = eng.stats().get("slo") or {}
+        check("objectives" in slo, f"16b stats() has the slo block: {json.dumps(slo)[:300]}")
+        # ---- 16c: obs_tool on 16a's report and 16b's /metrics ----
+        for argv, what in ((["report", str(report_path), "--json"], "16a's run report"),
+                           (["--url", f"http://127.0.0.1:{port}", "metrics", "--prefix", "serve_", "--json"],
+                            "16b's /metrics")):
+            res = subprocess.run([sys.executable, "-m", "photon_tpu_torch.cli.obs_tool"] + argv,
+                                 capture_output=True, text=True, timeout=120, cwd=str(Path(__file__).resolve().parent))
+            doc = json.loads(res.stdout) if res.returncode == 0 else {}
+            size = len(doc.get("spans", doc.get("samples", [])))
+            check(res.returncode == 0 and size > 0,
+                  f"16c python -m photon_tpu_torch.cli.obs_tool {argv[0] if argv[0] == 'report' else 'metrics'} on "
+                  f"{what}: rc {res.returncode}, {size} {'span paths' if argv[0] == 'report' else 'samples'} "
+                  f"{res.stderr[-200:]}")
+        retr = eng.retraces_since_warmup
+        check(retr == 0, f"16b retraces_since_warmup {retr} after all traffic with telemetry off and on (captures "
+                         f"after warm-up plus new allocator segments)")
+        if on is not None:
+            telemetry_off(on)
+            on = None
+        served = [json.loads(line) for line in serve_report.read_text().splitlines()]
+        bad = []
+        for rec in served:
+            try:
+                validate_record(rec)
+            except ValueError as exc:
+                bad.append(str(exc))
+        metrics = collector.metrics()
+        check(served and not bad and bool(metrics),
+              f"16b the serving run report ({serve_report.stat().st_size} bytes, {len(served)} records) validates "
+              f"{bad[:1]}; the collector received {len(metrics)} metrics and {len(collector.spans())} spans")
+    finally:
+        if on is not None:
+            telemetry_off(on)
+        if server is not None:
+            _stop_http(server, t_http)
+        eng.close()
+        collector.close()
+    log(f"  16 phase {time.perf_counter() - t_phase:.1f} s on {smi}")
     return launches
 
 
@@ -3827,6 +4119,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     driver_launches, driver_files = game_drivers_phase(dev, smi, check)
 
+    # ---------------- 16. telemetry ----------------
+    torch.cuda.empty_cache()
+    telemetry_launches = telemetry_phase(dev, smi, check, driver_files)
+
     # ---------------- 11b. the tuning driver ----------------
     torch.cuda.empty_cache()
     tuning_driver_launches = tuning_driver_phase(dev, smi, check, driver_files)
@@ -3873,7 +4169,7 @@ def main() -> int:
     # launch flag was off; K3 has no flag).
     paths = (glmix_launches, tron_launches, glm_launches, game_launches, driver_launches, solver_launches,
              sparse_launches, tuning_launches, tuning_driver_launches, durability_launches, ooc_launches,
-             multi_rank_launches, serving_launches)
+             multi_rank_launches, serving_launches, telemetry_launches)
     rows = []
     for name, (src, repl) in sources.items():
         rows.append(dict(name=name, route="cuda", source=src, replaces=repl,

@@ -7,9 +7,9 @@ incrementally; locked coordinates are scored from a pretrained model and
 never retrained; with validation data the best model by the primary metric
 is kept. The trackers are read back (through ``HOST_READS``) only for the
 logged summary. Checkpoint and resume, optimization-log events, the
-cooperative shutdown and the host-memory check at each pass boundary are
-the reference's; its spans, metrics registry and trace export are not
-ported.
+cooperative shutdown and the host-memory check at each pass boundary, the
+spans (``cd/iter{it}/{cid}`` with ``solve`` and ``score``), the metrics and
+the trace export under an installed OTLP exporter are the reference's.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
+from contextlib import contextmanager
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
@@ -24,6 +25,8 @@ import torch
 from photon_tpu_torch.algorithm.coordinate import Coordinate
 from photon_tpu_torch.data.game_data import GameBatch
 from photon_tpu_torch.models.game import GameModel
+from photon_tpu_torch.obs.metrics import registry
+from photon_tpu_torch.obs.trace import span
 from photon_tpu_torch.utils import resources
 from photon_tpu_torch.utils.checkpoint import LegacyCheckpointError, load_checkpoint, save_checkpoint
 from photon_tpu_torch.utils.events import optimization_log_event
@@ -36,6 +39,29 @@ logger = logging.getLogger(__name__)
 def _sync(t: Tensor) -> None:
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
+
+
+@contextmanager
+def _export_trace():
+    """With an OTLP exporter installed (``--otlp-endpoint``), run the body
+    under a minted trace context, so its spans are traced and reach the
+    collector through the tracer's sink; the trace is finished against the
+    flight recorder so its open-trace table never holds training passes.
+    Without an exporter this is a no-op."""
+    from photon_tpu_torch.obs.export import active_exporter
+
+    if active_exporter() is None:
+        yield
+        return
+    from photon_tpu_torch.obs.trace import flight_recorder, mint_context, tracer
+
+    ctx = mint_context()
+    t0 = time.monotonic()
+    try:
+        with tracer().attach_context(ctx):
+            yield
+    finally:
+        flight_recorder().finish(ctx.trace_id, time.monotonic() - t0)
 
 
 @dataclasses.dataclass
@@ -160,35 +186,39 @@ class CoordinateDescent:
                         f"checkpoint at {checkpoint_dir} was written for a different configuration (saved tag "
                         f"{state.get('tag')!r} != current {tag!r}); clear the directory or point checkpoint_dir "
                         "elsewhere")
-                models, scores, total_scores = state["models"], state["scores"], state["total_scores"]
-                metric_history, best_metric = state["metric_history"], state["best_metric"]
-                best_model, tracker = state["best_model"], state["tracker"]
-                wall_times = state.get("wall_times", {cid: [] for cid in self.update_sequence})
-                # The active-set gate state, so the first resumed pass is
-                # gated as the uninterrupted run's would be.
-                active_state = state.get("active_state") or {}
-                for cid, coord in self.coordinates.items():
-                    restore = getattr(coord, "restore_active_state", None)
-                    if restore is not None:
-                        restore(active_state.get(cid))
+                with span("cd/resume_restore"):
+                    models, scores, total_scores = state["models"], state["scores"], state["total_scores"]
+                    metric_history, best_metric = state["metric_history"], state["best_metric"]
+                    best_model, tracker = state["best_model"], state["tracker"]
+                    wall_times = state.get("wall_times", {cid: [] for cid in self.update_sequence})
+                    # The active-set gate state, so the first resumed pass is
+                    # gated as the uninterrupted run's would be.
+                    active_state = state.get("active_state") or {}
+                    for cid, coord in self.coordinates.items():
+                        restore = getattr(coord, "restore_active_state", None)
+                        if restore is not None:
+                            restore(active_state.get(cid))
                 start_it = step + 1
+                registry().counter("cd_resumes_total").inc()
                 logger.info("resuming coordinate descent from checkpoint step %d", step)
 
         def save(it: int) -> None:
-            active_state = {cid: coord.export_active_state() for cid, coord in self.coordinates.items()
-                            if getattr(coord, "export_active_state", None) is not None}
-            try:
-                save_checkpoint(checkpoint_dir, dict(
-                    models=models, scores=scores, total_scores=total_scores, metric_history=metric_history,
-                    best_metric=best_metric, best_model=best_model, tracker=tracker, wall_times=wall_times,
-                    active_state=active_state, tag=tag), it, keep_last=checkpoint_keep_last)
-            except OSError as exc:
-                # The writer already pruned and retried: a disk that stays
-                # full costs intermediate durability, not the run.
-                if not resources.is_enospc(exc):
-                    raise
-                logger.warning("checkpoint save at pass %d failed even after pruning (disk full under %s); "
-                               "continuing WITHOUT a checkpoint this pass: %s", it, checkpoint_dir, exc)
+            with span("cd/checkpoint_save"):
+                active_state = {cid: coord.export_active_state() for cid, coord in self.coordinates.items()
+                                if getattr(coord, "export_active_state", None) is not None}
+                try:
+                    save_checkpoint(checkpoint_dir, dict(
+                        models=models, scores=scores, total_scores=total_scores, metric_history=metric_history,
+                        best_metric=best_metric, best_model=best_model, tracker=tracker, wall_times=wall_times,
+                        active_state=active_state, tag=tag), it, keep_last=checkpoint_keep_last)
+                except OSError as exc:
+                    # The writer already pruned and retried: a disk that stays
+                    # full costs intermediate durability, not the run.
+                    if not resources.is_enospc(exc):
+                        raise
+                    registry().counter("checkpoint_write_failures_total").inc()
+                    logger.warning("checkpoint save at pass %d failed even after pruning (disk full under %s); "
+                                   "continuing WITHOUT a checkpoint this pass: %s", it, checkpoint_dir, exc)
 
         single = len(self.update_sequence) == 1 and self.num_iterations == 1
         for it in range(start_it, self.num_iterations):
@@ -203,16 +233,20 @@ class CoordinateDescent:
                     _sync(total_scores)
                 t0 = time.perf_counter()
                 residual = None if single else total_scores - scores[cid]
-                model, diag = coord.train(batch, residual, models[cid])
-                new_scores = coord.score(model, batch)
-                if profile:
-                    _sync(new_scores)
+                with _export_trace(), span(f"cd/iter{it}/{cid}"):
+                    with span("solve"):
+                        model, diag = coord.train(batch, residual, models[cid])
+                    with span("score"):
+                        new_scores = coord.score(model, batch)
+                        if profile:
+                            _sync(new_scores)
                 wall = time.perf_counter() - t0
                 total_scores = total_scores - scores[cid] + new_scores
                 scores[cid] = new_scores
                 models[cid] = model
                 tracker[cid].append(diag)
                 wall_times[cid].append(wall)
+                registry().counter("cd_coordinate_updates_total", coordinate=cid).inc()
                 logger.info("CD iter %d coordinate %s trained in %.2fs", it, cid, wall)
                 if emitter is not None:
                     # The summary reads the solve's history back: only when
@@ -236,6 +270,7 @@ class CoordinateDescent:
                     best_model = game_model
                 logger.info("CD iter %d validation: %s", it, metrics)
 
+            registry().counter("cd_iterations_total").inc()
             saved = checkpoint_dir is not None and (it + 1) % checkpoint_every == 0
             if saved:
                 save(it)

@@ -32,6 +32,7 @@ from photon_tpu_torch.data.game_data import GameBatch
 from photon_tpu_torch.models.coefficients import Coefficients
 from photon_tpu_torch.models.game import FixedEffectModel
 from photon_tpu_torch.models.glm import GeneralizedLinearModel
+from photon_tpu_torch.obs.trace import span
 from photon_tpu_torch.ops.objective import GLMObjective
 from photon_tpu_torch.ops.variance import coefficient_variances, normalize_variance_type
 from photon_tpu_torch.optim.common import OptimizeResult
@@ -95,7 +96,11 @@ class FixedEffectCoordinate(Coordinate):
         if folded:
             w0 = norm.model_to_transformed_space(w0)
         cache = self.solve_cache if self.solve_cache is not None else default_cache()
-        result = cache.fe_solver(objective, self.optimizer_spec)(w0, lb)
+        solve = cache.fe_solver(objective, self.optimizer_spec)
+        # Host wall of the dispatch: the solve runs asynchronously on the
+        # device, and nothing here waits for it.
+        with span("fe_solve"):
+            result = solve(w0, lb)
         variances = coefficient_variances(objective, result.w, lb, self.compute_variance)
         w_model = norm.transformed_to_model_space(result.w) if folded else result.w
         if folded and variances is not None and norm.factors is not None:

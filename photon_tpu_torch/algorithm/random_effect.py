@@ -63,6 +63,8 @@ from photon_tpu_torch.data.random_effect import (
     pearson_feature_mask,
 )
 from photon_tpu_torch.models.game import DatumScoringModel, ProjectedRandomEffectModel, RandomEffectModel
+from photon_tpu_torch.obs.metrics import registry
+from photon_tpu_torch.obs.trace import span
 from photon_tpu_torch.ops.fused_newton import resolve_re_kernel
 from photon_tpu_torch.ops.objective import GLMObjective
 from photon_tpu_torch.ops.variance import full_hessian_variances, normalize_variance_type
@@ -150,6 +152,15 @@ class RandomEffectTrackerStats:
     @property
     def max_iterations(self) -> int:
         return int(self._counts()["max_iterations"])
+
+    def diagnostics_dict(self) -> dict:
+        """Report-ready aggregates in one host read: call only at run-report
+        finalize, never inside the dispatch loop."""
+        c = self._counts()
+        return dict(type="random_effect", entities=int(c["entities"]), converged=int(c["converged"]),
+                    hit_max_iter=int(c["max_iter"]), quarantined=int(c["quarantined"]),
+                    mean_iterations=c["iterations"] / max(c["entities"], 1),
+                    max_iterations=int(c["max_iterations"]))
 
     def summary(self) -> str:
         c = self._counts()
@@ -463,17 +474,20 @@ class RandomEffectCoordinate(Coordinate):
         # The out-of-core pass downloaded its masks already (host arrays).
         masks = [t for mask_dev, quar_dev, _sb, _sr in pending for t in (mask_dev, quar_dev)]
         on_device = [t for t in masks if isinstance(t, Tensor)]
-        got = iter(HOST_READS.fetch(*on_device)) if on_device else iter(())
-        fetched = [next(got) if isinstance(t, Tensor) else t for t in masks]
         quarantined = 0
-        for (_m, _q, sb, sr), m, q in zip(pending, fetched[0::2], fetched[1::2]):
-            valid = sr >= 0
-            m = m & valid
-            for b in np.unique(sb[m]):
-                active[b][sr[m & (sb == b)]] = True
-            quarantined += int(np.sum(q & valid))
+        with span("re_mask_fetch"):
+            got = iter(HOST_READS.fetch(*on_device)) if on_device else iter(())
+            fetched = [next(got) if isinstance(t, Tensor) else t for t in masks]
+            for (_m, _q, sb, sr), m, q in zip(pending, fetched[0::2], fetched[1::2]):
+                valid = sr >= 0
+                m = m & valid
+                for b in np.unique(sb[m]):
+                    active[b][sr[m & (sb == b)]] = True
+                quarantined += int(np.sum(q & valid))
         if count_quarantined:
             self._fetched_quarantined = quarantined
+            if quarantined:
+                registry().counter("re_entities_quarantined", coordinate=self.coordinate_id).inc(quarantined)
         return active
 
     def _compact_feature_mask(self, idxs, sb_local, sr, block_c) -> Optional[Tensor]:
@@ -527,12 +541,18 @@ class RandomEffectCoordinate(Coordinate):
             return
         total = self._total_valid_entities
         full_alloc = int(sum(b.num_entities for b in self.dataset.blocks))
+        ratio = (dispatched_alloc / full_alloc) if full_alloc else 0.0
+        reg = registry()
+        labels = dict(coordinate=self.coordinate_id)
+        reg.gauge("re_entities_active", **labels).set(dispatched_valid)
+        reg.counter("re_entities_skipped_total", **labels).inc(total - dispatched_valid)
+        reg.histogram("re_compaction_ratio", **labels).observe(ratio)
         self.last_active_set_stats = dict(
             cd_pass=self._cd_pass, gated=gated, entities_total=total,
             entities_active=dispatched_valid, entities_skipped=total - dispatched_valid,
             entities_quarantined=self._fetched_quarantined, dispatched_blocks=num_dispatches,
             dispatched_entity_alloc=dispatched_alloc, full_entity_alloc=full_alloc,
-            compaction_ratio=(dispatched_alloc / full_alloc) if full_alloc else 0.0,
+            compaction_ratio=ratio,
         )
 
     # --- training -----------------------------------------------------------
@@ -570,7 +590,9 @@ class RandomEffectCoordinate(Coordinate):
                  else torch.zeros((E, d), dtype=dtype, device=self._device))
         gated = self.active_set and self._pending_masks is not None and initial_model is not None
         if gated:
-            entries = self._dense_dispatch_entries(self._fetch_active_masks())
+            keep = self._fetch_active_masks()
+            with span("re_compact"):
+                entries = self._dense_dispatch_entries(keep)
         else:
             entries = [self._identity_entry(i) for i in range(len(self.dataset.blocks))]
         tol = self.convergence_tol if self.active_set else None
@@ -579,22 +601,24 @@ class RandomEffectCoordinate(Coordinate):
         # after all of them.
         results, pending = [], []
         cache = self._cache()
-        for block, obj, mask, sb, sr in entries:
-            offs = faults.poison("solve.re_block", block.gather_offsets(total_offset))
-            solver = self._solver(obj, tol, mask is not None)
-            if gated and cache.max_entries is None and not self._gate_restored:
-                # The repacked shapes were all captured in the full first
-                # pass: a capture here is a bug. (With a bounded cache the
-                # entry may have been evicted, and after a restore the full
-                # pass ran in another process: a build is legitimate.)
-                with cache.expect_cached(f"active-set dispatch {tuple(block.features.shape)}"):
+        with span("re_dispatch_blocks"):
+            for block, obj, mask, sb, sr in entries:
+                offs = faults.poison("solve.re_block", block.gather_offsets(total_offset))
+                solver = self._solver(obj, tol, mask is not None)
+                if gated and cache.max_entries is None and not self._gate_restored:
+                    # The repacked shapes were all captured in the full
+                    # first pass: a capture here is a bug. (With a bounded
+                    # cache the entry may have been evicted, and after a
+                    # restore the full pass ran in another process: a build
+                    # is legitimate.)
+                    with cache.expect_cached(f"active-set dispatch {tuple(block.features.shape)}"):
+                        out = solver(block, offs, self._dense_warm_start(coefs, block, d), mask)
+                else:
                     out = solver(block, offs, self._dense_warm_start(coefs, block, d), mask)
-            else:
-                out = solver(block, offs, self._dense_warm_start(coefs, block, d), mask)
-            w, iters, reasons, passes = out[:4]
-            if tol is not None:
-                pending.append((*out[4:], sb, sr))
-            results.append((block, w, iters, reasons, passes))
+                w, iters, reasons, passes = out[:4]
+                if tol is not None:
+                    pending.append((*out[4:], sb, sr))
+                results.append((block, w, iters, reasons, passes))
         if tol is not None:
             self._pending_masks = pending
         self._publish_active_set_stats(
@@ -643,7 +667,8 @@ class RandomEffectCoordinate(Coordinate):
         model's coefficients are the host table (a CPU tensor); scoring
         copies it to the batch's device."""
         from photon_tpu_torch.algorithm.re_store import block_data_bytes
-        from photon_tpu_torch.io.pipeline import DEFAULT_QUEUE_DEPTH, RetryPolicy, StageWorker, _run_staged
+        from photon_tpu_torch.io.pipeline import (DEFAULT_QUEUE_DEPTH, RetryPolicy, StageWorker,
+                                                  _finalize_pipeline_telemetry, _run_staged)
         from photon_tpu_torch.utils.timed import PipelineStats, record_pipeline
 
         store = self._store
@@ -664,7 +689,8 @@ class RandomEffectCoordinate(Coordinate):
             # The residency policy IS the active set: blocks whose entities
             # all converged are evicted at the pass boundary.
             store.retire([i for i, k in enumerate(keep) if self._block_valid_counts[i] and not k.any()])
-            entries = self._dense_dispatch_entries(keep)
+            with span("re_compact"):
+                entries = self._dense_dispatch_entries(keep)
         else:
             entries = [self._identity_entry(i) for i in range(len(self.dataset.blocks))]
         tol = self.convergence_tol if self.active_set else None
@@ -715,21 +741,22 @@ class RandomEffectCoordinate(Coordinate):
         cache = self._cache()
         t0_wall = time.perf_counter()
         try:
-            for (_nb, key, cacheable, block, dev_block, obj, mask, sb, sr, eidx, w0_dev) in gen:
-                store.handover(key, dev_block, w0_dev)
-                t0 = time.perf_counter()
-                offs = faults.poison("solve.re_block", dev_block.gather_offsets(total_offset))
-                solver = self._solver(obj, tol, mask is not None)
-                store.mark_solve_start()
-                if gated and cache.max_entries is None and not self._gate_restored:
-                    with cache.expect_cached(f"out-of-core dispatch {tuple(dev_block.features.shape)}"):
+            with span("re_dispatch_blocks"):
+                for (_nb, key, cacheable, block, dev_block, obj, mask, sb, sr, eidx, w0_dev) in gen:
+                    store.handover(key, dev_block, w0_dev)
+                    t0 = time.perf_counter()
+                    offs = faults.poison("solve.re_block", dev_block.gather_offsets(total_offset))
+                    solver = self._solver(obj, tol, mask is not None)
+                    store.mark_solve_start()
+                    if gated and cache.max_entries is None and not self._gate_restored:
+                        with cache.expect_cached(f"out-of-core dispatch {tuple(dev_block.features.shape)}"):
+                            out = solver(dev_block, offs, w0_dev, mask)
+                    else:
                         out = solver(dev_block, offs, w0_dev, mask)
-                else:
-                    out = solver(dev_block, offs, w0_dev, mask)
-                done = store.solve_event()
-                solve_stage.add_busy(time.perf_counter() - t0, 0)
-                worker.submit((key, cacheable, block, sb, sr, eidx, out, done))
-                del dev_block, w0_dev, offs, out
+                    done = store.solve_event()
+                    solve_stage.add_busy(time.perf_counter() - t0, 0)
+                    worker.submit((key, cacheable, block, sb, sr, eidx, out, done))
+                    del dev_block, w0_dev, offs, out
             worker.close()
         except BaseException:
             store.abort_pass()
@@ -738,6 +765,7 @@ class RandomEffectCoordinate(Coordinate):
         finally:
             gen.close()
             stats.wall_s = time.perf_counter() - t0_wall
+            _finalize_pipeline_telemetry(label, stats)
             store.end_pass()
 
         if tol is not None:
@@ -773,26 +801,27 @@ class RandomEffectCoordinate(Coordinate):
         parts, pending = [], []
         dispatched_valid = dispatched_alloc = num_dispatches = 0
         block_coefs, block_offs = [], []
-        for i, block in enumerate(self.dataset.blocks):
-            offs = faults.poison("solve.re_block", block.gather_offsets(total_offset))
-            block_offs.append(offs)
-            if gated and not keep[i].any():
-                prev = initial_model.block_coefs[i]
-                if tuple(prev.shape) == (block.num_entities, block.dim):
-                    block_coefs.append(prev)
-                    continue
-            w0 = self._initial_block_coefs(block, i, initial_model, total_offset.dtype)
-            mask = self._feature_masks.get(i)
-            out = self._solver(self._block_objectives[i], tol, mask is not None)(block, offs, w0, mask)
-            w_new, iters, reasons, passes = out[:4]
-            if tol is not None:
-                pending.append((*out[4:], np.full((block.num_entities,), i, np.int32),
-                                np.arange(block.num_entities, dtype=np.int32)))
-            block_coefs.append(w_new)
-            parts.append((block, iters, reasons, passes))
-            dispatched_valid += self._block_valid_counts[i]
-            dispatched_alloc += block.num_entities
-            num_dispatches += 1
+        with span("re_dispatch_blocks"):
+            for i, block in enumerate(self.dataset.blocks):
+                offs = faults.poison("solve.re_block", block.gather_offsets(total_offset))
+                block_offs.append(offs)
+                if gated and not keep[i].any():
+                    prev = initial_model.block_coefs[i]
+                    if tuple(prev.shape) == (block.num_entities, block.dim):
+                        block_coefs.append(prev)
+                        continue
+                w0 = self._initial_block_coefs(block, i, initial_model, total_offset.dtype)
+                mask = self._feature_masks.get(i)
+                out = self._solver(self._block_objectives[i], tol, mask is not None)(block, offs, w0, mask)
+                w_new, iters, reasons, passes = out[:4]
+                if tol is not None:
+                    pending.append((*out[4:], np.full((block.num_entities,), i, np.int32),
+                                    np.arange(block.num_entities, dtype=np.int32)))
+                block_coefs.append(w_new)
+                parts.append((block, iters, reasons, passes))
+                dispatched_valid += self._block_valid_counts[i]
+                dispatched_alloc += block.num_entities
+                num_dispatches += 1
         if tol is not None:
             self._pending_masks = pending
         self._publish_active_set_stats(gated, dispatched_valid, dispatched_alloc, num_dispatches)

@@ -66,6 +66,7 @@ import torch
 from photon_tpu_torch.algorithm.solve_cache import CAPTURE_LOCK, block_input_bytes
 from photon_tpu_torch.data.random_effect import EntityBlock
 from photon_tpu_torch.data.residency import ByteBudgetLru
+from photon_tpu_torch.obs.metrics import registry
 from photon_tpu_torch.optim.common import HOST_READS
 from photon_tpu_torch.utils import faults, resources
 
@@ -149,6 +150,7 @@ def rebalance_spill_layout(spill_root: str, before, after) -> Dict[str, Dict]:
             os.rmdir(src)
         except OSError:
             pass  # non-file leftovers keep the dir; harmless
+        registry().counter("re_spill_rebalance_moves_total").inc(moved)
         logger.info("re_store spill rebalance: %s -> %s (%d files renamed)", member, successor, moved)
         out[str(member)] = dict(successor=str(successor), moved=moved)
     return out
@@ -195,6 +197,7 @@ def host_entity_block(block: EntityBlock, spill_dir: Optional[str] = None, index
                     # mapped torn.
                     _SPILL_GUARD.record(exc)
                     _SPILL_GUARD.cleanup(path)
+                    registry().counter("re_spill_fallbacks_total").inc()
                     logger.warning("re_store spill of block %d field %s to %s failed; keeping it in host memory: %s",
                                    index, name, spill_dir, exc)
         fields[name] = arr
@@ -284,7 +287,7 @@ class ReDeviceStore:
             logger.warning("re_store[%s]: budget %d B below the largest block %d B plus the static buffers %d B; "
                            "flooring the effective budget there", coordinate_id, self.budget, max_cost,
                            self.static_bytes)
-        self.lru = ByteBudgetLru(self.effective_budget - self.static_bytes)
+        self.lru = ByteBudgetLru(self.effective_budget - self.static_bytes, on_evict=self._on_evict)
         self.peak_total_bytes = 0
         self._resident: Dict[Hashable, EntityBlock] = {}
         self._protected: set = set()
@@ -309,6 +312,8 @@ class ReDeviceStore:
         self.retired = 0
         self.pass_evictions: List[int] = []
         self._pass_eviction_mark = 0
+        self._labels = dict(coordinate=coordinate_id)
+        self._publish()
 
     # ------------------------------------------------------------------
     # Pass lifecycle (training thread).
@@ -318,10 +323,12 @@ class ReDeviceStore:
         with self._cond:
             self._abort = False
             self._pass_eviction_mark = self.lru.evictions
+        self._publish()
 
     def end_pass(self) -> None:
         with self._cond:
             self.pass_evictions.append(self.lru.evictions - self._pass_eviction_mark)
+        self._publish()
 
     def abort_pass(self) -> None:
         """Unstick a blocked upload thread on the error path."""
@@ -344,6 +351,9 @@ class ReDeviceStore:
                 self._cond.notify_all()
         self.retired += len(dropped)
         self._free(dropped)
+        if dropped:
+            registry().counter("re_store_retired_total", **self._labels).inc(len(dropped))
+            self._publish()
         return len(dropped)
 
     # ------------------------------------------------------------------
@@ -381,12 +391,17 @@ class ReDeviceStore:
         self._free(dropped)
         events: list = []
         t0 = time.perf_counter()
+        reg = registry()
         if dev_block is not None:
             self.upload_hits += 1
+            reg.counter("re_store_upload_hits_total", **self._labels).inc()
         else:
             dev_block = self._upload_contained(lambda: self._upload_block(host_block, events), f"block {key}")
+            nbytes = block_data_bytes(host_block)
             self.uploads += 1
-            self.upload_bytes += block_data_bytes(host_block)
+            self.upload_bytes += nbytes
+            reg.counter("re_store_uploads_total", **self._labels).inc()
+            reg.counter("re_store_upload_bytes_total", **self._labels).inc(nbytes)
             if overlapped:
                 self.overlapped_uploads += 1
             if cacheable:
@@ -397,6 +412,7 @@ class ReDeviceStore:
         self.upload_s += time.perf_counter() - t0
         with self._cond:
             self._ready[key] = events
+        self._publish()
         return dev_block, w0_dev
 
     def _settled_victims(self, cost: int) -> Optional[list]:
@@ -539,6 +555,9 @@ class ReDeviceStore:
                 self.budget_shrinks += 1
             self._cond.notify_all()
         self._free(dropped)
+        if shrunk:
+            registry().counter("re_device_budget_shrinks_total", **self._labels).inc()
+        self._publish()
         return shrunk
 
     def solve_event(self):
@@ -572,6 +591,7 @@ class ReDeviceStore:
                 dropped.append(self._resident.pop(key, None))
             self._cond.notify_all()
         self._free(dropped)
+        self._publish()
 
     def _free(self, dropped: list) -> None:
         """Drop device blocks under the capture lock (their release may
@@ -622,3 +642,13 @@ class ReDeviceStore:
             staging_bytes=self.staging_bytes(),
             pass_evictions=list(self.pass_evictions),
         )
+
+    def _on_evict(self, key) -> None:
+        registry().counter("re_store_evictions_total", **self._labels).inc()
+
+    def _publish(self) -> None:
+        reg = registry()
+        reg.gauge("re_device_resident_bytes", **self._labels).set(self.lru.resident_bytes)
+        reg.gauge("re_device_resident_bytes_peak", **self._labels).set(self.lru.peak_bytes)
+        reg.gauge("re_device_resident_blocks", **self._labels).set(len(self.lru))
+        reg.gauge("re_device_budget_bytes", **self._labels).set(self.effective_budget)

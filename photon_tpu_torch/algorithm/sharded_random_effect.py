@@ -42,6 +42,7 @@ from photon_tpu_torch.algorithm.solve_cache import SolveCache
 from photon_tpu_torch.data.game_data import GameBatch
 from photon_tpu_torch.data.random_effect import RandomEffectDataConfig, RandomEffectDataset, build_random_effect_dataset
 from photon_tpu_torch.models.game import RandomEffectModel
+from photon_tpu_torch.obs.trace import span
 from photon_tpu_torch.ops.objective import GLMObjective
 from photon_tpu_torch.optim.factory import OptimizerSpec
 from photon_tpu_torch.parallel.entity_shard import (
@@ -193,15 +194,18 @@ class ShardedRandomEffectCoordinate(Coordinate):
         walls: Dict[int, float] = {}
         models: Dict[int, RandomEffectModel] = {}
         stats: Dict[int, RandomEffectTrackerStats] = {}
-        for s, coord in self.shards.items():
-            # One shard at a time, synced at its end: its wall is this
-            # device's busy time for it, and the order never varies.
-            t0 = time.perf_counter()
-            models[s], stats[s] = coord.train(batch, residual_scores, inits.get(s))
-            self._sync()
-            walls[s] = time.perf_counter() - t0
+        with span("re_sharded_train"):
+            for s, coord in self.shards.items():
+                # One shard at a time, synced at its end: its wall is this
+                # device's busy time for it, and the order never varies.
+                t0 = time.perf_counter()
+                models[s], stats[s] = coord.train(batch, residual_scores, inits.get(s))
+                self._sync()
+                walls[s] = time.perf_counter() - t0
         self._shard_models, self.last_shard_walls = models, walls
-        merged = RandomEffectModel(torch.from_numpy(self._merge(models)), self.re_type, self.feature_shard, self.task)
+        with span("re_sharded_merge"):
+            merged = RandomEffectModel(torch.from_numpy(self._merge(models)), self.re_type, self.feature_shard,
+                                       self.task)
         self._last_merged = merged
         return merged, self._merge_stats(stats)
 

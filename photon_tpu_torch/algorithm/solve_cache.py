@@ -76,6 +76,7 @@ import numpy as np
 import torch
 
 from photon_tpu_torch.data.batch import LabeledBatch, SparseFeatures
+from photon_tpu_torch.obs.metrics import registry
 from photon_tpu_torch.ops import kernels
 from photon_tpu_torch.optim.common import REASON_DIVERGED
 from photon_tpu_torch.optim.program import Program, chunk_loop, run_chunked
@@ -527,6 +528,7 @@ class SolveCache:
                     old_key, _old = self._entries.popitem(last=False)
                     self._pins.pop(old_key, None)
                     self.stats.evictions += 1
+                    registry().counter("solve_cache_evictions_total").inc()
         return entry, True
 
     def _dispatch(self, handle_entries: Dict, pkey: Tuple, weights: Tuple[float, float], build, pins, trace_key):

@@ -151,6 +151,31 @@ def resolve_device(name: str) -> torch.device:
     return torch.device(name)
 
 
+def install_otlp(args, service_name: str):
+    """``--otlp-endpoint`` (and ``--otlp-metrics-interval``): install the
+    exporter, after ``begin_run`` (the tracer's sinks survive its reset).
+    The exporter, or None without an endpoint."""
+    from photon_tpu_torch.obs.export import maybe_install_exporter
+
+    return maybe_install_exporter(args.otlp_endpoint, service_name,
+                                  metrics_interval_s=float(args.otlp_metrics_interval or 0.0))
+
+
+def close_otlp(exporter) -> None:
+    """At a driver's exit: export the registry once more and flush,
+    best-effort, then uninstall the exporter."""
+    if exporter is None:
+        return
+    from photon_tpu_torch.obs.export import uninstall_exporter
+
+    try:
+        exporter.export_metrics()
+        exporter.flush(timeout_s=3.0)
+    except Exception:  # noqa: BLE001 — the exit export is best-effort
+        logging.getLogger("photon_tpu_torch").exception("final OTLP export failed")
+    uninstall_exporter()
+
+
 def refuse_unported(driver: str, unported: Dict[str, bool]) -> None:
     """Exit non-zero naming every given flag whose machinery is not ported."""
     named = [flag for flag, given in unported.items() if given]

@@ -25,7 +25,7 @@ read. Events go to the ``--event-listener(s)``.
 
 The data and the scoring live on ``--device`` (default cuda; without a card
 the driver exits non-zero rather than run on the CPU). ``--telemetry-out``
-is not ported yet.
+writes the run report (spans, metrics, the ingest pipeline's occupancy).
 """
 
 from __future__ import annotations
@@ -47,7 +47,6 @@ from photon_tpu_torch.cli.common import (
     add_out_of_core_args,
     parse_feature_shard_config,
     parse_input_column_names,
-    refuse_unported,
     resolve_device,
     resolve_input_paths,
     setup_logging,
@@ -60,6 +59,7 @@ from photon_tpu_torch.io.data_reader import read_merged
 from photon_tpu_torch.io.model_io import load_game_model, model_re_types, read_model_metadata
 from photon_tpu_torch.io.pipeline import DEFAULT_QUEUE_DEPTH, stream_device_batches
 from photon_tpu_torch.io.scores import save_scores
+from photon_tpu_torch.obs import begin_run, finalize_run_report
 from photon_tpu_torch.optim.common import HOST_READS
 from photon_tpu_torch.utils.events import EventEmitter, setup_event, training_finish_event
 from photon_tpu_torch.utils.io_utils import process_output_dir
@@ -87,7 +87,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--event-listeners", nargs="*", default=[], help="dotted paths of event listener callables")
     p.add_argument("--event-listener", action="append", default=[], dest="event_listener",
                    help="register one event listener by path ('pkg.module:attr'); repeatable")
-    p.add_argument("--telemetry-out", default=None, help="not ported yet")
+    p.add_argument("--telemetry-out", default=None,
+                   help="write the unified run report (spans + metrics + ingest-pipeline occupancy) as "
+                        "schema-stable JSONL to this path")
     add_active_set_args(p)
     add_out_of_core_args(p)
     add_device_arg(p)
@@ -96,7 +98,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def run(args) -> Dict:
     setup_logging(args.verbose)
-    refuse_unported("game_scoring", {"--telemetry-out": args.telemetry_out is not None})
     if args.re_active_set:
         log.warning("--re-active-set is a no-op for the scoring driver (nothing is "
                     "trained); it only affects GAME training")
@@ -104,6 +105,7 @@ def run(args) -> Dict:
         log.warning("--re-device-budget-mb is a no-op for the scoring driver "
                     "(nothing is trained); it only affects GAME training")
     device = resolve_device(args.device)
+    begin_run()  # fresh spans, metrics and phase records for this run
     emitter = EventEmitter()
     for name in list(args.event_listeners) + list(args.event_listener):
         emitter.register_by_name(name)
@@ -156,6 +158,7 @@ def run(args) -> Dict:
             with open(os.path.join(args.output_dir, "scoring-metrics.json"), "w") as f:
                 json.dump(metrics, f, indent=2)
     emitter.emit(training_finish_event(num_scored=out["numScored"]))
+    finalize_run_report("game_scoring", path=args.telemetry_out, emitter=emitter)
     return out
 
 

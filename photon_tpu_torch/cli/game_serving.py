@@ -24,24 +24,35 @@ shadowed on a sample of traffic and promoted when its divergence stays
 under the bound (abandoned and poisoned otherwise), and rolled back after
 breaker trips.
 
-Not ported yet (they exit non-zero naming the flag): ``--feedback-*``,
-``--telemetry-*``, ``--otlp-*`` and ``--slo-gate``; ``/metrics``,
-``/v1/traces``, ``/v1/experiment`` and ``/v1/feedback`` answer 501.
+With ``--slo-gate`` the watcher follows the engine's SLO burn: a page
+aborts a shadow, rolls back a promotion in its settle window and freezes
+promotions until the burn clears, each decision a forced trace.
+``--telemetry-out`` writes the run report at shutdown (and every
+``--telemetry-flush-interval`` seconds, under ``--telemetry-max-mb``);
+``--otlp-endpoint`` exports spans and metrics to a collector.
+
+Not ported yet (they exit non-zero naming the flag): ``--feedback-*``;
+``/v1/experiment`` and ``/v1/feedback`` answer 501.
 """
 
 from __future__ import annotations
 
 import argparse
-import collections
 import dataclasses
 import json
 import logging
 import os
 import signal
 import threading
+import time
 from typing import Optional
 
-from photon_tpu_torch.cli.common import add_device_arg, refuse_unported, resolve_device, setup_logging
+from photon_tpu_torch.cli.common import (add_device_arg, close_otlp, install_otlp, refuse_unported, resolve_device,
+                                         setup_logging)
+from photon_tpu_torch.obs import begin_run, finalize_run_report
+from photon_tpu_torch.obs.metrics import registry
+from photon_tpu_torch.obs.report import collect_run_records, write_run_report
+from photon_tpu_torch.obs.trace import flight_recorder, mint_context, record_span
 from photon_tpu_torch.serve.admission import AdmissionConfig, parse_tenant_rates
 from photon_tpu_torch.serve.batcher import BackpressureError, DeadlineExceededError
 from photon_tpu_torch.serve.engine import ServeConfig, ScoreRequest, load_engine
@@ -249,11 +260,13 @@ class RolloutOptions:
     max_reload_attempts: int = 3
     backoff_s: float = 0.2
     backoff_max_s: float = 5.0
-
-
-# Watcher outcomes (the reference's serve_generations_poisoned_total and
-# serve_reload_retries_total, and promotions after a shadow phase).
-WATCH_COUNTS: "collections.Counter" = collections.Counter()
+    # SLO actuation (--slo-gate): a paging burn on any objective in
+    # slo_objectives aborts shadows, rolls back unsettled promotions and
+    # freezes further promotions until the burn clears. Objectives the
+    # tracker has no ring for are ignored (the quality objectives wait for
+    # the quality plane).
+    slo_gate: bool = False
+    slo_objectives: tuple = ("availability", "latency_p99", "auc_drop", "calibration_drift")
 
 
 def _poison(publish_root: str, version: str, reason: str) -> None:
@@ -263,7 +276,24 @@ def _poison(publish_root: str, version: str, reason: str) -> None:
         mark_poisoned(publish_root, version, reason)
     except OSError:
         logger.exception("could not record poisoned generation %r", version)
-    WATCH_COUNTS["poisoned"] += 1
+    registry().counter("serve_generations_poisoned_total").inc()
+
+
+def _observe_staleness(target: str) -> None:
+    """Label-arrival to promotion lag of a streaming generation: its
+    manifest records the oldest label it trained on."""
+    from photon_tpu_torch.io.model_io import load_generation_manifest
+
+    try:
+        manifest = load_generation_manifest(target) or {}
+    except (OSError, ValueError):
+        return
+    ts = (manifest.get("stream") or {}).get("oldestLabelTs")
+    if ts is None:
+        return
+    lag = max(0.0, time.time() - float(ts))
+    registry().gauge("model_staleness_s").set(lag)
+    registry().histogram("model_staleness_hist_s").observe(lag)
 
 
 def _try_delta_install(engine, target: str) -> bool:
@@ -313,6 +343,7 @@ def _install_generation(engine, target: str, opts: RolloutOptions,
                     engine.start_shadow(target, opts.shadow_fraction)
                     return "shadow"
                 engine.promote(target)
+                _observe_staleness(target)
                 return "promoted"
             model = load_resolved_game_model(
                 target, engine._index_maps, engine._entity_indexes,
@@ -323,6 +354,7 @@ def _install_generation(engine, target: str, opts: RolloutOptions,
                 engine.start_shadow(target, opts.shadow_fraction)
                 return "shadow"
             engine.reload(model, model_version=target)
+            _observe_staleness(target)
             return "promoted"
         except Exception as exc:  # noqa: BLE001 — old model keeps serving
             logger.warning(
@@ -330,7 +362,7 @@ def _install_generation(engine, target: str, opts: RolloutOptions,
                 "keeps serving",
                 target, attempt, attempts, exc, engine.model_version,
             )
-            WATCH_COUNTS["reload_retries"] += 1
+            registry().counter("serve_reload_retries_total").inc()
             if attempt >= attempts:
                 _poison(
                     publish_root,
@@ -358,6 +390,35 @@ def _repoint_latest(publish_root: str, version: str) -> None:
             logger.exception("could not repoint LATEST to %r", name)
 
 
+def _slo_paging(engine, objectives) -> list:
+    """Gated objectives in PAGE state; [] when healthy or when the engine
+    has no SLO tracker."""
+    out = []
+    slo = getattr(engine, "slo", None)
+    if slo is None:
+        return out
+    for name in objectives:
+        try:
+            if slo.state(name) == "page":
+                out.append(name)
+        except (KeyError, AttributeError):
+            continue
+    return out
+
+
+def _trace_rollout_decision(action: str, version, reason: str) -> None:
+    """Every SLO-gate decision is counted and kept as a forced trace, so
+    "why did my promotion abort" is answerable from /v1/traces alone."""
+    registry().counter("serve_slo_gate_actions_total", action=action).inc()
+    try:
+        ctx = mint_context(forced=True)
+        record_span(f"rollout/{action}", 0.0, parent="", context=ctx)
+        flight_recorder().finish(ctx.trace_id, forced=True,
+                                 meta={"action": action, "version": str(version), "reason": reason})
+    except Exception:  # noqa: BLE001 — tracing never blocks the gate
+        logger.exception("could not trace rollout decision %r", action)
+
+
 def _reload_watcher(engine, model_dir: str, interval: float, stop: threading.Event,
                     opts: Optional[RolloutOptions] = None) -> None:
     """Poll ``model_dir`` for new generations and walk each through the
@@ -371,13 +432,52 @@ def _reload_watcher(engine, model_dir: str, interval: float, stop: threading.Eve
       under ``divergence_bound``, and abandoned and poisoned on a breach.
     - With ``breaker_trip_bound > 0`` a promoted generation whose breaker
       trips since promotion reach the bound is rolled back to its parent,
-      poisoned, and LATEST repointed to the parent."""
+      poisoned, and LATEST repointed to the parent.
+
+    With ``slo_gate`` a paging burn on a gated objective aborts an
+    in-flight shadow (candidate poisoned), rolls back a promotion still in
+    its settle window (demote, poison, repoint LATEST), and freezes
+    promotions until the burn clears; every decision is a forced trace and
+    a count of ``serve_slo_gate_actions_total``."""
     from photon_tpu_torch.io.model_io import is_poisoned
 
     opts = opts or RolloutOptions()
     current = _model_fingerprint(resolve_model_dir(model_dir))
     candidate: Optional[str] = None
+    frozen_reason: Optional[str] = None
     while not stop.wait(interval):
+        paging = _slo_paging(engine, opts.slo_objectives) if opts.slo_gate else []
+        if opts.slo_gate:
+            # Any page freezes promotions; the freeze clears once no gated
+            # objective pages.
+            if frozen_reason is not None and not paging:
+                logger.info("SLO burn cleared (%s); promotions unfrozen", frozen_reason)
+                registry().gauge("serve_promotions_frozen").set(0)
+                _trace_rollout_decision("unfreeze", engine.model_version, frozen_reason)
+                frozen_reason = None
+            elif paging and frozen_reason is None:
+                frozen_reason = "slo_page: " + ",".join(paging)
+                logger.warning("SLO paging (%s); promotions frozen", frozen_reason)
+                registry().gauge("serve_promotions_frozen").set(1)
+                _trace_rollout_decision("freeze", engine.model_version, frozen_reason)
+        if paging and candidate is not None:
+            # Paging during shadow: abort the candidate and poison it.
+            reason = "slo_page: " + ",".join(paging)
+            engine.stop_shadow()
+            logger.warning("candidate %r aborted by SLO gate: %s", candidate, reason)
+            _poison(model_dir, os.path.basename(candidate.rstrip("/")), reason)
+            _trace_rollout_decision("shadow_abort", candidate, reason)
+            candidate = None
+        if paging and engine.promotion_in_window():
+            # Paging in the settle window: unwind the promotion as breaker
+            # trips do.
+            reason = "slo_page: " + ",".join(paging)
+            demoted = engine.rollback(reason)
+            if demoted is not None:
+                _poison(model_dir, os.path.basename(str(demoted).rstrip("/")), reason)
+                _repoint_latest(model_dir, engine.model_version)
+                current = _model_fingerprint(resolve_model_dir(model_dir))
+                _trace_rollout_decision("slo_rollback", demoted, reason)
         if candidate is not None:
             st = engine.shadow_stats()
             if st["version"] is None:
@@ -389,11 +489,16 @@ def _reload_watcher(engine, model_dir: str, interval: float, stop: threading.Eve
                 _poison(model_dir, os.path.basename(candidate.rstrip("/")), reason)
                 candidate = None
             elif st["count"] >= opts.shadow_quota:
-                logger.info("candidate %r passed shadow quota (%d scores, max divergence %.3g); promoting",
-                            candidate, st["count"], st["max_divergence"])
-                engine.promote(candidate)
-                WATCH_COUNTS["promoted"] += 1
-                candidate = None
+                if frozen_reason is not None:
+                    # Quota met with promotions frozen: the candidate stays
+                    # in shadow and promotes after the unfreeze.
+                    registry().counter("serve_promotions_frozen_held_total").inc()
+                else:
+                    logger.info("candidate %r passed shadow quota (%d scores, max divergence %.3g); promoting",
+                                candidate, st["count"], st["max_divergence"])
+                    engine.promote(candidate)
+                    _observe_staleness(candidate)
+                    candidate = None
         if opts.breaker_trip_bound > 0:
             trips = engine.trips_since_promotion()
             if trips >= opts.breaker_trip_bound:
@@ -457,18 +562,37 @@ def _rollout_options(args) -> RolloutOptions:
         breaker_trip_bound=args.breaker_trip_bound,
         max_reload_attempts=args.reload_max_attempts,
         backoff_s=args.reload_backoff,
+        slo_gate=bool(args.slo_gate),
     )
 
 
+def _telemetry_max_bytes(args):
+    mb = float(args.telemetry_max_mb or 0.0)
+    return int(mb * (1 << 20)) if mb > 0 else None
+
+
 def _start_background(args, engine, stop: threading.Event) -> Optional[threading.Thread]:
-    """The reload watcher, in both deployment shapes."""
-    if not (args.reload_poll_interval and args.reload_poll_interval > 0):
-        return None
-    t = threading.Thread(target=_reload_watcher, args=(engine, args.model_input_dir, args.reload_poll_interval, stop,
-                                                       _rollout_options(args)),
-                         name="model-reload-watcher", daemon=True)
-    t.start()
-    return t
+    """The reload watcher and the periodic run-report flusher, in both
+    deployment shapes. Returns the watcher's thread, if any."""
+    watcher = None
+    if args.reload_poll_interval and args.reload_poll_interval > 0:
+        watcher = threading.Thread(target=_reload_watcher,
+                                   args=(engine, args.model_input_dir, args.reload_poll_interval, stop,
+                                         _rollout_options(args)),
+                                   name="model-reload-watcher", daemon=True)
+        watcher.start()
+    if args.telemetry_out and args.telemetry_flush_interval > 0:
+        max_bytes = _telemetry_max_bytes(args)
+
+        def _flush_loop():
+            while not stop.wait(args.telemetry_flush_interval):
+                try:
+                    write_run_report(args.telemetry_out, collect_run_records("game_serving"), max_bytes=max_bytes)
+                except Exception:  # noqa: BLE001 — telemetry never kills serving
+                    logger.exception("periodic telemetry flush failed")
+
+        threading.Thread(target=_flush_loop, name="telemetry-flush", daemon=True).start()
+    return watcher
 
 
 def _load_engine(args, config: ServeConfig):
@@ -507,10 +631,13 @@ def _run_multiprocess(args):
     # reach frontend.shutdown(), or the workers would outlive the parent.
     signal.signal(signal.SIGTERM, _shutdown)
     signal.signal(signal.SIGINT, _shutdown)
+    begin_run()
+    exporter = install_otlp(args, "photon-tpu-serving")
     try:
         engine = _load_engine(args, _serve_config(args))
     except BaseException:
         frontend.shutdown()
+        close_otlp(exporter)
         raise
     frontend.start_scorer(engine)
     watcher = _start_background(args, engine, stop)
@@ -527,11 +654,15 @@ def _run_multiprocess(args):
         if watcher is not None:
             watcher.join(timeout=30)
         engine.close(drain=True)  # then score out what is queued
+        finalize_run_report("game_serving", path=args.telemetry_out, max_bytes=_telemetry_max_bytes(args))
+        close_otlp(exporter)
         print(json.dumps({"serving": False, "stats": engine.stats(),
                           "workerExits": {str(k): v for k, v in frontend.worker_exits.items()}}, default=str))
 
 
 def _run_inprocess(args):
+    begin_run()
+    exporter = install_otlp(args, "photon-tpu-serving")
     engine = _load_engine(args, _serve_config(args))
     server = ServingHTTPServer((args.host, args.port), make_handler(engine))
     stop = threading.Event()
@@ -552,6 +683,8 @@ def _run_inprocess(args):
             watcher.join(timeout=30)
         engine.close(drain=True)
         server.server_close()
+        finalize_run_report("game_serving", path=args.telemetry_out, max_bytes=_telemetry_max_bytes(args))
+        close_otlp(exporter)
         print(json.dumps({"serving": False, "stats": engine.stats()}, default=str))
 
 
@@ -564,12 +697,6 @@ def run(args):
         "--feedback-segment-records": args.feedback_segment_records != 256,
         "--feedback-segment-age": args.feedback_segment_age != 5.0,
         "--feedback-join-ttl": args.feedback_join_ttl != 300.0,
-        "--telemetry-out": args.telemetry_out is not None,
-        "--telemetry-flush-interval": args.telemetry_flush_interval != 0.0,
-        "--telemetry-max-mb": args.telemetry_max_mb != 64.0,
-        "--otlp-endpoint": args.otlp_endpoint is not None,
-        "--otlp-metrics-interval": args.otlp_metrics_interval != 15.0,
-        "--slo-gate": args.slo_gate,
     })
     from photon_tpu_torch.utils import resources
 

@@ -41,8 +41,9 @@ under ``--re-spill-dir`` (``host-<k>/`` with ``--re-spill-member``), and a
 budgeted working set on the card.
 
 The data and the solves live on ``--device`` (default cuda; without a card
-the driver exits non-zero rather than run on the CPU). Flags whose
-machinery is not ported exit non-zero with "not ported yet".
+the driver exits non-zero rather than run on the CPU). ``--telemetry-out``
+writes the run report, also of an interrupted run; ``--otlp-endpoint``
+exports the CD pass spans and the metrics registry to a collector.
 """
 
 from __future__ import annotations
@@ -64,11 +65,12 @@ from photon_tpu_torch.cli.common import (
     add_device_arg,
     add_out_of_core_args,
     add_validation_arg,
+    close_otlp,
     handle_termination,
+    install_otlp,
     parse_coordinate_config,
     parse_feature_shard_config,
     parse_input_column_names,
-    refuse_unported,
     resolve_device,
     resolve_input_paths,
     setup_logging,
@@ -97,6 +99,7 @@ from photon_tpu_torch.io.model_io import (
 from photon_tpu_torch.types import NormalizationType
 from photon_tpu_torch.utils import resources
 from photon_tpu_torch.utils.checkpoint import latest_step
+from photon_tpu_torch.obs import begin_run, finalize_run_report
 from photon_tpu_torch.utils.events import EventEmitter, setup_event, training_finish_event, training_start_event
 from photon_tpu_torch.utils.io_utils import process_output_dir
 from photon_tpu_torch.utils.timed import Timed
@@ -157,9 +160,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--event-listeners", nargs="*", default=[], help="dotted paths of event listener callables")
     p.add_argument("--event-listener", action="append", default=[], dest="event_listener",
                    help="register one event listener by path ('pkg.module:attr'); repeatable")
-    p.add_argument("--telemetry-out", default=None, help="not ported yet")
-    p.add_argument("--otlp-endpoint", default=None, help="not ported yet")
-    p.add_argument("--otlp-metrics-interval", type=float, default=15.0, help="with --otlp-endpoint only")
+    p.add_argument("--telemetry-out", default=None,
+                   help="write the unified run report (spans + metrics + coordinate-descent diagnostics) as "
+                        "schema-stable JSONL to this path")
+    p.add_argument("--otlp-endpoint", default=None,
+                   help="base URL of an OTLP/HTTP collector accepting JSON; CD pass spans and the metrics "
+                        "registry export there (bounded queue, drop-and-count on outage: export never blocks "
+                        "training)")
+    p.add_argument("--otlp-metrics-interval", type=float, default=15.0,
+                   help="seconds between registry-snapshot exports (0 = spans only)")
     p.add_argument("--summarization-output-dir", default=None,
                    help="write per-feature summary statistics as FeatureSummarizationResultAvro, "
                         "one file per shard")
@@ -171,13 +180,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "bounded by a few chunks; chunks concatenate on the device); needs --feature-index-dir")
     add_device_arg(p)
     return p
-
-
-def _refuse_unported(args) -> None:
-    refuse_unported("game_training", {
-        "--telemetry-out": args.telemetry_out is not None,
-        "--otlp-endpoint": args.otlp_endpoint is not None,
-    })
 
 
 def _constrained(coord_configs, cmap: Dict, index_maps, batch, intercept_indices) -> list:
@@ -205,7 +207,8 @@ def _constrained(coord_configs, cmap: Dict, index_maps, batch, intercept_indices
 
 def run(args) -> Dict:
     setup_logging(args.verbose)
-    _refuse_unported(args)
+    begin_run()  # fresh spans, metrics and phase records for this run
+    otlp = install_otlp(args, "photon-tpu-training")
     device = resolve_device(args.device)
     # Host RSS watchdog: inert without a detectable limit; at hard pressure
     # the pass boundary fails cleanly instead of meeting the OOM-killer.
@@ -285,14 +288,12 @@ def run(args) -> Dict:
     with Timed("driver/read-train"):
         batch, index_maps, entity_indexes = read(resolve_input_paths(args), preloaded_maps, None, True)
     validation_mode = DataValidationType[args.data_validation]
-    with Timed("driver/validate"):
-        validate_game_batch(batch, task, validation_mode)
+    validate_game_batch(batch, task, validation_mode)
     valid_batch = None
     if args.validation_paths:
         with Timed("driver/read-validation"):
             valid_batch, _, _ = read(args.validation_paths, index_maps, entity_indexes, False)
-        with Timed("driver/validate-validation"):
-            validate_game_batch(valid_batch, task, validation_mode)
+        validate_game_batch(valid_batch, task, validation_mode)
 
     intercept_indices = {
         shard: index_maps[shard].get_index(IndexMap.INTERCEPT)
@@ -342,14 +343,17 @@ def run(args) -> Dict:
     )
     emitter.emit(training_start_event(task=task.value, coordinates=list(update_sequence)))
     try:
-        with handle_termination(), Timed("driver/fit"):
+        with handle_termination():
             results = estimator.fit(batch, validation_batch=valid_batch,
                                     evaluation_suite=suite if valid_batch is not None else None,
                                     initial_model=warm, checkpoint_dir=args.checkpoint_dir,
                                     checkpoint_every=args.checkpoint_every,
                                     checkpoint_keep_last=args.checkpoint_keep_last, emitter=emitter)
     except GracefulShutdown as exc:
-        # The coordinate descent wrote a final pass-boundary checkpoint.
+        # The coordinate descent wrote a final pass-boundary checkpoint; the
+        # interrupted run still reports.
+        finalize_run_report("game_training", path=args.telemetry_out, emitter=emitter)
+        close_otlp(otlp)
         raise SystemExit(128 + exc.signum) from exc
 
     tuned_results = []
@@ -373,28 +377,31 @@ def run(args) -> Dict:
     else:
         best = select(results + tuned_results)
     summary = {"configs": [], "tuned_configs": [], "best": None}
-    with Timed("driver/write"):
-        for key, pool in (("configs", results), ("tuned_configs", tuned_results)):
-            for i, r in enumerate(pool):
-                summary[key].append({"config": r.config.describe(), "metrics": r.metrics})
-                if args.output_mode == "ALL":
-                    save_game_model(r.model, os.path.join(args.output_dir, "models", f"{key}-{i}"), index_maps,
-                                    entity_indexes, sparsity_threshold=args.model_sparsity_threshold)
-        if args.output_mode != "NONE":
-            save_game_model(best.model, os.path.join(args.output_dir, "best"), index_maps, entity_indexes,
-                            sparsity_threshold=args.model_sparsity_threshold,
-                            extra_metadata={"config": best.config.describe()})
-            for shard, imap in index_maps.items():
-                imap.save(os.path.join(args.output_dir, f"index-map-{shard}.json"))
-            for re_type, eidx in entity_indexes.items():
-                eidx.save(os.path.join(args.output_dir, f"entity-index-{re_type}.json"))
-            # Everything is on disk: only now flip LATEST, so a reader that
-            # follows it never finds a half-written model.
-            publish_latest_pointer(args.output_dir, "best")
-        summary["best"] = {"config": best.config.describe(), "metrics": best.metrics}
-        with open(os.path.join(args.output_dir, "training-summary.json"), "w") as f:
-            json.dump(sanitize_for_json(summary), f, indent=2)
+    for key, pool in (("configs", results), ("tuned_configs", tuned_results)):
+        for i, r in enumerate(pool):
+            summary[key].append({"config": r.config.describe(), "metrics": r.metrics})
+            if args.output_mode == "ALL":
+                save_game_model(r.model, os.path.join(args.output_dir, "models", f"{key}-{i}"), index_maps,
+                                entity_indexes, sparsity_threshold=args.model_sparsity_threshold)
+    if args.output_mode != "NONE":
+        save_game_model(best.model, os.path.join(args.output_dir, "best"), index_maps, entity_indexes,
+                        sparsity_threshold=args.model_sparsity_threshold,
+                        extra_metadata={"config": best.config.describe()})
+        for shard, imap in index_maps.items():
+            imap.save(os.path.join(args.output_dir, f"index-map-{shard}.json"))
+        for re_type, eidx in entity_indexes.items():
+            eidx.save(os.path.join(args.output_dir, f"entity-index-{re_type}.json"))
+        # Everything is on disk: only now flip LATEST, so a reader that
+        # follows it never finds a half-written model.
+        publish_latest_pointer(args.output_dir, "best")
+    summary["best"] = {"config": best.config.describe(), "metrics": best.metrics}
+    with open(os.path.join(args.output_dir, "training-summary.json"), "w") as f:
+        json.dump(sanitize_for_json(summary), f, indent=2)
     emitter.emit(training_finish_event(best=None if best is None else best.config.describe()))
+    finalize_run_report("game_training", path=args.telemetry_out, emitter=emitter, trackers=[
+        {"label": f"{key}[{i}]", "tracker": r.tracker, "wall_times": r.wall_times}
+        for key, pool in (("config", results), ("tuned", tuned_results)) for i, r in enumerate(pool)])
+    close_otlp(otlp)
     return summary
 
 

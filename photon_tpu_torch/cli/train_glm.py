@@ -26,8 +26,8 @@ go to the ``--event-listener(s)``.
 
 The data and the solves live on ``--device`` (default cuda; without a card
 the driver exits non-zero rather than run on the CPU). ``--telemetry-out``
-exits non-zero with "not ported yet"; the random-effect flags warn that
-they are no-ops, as in the reference.
+writes the run report (spans, metrics, one tracker row per λ solve); the
+random-effect flags warn that they are no-ops, as in the reference.
 """
 
 from __future__ import annotations
@@ -52,7 +52,6 @@ from photon_tpu_torch.cli.common import (
     add_out_of_core_args,
     add_validation_arg,
     handle_termination,
-    refuse_unported,
     resolve_device,
     setup_logging,
     shutdown_requested,
@@ -72,6 +71,7 @@ from photon_tpu_torch.io.model_io import publish_latest_pointer, save_game_model
 from photon_tpu_torch.models.coefficients import Coefficients
 from photon_tpu_torch.models.game import FixedEffectModel, GameModel
 from photon_tpu_torch.models.glm import GeneralizedLinearModel
+from photon_tpu_torch.obs import begin_run, finalize_run_report, registry, span
 from photon_tpu_torch.ops.losses import loss_for_task
 from photon_tpu_torch.ops.objective import GLMObjective
 from photon_tpu_torch.ops.variance import coefficient_variances, normalize_variance_type
@@ -87,7 +87,6 @@ from photon_tpu_torch.utils.events import (
     training_finish_event,
     training_start_event,
 )
-from photon_tpu_torch.utils.timed import Timed
 
 log = logging.getLogger("photon_tpu_torch.train_glm")
 
@@ -142,7 +141,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--event-listeners", nargs="*", default=[], help="dotted paths of event listener callables")
     p.add_argument("--event-listener", action="append", default=[], dest="event_listener",
                    help="register one event listener by path ('pkg.module:attr'); repeatable")
-    p.add_argument("--telemetry-out", default=None, help="not ported yet")
+    p.add_argument("--telemetry-out", default=None,
+                   help="write the unified run report (spans + metrics + per-lambda solver diagnostics) as "
+                        "schema-stable JSONL to this path")
     p.add_argument("--summarization-output-dir", default=None,
                    help="write per-feature summary statistics of the training data as "
                         "FeatureSummarizationResultAvro (part-00000.avro)")
@@ -166,11 +167,6 @@ def build_parser() -> argparse.ArgumentParser:
     add_device_arg(p)
     p.add_argument("--verbose", action="store_true")
     return p
-
-
-def _refuse_unported(args) -> None:
-    """Exit non-zero on a flag whose machinery the port does not have."""
-    refuse_unported("train_glm", {"--telemetry-out": args.telemetry_out is not None})
 
 
 def _selected_features_index_map(args) -> Optional[IndexMap]:
@@ -336,7 +332,10 @@ def train_lambda_sweep(
             # one entry per λ; every route's program is captured once on the
             # card and reads λ (its L2 and L1 parts) as an input.
             counts0 = cache.stats.counts()
-            result = cache.fe_solver(objective, spec)(w, train)
+            solve = cache.fe_solver(objective, spec)
+            with span(f"glm/lambda{lam:g}"):
+                with span("solve"):
+                    result = solve(w, train)
             _sync(result.w)
             wall = time.perf_counter() - t0
             host_syncs = HOST_READS.count - reads0
@@ -380,12 +379,13 @@ def _restore_sweep(args, ckpt_tag: str, device) -> tuple:
                     args.checkpoint_dir)
         return [], None
     log.info("resuming λ sweep from checkpoint: %d λ(s) done", len(state["lambdas"]))
+    registry().counter("glm_sweep_resumes_total").inc()
     return state["lambdas"], state["w"]
 
 
 def run(args) -> Dict:
     setup_logging(args.verbose)
-    _refuse_unported(args)
+    begin_run()  # fresh spans, metrics and phase records for this run
     device = resolve_device(args.device)
     # Host RSS watchdog: inert without a detectable limit; at hard pressure
     # the λ boundary fails cleanly instead of meeting the OOM-killer.
@@ -406,10 +406,8 @@ def run(args) -> Dict:
         raise ValueError("--validate-per-iteration requires --validation-data")
 
     ingest: Dict = {}
-    with Timed("driver/read-train"):
-        train, imap = load_data(args, args.training_data, device, _selected_features_index_map(args), ingest)
-    with Timed("driver/read-validation"):
-        valid, _ = load_data(args, args.validation_data, device, imap)
+    train, imap = load_data(args, args.training_data, device, _selected_features_index_map(args), ingest)
+    valid, _ = load_data(args, args.validation_data, device, imap)
     mode = DataValidationType[args.data_validation]
     validate_labeled_batch(train, task, mode)
     if valid is not None:
@@ -488,12 +486,14 @@ def run(args) -> Dict:
                 # full costs resumability, not the sweep.
                 if not resources.is_enospc(exc):
                     raise
+                registry().counter("checkpoint_write_failures_total").inc()
                 log.warning("λ-sweep checkpoint at λ=%g failed even after pruning (disk full under %s); "
                             "continuing WITHOUT a checkpoint for this λ: %s", r.lam, ckpt_dir, exc)
             save_walls.append(time.perf_counter() - t0)
         signum = shutdown_requested()
         if signum is not None:
             log.warning("λ sweep stopping after λ=%g on signal %d", r.lam, signum)
+            finalize_run_report("train_glm", path=args.telemetry_out, emitter=emitter)
             raise GracefulShutdown(signum)
         # The finished λs are durable: failing here on hard host memory
         # pressure is clean and resumable.
@@ -561,6 +561,11 @@ def run(args) -> Dict:
     with open(os.path.join(args.output_dir, "training-summary.json"), "w") as f:
         json.dump(sanitize_for_json(summary), f, indent=2)
     emitter.emit(training_finish_event(best_lambda=best.lam))
+    # One tracker row per λ solve: the sweep is this driver's coordinate
+    # sequence.
+    finalize_run_report("train_glm", path=args.telemetry_out, emitter=emitter,
+                        trackers=[{"label": "glm", "tracker": {"global": [r.result for r in sweep]},
+                                   "wall_times": {"global": [r.wall_s for r in sweep]}}])
     return summary
 
 

@@ -155,6 +155,20 @@ class RandomEffectDataset:
                 torch.as_tensor(entity_row, device=device), inv_maps)
 
 
+def _publish_pad_waste(re_type: str, **dims: Tuple[int, int]) -> None:
+    """Shape-bucket pad-waste telemetry, one (used, allocated) pair per dim
+    (entities / samples / features), published at dataset build, a host
+    step, so it never touches a solve."""
+    from photon_tpu_torch.obs.metrics import registry
+
+    reg = registry()
+    for dim, (used, alloc) in dims.items():
+        kw = dict(re_type=str(re_type), dim=dim)
+        reg.counter("bucket_alloc_total", **kw).inc(int(alloc))
+        reg.counter("bucket_used_total", **kw).inc(int(used))
+        reg.histogram("bucket_pad_waste_ratio", **kw).observe(1.0 - (used / alloc) if alloc else 0.0)
+
+
 def build_random_effect_dataset(
     entity_ids: np.ndarray,
     features,
@@ -233,10 +247,13 @@ def build_random_effect_dataset(
                 inv_map = np.full((d,), -1, dtype=np.int64)
                 inv_map[col_map] = np.arange(col_map.size)
         d_block = int(col_map.size) if project else d
+        n_used, d_used = int(counts[sel].sum()), d_block
         if config.shape_bucketing:
             n_max, E_alloc = bucket_dim(n_max), bucket_dim(E)
             if not project:
                 d_block = bucket_dim(d_block)
+        _publish_pad_waste(config.re_type, entities=(E, E_alloc), samples=(n_used, E_alloc * n_max),
+                           features=(d_used, d_block))
 
         feat = np.zeros((E_alloc, n_max, d_block), dtype=feat_dtype)
         lab = np.zeros((E_alloc, n_max), dtype=label.dtype)

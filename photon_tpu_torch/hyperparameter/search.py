@@ -1,5 +1,4 @@
-"""Copy of photon_tpu/hyperparameter/search.py (numpy and scipy only), without
-the reference's telemetry spans and metrics.
+"""Copy of photon_tpu/hyperparameter/search.py (numpy and scipy only).
 
 Hyperparameter search: Sobol quasi-random + GP Bayesian (EI) search.
 
@@ -85,9 +84,19 @@ class RandomSearch:
 
     def find(self, n: int) -> Tuple[np.ndarray, float]:
         """Evaluate n points; return the best (point, value)."""
-        for _ in range(n):
-            x = self.next_point()
-            self.observe(x, self.evaluator(x))
+        from photon_tpu_torch.obs.metrics import registry
+        from photon_tpu_torch.obs.trace import span
+
+        registry().gauge("tuning_candidate_count").set(1)
+        for i in range(n):
+            with span(f"tuning/round{i}"):
+                with span("propose"):
+                    x = self.next_point()
+                with span("train"):
+                    value = self.evaluator(x)
+                with span("observe"):
+                    self.observe(x, value)
+            registry().counter("tuning_rounds_total").inc()
         best = min(self.observations, key=lambda o: o[1])
         return best
 
@@ -97,10 +106,20 @@ class RandomSearch:
         Proposals come from ``next_batch`` — Sobol here, top-q EI in the
         Bayesian subclass — so each round refines on the last round's
         observations."""
-        for _ in range(n_rounds):
-            X = self.next_batch(q)
-            for x, v in zip(X, [float(v) for v in batch_evaluator(X)]):
-                self.observe(x, v)
+        from photon_tpu_torch.obs.metrics import registry
+        from photon_tpu_torch.obs.trace import span
+
+        registry().gauge("tuning_candidate_count").set(q)
+        for i in range(n_rounds):
+            with span(f"tuning/round{i}"):
+                with span("propose"):
+                    X = self.next_batch(q)
+                with span("train"):
+                    values = [float(v) for v in batch_evaluator(X)]
+                with span("observe"):
+                    for x, v in zip(X, values):
+                        self.observe(x, v)
+            registry().counter("tuning_rounds_total").inc()
         return min(self.observations, key=lambda o: o[1])
 
 

@@ -17,8 +17,8 @@ current one, ``poisoned-generations.json`` the generations never to load
 again; a delta generation holds the changed entities' rows only and names
 its base in its metadata. Manifests, checksums and delta chains are the
 reference's byte for byte, so either package publishes what the other
-serves. Its metrics are not ported: ``PUBLISH_COUNTS`` counts publications
-and refusals.
+serves. The gate counts publications and refusals in the metrics registry
+(``model_generations_published_total``, ``model_gate_failures_total``).
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from photon_tpu_torch.io.schemas import BAYESIAN_LINEAR_MODEL_SCHEMA, FEATURE_SU
 from photon_tpu_torch.models.coefficients import Coefficients
 from photon_tpu_torch.models.game import FixedEffectModel, GameModel, ProjectedRandomEffectModel, RandomEffectModel
 from photon_tpu_torch.models.glm import GeneralizedLinearModel
+from photon_tpu_torch.obs.metrics import registry
 from photon_tpu_torch.ops.losses import loss_for_task
 from photon_tpu_torch.types import TaskType
 
@@ -56,10 +57,6 @@ MANIFEST_FILE = "generation-manifest.json"
 POISON_FILE = "poisoned-generations.json"
 
 logger = logging.getLogger(__name__)
-
-# Generations published and refused by the gate (the reference's
-# model_generations_published_total and model_gate_failures_total).
-PUBLISH_COUNTS: "collections.Counter" = collections.Counter()
 
 # The reference loader instantiates models by class name, so the records
 # carry its fully qualified names (the smoothed hinge has no model class
@@ -594,10 +591,10 @@ def gate_and_publish(publish_root: str, generation: str, metric_tolerance: float
         _write_json_durable(os.path.join(model_dir, MANIFEST_FILE), manifest)
     if result.ok:
         publish_latest_pointer(publish_root, generation)
-        PUBLISH_COUNTS["published"] += 1
+        registry().counter("model_generations_published_total").inc()
         logger.info("generation %s passed the gate; LATEST -> %s", generation, generation)
     else:
-        PUBLISH_COUNTS["gate_failures"] += 1
+        registry().counter("model_gate_failures_total").inc()
         logger.warning("generation %s REFUSED by the validation gate (%s); LATEST unchanged", generation,
                        result.reason)
     return result

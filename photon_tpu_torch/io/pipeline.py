@@ -58,6 +58,8 @@ import numpy as np
 import torch
 
 from photon_tpu_torch.data.batch import SparseFeatures
+from photon_tpu_torch.obs.metrics import registry
+from photon_tpu_torch.obs.trace import current_span_path, record_span, tracer
 from photon_tpu_torch.utils import faults, resources
 from photon_tpu_torch.utils.timed import PipelineStats, StageStats, record_pipeline
 
@@ -144,6 +146,10 @@ class _SkipBudget:
                     f.write(json.dumps(record) + "\n")
         except OSError as exc2:
             guard.record(exc2)
+            try:
+                registry().counter("dead_letter_write_failures_total").inc()
+            except Exception:
+                pass
             logger.exception("could not append dead-letter record to %s", self.dead_letter_path)
 
 
@@ -161,6 +167,7 @@ def _with_retries(fn: Callable, item, policy: RetryPolicy, name: str, stop: Opti
             if attempt > policy.max_retries:
                 raise
             sleep = delay * (1.0 + policy.jitter * float(rng.random()))
+            registry().counter("pipeline_retries_total", stage=name).inc()
             logger.warning("pipeline stage %s: transient failure (attempt %d/%d), retrying in %.3fs: %s",
                            name, attempt, policy.max_retries, sleep, exc)
             if stop is not None:
@@ -179,6 +186,7 @@ def _retry_or_skip(fn: Callable, item, policy: RetryPolicy, name: str, stop: Opt
         return _with_retries(fn, item, policy, name, stop, rng)
     except Exception as exc:  # noqa: BLE001 — budget decision, then re-raise
         if skips.try_consume():
+            registry().counter("pipeline_chunks_skipped_total", stage=name).inc()
             skips.dead_letter(name, item, exc)
             logger.warning("pipeline stage %s: skipping poisoned chunk after retries (%s); skip budget %d/%d used",
                            name, exc, skips.used, skips.limit)
@@ -373,18 +381,31 @@ def _run_staged(make_source: Callable[[], Iterator], source_nbytes: Callable, st
         return
 
     stop = threading.Event()
+    # The parent span path, captured here: the generator body first runs on
+    # the consumer's first next(), so this is the consumer's innermost open
+    # span. Stage threads carry it explicitly (thread-local nesting cannot
+    # cross threads), which keeps the trace tree connected.
+    parent = current_span_path()
+
+    def spanned(target):
+        def run(*args):
+            with tracer().span(f"pipeline-stage/{threading.current_thread().name}", parent=parent):
+                target(*args)
+
+        return run
+
     # Each queue slot pins one decoded host chunk: under host memory
     # pressure drop to single buffering for this run.
     depth = resources.tightened_depth(depth)
     queues = [queue.Queue(maxsize=depth) for _ in range(len(stages) + 1)]
     threads = [threading.Thread(
-        target=_source_thread,
+        target=spanned(_source_thread),
         args=(make_source, queues[0], stats.stage(source_name), stop, source_nbytes, source_name, source_hook,
               policy, src_rng, skips),
         name=f"photon-pipe-{source_name}", daemon=True)]
     for i, (name, fn, nbytes_of) in enumerate(stages):
         threads.append(threading.Thread(
-            target=_stage_thread,
+            target=spanned(_stage_thread),
             args=(fn, queues[i], queues[i + 1], stats.stage(name), stop, nbytes_of, name, policy, stage_rngs[i],
                   skips),
             name=f"photon-pipe-{name}", daemon=True))
@@ -659,6 +680,19 @@ def stream_device_batches(paths: Sequence[str], shard_configs: Dict, index_maps:
     finally:
         stats.wall_s = time.perf_counter() - t0
         stats.log(telemetry_label)
+        _finalize_pipeline_telemetry(telemetry_label, stats)
+
+
+def _finalize_pipeline_telemetry(label: str, stats: PipelineStats) -> None:
+    """Flush one pipeline run into the run report: the stage metrics into
+    the registry and one externally timed span over the whole stream. It
+    runs in a ``finally`` while a pipeline failure may be propagating, and
+    never masks that exception."""
+    try:
+        stats.publish(label)
+        record_span(f"pipeline/{label}", stats.wall_s)
+    except Exception:
+        logger.exception("pipeline telemetry publish failed for %s", label)
 
 
 def device_chunks_from(host_chunks: Callable[[], Iterator[BatchChunk]], depth: int = DEFAULT_QUEUE_DEPTH,
@@ -680,6 +714,7 @@ def device_chunks_from(host_chunks: Callable[[], Iterator[BatchChunk]], depth: i
     finally:
         stats.wall_s = time.perf_counter() - t0
         stats.log(telemetry_label)
+        _finalize_pipeline_telemetry(telemetry_label, stats)
 
 
 def materialize_game_batch(chunks: Iterator[BatchChunk]):
@@ -765,6 +800,10 @@ class ChunkReplayCache:
             except OSError:
                 pass
         self._guard.record(exc)
+        try:
+            registry().counter("replay_spill_fallbacks_total").inc()
+        except Exception:
+            pass
         logger.warning("replay-cache spool write failed under %s; falling back to re-streaming from source "
                        "(decode re-paid each pass): %s", self._spill_dir, exc)
         self._reset_cache()
@@ -779,18 +818,23 @@ class ChunkReplayCache:
     def _recover_torn_spool(self, exc: Exception, already_yielded: int):
         """A replay pass hit a torn spool: decode order is deterministic, so
         re-stream the source and skip the chunks this pass already yielded."""
+        reg = registry()
+        reg.counter("replay_spool_torn_total").inc()
         logger.warning("torn replay spool %s after %d chunk(s); re-streaming this pass from source: %s",
                        self._spool_path, already_yielded, exc)
         self._complete = False
         self._reset_cache()
         self.source_passes += 1
+        reg.counter("replay_cache_source_passes_total").inc()
         for i, chunk in enumerate(self._factory()):
             if i >= already_yielded:
                 yield chunk
 
     def __iter__(self) -> Iterator:
+        reg = registry()
         if self._complete:
             self.replay_passes += 1
+            reg.counter("replay_cache_replay_passes_total").inc()
             yield from self._chunks
             if self._spool_count:
                 yielded = len(self._chunks)
@@ -807,6 +851,7 @@ class ChunkReplayCache:
                     yielded += 1
             return
         self.source_passes += 1
+        reg.counter("replay_cache_source_passes_total").inc()
         self._reset_cache()
         # A memory-only cache that overflowed once never tries again; a
         # disk-backed one retries (a fresh pass rebuilds prefix and spool).
@@ -823,6 +868,7 @@ class ChunkReplayCache:
                         if self._spill_dir is None:
                             self.spilled, caching = True, False
                             self._reset_cache()
+                            reg.counter("replay_cache_spills_total").inc()
                         else:
                             try:
                                 self._guard.check()
@@ -832,6 +878,7 @@ class ChunkReplayCache:
                                 spool, caching = None, False
                             else:
                                 self.spilled = True
+                                reg.counter("replay_cache_spills_total").inc()
                     if caching:
                         if spool is None:
                             self._chunks.append(chunk)
@@ -847,6 +894,7 @@ class ChunkReplayCache:
                             else:
                                 self._spool_count += 1
                                 self.spilled_bytes += cost
+                                reg.counter("replay_cache_spilled_bytes_total").inc(cost)
                 yield chunk
             finished = True
         finally:
@@ -856,3 +904,6 @@ class ChunkReplayCache:
                 self._complete = True
             elif not finished:
                 self._reset_cache()
+            reg.gauge("replay_cache_cached_bytes").set(self.cached_bytes)
+            reg.gauge("replay_cache_spilled_bytes").set(self.spilled_bytes)
+            reg.gauge("replay_cache_spilled").set(int(self.spilled))

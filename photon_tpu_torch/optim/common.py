@@ -122,6 +122,16 @@ class OptimizeResult:
     def convergence_reason(self) -> ConvergenceReason:
         return _REASONS[int(self.reason_code)]
 
+    def diagnostics_dict(self) -> dict:
+        """Report-ready host scalars in one host read: call only at run-report
+        finalize, never inside the dispatch loop."""
+        it, value, gnorm, reason, evals = HOST_READS.fetch(
+            self.iterations, self.value, self.grad_norm, self.reason_code, self.evals)
+        why = _REASONS[int(reason)]
+        converged = why in (ConvergenceReason.FUNCTION_VALUES_CONVERGED, ConvergenceReason.GRADIENT_CONVERGED)
+        return dict(type="fixed_effect", iterations=int(it), value=float(value), grad_norm=float(gnorm),
+                    reason=why.value, converged=converged, evals=int(evals), eval_unit=self.eval_unit)
+
     def summary(self) -> str:
         """Per-iteration table of a single solve (one read of the result)."""
         it, value, gnorm, reason, losses, gnorms = HOST_READS.fetch(

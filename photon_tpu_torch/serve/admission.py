@@ -1,6 +1,6 @@
 """Per-tenant admission control for the serving front end (port of
-photon_tpu/serve/admission.py; host code, copied without its metrics: the
-snapshot carries the per-tenant counts and latencies they published).
+photon_tpu/serve/admission.py; host code, with its metrics: the snapshot
+also carries the per-tenant counts and latencies).
 
 Multi-tenant fairness is a policy problem, not a kernel problem (Snap ML's
 lesson, PAPERS.md): a single abusive caller can destroy everyone's p99 long
@@ -35,6 +35,7 @@ import threading
 import time
 from typing import Callable, Dict, Optional
 
+from photon_tpu_torch.obs.metrics import registry
 from photon_tpu_torch.serve.batcher import BackpressureError
 
 # Priority classes: plain strings on the wire (HTTP header / JSON field /
@@ -168,6 +169,7 @@ class AdmissionController:
             return self._buckets[tenant]
 
     def _record_shed(self, tenant: str, reason: str) -> None:
+        registry().counter("serve_tenant_shed_total", tenant=tenant, reason=reason).inc()
         with self._lock:
             self._shed[tenant] = self._shed.get(tenant, 0) + 1
             key = (tenant, reason)
@@ -185,6 +187,7 @@ class AdmissionController:
         ``batch_queue_fraction`` full — that headroom is reserved for
         interactive callers."""
         tenant = tenant or DEFAULT_TENANT
+        registry().counter("serve_tenant_requests_total", tenant=tenant, priority=priority).inc()
         with self._lock:
             key = (tenant, priority)
             self._requests[key] = self._requests.get(key, 0) + 1
@@ -218,8 +221,10 @@ class AdmissionController:
         latency_s: float,
         trace_id: Optional[str] = None,
     ) -> None:
-        # ``trace_id`` is accepted for the reference's signature; spans and
-        # exemplars are not ported.
+        # trace_id (traced requests only) becomes an OpenMetrics exemplar on
+        # the series: the scrape-to-flight-recorder link.
+        registry().histogram("serve_tenant_latency_s", tenant=tenant or DEFAULT_TENANT).observe(
+            latency_s, trace_id=trace_id)
         with self._lock:
             n, total, top = self._latency.get(tenant or DEFAULT_TENANT, (0, 0.0, 0.0))
             self._latency[tenant or DEFAULT_TENANT] = (n + 1, total + latency_s, max(top, latency_s))

@@ -1,6 +1,6 @@
 """Bounded micro-batching queue for online GAME scoring (port of
-photon_tpu/serve/batcher.py; host code, copied without its metrics and spans:
-``MicroBatcher.stats()`` carries the counts they published).
+photon_tpu/serve/batcher.py; host code, with its metrics and spans;
+``MicroBatcher.stats()`` also carries the counts).
 
 The serving engine's admission layer, shaped by the hierarchical-batching
 lesson of Snap ML (PAPERS.md) and this repo's single-compile dispatch
@@ -31,6 +31,8 @@ from collections import deque
 from concurrent.futures import Future
 from typing import Callable, Dict, List, Optional, Sequence
 
+from photon_tpu_torch.obs.metrics import registry
+from photon_tpu_torch.obs.trace import tracer
 from photon_tpu_torch.utils import resources
 
 
@@ -138,6 +140,7 @@ class MicroBatcher:
         newest queued batch-class request (which fails with
         ``BackpressureError``) instead of being shed itself — bulk
         backfill yields capacity to latency-sensitive traffic."""
+        reg = registry()
         now = time.monotonic()
         fut: Future = Future()
         victim: Optional[_Pending] = None
@@ -155,9 +158,11 @@ class MicroBatcher:
                             victim = self._pending[i]
                             del self._pending[i]
                             self._counts["preempted"] += 1
+                            reg.counter("serve_requests_preempted_total").inc()
                             break
                 if victim is None:
                     self._counts["shed"] += 1
+                    reg.counter("serve_requests_shed_total").inc()
                     raise BackpressureError(
                         f"serve queue depth {len(self._pending)} at cap "
                         f"{cap}; request shed"
@@ -172,6 +177,7 @@ class MicroBatcher:
                 )
             )
             self._counts["requests"] += 1
+            reg.counter("serve_requests_total").inc()
             self._cond.notify_all()
         if victim is not None:
             # Outside the lock: done-callbacks run inline on set_exception.
@@ -224,12 +230,14 @@ class MicroBatcher:
                     self._cond.notify_all()
 
     def _run_batch(self, batch: List[_Pending]) -> None:
+        reg = registry()
         now = time.monotonic()
         live: List[_Pending] = []
         for p in batch:
             if p.deadline_t is not None and now > p.deadline_t:
                 with self._lock:
                     self._counts["deadline_missed"] += 1
+                reg.counter("serve_deadline_missed_total").inc()
                 p.future.set_exception(
                     DeadlineExceededError(
                         f"deadline passed {now - p.deadline_t:.4f}s before "
@@ -241,16 +249,24 @@ class MicroBatcher:
         if not live:
             return
         wait = max(now - p.enqueue_t for p in live)
-        try:
-            scores = self._score_fn([p.request for p in live])
-        except BaseException as exc:  # noqa: BLE001 — fail THIS batch only
+        with tracer().span(f"{self.name}/batch"):
             for p in live:
-                if not p.future.done():
-                    p.future.set_exception(exc)
-            return
-        done_t = time.monotonic()
-        for p, s in zip(live, scores):
-            p.future.set_result(float(s))
+                reg.histogram("serve_queue_wait_s").observe(now - p.enqueue_t)
+            try:
+                scores = self._score_fn([p.request for p in live])
+            except BaseException as exc:  # noqa: BLE001 — fail THIS batch only
+                for p in live:
+                    if not p.future.done():
+                        p.future.set_exception(exc)
+                return
+            with tracer().span("respond"):
+                done_t = time.monotonic()
+                for p, s in zip(live, scores):
+                    reg.histogram("serve_request_latency_s").observe(done_t - p.enqueue_t)
+                    p.future.set_result(float(s))
+        reg.histogram("serve_batch_rows").observe(len(live))
+        reg.counter("serve_batches_total").inc()
+        reg.gauge("serve_batch_fill").set(len(live) / self.max_batch_size)
         with self._lock:
             c = self._counts
             c["batches"] += 1

@@ -36,9 +36,11 @@ repeated ``resolve`` failures trip it, and its entities then resolve to -1
 (fixed-effect-only scores on the warmed graphs) until a cooldown half-opens
 it.
 
-Not ported yet (slice 16 and the observability item): the feedback spool,
-the quality baseline, the SLO and quality blocks of ``stats()`` and the
-spans. The reference's metrics are in ``stats()``.
+The reference's metrics and spans are published to the metrics registry and
+the tracer (``stats()["counts"]`` carries the engine's counts too), and an
+SLO tracker takes every completed request; ``stats()`` has its ``slo``
+block. Not ported yet: the feedback spool, the quality baseline and the
+quality block of ``stats()``.
 """
 
 from __future__ import annotations
@@ -62,6 +64,11 @@ from photon_tpu_torch.data.padding import bucket_grid
 from photon_tpu_torch.data.random_effect import bucket_dim
 from photon_tpu_torch.estimators.game_transformer import GameTransformer
 from photon_tpu_torch.models.game import GameModel
+from photon_tpu_torch.obs.export import exporter_health
+from photon_tpu_torch.obs.metrics import registry
+from photon_tpu_torch.obs.report import telemetry_sink_health
+from photon_tpu_torch.obs.slo import SLOTracker
+from photon_tpu_torch.obs.trace import flight_recorder, tracer
 from photon_tpu_torch.serve.admission import INTERACTIVE, AdmissionConfig, AdmissionController
 from photon_tpu_torch.serve.batcher import MicroBatcher, ScoreRequest
 from photon_tpu_torch.serve.store import HotColdEntityStore, StorePartition
@@ -306,6 +313,9 @@ class ServingEngine:
         self._shadow_seq = 0
         self._shadow_fraction = float(self.config.shadow_fraction)
         self._promotion: Optional[Dict] = None
+        # SLO plane: availability and latency fed per completion, staleness
+        # sampled against the last primary change.
+        self.slo = SLOTracker()
         self._last_model_update = time.time()
         self.batcher = MicroBatcher(self._score_batch, max_batch_size=self.max_batch,
                                     max_delay_s=self.config.max_delay_ms / 1000.0, queue_cap=self.config.queue_cap)
@@ -324,19 +334,21 @@ class ServingEngine:
                                        device_shards=self.config.device_shards, device=self.device)
             return self._warm(store, version)
 
-        try:
-            return resources.oom_retry(build, site="serve.warm_up")
-        except Exception as exc:
-            if not resources.is_device_oom(exc):
-                raise
-            raise resources.DeviceMemoryError(
-                f"serve engine: device OOM warming up model version {version!r} even after retry. Shrink "
-                "--hot-bytes-mb or --max-batch-size, evict serving versions, or add device memory.") from exc
+        with tracer().span("serve/warm_up"):
+            try:
+                return resources.oom_retry(build, site="serve.warm_up", counter="serve_warmup_oom_retries_total")
+            except Exception as exc:
+                if not resources.is_device_oom(exc):
+                    raise
+                raise resources.DeviceMemoryError(
+                    f"serve engine: device OOM warming up model version {version!r} even after retry. Shrink "
+                    "--hot-bytes-mb or --max-batch-size, evict serving versions, or add device memory.") from exc
 
     def _warm(self, store: HotColdEntityStore, version: str) -> _State:
         store.warm_uploads(self.max_batch)
         scorer = _Scorer(store, self._shard_dims, self.device)
         scorer.warm_up(self.max_batch)
+        registry().gauge("serve_warmup_traces").set(scorer.captures)
         with self._lock:
             self._segments_mark = _segments(self.device)
         return _State(store, scorer, version)
@@ -408,19 +420,20 @@ class ServingEngine:
         Returns (slots, degraded)."""
         breaker = self._breaker(re_type)
         if breaker.open:
-            self.counts["degraded_requests", re_type] += len(keys)
+            self._count("degraded_requests", re_type, len(keys))
             return np.full(len(keys), -1, np.int32), True
         try:
             slots = store.resolve(re_type, keys)
         except Exception as exc:  # noqa: BLE001 — degrade, never crash
-            self.counts["store_errors", re_type] += 1
+            self._count("store_errors", re_type)
             if breaker.record_failure():
+                registry().counter("serve_breaker_trips_total", re_type=re_type).inc()
                 logger.warning("serving: circuit breaker for RE type %r OPEN for %.1fs after resolve failure: %s",
                                re_type, breaker.cooldown_s, exc)
             else:
                 logger.warning("serving: resolve failed for RE type %r (%d/%d to breaker trip): %s", re_type,
                                breaker.failures, breaker.threshold, exc)
-            self.counts["degraded_requests", re_type] += len(keys)
+            self._count("degraded_requests", re_type, len(keys))
             return np.full(len(keys), -1, np.int32), True
         breaker.record_success()
         return slots, False
@@ -445,10 +458,11 @@ class ServingEngine:
         raise ValueError(f"unknown model version {pin!r}; resident: {sorted(self.versions)}")
 
     def _score_on(self, state: _State, requests: List[ScoreRequest]) -> np.ndarray:
-        faults.check("serve.score")
-        with CAPTURE_LOCK:
-            feats, ids, offset = self._assemble(requests, state.store)
-            return state.scorer.score(feats, ids, offset)
+        with tracer().span("score"):
+            faults.check("serve.score")
+            with CAPTURE_LOCK:
+                feats, ids, offset = self._assemble(requests, state.store)
+                return state.scorer.score(feats, ids, offset)
 
     def _score_batch(self, requests: List[ScoreRequest]) -> Sequence[float]:
         with self._lock:  # against promote/reload swaps; resolve is single-writer
@@ -458,7 +472,7 @@ class ServingEngine:
                 key = r.model_version or self._primary
                 if key not in self._states:
                     # A pin evicted between submit and flush: the primary answers.
-                    self.counts["pin_fallbacks"] += 1
+                    self._count("pin_fallbacks")
                     logger.warning("serving: pinned version %r evicted before flush; scoring on primary %r", key,
                                    self._primary)
                     key = self._primary
@@ -479,6 +493,7 @@ class ServingEngine:
         shadow failure is "no sample". The fault site
         ``serve.shadow_diverge`` (label: the candidate's basename) perturbs
         a lane's scores."""
+        reg = registry()
         for key, lane in list(self._shadows.items()):
             if key not in self._states:
                 continue
@@ -494,19 +509,22 @@ class ServingEngine:
             try:
                 shadow = np.asarray(self._score_on(self._states[key], [requests[i] for i in take]), np.float32)
             except Exception as exc:  # noqa: BLE001 — never hurts callers
-                self.counts["shadow_errors", short] += 1
+                self._count("shadow_errors", short)
                 logger.warning("serving: shadow scoring on %r failed: %s", key, exc)
                 continue
             if faults.injector().fire("serve.shadow_diverge", label=short) is not None:
                 shadow = shadow + 1.0
+            # The candidate label keeps concurrent lanes' series apart.
+            hist = reg.histogram("serve_shadow_divergence", model_version=short)
             for j, i in enumerate(take):
                 p, s = float(primary_scores[i]), float(shadow[j])
                 div = abs(s - p)
+                hist.observe(div)
                 lane.count += 1
                 lane.div_sum += div
                 lane.div_max = max(lane.div_max, div)
                 lane.samples.append(dict(uid=requests[i].uid, primary=p, shadow=s, divergence=div))
-            self.counts["shadow_scored", short] += len(take)
+            self._count("shadow_scored", short, len(take))
 
     # -- public API ---------------------------------------------------------
 
@@ -528,7 +546,25 @@ class ServingEngine:
         self.admission.admit(tenant, priority, queue_depth=self.batcher.queue_depth, queue_cap=self.config.queue_cap)
         t0 = time.monotonic()
         fut = self.batcher.submit(request, deadline_s, priority=priority)
-        fut.add_done_callback(lambda f: self.admission.observe_latency(tenant, time.monotonic() - t0))
+
+        def _observe_done(f):
+            dt = time.monotonic() - t0
+            # A traced request stamps its trace id as an exemplar on the
+            # tenant-latency histogram: the scrape's link to its span tree.
+            tr = getattr(request, "trace", None)
+            tid = tr.get("traceId") if isinstance(tr, dict) else None
+            self.admission.observe_latency(tenant, dt, trace_id=tid)
+            # SLO feed, host arithmetic only: availability (admitted
+            # requests that errored), latency of successes, and staleness
+            # against the last primary change.
+            try:
+                ok = f.exception() is None
+            except Exception:  # noqa: BLE001 — a cancelled future counts bad
+                ok = False
+            self.slo.record_request(ok, dt if ok else None)
+            self.slo.record_staleness(time.time() - self._last_model_update)
+
+        fut.add_done_callback(_observe_done)
         return fut
 
     def score(self, features: Dict[str, object], entity_ids: Optional[Dict[str, object]] = None, offset: float = 0.0,
@@ -616,12 +652,14 @@ class ServingEngine:
             resident = version in self._states
         if not resident:  # backstop: _evict_locked protects it
             self._reload_failures += 1
+            registry().counter("serve_reload_failures_total").inc()
             self._last_reload_error = f"{version}: evicted during load"
             raise ReloadError(f"reload to {version!r} failed: evicted during load")
         self._last_reload_error = None
 
     def _failed(self, version: str, exc: BaseException, what: str):
         self._reload_failures += 1
+        registry().counter("serve_reload_failures_total").inc()
         self._last_reload_error = f"{version}: {exc}"
         logger.warning("serving: %s of %r failed (%s); resident versions unchanged", what, version, exc)
         return ReloadError(f"{what} to {version!r} failed: {exc}")
@@ -640,7 +678,7 @@ class ServingEngine:
             raise self._failed(version, exc, "reload") from exc
         build_s = time.perf_counter() - t0
         self._install(new_state, version)
-        self.counts["reloads"] += 1
+        self._count("reloads")
         return dict(model_version=version, store=new_state.store.stats(), build_s=build_s,
                     warm_up=dict(new_state.scorer.info))
 
@@ -657,12 +695,14 @@ class ServingEngine:
             with self._lock:
                 base_key = self._resolve_version(base_version)
                 base_state = self._states[base_key]
-                store = base_state.store.clone_with_delta(delta.get("re_rows") or {}, delta.get("fixed") or {})
+                with tracer().span("serve/delta_apply"):
+                    store = base_state.store.clone_with_delta(delta.get("re_rows") or {},
+                                                              delta.get("fixed") or {})
             new_state = self._warm(store, version)
         except Exception as exc:  # noqa: BLE001 — keep serving what we have
             raise self._failed(version, exc, "delta load") from exc
         self._install(new_state, version)
-        self.counts["delta_loads"] += 1
+        self._count("delta_loads")
         return dict(model_version=version, base=base_key, store=new_state.store.stats())
 
     def attach_feedback(self, spool) -> None:
@@ -737,7 +777,7 @@ class ServingEngine:
             self._primary = key
             self._shadows.pop(key, None)
             self._last_model_update = time.time()
-        self.counts["promotions"] += 1
+        self._count("promotions")
         logger.info("serving: promoted %r (parent %r)", key, parent)
         return dict(model_version=key, parent=parent, swap_s=time.perf_counter() - t0)
 
@@ -765,7 +805,7 @@ class ServingEngine:
             self._primary = promo["parent"]
             self._promotion = None
             self._shadows.clear()
-        self.counts["rollbacks"] += 1
+        self._count("rollbacks")
         logger.warning("serving: rolled back %r -> %r (%s)", demoted, self._primary, reason or "no reason given")
         return demoted
 
@@ -774,7 +814,8 @@ class ServingEngine:
         then promote it. A failure raises :class:`ReloadError` and leaves
         the old version serving."""
         out = self.load_version(model, model_version)
-        out["swap_s"] = self.promote(out["model_version"]).get("swap_s", 0.0)
+        with tracer().span("serve/reload_swap"):
+            out["swap_s"] = self.promote(out["model_version"]).get("swap_s", 0.0)
         return out
 
     def set_partition(self, partition: Optional[StorePartition]) -> Dict:
@@ -830,10 +871,51 @@ class ServingEngine:
             batcher=self.batcher.stats(),
             counts={(" ".join(k) if isinstance(k, tuple) else k): v for k, v in self.counts.items()},
             device=str(self.device),
+            slo=self._slo_block(),
+            telemetry_sink=telemetry_sink_health(),
+            flight_recorder=flight_recorder().stats(),
+            otlp_exporter=exporter_health(),
         )
+
+    def _slo_block(self) -> Dict:
+        """The ``/healthz`` SLO block; also the flush point that mirrors the
+        burn rates and states into gauges, so ``/metrics`` carries them."""
+        self.slo.record_staleness(time.time() - self._last_model_update)
+        try:
+            self.slo.publish_metrics()
+        except Exception:  # noqa: BLE001 — stats never fail on telemetry
+            pass
+        snap = self.slo.snapshot()
+        snap["model_staleness_now_s"] = time.time() - self._last_model_update
+        return snap
+
+    def _count(self, name: str, label: Optional[str] = None, n: int = 1) -> None:
+        """Add ``n`` to an engine count and to its registry counter (the
+        reference's name, labelled by RE type or candidate version)."""
+        metric, label_key = _COUNTERS[name]
+        if label is None:
+            self.counts[name] += n
+            registry().counter(metric).inc(n)
+        else:
+            self.counts[name, label] += n
+            registry().counter(metric, **{label_key: label}).inc(n)
 
     def close(self, drain: bool = True) -> None:
         self.batcher.close(drain=drain)
+
+
+# The engine's counts: (registry counter, its label key).
+_COUNTERS = {
+    "degraded_requests": ("serve_requests_degraded_total", "re_type"),
+    "store_errors": ("serve_store_errors_total", "re_type"),
+    "pin_fallbacks": ("serve_pin_fallback_total", None),
+    "shadow_errors": ("serve_shadow_errors_total", "model_version"),
+    "shadow_scored": ("serve_shadow_scored_total", "model_version"),
+    "reloads": ("serve_model_reloads_total", None),
+    "delta_loads": ("serve_delta_loads_total", None),
+    "promotions": ("serve_promotions_total", None),
+    "rollbacks": ("serve_rollbacks_total", None),
+}
 
 
 def load_engine(model_dir: str, artifacts_dir: Optional[str] = None, config: Optional[ServeConfig] = None,

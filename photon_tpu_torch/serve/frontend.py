@@ -19,9 +19,13 @@ raised again client-side as the engine's exception types
 ``DeadlineExceededError`` → 504, ``ValueError`` → 400), so the HTTP layer
 has one classification for both deployment shapes.
 
-Not ported yet (the observability item): ``/metrics``, ``/v1/traces`` and
-``/v1/experiment`` answer 501, and no span or metric is recorded;
-``/v1/feedback`` answers 501 until the feedback spool is ported.
+Every request carries a trace context: an HTTP ``traceparent`` header is
+adopted (and forced into the flight recorder), else a root is minted; each
+hop (HTTP handler, scorer, engine) records its span under it, and
+``/v1/traces`` merges the kept trees of the worker and the scorer.
+``/metrics`` is the Prometheus text of the registry (merged across the
+worker and the scorer, labelled by replica). Not ported yet:
+``/v1/experiment`` and ``/v1/feedback`` answer 501.
 """
 
 from __future__ import annotations
@@ -44,7 +48,17 @@ from concurrent.futures import Future
 from concurrent.futures import TimeoutError as FutureTimeoutError
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional
+from urllib.parse import parse_qs
 
+from photon_tpu_torch.obs.metrics import PROMETHEUS_CONTENT_TYPE, registry, render_prometheus
+from photon_tpu_torch.obs.trace import (
+    TraceContext,
+    flight_recorder,
+    merge_trace_dumps,
+    mint_context,
+    new_span_id,
+    tracer,
+)
 from photon_tpu_torch.serve.admission import INTERACTIVE, PRIORITIES, QuotaExceededError
 from photon_tpu_torch.serve.batcher import (
     BackpressureError,
@@ -191,6 +205,16 @@ def apply_feedback(engine, body: dict) -> dict:
     return {"joined": joined, "dropped": dropped}
 
 
+def _stamp_labels(snap: dict, **labels) -> dict:
+    """Fill ``labels`` into a metric snapshot record where absent (existing
+    labels win): how a merged scrape tells the front end's instruments from
+    the scorer's without rewriting what the producer stamped."""
+    merged = dict(snap.get("labels") or {})
+    for k, v in labels.items():
+        merged.setdefault(str(k), str(v))
+    return dict(snap, labels=merged)
+
+
 # ---------------------------------------------------------------------------
 # Framed IPC
 # ---------------------------------------------------------------------------
@@ -263,6 +287,7 @@ def _auth_server(conn: socket.socket, secret: str) -> bool:
         msg = _recv_frame(conn)
         got = str((msg or {}).get("mac", ""))
         if not hmac.compare_digest(_hmac_hex(secret, nonce), got):
+            registry().counter("fleet_auth_failures_total").inc()
             _send_frame(conn, dict(op="auth_fail"), lock)
             return False
         peer_nonce = str((msg or {}).get("nonce", ""))
@@ -452,7 +477,11 @@ class ScorerServer:
                 out.put(dict(
                     id=rid, ok=True, result=self._op_feedback(msg),
                 ))
-            elif op in ("metrics", "experiment", "traces"):
+            elif op == "metrics":
+                out.put(dict(id=rid, ok=True, result=self._op_metrics(msg)))
+            elif op == "traces":
+                out.put(dict(id=rid, ok=True, result=self._op_traces(msg)))
+            elif op == "experiment":
                 raise NotImplementedError(f"scorer op {op!r}: {NOT_PORTED}")
             elif op == "ping":
                 out.put(dict(id=rid, ok=True, result="pong"))
@@ -463,6 +492,14 @@ class ScorerServer:
 
     def _op_score(self, rid, msg: dict, out: "queue.Queue") -> None:
         req = request_from_json(msg.get("request") or {})
+        ctx = TraceContext.from_dict(msg.get("trace"))
+        sid: Optional[str] = None
+        if ctx is not None and ctx.sampled:
+            # This hop's span id, minted before the span completes, so the
+            # request's downstream spans can parent on it.
+            sid = new_span_id()
+            req.trace = ctx.child(sid).to_dict()
+        t0 = time.monotonic()
         fut = self.engine.submit(
             req,
             tenant=msg.get("tenant"),
@@ -472,6 +509,14 @@ class ScorerServer:
 
         def _done(f: Future) -> None:
             exc = f.exception()
+            if sid is not None:
+                try:
+                    dt = time.monotonic() - t0
+                    tracer().record("scorer/score", dt, parent="", context=ctx, span_id=sid)
+                    flight_recorder().finish(ctx.trace_id, dt, error=None if exc is None else str(exc),
+                                             degraded=bool(getattr(req, "degraded", False)), forced=ctx.forced)
+                except Exception:
+                    pass  # telemetry never fails the response
             if exc is not None:
                 out.put(self._error_payload(rid, exc))
             else:
@@ -486,6 +531,14 @@ class ScorerServer:
 
     def _op_feedback(self, msg: dict) -> dict:
         return apply_feedback(self.engine, msg.get("body") or {})
+
+    def _op_metrics(self, msg: dict) -> List[dict]:
+        """The registry snapshot for the worker-side ``/metrics`` merge."""
+        return registry().snapshot()
+
+    def _op_traces(self, msg: dict) -> List[dict]:
+        """This process's kept flight-recorder trees."""
+        return flight_recorder().traces(limit=msg.get("limit"))
 
     def _op_reload(self, rid, msg: dict, out: "queue.Queue") -> None:
         try:
@@ -637,10 +690,11 @@ class ScorerClient:
         tenant: Optional[str] = None,
         priority: str = INTERACTIVE,
         model_version: Optional[str] = None,
+        trace: Optional[dict] = None,
     ) -> Future:
         return self.request(
             "score", request=raw_request, tenant=tenant, priority=priority,
-            modelVersion=model_version,
+            modelVersion=model_version, trace=trace,
         )
 
     def call(self, op: str, timeout_s: float = 30.0, **payload):
@@ -688,8 +742,15 @@ class LocalBackend:
     def submit(
         self, raw_request: dict, tenant: Optional[str], priority: str,
         model_version: Optional[str] = None,
+        trace: Optional[dict] = None,
     ) -> Future:
         req = request_from_json(raw_request)
+        ctx = TraceContext.from_dict(trace)
+        sid: Optional[str] = None
+        if ctx is not None and ctx.sampled:
+            sid = new_span_id()
+            req.trace = ctx.child(sid).to_dict()
+        t0 = time.monotonic()
         src = self.engine.submit(
             req, tenant=tenant, priority=priority,
             model_version=model_version,
@@ -698,6 +759,14 @@ class LocalBackend:
 
         def _done(f: Future) -> None:
             exc = f.exception()
+            # The HTTP handler finishes the trace (it also times the
+            # response write); it reads the degraded flag off the future.
+            dst._photon_degraded = bool(getattr(req, "degraded", False))
+            if sid is not None:
+                try:
+                    tracer().record("engine/score", time.monotonic() - t0, parent="", context=ctx, span_id=sid)
+                except Exception:
+                    pass
             if exc is not None:
                 dst.set_exception(exc)
             else:
@@ -709,6 +778,12 @@ class LocalBackend:
 
     def stats(self) -> dict:
         return self.engine.stats()
+
+    def metrics_text(self) -> str:
+        return render_prometheus(registry().snapshot(), extra_labels={"replica": "frontend"})
+
+    def traces(self, limit: Optional[int] = None) -> List[dict]:
+        return merge_trace_dumps(flight_recorder().traces(limit=limit))
 
     def reload(self, body: dict) -> dict:
         return reload_engine(self.engine, body)
@@ -729,9 +804,10 @@ class RemoteBackend:
     def submit(
         self, raw_request: dict, tenant: Optional[str], priority: str,
         model_version: Optional[str] = None,
+        trace: Optional[dict] = None,
     ) -> Future:
         return self.client.submit_score(
-            raw_request, tenant, priority, model_version
+            raw_request, tenant, priority, model_version, trace=trace
         )
 
     def stats(self) -> dict:
@@ -739,6 +815,29 @@ class RemoteBackend:
         stats["worker"] = self.worker_index
         stats["workerPid"] = os.getpid()
         return stats
+
+    def metrics_text(self) -> str:
+        """The merged Prometheus text: the scorer's instruments (labelled
+        ``replica="scorer"``) and this worker's own."""
+        remote: List[dict] = []
+        try:
+            remote = self.client.call("metrics", timeout_s=30.0) or []
+        except Exception:
+            registry().counter("frontend_scorer_scrape_errors_total").inc()
+        snaps = [_stamp_labels(s, replica=f"worker{self.worker_index}") for s in registry().snapshot()]
+        snaps.extend(_stamp_labels(s, replica="scorer") for s in remote)
+        return render_prometheus(snaps)
+
+    def traces(self, limit: Optional[int] = None) -> List[dict]:
+        """Kept traces merged by trace id across this worker and the
+        scorer: one request's spans reassemble into one entry whichever
+        process kept which hop."""
+        local = flight_recorder().traces(limit=limit)
+        try:
+            remote = self.client.call("traces", timeout_s=30.0, limit=limit)
+        except Exception:
+            remote = []
+        return merge_trace_dumps(local + (remote or []))
 
     def reload(self, body: dict) -> dict:
         # A reload builds + warms a whole generation; give it real time.
@@ -806,12 +905,25 @@ def make_http_handler(backend):
                 version = obj.get("modelVersion", version)
             return version
 
+        def _query_int(self, key: str) -> Optional[int]:
+            if "?" not in self.path:
+                return None
+            vals = parse_qs(self.path.split("?", 1)[1]).get(key)
+            try:
+                return int(vals[0]) if vals else None
+            except (TypeError, ValueError):
+                return None
+
         def do_GET(self):
             try:
                 route = self.path.split("?", 1)[0]
                 if route == "/healthz":
                     self._reply_json(200, backend.stats())
-                elif route in ("/metrics", "/v1/traces", "/v1/experiment"):
+                elif route == "/metrics":
+                    self._reply(200, backend.metrics_text().encode(), ctype=PROMETHEUS_CONTENT_TYPE)
+                elif route == "/v1/traces":
+                    self._reply_json(200, {"traces": backend.traces(limit=self._query_int("limit"))})
+                elif route == "/v1/experiment":
                     self._reply_json(501, {"error": f"{route}: {NOT_PORTED}", "kind": "not_ported"})
                 else:
                     self._reply_json(404, {"error": f"no route {self.path}"})
@@ -847,22 +959,62 @@ def make_http_handler(backend):
                     payload["tenant"] = tenant
                 self._reply_json(code, payload)
 
+        def _trace_context(self) -> TraceContext:
+            """Adopt the client's ``traceparent`` (it arrives forced: an
+            explicit header asks to SEE the trace), or mint a fresh
+            tail-sampled root."""
+            ctx = TraceContext.from_traceparent(self.headers.get("traceparent"))
+            return ctx if ctx is not None else mint_context()
+
         def _score_one(self):
             obj = json.loads(self._body())
             tenant, priority = self._tenant_priority(obj)
-            fut = backend.submit(obj, tenant, priority, self._model_version(obj))
-            self._reply_json(200, fut.result(backend.result_timeout_s))
+            ctx = self._trace_context()
+            sid = new_span_id()
+            t0 = time.monotonic()
+            error: Optional[str] = None
+            fut: Optional[Future] = None
+            try:
+                fut = backend.submit(obj, tenant, priority, self._model_version(obj),
+                                     trace=ctx.child(sid).to_dict())
+                self._reply_json(200, fut.result(backend.result_timeout_s))
+            except Exception as exc:
+                error = str(exc)
+                raise
+            finally:
+                dt = time.monotonic() - t0
+                try:
+                    tracer().record("http/v1/score", dt, parent="", context=ctx, span_id=sid)
+                    flight_recorder().finish(ctx.trace_id, dt, error=error,
+                                             degraded=bool(getattr(fut, "_photon_degraded", False)),
+                                             forced=ctx.forced)
+                except Exception:
+                    pass  # telemetry never fails the response
 
         def _score_jsonl(self):
             tenant, priority = self._tenant_priority()
             version = self._model_version()
-            out = score_jsonl(
-                self._body(),
-                lambda obj: backend.submit(obj, tenant, priority, obj.get("modelVersion", version)),
-                result_timeout_s=backend.result_timeout_s,
-            )
-            payload = "".join(json.dumps(o) + "\n" for o in out).encode()
-            self._reply(200, payload, ctype="application/jsonl")
+            ctx = self._trace_context()
+            sid = new_span_id()
+            down = ctx.child(sid).to_dict()
+            t0 = time.monotonic()
+            try:
+                out = score_jsonl(
+                    self._body(),
+                    lambda obj: backend.submit(obj, tenant, priority, obj.get("modelVersion", version), trace=down),
+                    result_timeout_s=backend.result_timeout_s,
+                )
+                payload = "".join(json.dumps(o) + "\n" for o in out).encode()
+                self._reply(200, payload, ctype="application/jsonl")
+            finally:
+                dt = time.monotonic() - t0
+                try:
+                    tracer().record("http/v1/score-batch", dt, parent="", context=ctx, span_id=sid)
+                    # Per-line failures answer in the body, so the batch
+                    # itself finishes clean; a forced or slow one still keeps.
+                    flight_recorder().finish(ctx.trace_id, dt, forced=ctx.forced)
+                except Exception:
+                    pass
 
     return Handler
 
@@ -986,6 +1138,7 @@ class ServingFrontend:
                 continue
             self.worker_exits[proc.pid] = proc.exitcode
             reaped.append(proc.pid)
+            registry().counter("serve_worker_exits_total").inc()
             logger.warning("serve worker pid %d exited with code %s (%d/%d workers remain)", proc.pid,
                            proc.exitcode, self.live_workers(), self.num_workers)
         return reaped

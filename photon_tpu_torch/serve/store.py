@@ -31,8 +31,9 @@ segments by the consistent-hash plan the sharded trainer uses
 reference's single-device case); across processes, sharding is the fleet's.
 
 The store is single-writer: the engine serializes ``resolve`` and uploads
-under its batch lock. The reference's metrics are not ported: ``stats()``
-carries the counts (hits, misses, demotions, uploads, foreign entities).
+under its batch lock. Its counts (hits, misses, demotions, uploads, foreign
+entities) go to the metrics registry under the reference's names, and
+``stats()`` carries them too.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ from photon_tpu_torch.data.residency import SlotLru
 from photon_tpu_torch.models.coefficients import Coefficients
 from photon_tpu_torch.models.game import FixedEffectModel, GameModel, ProjectedRandomEffectModel, RandomEffectModel
 from photon_tpu_torch.models.glm import GeneralizedLinearModel
+from photon_tpu_torch.obs.metrics import registry
 from photon_tpu_torch.serve.routing import HashRing
 from photon_tpu_torch.utils import faults, resources
 
@@ -92,6 +94,29 @@ def _owned_mask(partition: StorePartition, entity_index, num_entities: int) -> n
     return owned
 
 
+# The store's counts and the registry counters they publish.
+_COUNTERS = {
+    "hits": "serve_store_hits_total",
+    "misses": "serve_store_misses_total",
+    "demotions": "serve_store_demotions_total",
+    "foreign": "serve_store_foreign_total",
+    "handoff_rows": "serve_store_handoff_rows_total",
+    "handoff_promoted": "serve_store_handoff_promoted_total",
+    "oom_retries": "serve_store_oom_evictions_total",
+    "delta_clones": "serve_store_delta_clones_total",
+}
+
+
+def _bump(counts, name: str, re_type: Optional[str] = None, n: int = 1) -> None:
+    """Add ``n`` to a store count and to its registry counter."""
+    if re_type is None:
+        counts[name] += n
+        registry().counter(_COUNTERS[name]).inc(n)
+    else:
+        counts[name, re_type] += n
+        registry().counter(_COUNTERS[name], re_type=re_type).inc(n)
+
+
 def _oom_contained(re_type: str, fn, counts):
     """Run a device upload with OOM containment: release cached device
     memory and retry once; a second OOM becomes a
@@ -102,7 +127,7 @@ def _oom_contained(re_type: str, fn, counts):
     except Exception as exc:
         if not resources.is_device_oom(exc):
             raise
-        counts["oom_retries", re_type] += 1
+        _bump(counts, "oom_retries", re_type)
         logger.warning("serve store: device OOM uploading %s rows; releasing cached memory and retrying once: %s",
                        re_type, exc)
         resources._release_device_memory()
@@ -274,10 +299,14 @@ class HotColdEntityStore:
             sum(4 * s.coefficients.shape[1] for _, s in subs) * max(subs[0][1].coefficients.shape[0], 1)
             for subs in by_type.values()
         ) + sum(sum(self._proj_full_bytes(s) for _, s in subs) for subs in proj_by_type.values())
+        reg = registry()
         for re_type, subs in by_type.items():
-            self._groups[re_type] = self._build_group(re_type, subs, hot_bytes, budget_total, min_hot_rows)
+            group = self._groups[re_type] = self._build_group(re_type, subs, hot_bytes, budget_total, min_hot_rows)
             for cid, s in subs:
                 self._re_subs[cid] = s
+            reg.gauge("serve_store_hot_rows", re_type=re_type).set(group.capacity)
+            reg.gauge("serve_store_hot_bytes", re_type=re_type).set(group.capacity * group.row_bytes)
+            reg.gauge("serve_store_pinned", re_type=re_type).set(int(group.pinned))
         for re_type, subs in proj_by_type.items():
             group = self._build_proj_group(re_type, subs, hot_bytes, budget_total, min_hot_rows)
             # Projected types shard by predicate only (foreign -> -1); their
@@ -285,6 +314,9 @@ class HotColdEntityStore:
             if partition is not None and partition.applies_to(re_type) and not group.pinned:
                 group.owned = _owned_mask(partition, self._entity_indexes.get(re_type), group.num_entities)
             self._proj_groups[re_type] = group
+            reg.gauge("serve_store_hot_rows", re_type=re_type).set(sum(sum(c.capacities) for c in group.coords))
+            reg.gauge("serve_store_hot_bytes", re_type=re_type).set(sum(c.hot_bytes for c in group.coords))
+            reg.gauge("serve_store_pinned", re_type=re_type).set(int(group.pinned))
         self._base = base
         self._order = list(model.models)  # the scores' sum runs in the model's coordinate order
 
@@ -318,6 +350,7 @@ class HotColdEntityStore:
                 compact_of[sel] = np.arange(sel.size, dtype=np.int32)
                 host = {cid: np.ascontiguousarray(host[cid][sel]) for cid in host}
             self.counts["owned_entities", re_type] = owned_count
+            registry().gauge("serve_store_owned_entities", re_type=re_type).set(owned_count)
         shard_plan = shard_cap = perm = shard_lrus = None
         if self._device_shards:
             from photon_tpu_torch.parallel.entity_shard import build_shard_plan
@@ -358,7 +391,7 @@ class HotColdEntityStore:
 
     def _demote_counter(self, re_type: str):
         def on_demote(_victim, _slot):
-            self.counts["demotions", re_type] += 1
+            _bump(self.counts, "demotions", re_type)
 
         return on_demote
 
@@ -504,9 +537,10 @@ class HotColdEntityStore:
                 misses.append(e)
             in_use.add(e)
             slots[j] = slot
-        self.counts["hits", re_type] += hits
+        if hits:
+            _bump(self.counts, "hits", re_type, hits)
         if misses:
-            self.counts["misses", re_type] += len(misses)
+            _bump(self.counts, "misses", re_type, len(misses))
             _oom_contained(re_type, lambda: self._upload(group, misses), self.counts)
         return slots
 
@@ -523,7 +557,7 @@ class HotColdEntityStore:
             servable = servable & (compact_of[idx] >= 0)
         foreign = int(pos.size - servable.sum())
         if foreign:
-            self.counts["foreign", re_type] += foreign
+            _bump(self.counts, "foreign", re_type, foreign)
             ids = ids.copy()
             ids[pos[~servable]] = -1
         return ids
@@ -654,7 +688,7 @@ class HotColdEntityStore:
                             np.vstack([group.host_coefs[cid], decoded[cid][missing]]))
                     group.compact_of[ids[missing]] = base_rows + np.arange(missing.size, dtype=np.int32)
                     stats["rowsAdded"] += int(missing.size)
-                    self.counts["handoff_rows", re_type] += int(missing.size)
+                    _bump(self.counts, "handoff_rows", re_type, int(missing.size))
                 stats["rowsKnown"] += int(kn.size - missing.size)
             else:
                 stats["rowsKnown"] += int(kn.size)
@@ -670,7 +704,7 @@ class HotColdEntityStore:
                 _oom_contained(re_type, lambda c=list(chunk): self._upload(group, c), self.counts)
             if promote:
                 stats["promoted"] += len(promote)
-                self.counts["handoff_promoted", re_type] += len(promote)
+                _bump(self.counts, "handoff_promoted", re_type, len(promote))
         return stats
 
     def _claim_slot(self, group: _ReGroup, entity: int, in_use: set) -> int:
@@ -738,11 +772,12 @@ class HotColdEntityStore:
                     continue
                 rows_of[e] = self._claim_proj_slot(proj, coord, b, e, in_use_by_block[b])
                 misses.append(e)
-            self.counts["hits", proj.re_type] += hits
+            if hits:
+                _bump(self.counts, "hits", proj.re_type, hits)
             if not misses and not coord.demoted:
                 continue
             if misses:
-                self.counts["misses", proj.re_type] += len(misses)
+                _bump(self.counts, "misses", proj.re_type, len(misses))
                 _oom_contained(proj.re_type, lambda: self._upload_projected_rows(coord, misses, rows_of),
                                self.counts)
             _oom_contained(proj.re_type, lambda: self._rewrite_proj_maps(coord, misses, rows_of), self.counts)
@@ -897,7 +932,7 @@ class HotColdEntityStore:
                     g2.lru = SlotLru(g2.capacity, on_demote=new._demote_counter(re_type))
             groups[re_type] = g2
         new._groups = groups
-        self.counts["delta_clones"] += 1
+        _bump(self.counts, "delta_clones")
         return new
 
     # -- scoring model -----------------------------------------------------

@@ -255,6 +255,13 @@ def prune_checkpoints(directory: str, keep_last: Optional[int]) -> int:
             removed += 1
         except OSError:
             pass
+    if removed:
+        try:
+            from photon_tpu_torch.obs import registry
+
+            registry().counter("checkpoint_pruned_total").inc(removed)
+        except Exception:
+            pass
     return removed
 
 
@@ -368,6 +375,12 @@ def load_checkpoint(directory: str, step: Optional[int] = None, device="cuda") -
         except (ValueError, OSError, KeyError, EOFError, zipfile.BadZipFile) as exc:
             last_exc = exc
             logger.warning("skipping unreadable checkpoint step %d under %s: %s", s, directory, exc)
+            try:
+                from photon_tpu_torch.obs import registry
+
+                registry().counter("checkpoint_corrupt_skipped_total").inc()
+            except Exception:
+                pass
     if legacy_exc is not None:
         raise legacy_exc
     assert last_exc is not None

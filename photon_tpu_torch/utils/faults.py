@@ -184,8 +184,17 @@ class FaultInjector:
                     self._fired[key] = fired + 1
                     hit = rule
         if hit is not None:
-            logger.warning("fault injected at %s%s: kind=%s", site, f" ({label})" if label else "", hit.kind)
+            self._record(site, hit, label)
         return hit
+
+    def _record(self, site: str, rule: FaultRule, label: Optional[str]) -> None:
+        try:
+            from photon_tpu_torch.obs import registry
+
+            registry().counter("faults_injected_total", site=site, kind=rule.kind).inc()
+        except Exception:  # metrics must never mask the fault path itself
+            pass
+        logger.warning("fault injected at %s%s: kind=%s", site, f" ({label})" if label else "", rule.kind)
 
     def counts(self) -> Dict[str, int]:
         """Total injections per site."""

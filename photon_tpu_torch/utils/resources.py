@@ -1,5 +1,5 @@
 """Copy of photon_tpu/utils/resources.py (framework-free; the port does not import it),
-without the metrics registry, and with a device OOM classified by type.
+with a device OOM classified by type.
 
 Resource-exhaustion containment: one policy for device OOM, disk-full and
 host memory pressure, under one degradation priority:
@@ -84,6 +84,12 @@ def is_enospc(exc: BaseException) -> bool:
     return isinstance(exc, OSError) and exc.errno in (errno.ENOSPC, getattr(errno, "EDQUOT", errno.ENOSPC))
 
 
+def _metrics():
+    from photon_tpu_torch.obs import registry
+
+    return registry()
+
+
 # ---------------------------------------------------------------------------
 # Device OOM containment
 # ---------------------------------------------------------------------------
@@ -98,11 +104,12 @@ def _release_device_memory() -> None:
 
 
 def oom_retry(attempt: Callable[[], object], *, site: str, evict: Optional[Callable[[int], None]] = None,
-              retries: int = 1):
-    """Run ``attempt``; on a device OOM call ``evict(attempt_index)``, free
-    the dropped buffers (``gc.collect()`` then ``torch.cuda.empty_cache()``)
-    and retry, up to ``retries`` times. Non-OOM exceptions and the final OOM
-    propagate untouched."""
+              retries: int = 1, counter: str = "device_oom_retries_total", **labels):
+    """Run ``attempt``; on a device OOM count it in ``counter{site=...}``,
+    call ``evict(attempt_index)``, free the dropped buffers
+    (``gc.collect()`` then ``torch.cuda.empty_cache()``) and retry, up to
+    ``retries`` times. Non-OOM exceptions and the final OOM propagate
+    untouched."""
     for i in range(retries + 1):
         try:
             return attempt()
@@ -111,6 +118,10 @@ def oom_retry(attempt: Callable[[], object], *, site: str, evict: Optional[Calla
                 raise
             logger.warning("device OOM at %s (attempt %d/%d): evicting harder and retrying: %s",
                            site, i + 1, retries + 1, exc)
+            try:
+                _metrics().counter(counter, site=site, **labels).inc()
+            except Exception:
+                pass
             if evict is not None:
                 evict(i)
             _release_device_memory()
@@ -138,6 +149,11 @@ class DiskBudgetGuard:
 
     def record(self, exc: BaseException) -> bool:
         full = is_enospc(exc)
+        try:
+            name = "disk_enospc_total" if full else "disk_write_failures_total"
+            _metrics().counter(name, site=self.site).inc()
+        except Exception:
+            pass
         logger.warning("%s at %s: %s", "disk full" if full else "write failure", self.site, exc)
         return full
 
@@ -231,6 +247,15 @@ class RssWatchdog:
         if rule is not None and rule.kind == "rss":
             level = LEVEL_HARD if "hard" in rule.message else LEVEL_SOFT
         prev, self._level = self._level, level
+        try:
+            m = _metrics()
+            m.gauge("host_rss_bytes").set(rss)
+            m.gauge("host_rss_limit_bytes").set(self.limit_bytes or 0)
+            m.gauge("host_rss_pressure_level").set(level)
+            if level != prev and level != LEVEL_OK:
+                m.counter("rss_pressure_events_total", level=_LEVEL_NAMES[level]).inc()
+        except Exception:
+            pass
         if level != prev and level != LEVEL_OK:
             logger.warning("host memory pressure %s: rss=%d limit=%s (queue depths tighten; hard pressure "
                            "fails the run cleanly at the next pass boundary)",

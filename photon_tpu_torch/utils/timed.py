@@ -1,6 +1,17 @@
-"""Phase timer and pipeline statistics (the ``Timed`` class and
-``StageStats``/``PipelineStats`` of photon_tpu/utils/timed.py, copied
-without the trace spans and the metrics-registry publication)."""
+"""Copy of photon_tpu/utils/timed.py (framework-free; the port does not import it).
+
+Phase timing + ingest-pipeline stage telemetry.
+
+Parity target: reference ``Timed`` block timer (photon-lib util/Timed.scala,
+used around every driver phase, e.g. estimators/GameEstimator.scala:341-364).
+
+``StageStats``/``PipelineStats`` extend the same idea to the staged ingest
+pipeline (io/pipeline.py): each host stage (decode / assemble / h2d) records
+busy wall, time blocked on its input queue, time blocked on backpressure,
+items and bytes through, and queue-depth samples — the numbers
+``bench.py --pipeline-ab`` turns into per-stage occupancy columns and that
+driver summaries surface next to the phase timers.
+"""
 
 from __future__ import annotations
 
@@ -8,14 +19,23 @@ import dataclasses
 import logging
 import threading
 import time
-from typing import Dict, List, Optional
+from contextlib import contextmanager
+from typing import Dict, Iterator, List, Optional
 
 logger = logging.getLogger("photon_tpu_torch")
 
 
 class Timed:
-    """Context-manager timer that logs and records the wall time of a phase
-    in the process-global ``records`` (cleared by ``reset``)."""
+    """Context-manager timer that logs and records wall time per phase.
+
+    ``records`` is process-global (driver summaries read it after the run),
+    so it is guarded by a lock (phases can finish on pipeline worker
+    threads) and cleared by ``reset()`` at driver entry — without the
+    reset, a second driver invocation in the same process reported the
+    previous run's stale phases in its summary. Each finished phase also
+    lands as a trace span (obs/trace), so the run report sees every
+    ``Timed`` block without callers changing anything.
+    """
 
     records: Dict[str, float] = {}
     _records_lock = threading.Lock()
@@ -25,19 +45,43 @@ class Timed:
         self.elapsed = 0.0
 
     @classmethod
+    def records_lock(cls) -> threading.Lock:
+        """Lock guarding ``records`` — hold it to snapshot consistently."""
+        return cls._records_lock
+
+    @classmethod
     def reset(cls) -> None:
+        """New run: drop phase records (and the per-label pipeline
+        telemetry that follows the same process-global pattern)."""
         with cls._records_lock:
             cls.records.clear()
+        _pipeline_records.clear()
 
     def __enter__(self) -> "Timed":
+        self._span = None
+        try:
+            from photon_tpu_torch.obs.trace import tracer
+
+            self._span = tracer().span(self.name)
+            self._span.__enter__()
+        except Exception:  # telemetry must never break the timed body
+            self._span = None
         self._t0 = time.monotonic()
         return self
 
     def __exit__(self, *exc) -> None:
         self.elapsed = time.monotonic() - self._t0
+        if self._span is not None:
+            self._span.__exit__(None, None, None)
         with Timed._records_lock:
             Timed.records[self.name] = self.elapsed
         logger.info("[timed] %s: %.3fs", self.name, self.elapsed)
+
+
+@contextmanager
+def timed(name: str) -> Iterator[None]:
+    with Timed(name):
+        yield
 
 
 @dataclasses.dataclass
@@ -147,6 +191,35 @@ class PipelineStats:
 
     def log(self, prefix: str = "ingest-pipeline") -> None:
         logger.info("[timed] %s: %s", prefix, self.summary())
+
+    def publish(self, label: str) -> None:
+        """Flush this run's stage telemetry into the process-global metrics
+        registry (obs/metrics) so the run report carries pipeline occupancy
+        next to solver and cache metrics. Called once at pipeline finalize;
+        the per-chunk hot path only ever touches the local dataclasses."""
+        from photon_tpu_torch.obs.metrics import registry
+
+        reg = registry()
+        reg.gauge("pipeline_wall_s", label=label).set(self.wall_s)
+        reg.gauge("pipeline_overlapped", label=label).set(int(self.overlapped))
+        busy = sum(s.busy_s for s in self.stages)
+        reg.gauge("pipeline_overlap_factor", label=label).set(
+            busy / self.wall_s if self.wall_s > 0 else 0.0
+        )
+        for s in self.stages:
+            kw = dict(label=label, stage=s.name)
+            reg.gauge("pipeline_stage_busy_s", **kw).set(s.busy_s)
+            reg.gauge("pipeline_stage_starved_s", **kw).set(s.wait_in_s)
+            reg.gauge("pipeline_stage_backpressured_s", **kw).set(
+                s.wait_out_s
+            )
+            reg.gauge("pipeline_stage_occupancy", **kw).set(s.occupancy)
+            reg.counter("pipeline_stage_items_total", **kw).inc(s.items)
+            reg.counter("pipeline_stage_bytes_total", **kw).inc(s.bytes)
+            reg.gauge("pipeline_stage_queue_depth_max", **kw).set(s.depth_max)
+            reg.gauge("pipeline_stage_queue_depth_avg", **kw).set(
+                s.depth_sum / s.depth_samples if s.depth_samples else 0.0
+            )
 
 
 # Most-recent pipeline telemetry per label, for driver summaries (the same

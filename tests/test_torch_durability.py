@@ -285,9 +285,13 @@ def test_load_skips_torn_newest_step(tmp_path, caplog):
     save_checkpoint(d, {"x": torch.arange(3.0)}, 0)
     save_checkpoint(d, {"x": torch.arange(5.0)}, 1)
     (tmp_path / "step_1.npz").write_bytes(b"PK\x03\x04torn-checkpoint")
+    from photon_tpu_torch.obs.metrics import registry
+
+    before = registry().counter("checkpoint_corrupt_skipped_total").value
     with caplog.at_level(logging.WARNING):
         state, step = load_checkpoint(d, device="cpu")
     assert step == 0
+    assert registry().counter("checkpoint_corrupt_skipped_total").value == before + 1
     np.testing.assert_array_equal(state["x"].numpy(), np.arange(3.0))
     assert any("unreadable" in r.message for r in caplog.records)
     with pytest.raises((ValueError, OSError, zipfile.BadZipFile)):
@@ -687,8 +691,16 @@ def test_train_glm_checkpoint_keep_last_and_enospc(tmp_path):
     ck = tmp_path / "ck"
     train_glm.main(_libsvm_argv(data, tmp_path / "keep", "--checkpoint-dir", str(ck), "--checkpoint-keep-last", "2"))
     assert sorted(p.name for p in ck.glob("step_*.npz")) == ["step_1.npz", "step_2.npz"]
+    from photon_tpu_torch.obs.metrics import registry
+
+    # The driver's run starts a fresh registry: its counts are this run's.
+    assert registry().find("checkpoint_pruned_total").value == 1
     _plan(FaultRule("checkpoint.io", kind="enospc", at=(2, 3)))  # the second save, and its retry
     out = train_glm.main(_libsvm_argv(data, tmp_path / "full", "--checkpoint-dir", str(tmp_path / "ck2")))
+    # The writer records the first failure, then prunes and retries once.
+    assert registry().find("disk_enospc_total", site="checkpoint.io").value == 1
+    assert registry().find("faults_injected_total", site="checkpoint.io", kind="enospc").value == 2
+    assert registry().find("checkpoint_write_failures_total").value == 1
     assert [m["loss"] for m in out["models"]] == pytest.approx([m["loss"] for m in base["models"]], rel=1e-6)
     assert not glob.glob(str(tmp_path / "ck2" / "*.tmp"))
 

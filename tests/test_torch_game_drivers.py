@@ -577,6 +577,8 @@ def test_drivers_default_to_cuda_and_never_fall_back(runs, files, tmp_path, driv
     assert not (tmp_path / "o").exists()
 
 
+# Flags these drivers refused before the telemetry was ported: each now gets
+# past the refusal and the driver stops only at the missing input.
 _TRAINING_UNPORTED = [["--telemetry-out", "t.jsonl"], ["--otlp-endpoint", "http://localhost:1"]]
 _SCORING_UNPORTED = [["--telemetry-out", "t.jsonl"]]
 
@@ -589,10 +591,9 @@ def test_drivers_refuse_unported_flags(tmp_path, driver, flag):
                               "--update-sequence", "global", "--device", "cpu"],
             "game_scoring": ["--input-paths", "t.avro", "--model-input-dir", "m/best", "--device", "cpu"]}[driver]
     module = {"game_training": game_training, "game_scoring": game_scoring}
-    with pytest.raises(SystemExit) as exc:
+    with pytest.raises(Exception) as exc:  # no input under "t.avro"
         module[driver].main(argv + ["--output-dir", str(tmp_path / "o")] + flag)
-    assert "not ported yet" in str(exc.value.code) and flag[0] in str(exc.value.code)
-    assert not (tmp_path / "o").exists()
+    assert "not ported yet" not in str(exc.value)
 
 
 def _decoded_coefficients(model_dir):

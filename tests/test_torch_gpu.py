@@ -342,6 +342,60 @@ def test_game_drivers_on_card_match_cpu(cuda_device, tmp_path):
     assert float((got - want).abs().max()) <= 2e-3 * max(1.0, float(want.abs().max()))
 
 
+def test_game_training_telemetry_adds_no_reads_on_card(cuda_device, tmp_path):
+    """game_training on the card with --telemetry-out against without it:
+    every Avro record of best/ and every other file's bytes equal, the same
+    host reads up to the run report's finalize, the same K1 launches and K3
+    launches by width, and a report whose every line validates with CD pass
+    spans for each coordinate."""
+    import json
+
+    from photon_tpu_torch.cli import game_training
+    from photon_tpu_torch.io.avro import read_avro_records
+    from photon_tpu_torch.obs import report
+    from photon_tpu_torch.optim.common import HOST_READS
+
+    train, valid = _write_driver_file(tmp_path / "t.avro", 2048, 1), _write_driver_file(tmp_path / "v.avro", 512, 2)
+    shards = ["--feature-shard-configurations", "name=g,feature.bags=features", "name=u,feature.bags=userFeatures",
+              "name=i,feature.bags=itemFeatures"]
+    argv = ["--input-paths", train, "--validation-paths", valid, *shards, "--coordinate-configurations",
+            "name=global,feature.shard=g,reg.weights=1|10", "name=perUser,feature.shard=u,random.effect.type=userId,reg.weights=1",
+            "name=perItem,feature.shard=i,random.effect.type=itemId,reg.weights=1", "--update-sequence",
+            "global,perUser,perItem", "--coordinate-descent-iterations", "2", "--evaluators", "AUC",
+            "--re-active-set", "--device", "cuda"]
+    real, seen = report.collect_run_records, {}
+
+    def counting(*args, **kwargs):
+        seen.setdefault("reads", HOST_READS.count - seen["reads0"])
+        return real(*args, **kwargs)
+
+    runs = {}
+    try:
+        report.collect_run_records = counting
+        for name, extra in (("off", []), ("on", ["--telemetry-out", str(tmp_path / "run.jsonl")])):
+            kernels.reset_launches()
+            fused_newton.LAUNCHES_BY_WIDTH.clear()
+            seen.clear()
+            seen["reads0"] = HOST_READS.count
+            game_training.main(argv + ["--output-dir", str(tmp_path / name)] + extra)
+            best = tmp_path / name / "best"
+            files = {str(p.relative_to(best)): (read_avro_records(str(p)) if p.suffix == ".avro" else p.read_bytes())
+                     for p in sorted(best.rglob("*")) if p.is_file()}
+            runs[name] = (files, seen["reads"], kernels.LAUNCHES["fused_value_grad"],
+                          dict(fused_newton.LAUNCHES_BY_WIDTH))
+    finally:
+        report.collect_run_records = real
+    assert runs["on"] == runs["off"] and runs["on"][2] > 0
+    records = [json.loads(line) for line in (tmp_path / "run.jsonl").read_text().splitlines()]
+    for rec in records:
+        report.validate_record(rec)
+    assert next(r for r in records if r["record"] == "env")["jax_backend"] == "gpu"
+    names = {r["name"].split("]/", 1)[-1] for r in records if r["record"] == "span"}
+    for it in (0, 1):
+        for cid in ("global", "perUser", "perItem"):
+            assert {f"cd/iter{it}/{cid}/solve", f"cd/iter{it}/{cid}/score"} <= names
+
+
 def _logistic_block(E, n_max, d, seed, device):
     """An EntityBlock of E entities with 16..n_max samples each (ones
     column first), labels planted per entity."""

@@ -478,14 +478,16 @@ def test_init_from_env_joins_a_torchrun_group():
 
 
 def test_new_modules_import_no_jax():
-    """The multi-device modules, the rank programs and chip_smoke.py load in
-    a fresh interpreter without jax or the reference package."""
+    """The multi-device modules, the telemetry core and obs_tool, the rank
+    programs and chip_smoke.py load in a fresh interpreter without jax or
+    the reference package."""
     code = (
         "import sys\n"
         f"sys.path[:0] = [{str(REPO)!r}, {str(REPO / 'tests')!r}]\n"
         "import photon_tpu_torch.parallel, photon_tpu_torch.parallel.train_step\n"
         "import photon_tpu_torch.algorithm.sharded_random_effect, photon_tpu_torch.utils.virtual_devices\n"
         "import photon_tpu_torch.serve.routing, torch_ranks, chip_smoke\n"
+        "import photon_tpu_torch.obs, photon_tpu_torch.obs.quality, photon_tpu_torch.cli.obs_tool\n"
         "bad = sorted(k for k in sys.modules if k in ('jax', 'photon_tpu') or k.startswith(('jax.', 'photon_tpu.')))\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -153,7 +153,7 @@ def test_gate_refuses_checksum_mismatch_and_keeps_latest(tmp_path):
         verify_generation,
         write_generation_manifest,
     )
-    from photon_tpu_torch.io.model_io import PUBLISH_COUNTS
+    from photon_tpu_torch.obs.metrics import registry
 
     root = str(tmp_path)
     _publish_gen(root, "gen-1", 1.0)
@@ -174,10 +174,10 @@ def test_gate_refuses_checksum_mismatch_and_keeps_latest(tmp_path):
     res = verify_generation(os.path.join(root, "gen-2"))
     assert not res.ok and res.reason.startswith("checksum_mismatch:")
 
-    before = PUBLISH_COUNTS["gate_failures"]
+    before = registry().counter("model_gate_failures_total").value
     gate = gate_and_publish(root, "gen-2")
     assert not gate.ok and "checksum_mismatch" in gate.reason
-    assert PUBLISH_COUNTS["gate_failures"] == before + 1
+    assert registry().counter("model_gate_failures_total").value == before + 1
     # The failing generation stays on disk (forensics) but is never LATEST.
     with open(os.path.join(root, "LATEST")) as f:
         assert f.read().strip() == "gen-1"
@@ -386,7 +386,9 @@ def _three_version_engine():
 
 def test_engine_n_way_shadow_lanes_are_independent_and_bit_exact():
     # Concurrent shadow candidates: every lane carries its own sample
-    # accumulator, divergence record and counts.
+    # accumulator, divergence record, counts and labelled metric series.
+    from photon_tpu_torch.obs.metrics import registry
+
     eng, m1, m2, m3 = _three_version_engine()
     try:
         n = 8
@@ -396,6 +398,8 @@ def test_engine_n_way_shadow_lanes_are_independent_and_bit_exact():
         ref2 = batch_scores(m2, xa, xb, list(range(n)))
         ref3 = batch_scores(m3, xa, xb, list(range(n)))
         before = {v: eng.counts["shadow_scored", v] for v in ("v2", "v3")}
+        reg_before = {v: registry().counter("serve_shadow_scored_total", model_version=v).value
+                      for v in ("v2", "v3")}
         eng.start_shadow("v2", fraction=1.0)
         eng.start_shadow("v3", fraction=1.0)
         assert eng.shadow_versions == ["v2", "v3"]  # lane start order
@@ -418,9 +422,10 @@ def test_engine_n_way_shadow_lanes_are_independent_and_bit_exact():
         assert legacy["version"] == "v3"
         assert set(legacy["candidates"]) == {"v2", "v3"}
         assert legacy["candidates"]["v2"]["count"] == n
-        # Per-lane counts: each candidate owns its own.
+        # Per-lane counts and metric labels: each candidate owns its own.
         for v in ("v2", "v3"):
             assert eng.counts["shadow_scored", v] == before[v] + n
+            assert registry().counter("serve_shadow_scored_total", model_version=v).value == reg_before[v] + n
         assert eng.retraces_since_warmup == 0
     finally:
         eng.close()

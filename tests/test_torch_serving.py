@@ -360,7 +360,10 @@ def test_store_projected_hot_cold_parity_demotion_and_zero_retraces():
     assert stats["projected"] and not stats["pinned"]
     store.warm_uploads(4)
 
+    from photon_tpu_torch.obs.metrics import registry
+
     demos0 = store.stats()["userId"]["demotions"]
+    reg0 = registry().counter("serve_store_demotions_total", re_type="userId").value
     tr = GameTransformer(store.scoring_model())
     prng = np.random.default_rng(11)
     warm_traces = None
@@ -386,6 +389,8 @@ def test_store_projected_hot_cold_parity_demotion_and_zero_retraces():
 
     demos1 = store.stats()["userId"]["demotions"]
     assert demos1 - demos0 > 0
+    # The registry counter moved with the store's own count.
+    assert registry().counter("serve_store_demotions_total", re_type="userId").value - reg0 == demos1 - demos0
     # Hot pools hold at most capacity entities; every non-resident entity's
     # device map entry was scattered cold (-1) on demotion.
     dev_blk = coord.dev_entity_block.numpy()
@@ -1216,19 +1221,25 @@ def test_serving_modules_import_no_jax():
 
 
 def test_unported_flags_and_routes_say_so(http_server):
-    """game_serving refuses the flags whose machinery is not ported, and
-    the routes waiting for observability answer 501."""
+    """game_serving refuses the flags whose machinery is not ported (the
+    feedback spool), and the routes waiting for it and for experiments
+    answer 501; the telemetry flags and routes are ported: the flags get
+    past the refusal, and /metrics and /v1/traces answer 200."""
     from photon_tpu_torch.cli import game_serving
 
-    for extra in (["--feedback-spool", "x"], ["--telemetry-out", "t.jsonl"], ["--otlp-endpoint", "http://h"],
-                  ["--slo-gate"]):
-        with pytest.raises(SystemExit, match="not ported yet"):
+    with pytest.raises(SystemExit, match="not ported yet"):
+        game_serving.main(["--model-input-dir", "nowhere", "--device", "cpu", "--feedback-spool", "x"])
+    for extra in (["--telemetry-out", "t.jsonl"], ["--otlp-endpoint", "http://h"], ["--slo-gate"]):
+        with pytest.raises(Exception) as exc:  # no model under "nowhere"
             game_serving.main(["--model-input-dir", "nowhere", "--device", "cpu", *extra])
+        assert "not ported yet" not in str(exc.value)
     port, _ = http_server
-    for route in ("/metrics", "/v1/traces", "/v1/experiment"):
-        with pytest.raises(urllib.error.HTTPError) as err:
-            urllib.request.urlopen(f"http://127.0.0.1:{port}{route}", timeout=10)
-        assert err.value.code == 501
+    for route in ("/metrics", "/v1/traces"):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}", timeout=10) as resp:
+            assert resp.status == 200
+    with pytest.raises(urllib.error.HTTPError) as err:
+        urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/experiment", timeout=10)
+    assert err.value.code == 501
     with pytest.raises(urllib.error.HTTPError) as err:
         _post(port, "/v1/feedback", json.dumps({"uid": "1", "label": 1.0}).encode())
     assert err.value.code == 501

@@ -2,8 +2,8 @@
 estimators/evaluation_function.py, estimators/batched_tuning.py and the
 tuning of cli/game_training.py) on the CPU, against the JAX package.
 
-Every case of tests/test_hyperparameter_tuning.py runs on the port, except
-the telemetry case (telemetry is not ported yet). Against the reference:
+Every case of tests/test_hyperparameter_tuning.py runs on the port, the
+telemetry case included. Against the reference:
 - the searches propose the same candidates from the same observations and
   seed (the same numpy code: equal exactly);
 - each candidate's sequential evaluation of a small GLMix fixture equals the
@@ -496,6 +496,34 @@ def test_tuned_driver_runs_batched_lanes(fixture_files, tmp_path, caplog):
     best = max(records[2:], key=lambda r: -r["evaluationValue"])
     assert summary["best"]["metrics"]["AUC"] == pytest.approx(-best["evaluationValue"], abs=BATCHED_TOL)
     assert (tmp_path / "o" / "best" / "model-metadata.json").exists()
+
+
+@pytest.mark.parametrize("mode", ["sequential", "batched"])
+def test_tuning_loop_telemetry_spans_and_metrics(mode):
+    """Each tuning round emits tuning/round{i}/{propose,train,observe}
+    spans, the candidate-count gauge is the proposal batch width, and the
+    round counter advances, as in the reference."""
+    from photon_tpu_torch.hyperparameter.search import RandomSearch
+    from photon_tpu_torch.obs import begin_run
+    from photon_tpu_torch.obs.metrics import registry
+    from photon_tpu_torch.obs.trace import get_spans
+
+    begin_run()
+    if mode == "sequential":
+        RandomSearch(dim=2, evaluator=lambda x: float(np.sum(x ** 2))).find(2)
+        width = 1
+    else:
+        best, _val = RandomSearch(dim=2, evaluator=lambda x: 0.0).find_batch(
+            2, 3, lambda X: [float(np.sum(x ** 2)) for x in X])
+        assert best.shape == (2,)
+        width = 3
+    names = {s.name for s in get_spans()}
+    for i in range(2):
+        for stage in ("propose", "train", "observe"):
+            assert f"tuning/round{i}/{stage}" in names, names
+    assert registry().gauge("tuning_candidate_count").value == width
+    assert registry().counter("tuning_rounds_total").value == 2
+    begin_run()
 
 
 def test_tuning_modules_import_without_jax():
