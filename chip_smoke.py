@@ -77,8 +77,8 @@ Phases, each of which must pass:
                 the CPU run's coefficients (2e-3 relative). The writer's
                 wall, each driver's wall by stage, each read's rows, bytes,
                 wall, rows/s and path, the columnar and the row read of the
-                2^13-row file side by side, host reads and launches by width
-                are logged.
+                2^10-row file side by side, host reads and launches by width
+                are logged. The pool also writes phase 17's delta.
   9. GAME solvers — phase 7's data and widths with the other solvers, two
                 passes with the active set: 9a TRON on the fixed effect (K1,
                 K2), elastic net per user (batched OWL-QN) and TRON per item
@@ -194,6 +194,27 @@ Phases, each of which must pass:
                 p50/p99 at 1 and 64 clients, on beside off; 16c
                 ``python -m photon_tpu_torch.cli.obs_tool`` summarizes 16a's
                 report and scrapes 16b's /metrics.
+ 17. streaming — on phase 8's files and model: 17a phase 8's best/
+                published as gen-1 under a publish root, then a delta of
+                2^14 rows (a subset of the users and items, and new ones)
+                through game_incremental in process (K1, K3 at d = 16 and
+                128; unchanged rows the parent's bit for bit; the gate
+                passes and LATEST moves), the same run spawned on a copy of
+                the root (the same sha256s) and incremental_update with
+                emit_delta (the layer resolves to the full publish bit for
+                bit); 17b game_serving --feedback-spool spawned on the card,
+                2048 scored requests with uids and their labels through
+                /v1/feedback, then game_streaming --max-cycles 1 spawned: a
+                delta micro-generation with its consume cursor that the
+                server's watcher installs under live traffic, after which
+                the served scores are game_scoring's of the resolved chain
+                bit for bit, nothing is captured after the delta's warm-up
+                and no request failed (label-to-serve freshness, the cycle's
+                wall, requests/s across the flip); 17c game_streaming killed
+                at stream.consume and restarted in process: 17b's model files
+                and the cursor applied once; 17d an engine with a pinned
+                quality baseline counts every joined label under both
+                versions.
 Phases 4, 6b, 7b, 8 and 9 print, per pass, λ or driver, the host reads (every
 device-to-host read of the path, through ``HOST_READS``; validation apart),
 the solve cache's captures (programs; the keys, which count each λ, apart),
@@ -205,7 +226,8 @@ at K = 1, 2, 4 and 8, and fails at any K unless iterations and reasons are
 equal and coefficients within 1e-6; it fails if pass 2 captures anything or
 the two passes' coordinate updates make more than 60 host reads; 6b fails
 above SWEEP_READS reads for a λ solve. The order of the run is 1-7, 9, 11a,
-10, 8, 16, 11b, 12, 13, 15, 14; the whole run's wall is printed at its end.
+10, 8, 16, 11b, 12, 13, 15, 17, 14; the whole run's wall is printed at its
+end.
 It prints the card's name and power limit, a JSON line of per-kernel numbers
 ("launches" and "ran": the launches of the main paths, and those of them
 that did their work; a K1 or K2 launch whose flag was off does not), and last {"ok": true, "device": {...}}. It exits non-zero, printing no
@@ -283,7 +305,7 @@ PARITY_TOL = 1e-5
 # the CPU, small input: scores, relative to max |score|.
 REFERENCE_TOL = 2e-3
 # 10a's scatter cut copy: its f32 objective where it stopped against the
-# float64 path's after the full iterations (~12 ulps of an f32 objective).
+# float64 path's after as many iterations (~12 ulps of an f32 objective).
 CUT_OBJECTIVE_TOL = 1e-6
 # Phase 10 (the sparse wide fixed effect). 10a: bench_configs.py config 6
 # (:461-570), not cut: n = d = 2^20, 64 nnz a row in the padded-sparse
@@ -342,6 +364,17 @@ SERVE_INVARIANCE_ROWS, SERVE_SHADOW_QUOTA = 4096, 256
 # seconds between the run-report flushes and OTLP metric exports while on.
 TELEMETRY_LOAD_REQUESTS, TELEMETRY_FLUSH_S = 256, 1.0
 OOC_DRIVER_BUDGET_MB, OOC_SPILL_MEMBER, OOC_PARTITIONS = "1", "updater:3", 4
+# Phase 17 (the streaming freshness loop, on phase 8's files and model). 17a:
+# the delta's rows (drawn by phase 8's generator with its own seed, written
+# as STREAM_DELTA_FILES files) over STREAM_USERS users: the first
+# STREAM_KNOWN_USERS land on every STREAM_USER_STRIDE-th known user, the
+# rest are new; items from STREAM_NEW_ITEMS_FROM on take new ids. 17b: the
+# requests scored with uids and labelled, the spool's segment size and age,
+# the HTTP clients, the rows scored after the flip against game_scoring.
+STREAM_DELTA_ROWS, STREAM_DELTA_FILES, STREAM_DELTA_SEED = 1 << 14, 4, 8700
+STREAM_USERS, STREAM_KNOWN_USERS, STREAM_USER_STRIDE, STREAM_NEW_ITEMS_FROM = 640, 576, 7, 1008
+STREAM_REQUESTS, STREAM_SEGMENT_RECORDS, STREAM_SEGMENT_AGE_S, STREAM_CLIENTS = 2048, 512, 1.0, 8
+STREAM_CHECK_ROWS, STREAM_QUALITY_REQUESTS = 2048, 512
 # Phase 14 (multiple devices: torch.distributed ranks on this one card).
 # 14b's gloo world sizes; each group's timeout (a dead rank fails its peers
 # within it) and each run's deadline; 14c's per-shard budget divisor (a
@@ -1090,12 +1123,12 @@ def masked_steps(cache) -> list:
     return out
 
 
-def _driver_records(n: int, seed: int, n_users: int = H_USERS, n_items: int = H_ITEMS):
-    """TrainingExampleAvro rows with three bags (H_BAGS) and the ids of
-    ``n_users`` users and ``n_items`` Zipf-like items in metadataMap; labels
-    planted from a fixed, a per-user and a per-item effect. The planted model
-    comes from one seed, the rows from ``seed``; the rows are made as they
-    are written."""
+def _driver_arrays(n: int, seed: int, n_users=None, n_items=None):
+    """The features (by bag), users, Zipf-like items and planted labels of
+    ``_driver_records``' rows (default H_USERS users and H_ITEMS items):
+    the planted model comes from one seed, the rows from ``seed``."""
+    n_users = H_USERS if n_users is None else n_users
+    n_items = H_ITEMS if n_items is None else n_items
     model = np.random.default_rng(80)
     w_fe = model.normal(size=D_FIX - 1) * 3.0 / np.sqrt(D_FIX - 1)
     W_u = model.normal(size=(H_USERS, D_RE)) * 0.4
@@ -1108,8 +1141,32 @@ def _driver_records(n: int, seed: int, n_users: int = H_USERS, n_items: int = H_
     logits = (X["features"] @ w_fe + np.sum(X["userFeatures"] * W_u[users, 1:], 1) + W_u[users, 0]
               + np.sum(X["itemFeatures"] * W_i[items, 1:], 1) + W_i[items, 0])
     y = rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-logits))
+    return X, users, items, y
+
+
+def _delta_ids(users, items):
+    """Phase 17's delta: ``_driver_arrays`` over STREAM_USERS users, whose
+    ids land on every STREAM_USER_STRIDE-th known user and past the known
+    ones (new users), and over the known items, whose rarest (from
+    STREAM_NEW_ITEMS_FROM on) take new ids. Returns the id strings."""
+    known = users < STREAM_KNOWN_USERS
+    u = np.where(known, users * STREAM_USER_STRIDE, H_USERS + users - STREAM_KNOWN_USERS)
+    it = np.where(items < STREAM_NEW_ITEMS_FROM, items, H_ITEMS + items - STREAM_NEW_ITEMS_FROM)
+    return [f"user{k}" for k in u], [f"item{k}" for k in it]
+
+
+def _driver_records(n: int, seed: int, n_users=None, n_items=None, delta: bool = False):
+    """TrainingExampleAvro rows with three bags (H_BAGS) and the ids of
+    ``n_users`` users and ``n_items`` Zipf-like items in metadataMap; labels
+    planted from a fixed, a per-user and a per-item effect. The rows are
+    made as they are written. ``delta``: phase 17's ids (``_delta_ids``)."""
+    X, users, items, y = _driver_arrays(n, seed, n_users, n_items)
+    if delta:
+        user_ids, item_ids = _delta_ids(users, items)
+    else:
+        user_ids, item_ids = [f"user{k}" for k in users], [f"item{k}" for k in items]
     return ({"uid": str(i), "label": float(y[i]), "weight": None, "offset": None,
-             "metadataMap": {"userId": f"user{users[i]}", "itemId": f"item{items[i]}"},
+             "metadataMap": {"userId": user_ids[i], "itemId": item_ids[i]},
              **{bag: [{"name": f"{bag[0]}{j}", "term": "", "value": float(v)} for j, v in enumerate(X[bag][i])]
                 for bag, _, _ in H_BAGS}}
             for i in range(n))
@@ -1128,14 +1185,15 @@ def _driver_schema(bags) -> dict:
 
 def _write_part(job) -> float:
     """Write one Avro file (a task of ``write_files``' pool): ``job`` is
-    (kind, path, rows, seed[, users, items]), kind "game" (phase 8's rows) or
-    "sparse" (10c's). Returns the seconds it took."""
+    (kind, path, rows, seed[, users, items]), kind "game" (phase 8's rows),
+    "delta" (phase 17's) or "sparse" (10c's). Returns the seconds it took."""
     from photon_tpu_torch.io.avro import write_avro_records
 
     kind, path, n, seed, *ents = job
     t0 = time.perf_counter()
-    if kind == "game":
-        write_avro_records(path, _driver_schema([bag for bag, _, _ in H_BAGS[1:]]), _driver_records(n, seed, *ents))
+    if kind in ("game", "delta"):
+        write_avro_records(path, _driver_schema([bag for bag, _, _ in H_BAGS[1:]]),
+                           _driver_records(n, seed, *ents, delta=kind == "delta"))
     else:
         write_avro_records(path, _driver_schema(["userFeatures"]), _sparse_driver_records(n, seed))
     return time.perf_counter() - t0
@@ -1232,7 +1290,10 @@ def game_drivers_phase(dev, smi: str, check) -> tuple:
     jobs = ([("game", f, n, 8100 + i) for i, (f, n) in enumerate(train_files)]
             + [("game", f, n, 8200 + i) for i, (f, n) in enumerate(valid_files)]
             + [("game", paths["index"], H_INDEX_ROWS, 84),
-               ("game", paths["small"], H_SMALL_ROWS, 83, H_SMALL_ENTITIES, H_SMALL_ENTITIES)])
+               ("game", paths["small"], H_SMALL_ROWS, 83, H_SMALL_ENTITIES, H_SMALL_ENTITIES)]
+            # Phase 17's delta, in the pool's idle second wave.
+            + [("delta", f, n, STREAM_DELTA_SEED + i, STREAM_USERS, H_ITEMS)
+               for i, (f, n) in enumerate(_split(work / "stream-delta", STREAM_DELTA_ROWS, STREAM_DELTA_FILES))])
     log("  " + write_files(jobs))
     train_paths, valid_paths = [f for f, _ in train_files], [f for f, _ in valid_files]
     train_dir, valid_dir = str(work / "train"), str(work / "valid")
@@ -1331,14 +1392,15 @@ def game_drivers_phase(dev, smi: str, check) -> tuple:
     check(abs(result["metrics"]["AUC"] - best_auc) <= 1e-5,
           f"8 scoring AUC {result['metrics']['AUC']:.6f} = training summary's best {best_auc:.6f} (tolerance 1e-5)")
 
-    # The columnar read against the row read of one file (not counted).
+    # The columnar read against the row read of one file (not counted): the
+    # small file, as the row codec reads ~500 rows/s.
     for use_columnar in (True, False):
         torch.cuda.synchronize()
         snap, t0 = dict(READ_PATHS.counts), time.perf_counter()
-        read_merged([paths["index"]], shard_cfgs, imaps, {"userId": "userId", "itemId": "itemId"}, eidx,
+        read_merged([paths["small"]], shard_cfgs, imaps, {"userId": "userId", "itemId": "itemId"}, eidx,
                     intern_new_entities=False, use_columnar=use_columnar, device=dev)
         torch.cuda.synchronize()
-        read_report(f"8 side by side, use_columnar={use_columnar}", [paths["index"]], H_INDEX_ROWS,
+        read_report(f"8 side by side, use_columnar={use_columnar}", [paths["small"]], H_SMALL_ROWS,
                     time.perf_counter() - t0, read_paths_since(snap))
 
     # Card against CPU on the small file (not counted).
@@ -1359,6 +1421,7 @@ def game_drivers_phase(dev, smi: str, check) -> tuple:
                                   f"--device cuda vs --device cpu: best/ coefficients rel {worst:.3e} "
                                   f"(tolerance {REFERENCE_TOL:g})")
     return launches, dict(work=work, train=train_dir, valid=valid_dir, index=idx, out=out, scores=scored,
+                          delta=str(work / "stream-delta"),
                           shards=shards, coords=coords, events=train_events, train_paths=train_paths,
                           training=dict(wall=train_wall, reads=until_finalize["reads"], launches=trained))
 
@@ -1576,13 +1639,13 @@ def cut_scatter_verdict(obj, spec, cut64, ref, lb, got) -> tuple:
     """10a's check of the cut copy's captured f32 scatter solve ``got`` (on
     ``lb``) against the CPU float64 plain path (``ref``: ``spec``'s
     iterations on ``cut64``). The scatter's float atomics decide 1-ulp
-    line-search ties, so where the f32 solve stops moves run to run: its
-    margins are held against the float64 path run for exactly its k
-    iterations, relative to max |margin| (REFERENCE_TOL); its stop reason must
-    be a convergence or the iteration limit; its objective must be within
-    CUT_OBJECTIVE_TOL relative of ``ref``'s. Returns (passed, text); the text
-    also gives the check this replaced (margins against ``ref``'s,
-    REFERENCE_TOL)."""
+    line-search ties, so where the f32 solve stops moves run to run: it is
+    held step for step, against the float64 path run for exactly its k
+    iterations: the margins relative to max |margin| (REFERENCE_TOL), the
+    objective within CUT_OBJECTIVE_TOL relative; its stop reason must be a
+    convergence or the iteration limit. Returns (passed, text); the text also
+    gives the endpoint checks this replaced (margins and objective against
+    ``ref``'s after all its iterations)."""
     from photon_tpu_torch.optim.factory import make_optimizer
     from photon_tpu_torch.types import ConvergenceReason
 
@@ -1590,15 +1653,17 @@ def cut_scatter_verdict(obj, spec, cut64, ref, lb, got) -> tuple:
     same_k = make_optimizer(obj, dataclasses.replace(spec, max_iter=k))(torch.zeros_like(ref.w), cut64)
     _, r = rel_err(lb.margins(got.w).cpu(), cut64.margins(same_k.w))
     _, r_old = rel_err(lb.margins(got.w).cpu(), cut64.margins(ref.w))
-    off = abs(float(got.value) - float(ref.value)) / abs(float(ref.value))
+    off = abs(float(got.value) - float(same_k.value)) / abs(float(same_k.value))
+    off_old = abs(float(got.value) - float(ref.value)) / abs(float(ref.value))
     stopped = reason in (ConvergenceReason.MAX_ITERATIONS, ConvergenceReason.FUNCTION_VALUES_CONVERGED,
                          ConvergenceReason.GRADIENT_CONVERGED)
     ok = r <= REFERENCE_TOL and stopped and off <= CUT_OBJECTIVE_TOL
     return ok, (f"10a cut copy (n = d = {SP_CUT}, scatter) captured on the card (f32), {k} iterations, "
                 f"{reason.value}: margins vs the float64 plain path run {k} iterations rel {r:.3e} (tolerance "
-                f"{REFERENCE_TOL:g}); objective rel {off:.3e} of the float64 path's after {int(ref.iterations)} "
-                f"(tolerance {CUT_OBJECTIVE_TOL:g}); the replaced check (margins vs the float64 path's after "
-                f"{int(ref.iterations)}) reads {r_old:.3e}, {'pass' if r_old <= REFERENCE_TOL else 'FAIL'}")
+                f"{REFERENCE_TOL:g}), objective rel {off:.3e} (tolerance {CUT_OBJECTIVE_TOL:g}); the replaced "
+                f"endpoint checks against the float64 path's after {int(ref.iterations)}: margins {r_old:.3e} "
+                f"({'pass' if r_old <= REFERENCE_TOL else 'FAIL'}), objective {off_old:.3e} "
+                f"({'pass' if off_old <= CUT_OBJECTIVE_TOL else 'FAIL'})")
 
 
 def sparse_game_phase(dev, smi: str, check, train, valid) -> dict:
@@ -2474,11 +2539,12 @@ def _ooc_run(label: str, dev, smi: str, train, valid, host_ds: dict, budgets, ca
     return out
 
 
-def _serving_rows(files: dict, model_dir: Path):
+def _serving_rows(files: dict, model_dir: Path, with_labels: bool = False):
     """Phase 8's validation rows as the serving engine takes them: the rows
     game_scoring reads (read_merged on the CPU, the model's index maps and
     entity indexes, no new entities), each shard a dense float32 matrix,
-    entity ids interned, in game_scoring's row order (its scores file's)."""
+    entity ids interned, in game_scoring's row order (its scores file's).
+    ``with_labels``: their labels too, last."""
     from photon_tpu_torch.cli.common import parse_feature_shard_config
     from photon_tpu_torch.data.index_map import EntityIndex, IndexMap
     from photon_tpu_torch.io.data_reader import read_merged
@@ -2496,6 +2562,8 @@ def _serving_rows(files: dict, model_dir: Path):
                               intern_new_entities=False, device="cpu")
     feats = {s: batch.features[s].numpy() for s in shard_configs}
     ids = {rt: batch.entity_ids[rt].numpy() for rt in re_types}
+    if with_labels:
+        return feats, ids, batch.offset.numpy(), batch.label.numpy()
     return feats, ids, batch.offset.numpy()
 
 
@@ -3731,6 +3799,484 @@ def multi_rank_phase(dev, smi: str, check) -> dict:
     return launches
 
 
+def _add_launches(total: dict) -> None:
+    """Add the launches counted since the last reset (``launch_counts``,
+    and K3's by width as "newton_system_d<d>") to ``total``."""
+    from photon_tpu_torch.ops import fused_newton
+
+    counts = launch_counts()
+    counts.update({f"newton_system_d{d}": c for d, c in fused_newton.LAUNCHES_BY_WIDTH.items()})
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _reset_launches() -> None:
+    from photon_tpu_torch.ops import fused_newton, kernels
+
+    kernels.reset_launches()
+    fused_newton.LAUNCHES_BY_WIDTH.clear()
+
+
+def _spawn_logged(argv: list, log_path: Path, env=None):
+    """A child python process from the repository root (spawned, never a
+    fork of this CUDA process), standard error to ``log_path``."""
+    import os
+
+    return subprocess.Popen([sys.executable, *argv], stdout=subprocess.PIPE, stderr=open(log_path, "w"), text=True,
+                            cwd=str(Path(__file__).resolve().parent), env=dict(os.environ, **(env or {})))
+
+
+def _banner(proc, timeout_s: float) -> dict:
+    """The first line of a server's standard output (its JSON banner)."""
+    import threading
+
+    box = {}
+    t = threading.Thread(target=lambda: box.setdefault("line", proc.stdout.readline()), daemon=True)
+    t.start()
+    t.join(timeout=timeout_s)
+    line = box.get("line") or ""
+    return json.loads(line) if line.startswith("{") else {}
+
+
+def _post_json(port: int, path: str, obj) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(obj).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return json.loads(resp.read())
+
+
+def _http_loop(port: int, lines, clients: int, stop, out: list) -> list:
+    """Clients that POST ``lines`` to /v1/score in turn until ``stop`` is
+    set; each answer appends (time, modelVersion) to ``out``, each failure
+    its text to the returned list. Returns (threads, failures)."""
+    import http.client
+    import threading
+
+    failed = []
+
+    def client(k):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        i = k
+        try:
+            while not stop.is_set():
+                try:
+                    conn.request("POST", "/v1/score", body=lines[i % len(lines)],
+                                 headers={"Content-Type": "application/json"})
+                    resp = conn.getresponse()
+                    body = resp.read()
+                    if resp.status != 200:
+                        raise RuntimeError(f"HTTP {resp.status}: {body[:200]!r}")
+                    out.append((time.perf_counter(), json.loads(body).get("modelVersion")))
+                except Exception as exc:  # noqa: BLE001 — counted and reported
+                    failed.append(repr(exc))
+                i += clients
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True) for k in range(clients)]
+    for t in threads:
+        t.start()
+    return threads, failed
+
+
+def _copy_root(src: Path, dst: Path) -> Path:
+    shutil.copytree(src, dst)
+    return dst
+
+
+def _root_artifacts(root: Path):
+    from photon_tpu_torch.data.index_map import EntityIndex, IndexMap
+
+    imaps = {p.name[len("index-map-"):-len(".json")]: IndexMap.load(str(p)) for p in root.glob("index-map-*.json")}
+    eidx = {p.name[len("entity-index-"):-len(".json")]: EntityIndex.load(str(p))
+            for p in root.glob("entity-index-*.json")}
+    return imaps, eidx
+
+
+def _latest(root: Path) -> str:
+    return (root / "LATEST").read_text().strip()
+
+
+def streaming_phase(dev, smi: str, check, files: dict) -> dict:
+    """Phase 17: the streaming freshness loop on the card, on phase 8's
+    files and model. 17a: phase 8's best/ published as gen-1 (with its
+    holdout AUC) under a publish root, a delta of STREAM_DELTA_ROWS rows
+    from phase 8's generator (a subset of the users and items, and new ones
+    of each) through ``game_incremental`` in process: K1 and K3 at d = 16
+    and 128 launched, every unchanged entity's row the parent's bit for bit,
+    the gate passed and LATEST moved; the same run as a spawned process on a
+    copy of the root writes the same files (the manifests' sha256), and
+    ``incremental_update(emit_delta=True)`` on a third copy publishes a
+    delta layer that resolves to the full publish's coefficients bit for
+    bit. 17b: ``game_serving --feedback-spool`` spawned on the card serving
+    gen-1; STREAM_REQUESTS /v1/score requests with uids, their labels
+    through /v1/feedback; once the spool has sealed them, ``game_streaming
+    --max-cycles 1`` spawned: it publishes a delta micro-generation with
+    its consume cursor, the server's watcher installs it under live
+    traffic, and afterwards the served scores are game_scoring's of the
+    resolved chain bit for bit, nothing was captured or allocated after the
+    delta's warm-up and no request failed (freshness from the last label to
+    the first response of the new generation, the cycle's wall, requests/s
+    across the flip). 17c: game_streaming killed at ``stream.consume`` (the
+    train call) on a copy of 17b's root and spool, then restarted in
+    process: the same model files as 17b's unbroken cycle, the cursor
+    applied once. 17d: the engine in process on gen-1 with 17b's delta
+    promoted and gen-1 pinned as the quality baseline: the quality plane
+    counts every joined label under both versions. Returns the launches of
+    the in-process runs (17a's two updates, 17c's restart)."""
+    import os
+
+    from photon_tpu_torch.cli import game_incremental, game_scoring
+    from photon_tpu_torch.cli.common import parse_coordinate_config, parse_feature_shard_config
+    from photon_tpu_torch.evaluation.suite import EvaluationSuite, EvaluatorSpec
+    from photon_tpu_torch.io.data_reader import read_merged
+    from photon_tpu_torch.io.model_io import (delta_info, gate_and_publish, load_game_model,
+                                              load_generation_manifest, load_resolved_game_model, read_delta_rows,
+                                              save_game_model, write_generation_manifest)
+    from photon_tpu_torch.ops import fused_newton, kernels
+    from photon_tpu_torch.optim.common import HOST_READS
+    from photon_tpu_torch.serve import ServeConfig
+    from photon_tpu_torch.serve.engine import load_engine
+    from photon_tpu_torch.stream.spool import FeedbackSpool, SpoolConfig, read_segment, sealed_segments
+    from photon_tpu_torch.stream.updater import StreamingUpdater, StreamingUpdaterConfig
+    from photon_tpu_torch.train.incremental import compute_holdout_metrics, incremental_update
+    from photon_tpu_torch.types import TaskType
+
+    log("## phase 17: the streaming freshness loop (incremental generations, feedback spool, updater)")
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    out = Path(files["out"])
+    work = Path(files["work"]) / "stream"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    shards = files["shards"]
+    shard_cfgs: dict = {}
+    for spec in shards[1:]:
+        shard_cfgs.update(parse_feature_shard_config(spec))
+    coord_specs = ["name=global,feature.shard=globalShard,optimizer=LBFGS,reg.weights=1",
+                   "name=perUser,feature.shard=userShard,random.effect.type=userId,reg.weights=1",
+                   "name=perItem,feature.shard=itemShard,random.effect.type=itemId,reg.weights=1"]
+    coords = ["--coordinate-configurations", *coord_specs, "--update-sequence", "global,perUser,perItem"]
+    re_cids = {"perUser": "userId", "perItem": "itemId"}
+
+    # 17a. gen-1: phase 8's best/ with its holdout AUC on phase 8's validation rows.
+    t0 = time.perf_counter()
+    root0 = work / "root0"
+    shutil.copytree(out / "best", root0 / "gen-1")
+    for p in list(out.glob("index-map-*.json")) + list(out.glob("entity-index-*.json")):
+        shutil.copy(p, root0 / p.name)
+    imaps0, eidx0 = _root_artifacts(root0)
+    valid, _, _ = read_merged([files["valid"]], shard_cfgs, imaps0, {rt: rt for rt in eidx0}, eidx0,
+                              intern_new_entities=False, device=dev)
+    suite = EvaluationSuite([EvaluatorSpec.parse("AUC")], {k: len(v) for k, v in eidx0.items()})
+    holdout1 = compute_holdout_metrics(load_game_model(str(root0 / "gen-1"), imaps0, eidx0, device=dev), valid, suite)
+    write_generation_manifest(str(root0 / "gen-1"), parent=None, holdout_metrics=holdout1)
+    gate1 = gate_and_publish(str(root0), "gen-1")
+    del valid
+    check(gate1.ok and _latest(root0) == "gen-1", f"17a phase 8's best/ published as gen-1 (holdout {holdout1}, "
+                                                  f"gate {gate1.reason})")
+    roots = {k: _copy_root(root0, work / f"root-{k}") for k in ("cli", "spawned", "delta", "serve", "crash")}
+    delta_dir = Path(files["delta"])  # written in phase 8's pool
+    delta_files = _split(delta_dir, STREAM_DELTA_ROWS, STREAM_DELTA_FILES)
+    touched = {"userId": set(), "itemId": set()}
+    for i, (_, n) in enumerate(delta_files):
+        _, users, items, _ = _driver_arrays(n, STREAM_DELTA_SEED + i, STREAM_USERS, H_ITEMS)
+        u, it = _delta_ids(users, items)
+        touched["userId"].update(u)
+        touched["itemId"].update(it)
+    new = {rt: sum(1 for k in ids if eidx0[rt].lookup(k) < 0) for rt, ids in touched.items()}
+    log(f"  gen-1 published in {time.perf_counter() - t0:.1f} s; the delta (written in phase 8): {STREAM_DELTA_ROWS} rows "
+        f"touching {len(touched['userId'])} of {len(eidx0['userId'])} users ({new['userId']} new) and "
+        f"{len(touched['itemId'])} of {len(eidx0['itemId'])} items ({new['itemId']} new)")
+
+    argv = ["--input-paths", str(delta_dir), "--validation-paths", files["valid"], *shards, *coords,
+            "--evaluators", "AUC", "--metric-tolerance", "0.05", "--norm-drift-bound", "1000"]
+    # The same update as a spawned process on a copy, beside the in-process
+    # runs (its files are compared, not its wall).
+    t_spawned = time.perf_counter()
+    spawned_proc = _spawn_logged(["-m", "photon_tpu_torch.cli.game_incremental", *argv, "--publish-root",
+                                  str(roots["spawned"]), "--device", dev.type], work / "incremental.log")
+    torch.cuda.synchronize()
+    _reset_launches()
+    reads0, t0 = HOST_READS.count, time.perf_counter()
+    inc = game_incremental.run(game_incremental.build_parser().parse_args(
+        argv + ["--publish-root", str(roots["cli"]), "--device", dev.type]))
+    torch.cuda.synchronize()
+    inc_wall = time.perf_counter() - t0
+    by_width = dict(fused_newton.LAUNCHES_BY_WIDTH)
+    k1 = kernels.LAUNCHES["fused_value_grad"]
+    _add_launches(launches)
+    log(f"  17a game_incremental: {inc_wall:.2f} s wall, {HOST_READS.count - reads0} host reads, generation "
+        f"{inc['generation']} over {inc['parent']}, published {inc['published']} ({inc['gateReason']}), changed "
+        f"{inc['changedEntities']}, holdout {inc['holdoutMetrics']} (gen-1 {holdout1}); K1 {k1}, K3 by width "
+        f"{by_width}")
+    check(k1 > 0 and by_width.get(D_RE, 0) > 0 and by_width.get(G_D_ITEM, 0) > 0,
+          f"17a game_incremental launched K1, and K3 at d = {D_RE} and d = {G_D_ITEM}")
+    gen = inc["generation"]
+    check(inc["published"] and inc["parent"] == "gen-1" and _latest(roots["cli"]) == gen,
+          f"17a the gate passed ({inc['gateReason']}) and LATEST moved to {gen}")
+    imaps_a, eidx_a = _root_artifacts(roots["cli"])
+    parent = load_game_model(str(root0 / "gen-1"), imaps0, eidx0, device="cpu")
+    child = load_game_model(str(roots["cli"] / gen), imaps_a, eidx_a, device="cpu")
+    for cid, rt in re_cids.items():
+        p, c = parent.models[cid].coefficients, child.models[cid].coefficients
+        changed = torch.zeros(c.shape[0], dtype=torch.bool)
+        changed[[eidx_a[rt].lookup(k) for k in touched[rt]]] = True
+        keep = ~changed[:p.shape[0]]
+        moved = int((c[:p.shape[0]][changed[:p.shape[0]]] != p[changed[:p.shape[0]]]).any(1).sum())
+        check(c.shape[0] == len(eidx0[rt]) + new[rt] and torch.equal(c[:p.shape[0]][keep], p[keep])
+              and inc["changedEntities"][rt] == int(changed.sum()),
+              f"17a {cid}: {int(keep.sum())} unchanged rows the parent's bit for bit, {int(changed.sum())} changed "
+              f"({moved} of the known ones moved), {new[rt]} new rows of {c.shape[0]}")
+
+    # incremental_update with emit_delta on a third copy: the layer resolves
+    # to the full publish's coefficients.
+    imaps_c, eidx_c = _root_artifacts(roots["delta"])
+    batch, imaps_c, eidx_c = read_merged([str(delta_dir)], shard_cfgs, imaps_c, {rt: rt for rt in eidx_c}, eidx_c,
+                                         intern_new_entities=True, device=dev)
+    valid, _, _ = read_merged([files["valid"]], shard_cfgs, imaps_c, {rt: rt for rt in eidx_c}, eidx_c,
+                              intern_new_entities=False, device=dev)
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    res_c = incremental_update(str(roots["delta"]), batch, imaps_c, eidx_c, TaskType.LOGISTIC_REGRESSION,
+                               [parse_coordinate_config(c) for c in coord_specs], ["global", "perUser", "perItem"],
+                               valid_batch=valid, evaluation_suite=EvaluationSuite(
+                                   [EvaluatorSpec.parse("AUC")], {k: len(v) for k, v in eidx_c.items()}),
+                               metric_tolerance=0.05, norm_drift_bound=1000.0, emit_delta=True, device=dev)
+    torch.cuda.synchronize()
+    delta_wall = time.perf_counter() - t0
+    _add_launches(launches)
+    del batch, valid
+    layer = delta_info(res_c.model_dir) or {}
+    resolved = load_resolved_game_model(res_c.model_dir, imaps_c, eidx_c, to_device=False,
+                                        publish_root=str(roots["delta"]))
+    same = all(torch.equal(resolved.models[cid].coefficients, child.models[cid].coefficients) for cid in re_cids)
+    same = same and torch.equal(resolved.models["global"].model.coefficients.means,
+                                child.models["global"].model.coefficients.means)
+    man_a = load_generation_manifest(str(roots["cli"] / gen)) or {}
+    check(res_c.published and res_c.is_delta and layer.get("base") == "gen-1" and same,
+          f"17a incremental_update(emit_delta=True) ({delta_wall:.2f} s): a delta layer over {layer.get('base')} "
+          f"({load_generation_manifest(res_c.model_dir)['totalBytes']} bytes, the full publish "
+          f"{man_a.get('totalBytes')}) that resolves to the full publish's coefficients bit for bit")
+    del parent, child, resolved
+    try:
+        spawned_out, _ = spawned_proc.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        spawned_proc.kill()
+        spawned_out, _ = spawned_proc.communicate()
+    rc = spawned_proc.returncode
+    spawned = json.loads(spawned_out.strip().splitlines()[-1]) if rc == 0 and spawned_out.strip() else {}
+    man_b = load_generation_manifest(str(roots["spawned"] / gen)) or {}
+    check(rc == 0 and spawned.get("generation") == gen and man_a.get("files") == man_b.get("files")
+          and bool(man_a.get("files")),
+          f"17a game_incremental spawned on a copy of the root ({time.perf_counter() - t_spawned:.1f} s, rc {rc}, "
+          f"beside the in-process runs): {len(man_b.get('files') or {})} model files with the in-process run's "
+          f"sha256s" + ("" if rc == 0 else f"; log: {_tail(work / 'incremental.log')}"))
+
+    # 17b. game_serving with the spool, game_streaming for one cycle.
+    serve_root, spool = roots["serve"], work / "spool"
+    feats, ids, offsets, labels = _serving_rows(files, out / "best", with_labels=True)
+    # Entity ids as their names; an entity unseen in training (-1) has none.
+    names = {rt: [eidx0[rt].entity_id(int(k)) if k >= 0 else None for k in v] for rt, v in ids.items()}
+
+    def stream_args(spool_dir, root):
+        """game_streaming for one cycle, as deployed beside the server: the
+        fixed effect locked, micro-batches of any size published."""
+        return ["-m", "photon_tpu_torch.cli.game_streaming", "--spool-dir", str(spool_dir), "--publish-root",
+                str(root), *coords, "--lock-coordinates", "global", "--max-cycles", "1", "--min-records", "8",
+                "--norm-drift-bound", "10000", "--cadence", "0.2", "--device", dev.type]
+
+    def line(i, uid=None):
+        body = {"features": {s: m[i].tolist() for s, m in feats.items()},
+                "entityIds": {rt: names[rt][i] for rt in ids if names[rt][i] is not None},
+                "offset": float(offsets[i])}
+        if uid is not None:
+            body["uid"] = uid
+        return json.dumps(body)
+
+    t0 = time.perf_counter()
+    server = _spawn_logged(["-m", "photon_tpu_torch.cli.game_serving", "--model-input-dir", str(serve_root),
+                            "--port", "0", "--device", dev.type, "--max-batch-size", str(SERVE_MAX_BATCH),
+                            "--feedback-spool", str(spool), "--feedback-segment-records",
+                            str(STREAM_SEGMENT_RECORDS), "--feedback-segment-age", str(STREAM_SEGMENT_AGE_S),
+                            "--reload-poll-interval", "0.2"], work / "serving.log")
+    try:
+        banner = _banner(server, 600.0)
+        check(bool(banner) and banner.get("modelVersion", "").endswith("gen-1"),
+              f"17b game_serving --feedback-spool up in {time.perf_counter() - t0:.1f} s serving "
+              f"{banner.get('modelVersion')}" + ("" if banner else f"; log: {_tail(work / 'serving.log')}"))
+        port = banner.get("port")
+        scored, failed, lat, wall = _http_all(port, [line(i, f"s{i}") for i in range(STREAM_REQUESTS)],
+                                              STREAM_CLIENTS)
+        log("  17b " + _load_text(f"{STREAM_REQUESTS} /v1/score with uids, {STREAM_CLIENTS} clients", STREAM_REQUESTS,
+                                  lat, wall))
+        joined = dropped = 0
+        for lo in range(0, STREAM_REQUESTS, 256):
+            got = _post_json(port, "/v1/feedback", {"labels": [
+                {"uid": f"s{i}", "label": float(labels[i])} for i in range(lo, min(lo + 256, STREAM_REQUESTS))]})
+            joined, dropped = joined + got["joined"], dropped + got["dropped"]
+        t_label = time.perf_counter()
+        sealed_records = 0
+        while time.perf_counter() - t_label < 60:
+            sealed_records = sum(len(read_segment(str(spool / f))) for f in sealed_segments(str(spool)))
+            if sealed_records >= joined:
+                break
+            time.sleep(0.2)
+        segments = sealed_segments(str(spool))
+        check(not failed and joined == STREAM_REQUESTS and dropped == 0 and sealed_records == joined,
+              f"17b {STREAM_REQUESTS} requests scored ({len(failed)} failed), {joined} labels joined, {dropped} "
+              f"dropped, {sealed_records} records sealed in {len(segments)} segments "
+              f"{time.perf_counter() - t_label:.1f} s after the last label")
+        spool_copy = work / "spool-copy"
+        spool_copy.mkdir()
+        for f in segments:
+            shutil.copy(spool / f, spool_copy / f)
+        import threading
+
+        stop, answers = threading.Event(), []
+        check_lines = [line(i) for i in range(STREAM_CHECK_ROWS)]
+        threads, bg_failed = _http_loop(port, check_lines, STREAM_CLIENTS // 2, stop, answers)
+        t_stream = time.perf_counter()
+        streamer = _spawn_logged(stream_args(spool, serve_root), work / "streaming.log")
+        try:
+            stream_out, _ = streamer.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            streamer.kill()
+            stream_out, _ = streamer.communicate()
+        stream_wall = time.perf_counter() - t_stream
+        summary = json.loads(stream_out.strip().splitlines()[-1]) if streamer.returncode == 0 else {}
+        gen_s = _latest(serve_root)
+        man_s = load_generation_manifest(str(serve_root / gen_s)) or {}
+        layer = delta_info(str(serve_root / gen_s)) or {}
+        check(streamer.returncode == 0 and summary.get("publishes") == 1 and layer.get("base") == "gen-1"
+              and (man_s.get("stream") or {}).get("consumedThrough") == len(segments)
+              and (man_s.get("gate") or {}).get("status") == "published",
+              f"17b game_streaming (rc {streamer.returncode}, {stream_wall:.1f} s with the process): {summary}; "
+              f"{gen_s} a delta over {layer.get('base')}, stream block "
+              f"{ {k: v for k, v in (man_s.get('stream') or {}).items() if k not in ('segments', 'traceIds')} }"
+              + ("" if streamer.returncode == 0 else f"; log: {_tail(work / 'streaming.log')}"))
+        t_flip = None
+        while time.perf_counter() - t_stream < stream_wall + 60:
+            hit = [t for t, v in list(answers) if str(v or "").endswith(gen_s)]
+            if hit:
+                t_flip = min(hit)
+                break
+            time.sleep(0.1)
+        if t_flip is not None:
+            time.sleep(1.0)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        t_end = time.perf_counter()
+        n_across = sum(1 for t, _ in answers if t >= t_stream)
+        check(t_flip is not None and not bg_failed,
+              f"17b the watcher installed {gen_s} under live traffic: {n_across} requests across the flip at "
+              f"{n_across / (t_end - t_stream):.1f} requests/s, {len(bg_failed)} failed")
+        if t_flip is not None:
+            log(f"  17b freshness: {t_flip - t_label:.2f} s from the last label posted to the first response of "
+                f"{gen_s}; the updater's cycle {summary.get('busyS', float('nan')):.2f} s (train and publish "
+                f"{summary.get('trainS', float('nan')):.2f} s), its process {stream_wall:.1f} s; on {smi}")
+        served, failed_after, lat2, wall2 = _http_all(port, check_lines, STREAM_CLIENTS)
+        health = json.loads(_get(f"http://127.0.0.1:{port}/healthz")[2])
+        check(not failed_after and str(health.get("model_version", "")).endswith(gen_s)
+              and health.get("retraces_since_warmup") == 0,
+              f"17b after the flip: {STREAM_CHECK_ROWS} requests, {len(failed_after)} failed, serving "
+              f"{health.get('model_version')}, retraces_since_warmup {health.get('retraces_since_warmup')}")
+    finally:
+        import signal
+
+        if server.poll() is None:
+            server.send_signal(signal.SIGTERM)
+        try:
+            server_rc = server.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            server_rc = server.wait()
+        server.stdout.close()
+    check(server_rc == 0, f"17b game_serving exited {server_rc} at SIGTERM")
+    full = work / "resolved"
+    imaps_s, eidx_s = _root_artifacts(serve_root)
+    save_game_model(load_resolved_game_model(str(serve_root / gen_s), imaps_s, eidx_s, to_device=False,
+                                             publish_root=str(serve_root)),
+                    str(full / gen_s), imaps_s, eidx_s, sparsity_threshold=0.0)
+    for p in list(serve_root.glob("index-map-*.json")) + list(serve_root.glob("entity-index-*.json")):
+        shutil.copy(p, full / p.name)
+    game_scoring.main(["--input-paths", files["valid"], "--output-dir", str(work / "scores"), "--model-input-dir",
+                       str(full / gen_s), "--device", dev.type] + shards)
+    want = _driver_scores(work / "scores" / "scores.avro")[:STREAM_CHECK_ROWS]
+    check(np.array_equal(served, want),
+          f"17b served scores after the flip equal game_scoring's of the resolved chain bit for bit "
+          f"({int(np.sum(served != want))} of {STREAM_CHECK_ROWS} differ)")
+
+    # 17c, first half: game_streaming killed at stream.consume's train call,
+    # spawned beside 17d (its exit code and the root are checked, not its wall).
+    crash_root = roots["crash"]
+    plan = json.dumps({"rules": [{"site": "stream.consume", "kind": "kill", "at": [len(segments)]}]})
+    t_killed = time.perf_counter()
+    killed = _spawn_logged(stream_args(spool_copy, crash_root), work / "killed.log",
+                           env={"PHOTON_TPU_FAULT_PLAN": plan})
+    # 17d. the quality plane of an engine with a pinned baseline.
+    eng = load_engine(str(serve_root / "gen-1"), artifacts_dir=str(serve_root),
+                      config=ServeConfig(max_batch_size=SERVE_MAX_BATCH, device=dev.type))
+    eng.attach_feedback(FeedbackSpool(str(work / "spool-quality"), SpoolConfig(segment_max_records=1 << 20,
+                                                                               segment_max_age_s=3600.0)))
+    try:
+        payload = read_delta_rows(str(serve_root / gen_s), eng._index_maps, eng._entity_indexes)
+        eng.load_delta_version(payload["base"], payload, str(serve_root / gen_s))
+        eng.promote(str(serve_root / gen_s))
+        eng.enable_quality_baseline("gen-1")
+        nq = STREAM_QUALITY_REQUESTS
+        reqs = [dataclasses.replace(r, uid=f"q{i}") for i, r in enumerate(_requests(feats, ids, offsets, range(nq)))]
+        _, q_failed, _, _ = _submit_all(eng, reqs, STREAM_CLIENTS)
+        q_joined = sum(bool(eng.feedback_label(f"q{i}", float(labels[i]))) for i in range(nq))
+        st = eng.stats()
+        counts = {v["model_version"]: v["count"] for v in st["quality"]["versions"]}
+        aucs = {v["model_version"]: v["auc"] for v in st["quality"]["versions"]}
+        check(not q_failed and q_joined == nq and counts == {gen_s: nq, "gen-1": nq}
+              and st["quality"]["baseline"] == "gen-1" and st["retraces_since_warmup"] == 0,
+              f"17d {nq} requests ({len(q_failed)} failed), {q_joined} labels joined; quality counts {counts} "
+              f"(AUC {aucs}, baseline {st['quality']['baseline']}); retraces_since_warmup "
+              f"{st['retraces_since_warmup']}")
+    finally:
+        eng.close()
+    # 17c, second half: the killed run, then the restart in process.
+    killed.communicate(timeout=900)
+    check(killed.returncode == -9 and _latest(crash_root) == "gen-1",
+          f"17c game_streaming killed at stream.consume call {len(segments)} (train) exited {killed.returncode} "
+          f"after {time.perf_counter() - t_killed:.1f} s (beside 17d); LATEST {_latest(crash_root)}")
+    imaps_e, eidx_e = _root_artifacts(crash_root)
+    upd = StreamingUpdater(StreamingUpdaterConfig(
+        publish_root=str(crash_root), spool_dir=str(spool_copy), task=TaskType.LOGISTIC_REGRESSION,
+        coordinate_configs=[parse_coordinate_config(c) for c in coord_specs],
+        update_sequence=["global", "perUser", "perItem"], cadence_s=0.2, min_records=8,
+        locked_coordinates=["global"], norm_drift_bound=10000.0, device=dev.type), imaps_e, eidx_e)
+    cursor0 = upd.consumed_through()
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    res_e = upd.run_once()
+    torch.cuda.synchronize()
+    resume_wall = time.perf_counter() - t0
+    by_width = dict(fused_newton.LAUNCHES_BY_WIDTH)
+    _add_launches(launches)
+    again = upd.run_once()
+    man_e = load_generation_manifest(str(crash_root / res_e.generation)) if res_e is not None else {}
+    check(res_e is not None and res_e.published and res_e.generation == gen_s
+          and man_e.get("files") == man_s.get("files") and bool(man_s.get("files")),
+          f"17c restarted in process ({resume_wall:.2f} s, K3 by width {by_width}): {getattr(res_e, 'generation', None)} "
+          f"with the unbroken cycle's model files (sha256s of {len(man_s.get('files') or {})} files)")
+    check(cursor0 == 0 and again is None and upd.consumed_through() == len(segments)
+          and (man_e.get("stream") or {}).get("consumedThrough") == len(segments),
+          f"17c the cursor applied once: {cursor0} before the restart, {upd.consumed_through()} after, and a "
+          f"second cycle consumes {'nothing' if again is None else again.records}")
+
+    log(f"  phase 17: {time.perf_counter() - t_phase:.1f} s on {smi}; launches {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs only on a GPU", file=sys.stderr)
@@ -4138,6 +4684,10 @@ def main() -> int:
     # ---------------- 15. online serving ----------------
     torch.cuda.empty_cache()
     serving_launches = serving_phase(dev, smi, check, driver_files)
+
+    # ---------------- 17. the streaming freshness loop ----------------
+    torch.cuda.empty_cache()
+    stream_launches = streaming_phase(dev, smi, check, driver_files)
     shutil.rmtree(driver_files["work"], ignore_errors=True)
 
     # ---------------- 14. multiple devices ----------------
@@ -4169,7 +4719,7 @@ def main() -> int:
     # launch flag was off; K3 has no flag).
     paths = (glmix_launches, tron_launches, glm_launches, game_launches, driver_launches, solver_launches,
              sparse_launches, tuning_launches, tuning_driver_launches, durability_launches, ooc_launches,
-             multi_rank_launches, serving_launches, telemetry_launches)
+             multi_rank_launches, serving_launches, telemetry_launches, stream_launches)
     rows = []
     for name, (src, repl) in sources.items():
         rows.append(dict(name=name, route="cuda", source=src, replaces=repl,

@@ -31,8 +31,10 @@ promotions until the burn clears, each decision a forced trace.
 ``--telemetry-flush-interval`` seconds, under ``--telemetry-max-mb``);
 ``--otlp-endpoint`` exports spans and metrics to a collector.
 
-Not ported yet (they exit non-zero naming the flag): ``--feedback-*``;
-``/v1/experiment`` and ``/v1/feedback`` answer 501.
+``--feedback-spool`` attaches the streaming feedback spool: scored requests
+carrying a ``uid`` wait in its label join, ``POST /v1/feedback`` completes
+it, and joined records seal into JSONL segments that ``game_streaming``
+consumes. Not ported yet: ``/v1/experiment`` answers 501.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ import threading
 import time
 from typing import Optional
 
-from photon_tpu_torch.cli.common import (add_device_arg, close_otlp, install_otlp, refuse_unported, resolve_device,
+from photon_tpu_torch.cli.common import (add_device_arg, close_otlp, install_otlp, resolve_device,
                                          setup_logging)
 from photon_tpu_torch.obs import begin_run, finalize_run_report
 from photon_tpu_torch.obs.metrics import registry
@@ -603,7 +605,33 @@ def _load_engine(args, config: ServeConfig):
         # LATEST resolved to a generation subdir; the artifacts live
         # beside the generations, in the publication root.
         artifacts = args.model_input_dir
-    return load_engine(model_dir, artifacts_dir=artifacts, config=config)
+    engine = load_engine(model_dir, artifacts_dir=artifacts, config=config)
+    _attach_feedback(args, engine)
+    return engine
+
+
+def _attach_feedback(args, engine) -> None:
+    """Wire the streaming feedback spool (the engine owns its lifecycle)."""
+    if not getattr(args, "feedback_spool", None):
+        return
+    from photon_tpu_torch.stream.spool import FeedbackSpool, SpoolConfig
+
+    fractions = {}
+    if args.feedback_tenant_fractions:
+        for part in args.feedback_tenant_fractions.split(","):
+            if "=" in part:
+                k, v = part.split("=", 1)
+                fractions[k.strip()] = float(v)
+    spool = FeedbackSpool(args.feedback_spool, SpoolConfig(
+        segment_max_records=args.feedback_segment_records,
+        segment_max_age_s=args.feedback_segment_age,
+        sample_fraction=args.feedback_sample_fraction,
+        tenant_fractions=fractions,
+        join_ttl_s=args.feedback_join_ttl,
+    ))
+    spool.start_auto_flush()
+    engine.attach_feedback(spool)
+    logger.info("feedback spool attached at %s", args.feedback_spool)
 
 
 def _startup_banner(engine, host, port, workers: int) -> None:
@@ -690,14 +718,6 @@ def _run_inprocess(args):
 
 def run(args):
     setup_logging(args.verbose)
-    refuse_unported("game_serving", {
-        "--feedback-spool": args.feedback_spool is not None,
-        "--feedback-sample-fraction": args.feedback_sample_fraction != 1.0,
-        "--feedback-tenant-fractions": args.feedback_tenant_fractions is not None,
-        "--feedback-segment-records": args.feedback_segment_records != 256,
-        "--feedback-segment-age": args.feedback_segment_age != 5.0,
-        "--feedback-join-ttl": args.feedback_join_ttl != 300.0,
-    })
     from photon_tpu_torch.utils import resources
 
     # Host RSS watchdog: under memory pressure the micro-batcher's admission

@@ -16,12 +16,13 @@ A C++ accelerated decode path can replace the inner loop later (SURVEY.md
 
 from __future__ import annotations
 
+import hashlib
 import io
 import json
 import os
 import struct
 import zlib
-from typing import Any, BinaryIO, Dict, Iterable, Iterator, List, Optional, Union
+from typing import Any, BinaryIO, Dict, Iterable, Iterator, List, Optional, Sequence, Union
 
 MAGIC = b"Obj\x01"
 SYNC_SIZE = 16
@@ -276,16 +277,21 @@ _META_SCHEMA = {"type": "map", "values": "bytes"}
 
 
 class AvroWriter:
-    """Writes an Avro object-container file (codec: null or deflate)."""
+    """Writes an Avro object-container file (codec: null or deflate).
+    ``sync``: the file's 16-byte sync marker (default random, as the spec
+    suggests; a writer that must give the same bytes for the same records
+    passes one derived from them, see :func:`content_sync`)."""
 
     def __init__(self, path_or_file, schema: Schema, codec: str = "deflate",
-                 block_records: int = 4096):
+                 block_records: int = 4096, sync: Optional[bytes] = None):
         self._own = isinstance(path_or_file, (str, os.PathLike))
         self.f: BinaryIO = open(path_or_file, "wb") if self._own else path_or_file
         self.codec = codec
         self.block_records = block_records
         self._codec = _Codec(schema)
-        self.sync = os.urandom(SYNC_SIZE)
+        if sync is not None and len(sync) != SYNC_SIZE:
+            raise ValueError(f"a sync marker has {SYNC_SIZE} bytes, got {len(sync)}")
+        self.sync = sync if sync is not None else os.urandom(SYNC_SIZE)
         self._buf = io.BytesIO()
         self._count = 0
         self._write_header(schema)
@@ -389,9 +395,18 @@ def read_avro_records(path: str) -> List[Any]:
         return list(r)
 
 
+def content_sync(schema: Schema, records: Sequence[Any]) -> bytes:
+    """A sync marker derived from the schema and the records, so that the
+    same records give the same file bytes (and checksums) run to run."""
+    h = hashlib.sha256(json.dumps(parse_schema(schema), sort_keys=True).encode())
+    for rec in records:
+        h.update(json.dumps(rec, sort_keys=True, default=repr).encode())
+    return h.digest()[:SYNC_SIZE]
+
+
 def write_avro_records(path: str, schema: Schema, records: Iterable[Any],
                        codec: str = "deflate",
-                       block_records: int = 4096) -> None:
-    with AvroWriter(path, schema, codec, block_records) as w:
+                       block_records: int = 4096, sync: Optional[bytes] = None) -> None:
+    with AvroWriter(path, schema, codec, block_records, sync=sync) as w:
         for rec in records:
             w.append(rec)

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from photon_tpu_torch.data.index_map import EntityIndex, IndexMap
-from photon_tpu_torch.io.avro import read_avro_records, write_avro_records
+from photon_tpu_torch.io.avro import content_sync, read_avro_records, write_avro_records
 from photon_tpu_torch.io.schemas import BAYESIAN_LINEAR_MODEL_SCHEMA, FEATURE_SUMMARIZATION_SCHEMA
 from photon_tpu_torch.models.coefficients import Coefficients
 from photon_tpu_torch.models.game import FixedEffectModel, GameModel, ProjectedRandomEffectModel, RandomEffectModel
@@ -137,6 +137,17 @@ def _host(t: Optional[torch.Tensor]) -> Optional[np.ndarray]:
     return None if t is None else t.detach().cpu().numpy()
 
 
+def _write_model_records(path: str, records, stable_bytes: bool = False) -> None:
+    """A coefficient file. ``stable_bytes``: its sync marker derives from
+    the records instead of being random, so a generation rebuilt from the
+    same parent and data has the same bytes and checksums."""
+    sync = None
+    if stable_bytes:
+        records = list(records)
+        sync = content_sync(BAYESIAN_LINEAR_MODEL_SCHEMA, records)
+    write_avro_records(path, BAYESIAN_LINEAR_MODEL_SCHEMA, records, sync=sync)
+
+
 def save_game_model(
     model: GameModel,
     output_dir: str,
@@ -144,12 +155,15 @@ def save_game_model(
     entity_indexes: Optional[Dict[str, EntityIndex]] = None,  # RE type -> EntityIndex
     sparsity_threshold: float = 1e-4,
     extra_metadata: Optional[dict] = None,
+    stable_bytes: bool = False,
 ) -> None:
     """Write every coordinate of ``model`` under ``output_dir``. A dense
     random effect writes one record per entity; a projected one writes the
     entities that have a block, translating block columns through the
     block's col_map (the (E, d_full) matrix is never built). Entity ids come
-    from ``entity_indexes`` (the dense index as a string without one)."""
+    from ``entity_indexes`` (the dense index as a string without one).
+    ``stable_bytes``: the same records give the same file bytes (Avro sync
+    markers derived from the records, not random)."""
     entity_indexes = entity_indexes or {}
     os.makedirs(output_dir, exist_ok=True)
     meta: dict = {"coordinates": {}, **(extra_metadata or {})}
@@ -162,7 +176,7 @@ def save_game_model(
             coefs = sub.model.coefficients
             rec = _coeffs_to_avro(cid, _host(coefs.means), _host(coefs.variances),
                                   index_maps[sub.feature_shard], sub.model.task, sparsity_threshold)
-            write_avro_records(os.path.join(cdir, "part-00000.avro"), BAYESIAN_LINEAR_MODEL_SCHEMA, [rec])
+            _write_model_records(os.path.join(cdir, "part-00000.avro"), [rec], stable_bytes)
             meta["coordinates"][cid] = {
                 "type": "fixed",
                 "featureShard": sub.feature_shard,
@@ -196,7 +210,7 @@ def save_game_model(
         os.makedirs(os.path.join(cdir, COEFF_DIR), exist_ok=True)
         with open(os.path.join(cdir, ID_INFO_FILE), "w") as f:  # two lines: RE type, feature shard
             f.write(sub.re_type + "\n" + sub.feature_shard + "\n")
-        write_avro_records(os.path.join(cdir, COEFF_DIR, "part-00000.avro"), BAYESIAN_LINEAR_MODEL_SCHEMA, records)
+        _write_model_records(os.path.join(cdir, COEFF_DIR, "part-00000.avro"), records, stable_bytes)
         meta["coordinates"][cid] = {
             "type": "random",
             "reType": sub.re_type,
@@ -676,14 +690,14 @@ def publish_lock(publish_root: str):
 def save_delta_model(model: GameModel, changed_entities: Dict[str, np.ndarray], output_dir: str,
                      index_maps: Dict[str, IndexMap], entity_indexes: Dict[str, EntityIndex], base: str,
                      sparsity_threshold: float = 0.0, include_fixed: bool = False,
-                     extra_metadata: Optional[dict] = None) -> Dict[str, int]:
+                     extra_metadata: Optional[dict] = None, stable_bytes: bool = False) -> Dict[str, int]:
     """Write a delta generation: only the rows ``changed_entities`` names
     (``{re_type: bool mask or index array}``), in a full generation's
     layout, with ``{"delta": {"base": <generation>, "changedEntities"}}`` in
     its metadata. The default threshold 0 keeps every nonzero coefficient,
     so resolving the layer equals publishing the whole model. Fixed effects
-    only with ``include_fixed``. Returns the records written a
-    coordinate."""
+    only with ``include_fixed``. ``stable_bytes`` as for
+    :func:`save_game_model`. Returns the records written a coordinate."""
     os.makedirs(output_dir, exist_ok=True)
     base = os.path.basename(base.rstrip("/"))
     written: Dict[str, int] = {}
@@ -700,7 +714,7 @@ def save_delta_model(model: GameModel, changed_entities: Dict[str, np.ndarray], 
             coefs = sub.model.coefficients
             rec = _coeffs_to_avro(cid, _host(coefs.means), _host(coefs.variances), index_maps[sub.feature_shard],
                                   sub.model.task, sparsity_threshold)
-            write_avro_records(os.path.join(cdir, "part-00000.avro"), BAYESIAN_LINEAR_MODEL_SCHEMA, [rec])
+            _write_model_records(os.path.join(cdir, "part-00000.avro"), [rec], stable_bytes)
             meta["coordinates"][cid] = {"type": "fixed", "featureShard": sub.feature_shard,
                                         "task": sub.model.task.value, "dim": int(coefs.dim)}
             written[cid] = 1
@@ -724,8 +738,7 @@ def save_delta_model(model: GameModel, changed_entities: Dict[str, np.ndarray], 
                                        None if variances is None else variances[e], index_maps[sub.feature_shard],
                                        sub.task, sparsity_threshold)
                        for e in idx]
-            write_avro_records(os.path.join(cdir, COEFF_DIR, "part-00000.avro"), BAYESIAN_LINEAR_MODEL_SCHEMA,
-                               records)
+            _write_model_records(os.path.join(cdir, COEFF_DIR, "part-00000.avro"), records, stable_bytes)
             meta["coordinates"][cid] = {"type": "random", "reType": sub.re_type, "featureShard": sub.feature_shard,
                                         "task": sub.task.value, "dim": int(coefs.shape[1]),
                                         "numEntities": int(idx.size)}

@@ -39,8 +39,12 @@ it.
 The reference's metrics and spans are published to the metrics registry and
 the tracer (``stats()["counts"]`` carries the engine's counts too), and an
 SLO tracker takes every completed request; ``stats()`` has its ``slo``
-block. Not ported yet: the feedback spool, the quality baseline and the
-quality block of ``stats()``.
+block. With a feedback spool attached (:meth:`ServingEngine.attach_feedback`),
+every scored primary request, its score already on the host, is offered to
+the spool's label join; each completed join feeds the model-quality plane
+(``obs/quality.py``), and :meth:`ServingEngine.enable_quality_baseline`
+re-scores labelled traffic on a pinned resident version so the ``quality``
+block of ``stats()`` measures lift between two online curves.
 """
 
 from __future__ import annotations
@@ -66,6 +70,7 @@ from photon_tpu_torch.estimators.game_transformer import GameTransformer
 from photon_tpu_torch.models.game import GameModel
 from photon_tpu_torch.obs.export import exporter_health
 from photon_tpu_torch.obs.metrics import registry
+from photon_tpu_torch.obs.quality import QualityConfig, QualityPlane, task_name
 from photon_tpu_torch.obs.report import telemetry_sink_health
 from photon_tpu_torch.obs.slo import SLOTracker
 from photon_tpu_torch.obs.trace import flight_recorder, tracer
@@ -96,6 +101,9 @@ class ServeConfig:
     admission: Optional[AdmissionConfig] = None  # per-tenant quotas and classes
     max_versions: int = 2  # resident versions (primary + candidates)
     shadow_fraction: float = 0.0  # of primary traffic re-scored on a shadow
+    # Of label-joined records re-scored on EACH shadow candidate (its
+    # online-quality lane); 1.0 gives every candidate a dense stream.
+    shadow_quality_fraction: float = 1.0
     # A promotion is settled (rollback parent unpinned, breaker-trip window
     # closed) this many seconds after promote(); <= 0 keeps the parent
     # pinned until the next promote or rollback.
@@ -254,16 +262,42 @@ class _State:
     model_version: str
 
 
+def _features_from_json(features: Dict) -> Dict:
+    """Inverse of the spool's ``_jsonable_features``: dicts pass through,
+    (indices, values) pairs become sparse tuples, dense lists float32
+    vectors (the shapes ``_dense_row`` takes)."""
+    out: Dict[str, object] = {}
+    for shard, val in (features or {}).items():
+        if isinstance(val, dict):
+            out[shard] = val
+        elif isinstance(val, (list, tuple)) and len(val) == 2 and isinstance(val[0], (list, tuple)):
+            out[shard] = (np.asarray(val[0], np.int64), np.asarray(val[1], np.float32))
+        else:
+            out[shard] = np.asarray(val, np.float32)
+    return out
+
+
+def _model_task(model: GameModel):
+    """The GLM task of the model (the quality plane's link): the first
+    task found on any coordinate."""
+    for m in getattr(model, "models", {}).values():
+        task = getattr(m, "task", None) or getattr(getattr(m, "model", None), "task", None)
+        if task is not None:
+            return task
+    return None
+
+
 class _ShadowLane:
     """Per-candidate shadow accounting: its traffic fraction, its own
     fractional-sampling accumulator (the N-way split stays exact and
     RNG-free) and its own divergence record."""
 
-    __slots__ = ("fraction", "acc", "count", "div_sum", "div_max", "samples", "started_at", "seq")
+    __slots__ = ("fraction", "acc", "count", "div_sum", "div_max", "samples", "quality_acc", "started_at", "seq")
 
     def __init__(self, fraction: float, seq: int):
         self.fraction = float(fraction)
         self.acc = 0.0
+        self.quality_acc = 0.0  # label re-score accumulator (quality lane)
         self.count = 0
         self.div_sum = 0.0
         self.div_max = 0.0
@@ -313,9 +347,19 @@ class ServingEngine:
         self._shadow_seq = 0
         self._shadow_fraction = float(self.config.shadow_fraction)
         self._promotion: Optional[Dict] = None
+        # Feedback spool (streaming freshness loop): when attached, every
+        # scored primary request is offered to the spool's label join.
+        self._feedback = None
         # SLO plane: availability and latency fed per completion, staleness
         # sampled against the last primary change.
         self.slo = SLOTracker()
+        # Model-quality plane: streaming AUC/calibration over the spool's
+        # joined (score, label) pairs, keyed by (model_version, tenant,
+        # re_type); ``enable_quality_baseline`` adds the frozen-baseline lane.
+        self.quality = QualityPlane(QualityConfig(task=task_name(_model_task(model))))
+        self._quality_baseline: Optional[str] = None
+        self._quality_fraction = 1.0
+        self._quality_acc = 0.0  # fractional-sampling accumulator
         self._last_model_update = time.time()
         self.batcher = MicroBatcher(self._score_batch, max_batch_size=self.max_batch,
                                     max_delay_s=self.config.max_delay_ms / 1000.0, queue_cap=self.config.queue_cap)
@@ -483,9 +527,30 @@ class ServingEngine:
                 sub = [requests[i] for i in idxs]
                 scores = self._score_on(self._states[key], sub)
                 out[idxs] = scores
-                if key == self._primary and self._shadows:
-                    self._maybe_shadow_score(sub, scores)
+                if key == self._primary:
+                    if self._shadows:
+                        self._maybe_shadow_score(sub, scores)
+                    if self._feedback is not None:
+                        self._record_feedback(sub, scores)
             return out
+
+    def _record_feedback(self, requests: List[ScoreRequest], scores: np.ndarray) -> None:
+        """Land scored primary requests (their scores already on the host)
+        in the feedback spool's label join. A spool failure counts and never
+        reaches the caller or the scoring path."""
+        spool = self._feedback
+        if spool is None:
+            return
+        try:
+            for r, s in zip(requests, scores):
+                if r.uid is None:
+                    continue  # no join key: the label could never match
+                spool.observe_scored(uid=r.uid, features=r.features, entity_ids=r.entity_ids, offset=r.offset,
+                                     score=float(s), model_version=r.model_version,
+                                     tenant=getattr(r, "tenant", None), trace=getattr(r, "trace", None))
+        except Exception as exc:  # noqa: BLE001 — feedback never hurts callers
+            registry().counter("feedback_errors_total").inc()
+            logger.warning("serving: feedback spool observe failed: %s", exc)
 
     def _maybe_shadow_score(self, requests: List[ScoreRequest], primary_scores: np.ndarray) -> None:
         """Re-score a deterministic fraction of primary traffic on each
@@ -626,11 +691,12 @@ class ServingEngine:
 
     def _evict_locked(self, protect: Optional[str] = None) -> None:
         """Drop the oldest versions beyond ``max_versions``; the primary,
-        the shadows, the promotion's parent and ``protect`` are never
-        evicted (residency may exceed the cap instead)."""
+        the shadows, the promotion's parent, the quality baseline and
+        ``protect`` are never evicted (residency may exceed the cap
+        instead)."""
         cap = max(int(self.config.max_versions), 1)
         self._maybe_settle_promotion_locked()
-        keep = {self._primary, protect}
+        keep = {self._primary, protect, self._quality_baseline}
         keep.update(self._shadows)
         if self._promotion is not None:
             keep.add(self._promotion["parent"])
@@ -705,14 +771,111 @@ class ServingEngine:
         self._count("delta_loads")
         return dict(model_version=version, base=base_key, store=new_state.store.stats())
 
+    # -- feedback spool (streaming freshness loop) --------------------------
+
     def attach_feedback(self, spool) -> None:
-        raise NotImplementedError("the feedback spool is not ported yet")
+        """Attach a :class:`~photon_tpu_torch.stream.spool.FeedbackSpool`:
+        scored primary requests land in its label join and
+        :meth:`feedback_label` completes it. The engine owns the spool from
+        here (closed with the engine)."""
+        self._feedback = spool
+        # Every completed join also feeds the quality plane (called outside
+        # the spool's lock; failures count, never raise).
+        spool.on_join = self._on_feedback_join
 
     def feedback_label(self, uid: str, label: float, ts: Optional[float] = None) -> bool:
-        raise NotImplementedError("the feedback spool is not ported yet")
+        """Report the observed label of a scored request; True when the
+        joined record landed in the spool."""
+        if self._feedback is None:
+            raise ValueError("feedback spool not enabled on this engine")
+        return self._feedback.observe_label(uid, label, ts)
+
+    # -- model-quality plane (obs/quality.py) -------------------------------
 
     def enable_quality_baseline(self, model_version: str, fraction: float = 1.0) -> None:
-        raise NotImplementedError("the quality plane is not ported yet")
+        """Pin a resident version as the quality plane's FROZEN BASELINE: a
+        deterministic ``fraction`` of labelled traffic is re-scored on it
+        (a failure is "no sample"), so per-version lift is the difference of
+        two measured curves over the same requests. The version stays
+        resident while it is the baseline."""
+        with self._lock:
+            key = self._resolve_version(model_version)
+        self._quality_baseline = key
+        self._quality_fraction = float(fraction)
+        self._quality_acc = 0.0
+        self.quality.set_baseline(key)
+        logger.info("serving: quality baseline pinned to %r (fraction %.3f)", key, fraction)
+
+    def _on_feedback_join(self, rec: dict) -> None:
+        """One joined (score, label) record → the quality plane, plus the
+        frozen baseline's re-score when one is pinned."""
+        ids = rec.get("entityIds") or {}
+        re_type = ",".join(sorted(ids)) if ids else ""
+        tenant = rec.get("tenant")
+        trace_id = (rec.get("trace") or {}).get("traceId")
+        label = float(rec.get("label") or 0.0)
+        self.quality.observe(score=float(rec.get("score") or 0.0), label=label, model_version=rec.get("modelVersion"),
+                             tenant=tenant, re_type=re_type, ts=rec.get("ts"), label_ts=rec.get("labelTs"),
+                             trace_id=trace_id, slo=self.slo)
+        rec_version = os.path.basename(str(rec.get("modelVersion") or "").rstrip("/"))
+        self._candidate_quality_lanes(rec, label, tenant, re_type, trace_id, rec_version)
+        base = self._quality_baseline
+        if base is None:
+            return
+        if rec_version == os.path.basename(str(base).rstrip("/")):
+            return  # the baseline scored it already
+        self._quality_acc += self._quality_fraction
+        if self._quality_acc < 1.0:
+            return
+        self._quality_acc -= 1.0
+        try:
+            score = self._baseline_score(rec, base)
+        except Exception as exc:  # noqa: BLE001 — the lane never hurts callers
+            registry().counter("quality_baseline_errors_total").inc()
+            logger.warning("serving: baseline quality re-score on %r failed: %s", base, exc)
+            return
+        self.quality.observe(score=score, label=label, model_version=base, tenant=tenant, re_type=re_type,
+                             ts=rec.get("ts"), label_ts=rec.get("labelTs"), trace_id=trace_id,
+                             slo=self.slo)  # a no-op for the baseline key
+        registry().counter("quality_baseline_scored_total").inc()
+
+    def _candidate_quality_lanes(self, rec: dict, label: float, tenant, re_type: str, trace_id,
+                                 rec_version: str) -> None:
+        """Re-score one joined label on every shadow candidate and feed the
+        quality plane under that candidate's version (no SLO feed: a bad
+        candidate burns its own series, never the primary's gate)."""
+        if not self._shadows:
+            return
+        frac = float(self.config.shadow_quality_fraction)
+        if frac <= 0.0:
+            return
+        for key, lane in list(self._shadows.items()):
+            short = os.path.basename(str(key).rstrip("/"))
+            if short == rec_version:
+                continue  # the candidate scored it already (pinned traffic)
+            lane.quality_acc += frac
+            if lane.quality_acc < 1.0:
+                continue
+            lane.quality_acc -= 1.0
+            try:
+                score = self._baseline_score(rec, key)
+            except Exception as exc:  # noqa: BLE001 — never hurts callers
+                registry().counter("quality_candidate_errors_total", model_version=short).inc()
+                logger.warning("serving: candidate quality re-score on %r failed: %s", key, exc)
+                continue
+            self.quality.observe(score=score, label=label, model_version=key, tenant=tenant, re_type=re_type,
+                                 ts=rec.get("ts"), label_ts=rec.get("labelTs"), trace_id=trace_id, slo=None)
+            registry().counter("quality_candidate_scored_total", model_version=short).inc()
+
+    def _baseline_score(self, rec: dict, base: str) -> float:
+        """Score one spool record on a resident version, past admission and
+        the SLO feed (an internal measurement spends no quota); it pads onto
+        the warmed buckets, so the zero-capture contract holds."""
+        req = ScoreRequest(_features_from_json(rec.get("features") or {}), dict(rec.get("entityIds") or {}),
+                           float(rec.get("offset") or 0.0))
+        with self._lock:
+            key = self._resolve_version(base)
+            return float(self._score_on(self._states[key], [req])[0])
 
     def start_shadow(self, model_version: str, fraction: Optional[float] = None) -> None:
         """Mirror a deterministic sample of primary traffic onto a resident
@@ -868,10 +1031,12 @@ class ServingEngine:
             reload_failures=self._reload_failures,
             last_reload_error=self._last_reload_error,
             tenants=self.admission.snapshot(),
+            feedback=self._feedback.stats() if self._feedback is not None else None,
             batcher=self.batcher.stats(),
             counts={(" ".join(k) if isinstance(k, tuple) else k): v for k, v in self.counts.items()},
             device=str(self.device),
             slo=self._slo_block(),
+            quality=self._quality_block(),
             telemetry_sink=telemetry_sink_health(),
             flight_recorder=flight_recorder().stats(),
             otlp_exporter=exporter_health(),
@@ -889,6 +1054,15 @@ class ServingEngine:
         snap["model_staleness_now_s"] = time.time() - self._last_model_update
         return snap
 
+    def _quality_block(self) -> Dict:
+        """The ``/healthz`` quality block; also the flush point that mirrors
+        the windowed per-version AUC/ECE/lift into ``quality_*`` gauges."""
+        try:
+            self.quality.publish()
+        except Exception:  # noqa: BLE001 — stats never fail on telemetry
+            pass
+        return self.quality.snapshot()
+
     def _count(self, name: str, label: Optional[str] = None, n: int = 1) -> None:
         """Add ``n`` to an engine count and to its registry counter (the
         reference's name, labelled by RE type or candidate version)."""
@@ -902,6 +1076,11 @@ class ServingEngine:
 
     def close(self, drain: bool = True) -> None:
         self.batcher.close(drain=drain)
+        if self._feedback is not None:
+            try:
+                self._feedback.close()
+            except Exception:  # noqa: BLE001 — close must not raise
+                logger.exception("serving: feedback spool close failed")
 
 
 # The engine's counts: (registry counter, its label key).

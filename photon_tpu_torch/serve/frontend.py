@@ -24,8 +24,9 @@ adopted (and forced into the flight recorder), else a root is minted; each
 hop (HTTP handler, scorer, engine) records its span under it, and
 ``/v1/traces`` merges the kept trees of the worker and the scorer.
 ``/metrics`` is the Prometheus text of the registry (merged across the
-worker and the scorer, labelled by replica). Not ported yet:
-``/v1/experiment`` and ``/v1/feedback`` answer 501.
+worker and the scorer, labelled by replica). ``/v1/feedback`` completes
+the engine's feedback-spool label join in both shapes. Not ported yet:
+``/v1/experiment`` answers 501.
 """
 
 from __future__ import annotations

@@ -22,7 +22,6 @@ import torch
 import torch_ranks
 from torch_ranks import D_RE, E, make_workload
 
-from photon_tpu_torch.utils.virtual_devices import run_ranks
 
 WORLDS = (1, 2, 4, 8)
 CASES = ("plain", "plain_f32", "gated", "ooc", "spill")
@@ -30,11 +29,10 @@ CASES = ("plain", "plain_f32", "gated", "ooc", "spill")
 
 @pytest.fixture(scope="module")
 def port_runs(tmp_path_factory):
-    """Every world size's results, per rank (one spawn a world size)."""
+    """Every world size's results, per rank (one spawn a world size, on the
+    first case that reads it: torch_ranks.WorldRuns)."""
     spill = str(tmp_path_factory.mktemp("spill"))
-    return {n: run_ranks(torch_ranks.entity_sharded_program, n, backend="gloo", device="cpu", args=(spill,),
-                         threads=1, timeout_s=60.0)
-            for n in WORLDS}
+    return torch_ranks.WorldRuns(torch_ranks.entity_sharded_program, args=(spill,))
 
 
 def _reference_sharded(dtype, **kw):

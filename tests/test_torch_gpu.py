@@ -1151,3 +1151,65 @@ def test_budgeted_static_buffers_within_budget_on_card(cuda_device):
     st = coord.last_residency_stats
     assert st["static_bytes"] > 0 and cache.static_bytes() <= st["static_bytes"]
     assert st["peak_total_bytes"] <= st["effective_budget_bytes"]
+
+
+def test_incremental_generation_on_card_matches_cpu(cuda_device, tmp_path):
+    """game_incremental on the card and on the CPU over copies of one
+    publish root (game_training on the card), on a small delta that touches
+    a subset of users and items: the same generation, verdict and changed
+    counts; coefficients within f32 1e-3; every unchanged row equal to the
+    parent's bit for bit on both; K1 and K3 launched on the card."""
+    import shutil
+
+    import numpy as np
+
+    from photon_tpu_torch.cli import game_incremental, game_training
+    from photon_tpu_torch.data.index_map import EntityIndex, IndexMap
+    from photon_tpu_torch.io.model_io import load_game_model
+
+    train, valid = _write_driver_file(tmp_path / "t.avro", 2048, 1), _write_driver_file(tmp_path / "v.avro", 512, 2)
+    delta = _write_driver_file(tmp_path / "d.avro", 40, 3)
+    shards = ["--feature-shard-configurations", "name=g,feature.bags=features", "name=u,feature.bags=userFeatures",
+              "name=i,feature.bags=itemFeatures"]
+    coords = ["--coordinate-configurations", "name=global,feature.shard=g,reg.weights=1",
+              "name=perUser,feature.shard=u,random.effect.type=userId,reg.weights=1",
+              "name=perItem,feature.shard=i,random.effect.type=itemId,reg.weights=1", "--update-sequence",
+              "global,perUser,perItem"]
+    root = tmp_path / "card"
+    game_training.main(["--input-paths", train, "--validation-paths", valid, *shards, *coords, "--evaluators", "AUC",
+                        "--output-dir", str(root), "--device", "cuda"])
+    shutil.copytree(root, tmp_path / "cpu")
+    argv = ["--input-paths", delta, "--validation-paths", valid, *shards, *coords, "--evaluators", "AUC",
+            "--metric-tolerance", "0.5", "--norm-drift-bound", "1000"]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        kernels.reset_launches()
+        fused_newton.LAUNCHES_BY_WIDTH.clear()
+        pub = tmp_path / ("card" if dev == "cuda" else "cpu")
+        summary = game_incremental.run(game_incremental.build_parser().parse_args(
+            argv + ["--publish-root", str(pub), "--device", dev]))
+        out[dev] = (summary, kernels.LAUNCHES["fused_value_grad"], dict(fused_newton.LAUNCHES_BY_WIDTH))
+    (tc, k1, k3), (tcpu, _, _) = out["cuda"], out["cpu"]
+    assert k1 > 0 and k3.get(8, 0) > 0 and k3.get(128, 0) > 0, (k1, k3)
+    for k in ("generation", "published", "gateReason", "parent", "changedEntities"):
+        assert tc[k] == tcpu[k], k
+    assert tc["published"] and 0 < tc["changedEntities"]["userId"] < 32
+    for k, v in tcpu["holdoutMetrics"].items():
+        assert abs(tc["holdoutMetrics"][k] - v) <= 1e-3
+    imaps = {s: IndexMap.load(str(root / f"index-map-{s}.json")) for s in ("g", "u", "i")}
+    eidx = {t: EntityIndex.load(str(root / f"entity-index-{t}.json")) for t in ("userId", "itemId")}
+    parent = load_game_model(str(root / "best"), imaps, eidx, device="cpu")
+    card = load_game_model(tc["modelDir"], imaps, eidx, device="cpu")
+    cpu = load_game_model(tcpu["modelDir"], imaps, eidx, device="cpu")
+    delta_users = {f"u{u}" for u in np.random.default_rng(3).integers(0, 32, 40)}
+    for cid, sub in card.models.items():
+        if hasattr(sub, "re_type"):
+            a, b, p = sub.coefficients.numpy(), cpu.models[cid].coefficients.numpy(), parent.models[cid].coefficients
+            np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-3)
+            if sub.re_type == "userId":
+                for name in {f"u{u}" for u in range(32)} - delta_users:
+                    e = eidx["userId"].lookup(name)
+                    assert torch.equal(torch.from_numpy(a[e]), p[e]) and torch.equal(torch.from_numpy(b[e]), p[e])
+        else:
+            np.testing.assert_allclose(sub.model.coefficients.means.numpy(),
+                                       cpu.models[cid].model.coefficients.means.numpy(), rtol=1e-3, atol=1e-3)

@@ -6,7 +6,8 @@ tests/test_feature_sharded.py and tests/test_multislice.py; then the rank
 launcher itself (no fallback: NCCL refuses ranks that share a card, a
 failing or hung rank fails the job).
 
-Each world size spawns once (tests/torch_ranks.py::multidevice_program).
+Each world size spawns once (tests/torch_ranks.py::multidevice_program), on
+the first case that reads it; a world that fails fails only its own cases.
 Float64 comparisons run the reference under the scoped x64 context, at
 rtol 1e-5.
 """
@@ -32,9 +33,9 @@ WORLDS = (1, 2, 4, 8)
 
 @pytest.fixture(scope="module")
 def port_runs():
-    return {n: run_ranks(torch_ranks.multidevice_program, n, backend="gloo", device="cpu", threads=1,
-                         timeout_s=60.0)
-            for n in WORLDS}
+    """Each world size's results, per rank: one spawn a world size, on the
+    first case that reads it (torch_ranks.WorldRuns)."""
+    return torch_ranks.WorldRuns(torch_ranks.multidevice_program)
 
 
 def _ref_glmix(mesh, cfg, steps, re_solver="newton", sparse=False):
@@ -478,9 +479,10 @@ def test_init_from_env_joins_a_torchrun_group():
 
 
 def test_new_modules_import_no_jax():
-    """The multi-device modules, the telemetry core and obs_tool, the rank
-    programs and chip_smoke.py load in a fresh interpreter without jax or
-    the reference package."""
+    """The multi-device modules, the telemetry core and obs_tool, the
+    streaming loop (stream.*, train.incremental and the game_incremental and
+    game_streaming drivers), the rank programs and chip_smoke.py load in a
+    fresh interpreter without jax or the reference package."""
     code = (
         "import sys\n"
         f"sys.path[:0] = [{str(REPO)!r}, {str(REPO / 'tests')!r}]\n"
@@ -488,6 +490,9 @@ def test_new_modules_import_no_jax():
         "import photon_tpu_torch.algorithm.sharded_random_effect, photon_tpu_torch.utils.virtual_devices\n"
         "import photon_tpu_torch.serve.routing, torch_ranks, chip_smoke\n"
         "import photon_tpu_torch.obs, photon_tpu_torch.obs.quality, photon_tpu_torch.cli.obs_tool\n"
+        "import photon_tpu_torch.stream, photon_tpu_torch.stream.spool, photon_tpu_torch.stream.updater\n"
+        "import photon_tpu_torch.stream.shard_router, photon_tpu_torch.train, photon_tpu_torch.train.incremental\n"
+        "import photon_tpu_torch.cli.game_incremental, photon_tpu_torch.cli.game_streaming\n"
         "bad = sorted(k for k in sys.modules if k in ('jax', 'photon_tpu') or k.startswith(('jax.', 'photon_tpu.')))\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -7,7 +7,6 @@ Left out of tests/test_obs_plane.py, with the item of ROADMAP queue 1 that
 ports their machinery:
 - ``test_replica_metrics_partial_scrape_is_labeled`` (:285): the scorer
   fleet, item 9;
-- ``test_spool_records_trace_linkage`` (:515): the feedback spool, item 8;
 - ``test_one_score_produces_one_trace_across_three_processes`` (:567): the
   fleet relay, item 9. Its two-process counterpart here runs the port's
   ``game_serving --workers 1``: one request, one trace, the worker's and
@@ -464,6 +463,28 @@ def test_scorer_ipc_hop_records_remote_child(tmp_path):
     finally:
         server.close()
         reset_flight_recorder()
+
+
+# ---------------------------------------------------------------------------
+# Spool linkage
+# ---------------------------------------------------------------------------
+
+
+def test_spool_records_trace_linkage(tmp_path):
+    from photon_tpu_torch.stream.spool import FeedbackSpool, read_segment, sealed_segments
+
+    sdir = str(tmp_path)
+    spool = FeedbackSpool(sdir)
+    trace = dict(traceId="ab" * 16, parentSpanId="cd" * 8, sampled=True, forced=False)
+    assert spool.observe_scored("u0", score=0.5, trace=trace)
+    assert spool.observe_scored("u1", score=0.5)  # untraced rides along
+    assert spool.observe_label("u0", 1.0)
+    assert spool.observe_label("u1", 0.0)
+    spool.flush()
+    recs = {r["uid"]: r for s in sealed_segments(sdir) for r in read_segment(os.path.join(sdir, s))}
+    assert recs["u0"]["trace"] == {"traceId": "ab" * 16, "parentSpanId": "cd" * 8}
+    assert "trace" not in recs["u1"]
+    spool.close()
 
 
 # ---------------------------------------------------------------------------

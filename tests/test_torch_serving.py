@@ -1221,15 +1221,16 @@ def test_serving_modules_import_no_jax():
 
 
 def test_unported_flags_and_routes_say_so(http_server):
-    """game_serving refuses the flags whose machinery is not ported (the
-    feedback spool), and the routes waiting for it and for experiments
-    answer 501; the telemetry flags and routes are ported: the flags get
-    past the refusal, and /metrics and /v1/traces answer 200."""
+    """The routes waiting for experiments answer 501; the telemetry and
+    feedback flags and routes are ported: the flags get past the refusal,
+    /metrics and /v1/traces answer 200, and /v1/feedback on a server with no
+    spool answers 400 naming it (the reference's answer)."""
     from photon_tpu_torch.cli import game_serving
 
-    with pytest.raises(SystemExit, match="not ported yet"):
-        game_serving.main(["--model-input-dir", "nowhere", "--device", "cpu", "--feedback-spool", "x"])
-    for extra in (["--telemetry-out", "t.jsonl"], ["--otlp-endpoint", "http://h"], ["--slo-gate"]):
+    for extra in (["--telemetry-out", "t.jsonl"], ["--otlp-endpoint", "http://h"], ["--slo-gate"],
+                  ["--feedback-spool", "x", "--feedback-sample-fraction", "0.5", "--feedback-tenant-fractions",
+                   "a=0.1", "--feedback-segment-records", "8", "--feedback-segment-age", "1",
+                   "--feedback-join-ttl", "9"]):
         with pytest.raises(Exception) as exc:  # no model under "nowhere"
             game_serving.main(["--model-input-dir", "nowhere", "--device", "cpu", *extra])
         assert "not ported yet" not in str(exc.value)
@@ -1242,4 +1243,61 @@ def test_unported_flags_and_routes_say_so(http_server):
     assert err.value.code == 501
     with pytest.raises(urllib.error.HTTPError) as err:
         _post(port, "/v1/feedback", json.dumps({"uid": "1", "label": 1.0}).encode())
-    assert err.value.code == 501
+    assert err.value.code == 400
+    assert "feedback spool not enabled" in json.loads(err.value.read())["error"]
+
+
+@pytest.mark.parametrize("workers", [0, 1])
+def test_feedback_route_in_both_deployment_shapes(tmp_path, workers):
+    """game_serving --feedback-spool as a subprocess, in process and behind
+    a spawned HTTP worker: scored requests with uids join their labels from
+    /v1/feedback (200, every label joined; a malformed item 400), /healthz
+    carries the spool's block, and at SIGTERM the spool seals every joined
+    record."""
+    import os
+    import signal
+    import subprocess
+    import sys
+
+    from photon_tpu_torch.stream.spool import read_segment, sealed_segments
+
+    root, spool = str(tmp_path / "pub"), str(tmp_path / "spool")
+    os.makedirs(root)
+    _publish_generation(root, "gen-1", 1.0)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "photon_tpu_torch.cli.game_serving", "--model-input-dir", root, "--port", "0",
+         "--workers", str(workers), "--max-batch-size", "4", "--device", "cpu", "--feedback-spool", spool,
+         "--feedback-segment-records", "3", "--feedback-segment-age", "0.5"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        banner = {}
+        rt = threading.Thread(target=lambda: banner.setdefault("line", proc.stdout.readline()), daemon=True)
+        rt.start()
+        rt.join(timeout=120)
+        assert banner.get("line"), "no startup banner within 120s"
+        port = json.loads(banner["line"])["port"]
+        n = 5
+        for i in range(n):
+            _post(port, "/v1/score", json.dumps({
+                "features": {"shardA": rng.normal(size=D_FIX).tolist(), "shardB": rng.normal(size=D_RE).tolist()},
+                "entityIds": {"userId": f"user{i}"}, "uid": f"req-{i}"}).encode())
+        out = json.loads(_post(port, "/v1/feedback", json.dumps(
+            {"labels": [{"uid": f"req-{i}", "label": float(i % 2)} for i in range(n)]}).encode()))
+        assert out == {"joined": n, "dropped": 0}
+        with pytest.raises(urllib.error.HTTPError) as err:
+            _post(port, "/v1/feedback", json.dumps({"labels": [{"uid": "x"}]}).encode())
+        assert err.value.code == 400
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=10) as resp:
+            health = json.loads(resp.read())
+        assert health["feedback"]["pending_joins"] == 0
+        assert health["retraces_since_warmup"] == 0
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+    recs = [r for s in sealed_segments(spool) for r in read_segment(os.path.join(spool, s))]
+    assert sorted(r["uid"] for r in recs) == [f"req-{i}" for i in range(n)]
+    assert all(r["modelVersion"].endswith("gen-1") for r in recs)
