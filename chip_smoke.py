@@ -60,7 +60,7 @@ Phases, each of which must pass:
                 and K3 launches by width, entities skipped, training logloss
                 (must fall) and validation AUC (GLMix must reach fixed-only);
                 then one pass under the profiler.
-  8. GAME drivers — ``feature_indexing.main`` (on a 2^13-row file),
+  8. GAME drivers — ``feature_indexing.main`` (on a 2^11-row file),
                 ``game_training.main`` and ``game_scoring.main`` on Avro files
                 written here by a spawn pool (2^17 training rows in 8 files,
                 2^15 validation rows in 2; bags of 255, 15 and 127 values,
@@ -160,13 +160,14 @@ Phases, each of which must pass:
                 all-reduce; the random effects entity-sharded, K3 on each
                 rank's shards) and a rows-sharded fixed-effect TRON solve
                 (K2) on 14a one NCCL rank (solves captured with their
-                all-reduce), 14b 2 and 4 gloo ranks (eager), 14c 2 gloo ranks
-                with every shard out of core at a quarter of its footprint;
+                all-reduce), 14c 2 gloo ranks (eager) with every shard
+                out of core at a quarter of its footprint (a resident
+                world of 2, once 14b, no longer runs);
                 14d config 6 with w over 1 and 2 gloo ranks. Per rank: K1/K2/K3
                 launches, each fixed-effect solve's route, peak memory, each
                 shard's store and static-buffer bytes. Fails unless K1, K2
                 and K3 ran on every rank, the random effects, fixed effect
-                and TRON solve of 14a-c are bitwise equal, the fixed effect
+                and TRON solve of 14a and 14c are bitwise equal, the fixed effect
                 is within MR_FE_TOL of 7b's, 14a's random effects are within
                 MR_RE_TOL of the unsharded coordinates', 14a's TRON follows
                 the whole batch's step for step, and 14d (against one rank)
@@ -175,7 +176,8 @@ Phases, each of which must pass:
  15. online serving — phase 8's model behind the serving engine (hot/cold
                 store, micro-batcher, admission, HTTP front end): scores
                 equal game_scoring's bit for bit, nothing captured after
-                warm-up, load at 1, 8 and 64 clients, and a second
+                warm-up, load at 1, 8 and 64 clients on the pinned store,
+                and a second
                 generation shadowed, promoted and rolled back under load.
  16. telemetry — 16a phase 8's game_training with --telemetry-out and
                 --otlp-endpoint (an in-process MockCollector on localhost):
@@ -215,6 +217,26 @@ Phases, each of which must pass:
                 and the cursor applied once; 17d an engine with a pinned
                 quality baseline counts every joined label under both
                 versions.
+ 18. experiments — on copies of phase 17's served root (phase 8's model as
+                gen-1, 17b's delta generation as LATEST) with 17a's delta:
+                18b ``python -m photon_tpu_torch.cli.game_experiment`` spawned
+                on the card (2 GP rounds of 2 candidates trained in its
+                spawned trainer process, shadow lanes, online quality, a
+                fault plan regressing one candidate); meanwhile 18a
+                ``game_experiment.main(--train-only)`` in process: round 0's
+                candidates (K1, K3 at d = 16 and 128), their holdout 1 − AUC
+                stamped, round 1's, then a run that trains nothing; names and
+                tags the reference's; a candidate retrained alone by
+                incremental_update at its λ has the same model records. Then
+                18b under traffic from here until it ends: the primary's
+                answers game_scoring's bit for bit until the promotion,
+                retraces_since_warmup 0 inside every observe window, no
+                request failed, the regressed candidate poisoned and on the
+                poison list, the winner gated into LATEST and served, device
+                memory after each round round 0's, and obs_tool experiments
+                --publish-root printing /v1/experiment's rollup (train walls,
+                round walls, the time to the winner, requests/s while
+                candidates train and while they are observed).
 Phases 4, 6b, 7b, 8 and 9 print, per pass, λ or driver, the host reads (every
 device-to-host read of the path, through ``HOST_READS``; validation apart),
 the solve cache's captures (programs; the keys, which count each λ, apart),
@@ -226,8 +248,8 @@ at K = 1, 2, 4 and 8, and fails at any K unless iterations and reasons are
 equal and coefficients within 1e-6; it fails if pass 2 captures anything or
 the two passes' coordinate updates make more than 60 host reads; 6b fails
 above SWEEP_READS reads for a λ solve. The order of the run is 1-7, 9, 11a,
-10, 8, 16, 11b, 12, 13, 15, 17, 14; the whole run's wall is printed at its
-end.
+10, 8, 16, 11b, 12, 13, 15, 17, 18, 14; the whole run's wall is printed at
+its end.
 It prints the card's name and power limit, a JSON line of per-kernel numbers
 ("launches" and "ran": the launches of the main paths, and those of them
 that did their work; a K1 or K2 launch whose flag was off does not), and last {"ok": true, "device": {...}}. It exits non-zero, printing no
@@ -280,14 +302,15 @@ SOLVER_ROUTES = {
 }
 # Phase 8 (GAME drivers): rows of the training and validation sets, users
 # and items (phase 7's), and the files each set is written as (by a spawn
-# pool, one process a file: the Avro writer is pure Python). The drivers read
-# them through the native columnar decoder; only the 2^21 rows of phase 7
-# are cut, to bound the writer's time. feature_indexing (which parses rows
-# in pure Python in both packages) reads a file of H_INDEX_ROWS rows of the
-# same bags: every dense feature occurs in every row, so its index covers the
-# large files.
+# pool, one process a file: the rows are encoded in bulk, then framed and
+# deflated by the port's writer). The drivers read them through the native
+# columnar decoder; only the 2^21 rows of phase 7 are cut, to bound the
+# writer's time. feature_indexing (which parses rows in pure Python in both
+# packages) reads a file of H_INDEX_ROWS rows of the same bags (2^11, cut
+# from 2^13 for the smoke's clock): every dense feature occurs in every row,
+# so its index covers the large files and is the same at either size.
 H_TRAIN_ROWS, H_VALID_ROWS, H_USERS, H_ITEMS = 1 << 17, 1 << 15, E, G_ITEMS
-H_TRAIN_FILES, H_VALID_FILES, H_INDEX_ROWS = 8, 2, 1 << 13
+H_TRAIN_FILES, H_VALID_FILES, H_INDEX_ROWS = 8, 2, 1 << 11
 # The card-vs-CPU file: 2^10 rows over 16 users and 16 items. Spread over
 # 256 of each, a user or item has ~4 rows, many with one label only; their
 # unregularized intercepts then diverge until the solver stops, so their
@@ -355,10 +378,12 @@ RESUME_TOL = 1e-6
 # largest block) and spill member; 13c: the index store's partitions.
 OOC_PASSES, OOC_BUCKETS, OOC_BUDGET_DIVISOR = 3, 16, 4
 # Phase 15: the engine's max batch, its client threads, the rows through
-# HTTP /v1/score-batch, requests a client in the load runs, the rows of the
-# bucket-invariance, promotion and device-shard checks, shadow scores before
-# a promotion.
+# HTTP /v1/score-batch, requests a client in the load runs (through HTTP at
+# most SERVE_HTTP_LOAD_REQUESTS a run: the front end answers ~400 a second,
+# so 64 clients send 16 each), the rows of the bucket-invariance, promotion
+# and device-shard checks, shadow scores before a promotion.
 SERVE_MAX_BATCH, SERVE_CLIENTS, SERVE_HTTP_ROWS, SERVE_LOAD_REQUESTS = 64, 8, 4096, 64
+SERVE_HTTP_LOAD_REQUESTS = 1024
 SERVE_INVARIANCE_ROWS, SERVE_SHADOW_QUOTA = 4096, 256
 # Phase 16: requests a client in the telemetry on/off load runs, and the
 # seconds between the run-report flushes and OTLP metric exports while on.
@@ -375,8 +400,17 @@ STREAM_DELTA_ROWS, STREAM_DELTA_FILES, STREAM_DELTA_SEED = 1 << 14, 4, 8700
 STREAM_USERS, STREAM_KNOWN_USERS, STREAM_USER_STRIDE, STREAM_NEW_ITEMS_FROM = 640, 576, 7, 1008
 STREAM_REQUESTS, STREAM_SEGMENT_RECORDS, STREAM_SEGMENT_AGE_S, STREAM_CLIENTS = 2048, 512, 1.0, 8
 STREAM_CHECK_ROWS, STREAM_QUALITY_REQUESTS = 2048, 512
+# Phase 18 (online experiments, on copies of phase 17's served root with its
+# delta): GP rounds and candidates a round, the seed, the candidate (by
+# training call) the fault plan regresses, labelled events a candidate needs
+# before its reading counts, the AUC drop and the loss excess over the
+# primary's that poison a candidate (the regressed one's scores shrink to
+# its intercept: its ranking may survive, its loss goes to ~ln 2), the HTTP
+# clients of 18b's traffic and the validation rows it scores.
+EXP_ROUNDS, EXP_CANDIDATES, EXP_SEED, EXP_REGRESS_AT = 2, 2, 7, 1
+EXP_MIN_EVENTS, EXP_AUC_DROP, EXP_LOSS_BURN, EXP_CLIENTS, EXP_ROWS = 256, 0.2, 0.25, 4, 4096
 # Phase 14 (multiple devices: torch.distributed ranks on this one card).
-# 14b's gloo world sizes; each group's timeout (a dead rank fails its peers
+# Each group's timeout (a dead rank fails its peers
 # within it) and each run's deadline; 14c's per-shard budget divisor (a
 # quarter of each shard's footprint, as 13a); 14d's L-BFGS iterations. The
 # fixed effect after 2 passes against 7b's: max |Δw| / max |w| below
@@ -393,7 +427,7 @@ STREAM_CHECK_ROWS, STREAM_QUALITY_REQUESTS = 2048, 512
 # objective this size is flat to an ulp along directions where they part
 # (a tie on the last ulp of f ends one solve an iteration before the other).
 # 14d at a seeded point: value and gradient within MR_FEATURE_TOL relative.
-MR_WORLDS, MR_TIMEOUT_S, MR_DEADLINE_S, MR_BUDGET_DIVISOR = (2, 4), 300.0, 600.0, OOC_BUDGET_DIVISOR
+MR_TIMEOUT_S, MR_DEADLINE_S, MR_BUDGET_DIVISOR = 300.0, 600.0, OOC_BUDGET_DIVISOR
 MR_FEATURE_ITERS, MR_FE_TOL, MR_FEATURE_TOL = 5, 1e-2, 1e-5
 MR_RE_TOL, MR_TRAJECTORY_TOL, MR_STEP_TOL = 1e-3, 1e-5, 1e-3
 # The optimization-log events of the drivers' runs (``record_event`` is
@@ -535,13 +569,10 @@ def _write_libsvm(path, X, y) -> None:
 
 
 def _write_avro(path, X, y) -> None:
-    from photon_tpu_torch.io.avro import write_avro_records
     from photon_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA
 
-    write_avro_records(str(path), TRAINING_EXAMPLE_SCHEMA, [
-        {"uid": str(i), "label": float(label), "metadataMap": None, "weight": None, "offset": None,
-         "features": [{"name": str(j + 1), "term": "", "value": float(v)} for j, v in enumerate(row)]}
-        for i, (row, label) in enumerate(zip(X, y))])
+    _write_encoded(str(path), TRAINING_EXAMPLE_SCHEMA, _encoded_rows(
+        y, [None] * len(y), [_dense_bag([str(j + 1) for j in range(X.shape[1])], X)]))
 
 
 def _text_coefficients(path, imap, device) -> torch.Tensor:
@@ -1125,7 +1156,7 @@ def masked_steps(cache) -> list:
 
 def _driver_arrays(n: int, seed: int, n_users=None, n_items=None):
     """The features (by bag), users, Zipf-like items and planted labels of
-    ``_driver_records``' rows (default H_USERS users and H_ITEMS items):
+    ``_driver_rows``' rows (default H_USERS users and H_ITEMS items):
     the planted model comes from one seed, the rows from ``seed``."""
     n_users = H_USERS if n_users is None else n_users
     n_items = H_ITEMS if n_items is None else n_items
@@ -1155,21 +1186,94 @@ def _delta_ids(users, items):
     return [f"user{k}" for k in u], [f"item{k}" for k in it]
 
 
-def _driver_records(n: int, seed: int, n_users=None, n_items=None, delta: bool = False):
-    """TrainingExampleAvro rows with three bags (H_BAGS) and the ids of
-    ``n_users`` users and ``n_items`` Zipf-like items in metadataMap; labels
-    planted from a fixed, a per-user and a per-item effect. The rows are
-    made as they are written. ``delta``: phase 17's ids (``_delta_ids``)."""
+def _avro_long(n: int) -> bytes:
+    """Avro's zigzag varint of ``n``."""
+    n = (n << 1) ^ (n >> 63)
+    out = bytearray()
+    while n > 0x7F:
+        out.append((n & 0x7F) | 0x80)
+        n >>= 7
+    out.append(n)
+    return bytes(out)
+
+
+def _avro_str(s: str) -> bytes:
+    b = s.encode()
+    return _avro_long(len(b)) + b
+
+
+def _feature_prefix(name: str) -> bytes:
+    """A FeatureAvro's bytes before its value: its name and an empty term."""
+    return _avro_str(name) + b"\x00"
+
+
+def _dense_bag(names, values: np.ndarray) -> np.ndarray:
+    """(n, bytes) uint8: each row's array of FeatureAvro {names[j], "",
+    values[row, j]} as the port's codec encodes it. Every row has the same
+    layout, so a template is tiled and the doubles are put in its slots."""
+    n, k = values.shape
+    parts, slots, pos = [_avro_long(k)], [], len(_avro_long(k))
+    for name in names:
+        pre = _feature_prefix(name)
+        slots.append(pos + len(pre))
+        parts += [pre, bytes(8)]
+        pos += len(pre) + 8
+    parts.append(b"\x00")
+    rows = np.tile(np.frombuffer(b"".join(parts), np.uint8), (n, 1))
+    rows[:, (np.asarray(slots)[:, None] + np.arange(8)).ravel()] = (
+        np.ascontiguousarray(values, "<f8").view(np.uint8).reshape(n, 8 * k))
+    return rows
+
+
+def _sparse_bag(prefixes: list, values: np.ndarray) -> list:
+    """Each row's array of FeatureAvro as bytes: ``prefixes[row]`` the
+    ``_feature_prefix`` of each of its k features, ``values`` (n, k)."""
+    n, k = values.shape
+    head, vb = _avro_long(k), np.ascontiguousarray(values, "<f8").tobytes()
+    return [head + b"".join(pre + vb[(i * k + j) * 8:(i * k + j + 1) * 8] for j, pre in enumerate(row)) + b"\x00"
+            for i, row in enumerate(prefixes)]
+
+
+def _encoded_rows(labels, meta: list, bags: list) -> list:
+    """TrainingExampleAvro rows (uid the row's number, weight and offset
+    null) as bytes the port's codec writes: ``labels``, ``meta`` (each row's
+    metadataMap) and the feature bags' rows (``_dense_bag`` or
+    ``_sparse_bag``), "features" first, then the further bags in the
+    schema's order."""
+    lab = np.asarray(labels, "<f8").tobytes()
+    rest = bags[1:]
+    return [b"".join([b"\x02", _avro_str(str(i)), lab[8 * i:8 * i + 8], bytes(bags[0][i]),
+                      b"\x02" + _avro_long(len(m)) + b"".join(_avro_str(a) + _avro_str(b) for a, b in m.items())
+                      + b"\x00" if m is not None else b"\x00",
+                      b"\x00\x00", *(bytes(bag[i]) for bag in rest)])
+            for i, m in enumerate(meta)]
+
+
+def _write_encoded(path, schema: dict, rows: list, sync=None) -> None:
+    """``write_avro_records`` of rows already encoded (``_encoded_rows``):
+    the port's writer frames, compresses and syncs them in its blocks."""
+    from photon_tpu_torch.io.avro import AvroWriter
+
+    with AvroWriter(path, schema, sync=sync) as w:
+        for raw in rows:
+            w._buf.write(raw)
+            w._count += 1
+            if w._count >= w.block_records:
+                w._flush_block()
+
+
+def _driver_rows(n: int, seed: int, n_users=None, n_items=None, delta: bool = False) -> list:
+    """TrainingExampleAvro rows, encoded, with three bags (H_BAGS) and the
+    ids of ``n_users`` users and ``n_items`` Zipf-like items in metadataMap;
+    labels planted from a fixed, a per-user and a per-item effect.
+    ``delta``: phase 17's ids (``_delta_ids``)."""
     X, users, items, y = _driver_arrays(n, seed, n_users, n_items)
     if delta:
         user_ids, item_ids = _delta_ids(users, items)
     else:
         user_ids, item_ids = [f"user{k}" for k in users], [f"item{k}" for k in items]
-    return ({"uid": str(i), "label": float(y[i]), "weight": None, "offset": None,
-             "metadataMap": {"userId": user_ids[i], "itemId": item_ids[i]},
-             **{bag: [{"name": f"{bag[0]}{j}", "term": "", "value": float(v)} for j, v in enumerate(X[bag][i])]
-                for bag, _, _ in H_BAGS}}
-            for i in range(n))
+    bags = [_dense_bag([f"{bag[0]}{j}" for j in range(k)], X[bag]) for bag, _, k in H_BAGS]
+    return _encoded_rows(y, [{"userId": u, "itemId": i} for u, i in zip(user_ids, item_ids)], bags)
 
 
 def _driver_schema(bags) -> dict:
@@ -1187,15 +1291,13 @@ def _write_part(job) -> float:
     """Write one Avro file (a task of ``write_files``' pool): ``job`` is
     (kind, path, rows, seed[, users, items]), kind "game" (phase 8's rows),
     "delta" (phase 17's) or "sparse" (10c's). Returns the seconds it took."""
-    from photon_tpu_torch.io.avro import write_avro_records
-
     kind, path, n, seed, *ents = job
     t0 = time.perf_counter()
     if kind in ("game", "delta"):
-        write_avro_records(path, _driver_schema([bag for bag, _, _ in H_BAGS[1:]]),
-                           _driver_records(n, seed, *ents, delta=kind == "delta"))
+        _write_encoded(path, _driver_schema([bag for bag, _, _ in H_BAGS[1:]]),
+                       _driver_rows(n, seed, *ents, delta=kind == "delta"))
     else:
-        write_avro_records(path, _driver_schema(["userFeatures"]), _sparse_driver_records(n, seed))
+        _write_encoded(path, _driver_schema(["userFeatures"]), _sparse_driver_rows(n, seed))
     return time.perf_counter() - t0
 
 
@@ -1728,13 +1830,13 @@ def _sparse_planted():
     return w, np.argsort(-np.abs(w[:100]))[:4]
 
 
-def _sparse_driver_records(n: int, seed: int):
-    """TrainingExampleAvro rows of 10c: S_NNZ global features ("f<j>") of
-    S_COLUMNS, feature j drawn with frequency ∝ 1 / (j + 1) (a wide shard's
-    few common and many rare features), and S_USER_NNZ of the user's own
-    S_USER_WINDOW user features ("u<user>_<j>", bag userFeatures), the user
-    in metadataMap; labels planted from a fixed and a per-user effect (the
-    model from one seed, the rows from ``seed``)."""
+def _sparse_driver_arrays(n: int, seed: int):
+    """10c's rows: S_NNZ global columns of S_COLUMNS a row, column j drawn
+    with frequency ∝ 1 / (j + 1) (a wide shard's few common and many rare
+    features), and S_USER_NNZ of the user's own S_USER_WINDOW user columns;
+    labels planted from a fixed and a per-user effect (the model from one
+    seed, the rows from ``seed``). Returns (cols, vals, users, ucols, uvals,
+    y)."""
     model = np.random.default_rng(100)
     w, _ = _sparse_planted()
     W_u = model.normal(size=(S_USERS, S_USER_WINDOW)) * 0.5
@@ -1749,12 +1851,20 @@ def _sparse_driver_records(n: int, seed: int):
     logits = (np.sum(vals * w[cols], axis=1) * 2.0 / np.sqrt(S_NNZ)
               + np.sum(uvals * W_u[users[:, None], ucols], axis=1) + b_u[users])
     y = rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-logits))
-    return ({"uid": str(i), "label": float(y[i]), "weight": None, "offset": None,
-             "metadataMap": {"userId": f"user{users[i]}"},
-             "features": [{"name": f"f{c}", "term": "", "value": float(v)} for c, v in zip(cols[i], vals[i])],
-             "userFeatures": [{"name": f"u{users[i]}_{c}", "term": "", "value": float(v)}
-                              for c, v in zip(ucols[i], uvals[i])]}
-            for i in range(n))
+    return cols, vals, users, ucols, uvals, y
+
+
+def _sparse_driver_rows(n: int, seed: int) -> list:
+    """TrainingExampleAvro rows of 10c, encoded (``_sparse_driver_arrays``):
+    global features "f<j>", user features "u<user>_<j>" in bag
+    userFeatures, the user in metadataMap."""
+    cols, vals, users, ucols, uvals, y = _sparse_driver_arrays(n, seed)
+    fpre = [_feature_prefix(f"f{c}") for c in range(S_COLUMNS)]
+    upre = [[_feature_prefix(f"u{u}_{c}") for c in range(S_USER_WINDOW)] for u in range(S_USERS)]
+    users = users.tolist()
+    bags = [_sparse_bag([[fpre[c] for c in row] for row in cols.tolist()], vals),
+            _sparse_bag([[upre[u][c] for c in row] for u, row in zip(users, ucols.tolist())], uvals)]
+    return _encoded_rows(y, [{"userId": f"user{u}"} for u in users], bags)
 
 
 def sparse_drivers_phase(dev, smi: str, check) -> None:
@@ -2688,7 +2798,8 @@ def serving_phase(dev, smi: str, check, files: dict) -> dict:
     HTTP /v1/score-batch, each score equal to game_scoring's bit for bit;
     max_batch_size 1 against 64; nothing captured or allocated after
     warm-up; requests/s and p50/p99 at 1, 8 and 64 clients through
-    ``submit`` and HTTP; uploads under the quarter budget; replay ms per row
+    ``submit`` and HTTP on the pinned store; uploads under the quarter
+    budget; replay ms per row
     bucket. Then a second generation trained here by game_training (another
     λ, 1 pass: K1 and K3), published through gate_and_publish and LATEST,
     shadowed, promoted by the reload watcher under load and rolled back,
@@ -2777,12 +2888,15 @@ def serving_phase(dev, smi: str, check, files: dict) -> dict:
                 check(got_http.shape == (n_http,) and np.array_equal(got_http, want[:n_http]),
                       f"15 {budget_label}: {n_http} rows through HTTP /v1/score-batch equal game_scoring's scores bit "
                       f"for bit")
-                for clients in (1, 8, 64):
+                # The load levels on the pinned store only: the quarter budget's
+                # answers are checked above (the smoke's clock has no room for
+                # its levels too).
+                for clients in ((1, 8, 64) if budget_label == "pinned" else ()):
                     k = min(n, SERVE_LOAD_REQUESTS * clients)
                     s, failed, lat, wall = _submit_all(eng, reqs[:k], clients)
                     log(f"  15 {budget_label} load, " + _load_text(f"submit, {clients} clients, {k} requests", k,
                                                                    lat, wall) + f" ({len(failed)} failed)")
-                    kh = min(n_http, SERVE_LOAD_REQUESTS * clients)
+                    kh = min(n_http, SERVE_LOAD_REQUESTS * clients, SERVE_HTTP_LOAD_REQUESTS)
                     s, failed_h, lat, wall = _http_all(server.server_address[1], lines_http[:kh], clients)
                     log(f"  15 {budget_label} load, " + _load_text(f"HTTP /v1/score, {clients} clients, {kh} "
                                                                    f"requests", kh, lat, wall)
@@ -3074,7 +3188,7 @@ def telemetry_phase(dev, smi: str, check, files: dict) -> dict:
         # "on": exporter, SLO-gated watcher and report flusher; "export": the
         # same without the report flusher, to tell their costs apart.
         readings = {}
-        states = ("off", "on", "export", "off", "on", "export")
+        states = ("off", "on", "export")  # one run a state: the smoke's clock has no room for a second
         for state in states:
             if on is not None:
                 telemetry_off(on)
@@ -3638,19 +3752,19 @@ def _tron_trace(objective, spec, w0, lb) -> tuple:
 def multi_rank_phase(dev, smi: str, check) -> dict:
     """Phase 14: multiple devices, as torch.distributed ranks on this one
     card, over 7b's batch (made again from its seeds). 14a
-    ``GameEstimator.fit(mesh=)`` of 7b's model on one NCCL rank,
-    14b on 2 and 4 gloo ranks sharing the card, 14c on 2 gloo ranks with
-    each random-effect shard out of core at a quarter of its footprint (each
-    with a fixed-effect TRON solve on its rows after the fit), 14d config 6's
-    fixed effect feature-sharded over 2 gloo ranks. Fails unless every rank
-    of 14a-c launched K1, K2 and K3, the random effects are bitwise equal
-    across 14a and 14b's runs and 14c's are 14b's world-2 run's, the fixed
+    ``GameEstimator.fit(mesh=)`` of 7b's model on one NCCL rank and 14c
+    on 2 gloo ranks sharing the card with each random-effect shard out of
+    core at a quarter of its footprint (each with a fixed-effect TRON solve
+    on its rows after the fit), 14d config 6's fixed effect feature-sharded
+    over 2 gloo ranks. Fails unless every rank of 14a and 14c launched K1,
+    K2 and K3, the random effects, fixed effect and TRON solve of every 14c
+    rank are bitwise 14a's, the fixed
     effect agrees with 7b's (MR_FE_TOL), 14a's coordinates agree with the
     unsharded ones (MR_RE_TOL) and 14a's TRON follows the whole batch's
     step for step (MR_TRAJECTORY_TOL, MR_STEP_TOL), and 14d's value and gradient
     agree with one rank's (MR_FEATURE_TOL) and its fit follows one rank's
     step for step (MR_TRAJECTORY_TOL, MR_STEP_TOL).
-    Returns the launches of 14a-c, summed over their ranks."""
+    Returns the launches of 14a and 14c, summed over their ranks."""
     from photon_tpu_torch.data.batch import LabeledBatch, SparseFeatures
     from photon_tpu_torch.data.synthetic import make_data
     from photon_tpu_torch.utils.virtual_devices import RankFailed, run_ranks
@@ -3663,8 +3777,7 @@ def multi_rank_phase(dev, smi: str, check) -> dict:
     train, _valid = _glmix_batches(dev, smi, Xf.to(torch.bfloat16), Xr, users, E, seed=7)
     del Xf, Xr, users, _y, _valid
     runs = {}
-    plan = [("14a", 1, "nccl", "cuda:0", 0)] + [(f"14b/{n}", n, "gloo", "cuda:0", 0) for n in MR_WORLDS] + [
-        ("14c", 2, "gloo", "cuda:0", MR_BUDGET_DIVISOR)]
+    plan = [("14a", 1, "nccl", "cuda:0", 0), ("14c", 2, "gloo", "cuda:0", MR_BUDGET_DIVISOR)]
     for label, n, backend, device, divisor in plan:
         t0 = time.perf_counter()
         try:
@@ -3701,15 +3814,15 @@ def multi_rank_phase(dev, smi: str, check) -> dict:
                           f"buffers stay at or under its effective budget")
             check(k1 > 0 and k2 > 0 and k3 > 0, f"{label} rank {r['rank']}: K1 ({k1}), K2 ({k2}) and K3 ({k3}) "
                                                 f"launched and ran")
-    base = runs.get("14b/2")
+    base = runs.get("14a")
     if base is not None:
         ref = base[0]
         for label, rs in runs.items():
             for r in rs:
                 same = {k: bool(np.array_equal(r[k], ref[k])) for k in ("users", "items", "fe", "tron")}
-                log(f"  {label} rank {r['rank']} vs 14b/2 rank 0, bitwise: {same}")
+                log(f"  {label} rank {r['rank']} vs 14a rank 0, bitwise: {same}")
                 check(all(same.values()), f"{label} rank {r['rank']}: random-effect coefficients (per user, per "
-                                          f"item), the fixed effect and the TRON solve bitwise 14b's world-2 run's")
+                                          f"item), the fixed effect and the TRON solve bitwise 14a's world-1 run's")
         fe7 = PHASE7B.get("global")
         if fe7 is not None:
             err = float(np.abs(ref["fe"] - fe7.numpy()).max()) / max(float(np.abs(fe7.numpy()).max()), 1e-30)
@@ -4206,10 +4319,14 @@ def streaming_phase(dev, smi: str, check, files: dict) -> dict:
         shutil.copy(p, full / p.name)
     game_scoring.main(["--input-paths", files["valid"], "--output-dir", str(work / "scores"), "--model-input-dir",
                        str(full / gen_s), "--device", dev.type] + shards)
-    want = _driver_scores(work / "scores" / "scores.avro")[:STREAM_CHECK_ROWS]
+    scores_all = _driver_scores(work / "scores" / "scores.avro")
+    want = scores_all[:STREAM_CHECK_ROWS]
     check(np.array_equal(served, want),
           f"17b served scores after the flip equal game_scoring's of the resolved chain bit for bit "
           f"({int(np.sum(served != want))} of {STREAM_CHECK_ROWS} differ)")
+    # Phase 18 experiments on a copy of this root, against these scores.
+    files["stream"] = dict(root=serve_root, gen=gen_s, scores=scores_all, feats=feats, names=names,
+                           offsets=offsets, labels=labels, coords=coords)
 
     # 17c, first half: game_streaming killed at stream.consume's train call,
     # spawned beside 17d (its exit code and the root are checked, not its wall).
@@ -4274,6 +4391,374 @@ def streaming_phase(dev, smi: str, check, files: dict) -> dict:
           f"second cycle consumes {'nothing' if again is None else again.records}")
 
     log(f"  phase 17: {time.perf_counter() - t_phase:.1f} s on {smi}; launches {launches}")
+    return launches
+
+
+def _experiment_tag_ok(tag: dict, generation: str, exp_id: str, stamped: bool) -> bool:
+    """The reference's experiment tag and generation name: {id, round,
+    index, params, paramsKey, status} (and the stamped observation), named
+    exp-<id>-r<round>-<paramsKey>, paramsKey the params' point_key."""
+    from photon_tpu_torch.experiment import point_key
+
+    keys = {"id", "round", "index", "params", "paramsKey", "status"}
+    if stamped:
+        keys |= {"observation", "observationSource"}
+    return (set(tag) == keys and tag["id"] == exp_id and tag["paramsKey"] == point_key(tag["params"])
+            and generation == f"exp-{exp_id}-r{tag['round']}-{tag['paramsKey']}")
+
+
+def _experiment_traffic(port: int, lines: list, clients: int, labels, stop, out: dict) -> list:
+    """Clients that score ``lines`` (row, body) in turn on /v1/score with a
+    fresh uid each and post each 16 answers' labels to /v1/feedback, until
+    ``stop`` is set or the server goes. Answers go to out["answers"] as
+    (time, row, modelVersion, score); an answer other than 200 to
+    out["failed"] as (time, text); a connection error (the driver tearing
+    its server down) to out["gone"] as (wall-clock time, text), and ends
+    that client."""
+    import http.client
+    import threading
+
+    def client(k):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        seq, pending = k, []
+        try:
+            while not stop.is_set():
+                row, body = lines[seq % len(lines)]
+                uid = f"x{seq}"
+                seq += clients
+                try:
+                    conn.request("POST", "/v1/score", body=body[:-1] + f', "uid": "{uid}"}}',
+                                 headers={"Content-Type": "application/json"})
+                    resp = conn.getresponse()
+                    raw = resp.read()
+                    if resp.status != 200:
+                        out["failed"].append((time.perf_counter(), f"/v1/score HTTP {resp.status}: {raw[:200]!r}"))
+                        continue
+                    got = json.loads(raw)
+                    out["answers"].append((time.perf_counter(), row, got.get("modelVersion"), got.get("score")))
+                    pending.append({"uid": uid, "label": float(labels[row])})
+                    if len(pending) >= 16:
+                        conn.request("POST", "/v1/feedback", body=json.dumps({"labels": pending}),
+                                     headers={"Content-Type": "application/json"})
+                        resp = conn.getresponse()
+                        raw = resp.read()
+                        if resp.status != 200:
+                            out["failed"].append((time.perf_counter(),
+                                                  f"/v1/feedback HTTP {resp.status}: {raw[:200]!r}"))
+                        else:
+                            out["joined"].append(json.loads(raw).get("joined", 0))
+                        pending = []
+                except (OSError, http.client.HTTPException) as exc:
+                    out["gone"].append((time.time(), repr(exc)))
+                    return
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True) for k in range(clients)]
+    for t in threads:
+        t.start()
+    return threads
+
+
+def experiment_phase(dev, smi: str, check, files: dict) -> dict:
+    """Phase 18: online experiments on the card, on copies of phase 17's
+    served publish root (phase 8's model at full width as gen-1, 17b's delta
+    generation as LATEST) with 17a's 2^14-row delta. 18b, spawned first:
+    ``python -m photon_tpu_torch.cli.game_experiment`` online (EXP_ROUNDS
+    rounds of EXP_CANDIDATES, its candidates in its spawned trainer process,
+    a fault plan firing experiment.regress on candidate EXP_REGRESS_AT).
+    18a, in process meanwhile: ``game_experiment.main(--train-only)`` trains
+    round 0's candidates; their holdout (1 − AUC) stamped as observations, a
+    second run trains round 1's; a third trains nothing (every candidate
+    reused); K1 and K3 at d = 16 and 128 launched; the generation names and
+    tags are the reference's; a candidate retrained alone by
+    ``incremental_update`` at its λ has the same model records. Then 18b
+    under traffic from this process (scored requests with uids, their labels
+    through /v1/feedback) until its run ends: until the promotion every
+    answer of the primary is game_scoring's score bit for bit, /healthz
+    reads retraces_since_warmup 0 whenever a candidate lane is open, no
+    request fails, the regressed candidate is poisoned and on the poison
+    list, the winner passes the gate (LATEST moves) and the engine serves
+    it, device memory after each round is round 0's, and ``obs_tool
+    experiments --publish-root`` prints /v1/experiment's rollup. Returns
+    18a's launches."""
+    import contextlib
+    import io
+    import signal
+    import threading
+
+    from photon_tpu_torch.cli import game_experiment
+    from photon_tpu_torch.cli.common import parse_coordinate_config, parse_feature_shard_config
+    from photon_tpu_torch.estimators.config import GameOptimizationConfig, RegularizationConfig
+    from photon_tpu_torch.evaluation.suite import EvaluationSuite, EvaluatorSpec
+    from photon_tpu_torch.experiment import ExperimentSpace, experiment_summary
+    from photon_tpu_torch.io.data_reader import read_merged
+    from photon_tpu_torch.io.model_io import (MANIFEST_FILE, experiment_generations, load_generation_manifest,
+                                              load_poison_list, update_generation_manifest)
+    from photon_tpu_torch.ops import fused_newton, kernels
+    from photon_tpu_torch.train.incremental import incremental_update
+    from photon_tpu_torch.types import TaskType
+
+    log("## phase 18: online experiments (GP rounds, candidates trained through K1 and K3, shadow lanes, "
+        "online quality, poison and promote)")
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    st = files["stream"]
+    work = Path(files["work"]) / "experiment"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    roots = {k: _copy_root(st["root"], work / f"root-{k}") for k in ("train", "online")}
+    coords = st["coords"]
+    specs, sequence = coords[1:coords.index("--update-sequence")], coords[-1]
+    common = ["--input-paths", str(files["delta"]), "--validation-paths", files["valid"], *files["shards"], *coords,
+              "--evaluators", "AUC", "--metric-tolerance", "0.5", "--norm-drift-bound", "1000", "--rounds",
+              str(EXP_ROUNDS), "--candidates-per-round", str(EXP_CANDIDATES), "--seed", str(EXP_SEED)]
+
+    # 18b first: its process starts, reads and trains round 0 beside 18a.
+    plan = json.dumps({"rules": [{"site": "experiment.regress", "kind": "transient", "at": [EXP_REGRESS_AT]}]})
+    t_spawn = time.perf_counter()
+    proc = _spawn_logged(["-m", "photon_tpu_torch.cli.game_experiment", "--publish-root", str(roots["online"]),
+                          *common, "--experiment-id", "e18b", "--feedback-spool", str(work / "spool"),
+                          "--shadow-fraction", "1.0", "--min-events", str(EXP_MIN_EVENTS), "--auc-drop-bound",
+                          str(EXP_AUC_DROP), "--loss-burn-ratio", str(EXP_LOSS_BURN), "--observe-timeout", "300", "--observe-poll", "0.1", "--port", "0",
+                          "--max-batch-size", str(SERVE_MAX_BATCH), "--device", dev.type], work / "online.log",
+                         env={"PHOTON_TPU_FAULT_PLAN": plan})
+    try:
+        # ---- 18a: --train-only in process ----
+        train_argv = ["--publish-root", str(roots["train"]), *common, "--experiment-id", "e18a", "--train-only",
+                      "--device", dev.type]
+
+        def run_main():
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                game_experiment.main(train_argv)
+            torch.cuda.synchronize()
+            return json.loads(buf.getvalue().strip().splitlines()[-1]), time.perf_counter() - t0
+
+        torch.cuda.synchronize()
+        _reset_launches()
+        s1, w1 = run_main()
+        for c in s1["candidates"]:
+            model_dir = roots["train"] / c["generation"]
+            auc = (load_generation_manifest(str(model_dir)) or {}).get("holdoutMetrics", {}).get("AUC")
+            update_generation_manifest(str(model_dir), {"experiment": {
+                "observation": 1.0 - float(auc), "observationSource": "holdout", "status": "observed"}})
+        s2, w2 = run_main()
+        by_width = dict(fused_newton.LAUNCHES_BY_WIDTH)
+        k1 = kernels.LAUNCHES["fused_value_grad"]
+        _add_launches(launches)
+        _reset_launches()
+        s3, w3 = run_main()
+        walls = {c: w for s in (s1, s2) for r in s["timing"]["rounds"] for c, w in r["trained"].items()}
+        log(f"  18a game_experiment --train-only (beside 18b's start and round 0): run 1 {w1:.2f} s (trained "
+            f"{s1['trained']}), holdout 1 − AUC stamped, run 2 {w2:.2f} s (trained {s2['trained']}, reused "
+            f"{s2['reused_trained']}), run 3 {w3:.2f} s (trained {s3['trained']}, reused {s3['reused_trained']}); "
+            f"train walls " + ", ".join(f"{g[-15:]} {w:.2f} s" for g, w in walls.items())
+            + f"; K1 {k1}, K3 by width {by_width} on {smi}")
+        check(k1 > 0 and by_width.get(D_RE, 0) > 0 and by_width.get(G_D_ITEM, 0) > 0,
+              f"18a candidates launched K1, and K3 at d = {D_RE} and d = {G_D_ITEM}")
+        recs = experiment_generations(str(roots["train"]), "e18a")
+        tags = {r["generation"]: load_generation_manifest(str(roots["train"] / r["generation"]))["experiment"]
+                for r in recs}
+        check(len(tags) == EXP_ROUNDS * EXP_CANDIDATES
+              and all(_experiment_tag_ok(t, g, "e18a", t["round"] == 0) for g, t in tags.items()),
+              f"18a {len(tags)} candidate generations, each with the reference's name and experiment tag: "
+              f"{sorted(tags)}")
+        check((s1["trained"], s2["trained"], s2["reused_trained"], s2["reused_observed"]) == (
+              EXP_CANDIDATES, EXP_CANDIDATES, EXP_CANDIDATES, EXP_CANDIDATES)
+              and (s3["trained"], s3["reused_trained"]) == (0, EXP_ROUNDS * EXP_CANDIDATES),
+              f"18a re-runs with the same id and seed: run 2 trained {s2['trained']} (reused {s2['reused_trained']}, "
+              f"{s2['reused_observed']} observed), run 3 trained {s3['trained']} (reused {s3['reused_trained']})")
+        # A candidate retrained alone by incremental_update at its λ.
+        cand = s2["candidates"][EXP_CANDIDATES]
+        shard_cfgs: dict = {}
+        for spec in files["shards"][1:]:
+            shard_cfgs.update(parse_feature_shard_config(spec))
+        coord_cfgs = [parse_coordinate_config(c) for c in specs]
+        space = ExperimentSpace(GameOptimizationConfig({c.coordinate_id: RegularizationConfig(weight=max(c.reg_weights))
+                                                        for c in coord_cfgs}))
+        config = space.vector_to_config(np.asarray([cand["params"][n] for n in space.names]))
+        imaps, eidx = _root_artifacts(roots["train"])
+        batch, imaps, eidx = read_merged([str(files["delta"])], shard_cfgs, imaps, {rt: rt for rt in eidx}, eidx,
+                                         intern_new_entities=True, device=dev)
+        valid, _, _ = read_merged([files["valid"]], shard_cfgs, imaps, {rt: rt for rt in eidx}, eidx,
+                                  intern_new_entities=False, device=dev)
+        t0 = time.perf_counter()
+        res = incremental_update(str(roots["train"]), batch, imaps, eidx, TaskType.LOGISTIC_REGRESSION, coord_cfgs,
+                                 sequence.split(","), valid_batch=valid,
+                                 evaluation_suite=EvaluationSuite([EvaluatorSpec.parse("AUC")],
+                                                                  {k: len(v) for k, v in eidx.items()}),
+                                 generation="retrain-18a", publish=False, optimization_config=config, device=dev)
+        torch.cuda.synchronize()
+        retrain_wall = time.perf_counter() - t0
+        _add_launches(launches)
+        del batch, valid
+
+        def records(d):
+            return {k: v for k, v in _model_files(Path(d)).items() if k != MANIFEST_FILE}
+
+        same = records(res.model_dir) == records(roots["train"] / cand["generation"])
+        check(same and _latest(roots["train"]) == _latest(st["root"]),
+              f"18a {cand['generation']} retrained alone by incremental_update at its λ ({config.describe()}, "
+              f"{retrain_wall:.2f} s): the same model records; LATEST still {_latest(roots['train'])}")
+
+        # ---- 18b: the online run under traffic ----
+        banner = _banner(proc, 600.0)
+        check(bool(banner) and banner.get("serving"),
+              f"18b game_experiment up {time.perf_counter() - t_spawn:.1f} s after its spawn, serving "
+              f"{banner.get('modelVersion')}" + ("" if banner else f"; log: {_tail(work / 'online.log')}"))
+        port, primary = banner.get("port"), banner.get("modelVersion")
+        # Rows past those 17b labelled (its delta generation, the primary here,
+        # trained on them).
+        want, names, feats, offsets = st["scores"], st["names"], st["feats"], st["offsets"]
+        lines = [(i, json.dumps({"features": {s: m[i].tolist() for s, m in feats.items()},
+                                 "entityIds": {rt: names[rt][i] for rt in names if names[rt][i] is not None},
+                                 "offset": float(offsets[i])}))
+                 for i in range(STREAM_REQUESTS, STREAM_REQUESTS + EXP_ROWS)]
+        stop = threading.Event()
+        out = {"answers": [], "failed": [], "gone": [], "joined": []}
+        samples, docs, obs_check, promoted = [], [], {}, [None]
+        latest0 = _latest(roots["online"])
+        latest_path = roots["online"] / "LATEST"
+
+        def poll():
+            last_doc = 0.0
+            while not stop.is_set():
+                t = time.perf_counter()
+                if promoted[0] is None and _latest(roots["online"]) != latest0:
+                    promoted[0] = t
+                try:
+                    h = json.loads(_get(f"http://127.0.0.1:{port}/healthz")[2])
+                    samples.append((t, bool(h.get("shadows")), h.get("retraces_since_warmup")))
+                    if t - last_doc > 0.5:
+                        docs.append((t, json.loads(_get(f"http://127.0.0.1:{port}/v1/experiment")[2])))
+                        last_doc = t
+                except Exception:  # noqa: BLE001 — the server is going away
+                    pass
+                time.sleep(0.2)
+
+        def rollup_check():
+            """``obs_tool experiments --publish-root --json`` (its main, in
+            this process: it reads the manifests in milliseconds), once the
+            root holds a candidate, against /v1/experiment read just before
+            and just after it: equal to one of the two (a stamp may land in
+            between; when more than one did, again)."""
+            from photon_tpu_torch.cli import obs_tool
+
+            while not stop.is_set() and proc.poll() is None and "same" not in obs_check:
+                if not any(d.get("experiments") for _, d in docs[-1:]):
+                    time.sleep(0.1)
+                    continue
+                buf = io.StringIO()
+                try:
+                    a = json.loads(_get(f"http://127.0.0.1:{port}/v1/experiment")[2])
+                    with contextlib.redirect_stdout(buf):
+                        rc = obs_tool.main(["experiments", "--publish-root", str(roots["online"]), "--json"])
+                    c = json.loads(_get(f"http://127.0.0.1:{port}/v1/experiment")[2])
+                except Exception:  # noqa: BLE001 — the server went away: no reading
+                    return
+                b = json.loads(buf.getvalue()) if rc == 0 else {}
+                obs_check["attempts"] = obs_check.get("attempts", 0) + 1
+                if b.get("experiments") in (a.get("experiments"), c.get("experiments")):
+                    obs_check["same"] = b.get("publish_root") == a.get("publishRoot") == str(roots["online"])
+                    obs_check["candidates"] = sum(len(e["candidates"]) for e in b.get("experiments", []))
+                time.sleep(0.5)
+
+        t_traffic = time.perf_counter()
+        clients = _experiment_traffic(port, lines, EXP_CLIENTS, st["labels"], stop, out)
+        helpers = [threading.Thread(target=f, daemon=True) for f in (poll, rollup_check)]
+        for t in helpers:
+            t.start()
+        try:
+            stdout, _ = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, _ = proc.communicate()
+        t_end, t_exit = time.perf_counter(), time.time()
+        stop.set()
+        for t in clients + helpers:
+            t.join(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGKILL)
+            proc.communicate()
+    rc = proc.returncode
+    summary = json.loads(stdout.strip().splitlines()[-1]) if rc == 0 and stdout.strip() else {}
+    check(rc == 0 and bool(summary), f"18b game_experiment exited {rc} after {t_end - t_spawn:.1f} s"
+          + ("" if rc == 0 else f"; log: {_tail(work / 'online.log')}"))
+    winner = summary.get("winner")
+    # The driver closes its engine, then its server, once the winner is in:
+    # an answer of its closed batcher, or a connection lost after LATEST
+    # was written (its mtime) or after the run failed to promote (the
+    # process exit), is that shutdown, not the experiment.
+    t_promo = promoted[0]
+    t_down = latest_path.stat().st_mtime if _latest(roots["online"]) != latest0 else t_exit
+    failed = [f for _, f in out["failed"] if "is closed" not in f]
+    gone_early = [g for t, g in out["gone"] if t < t_down]
+    before = [(row, score) for t, row, version, score in out["answers"] if version == primary]
+    mism = sum(1 for row, score in before if np.float32(score) != want[row])
+    check(bool(before) and mism == 0,
+          f"18b until the promotion, {len(before)} answers of the primary equal game_scoring's scores bit for bit "
+          f"({mism} differ)")
+    window = [r for _, lanes, r in samples if lanes]
+    check(bool(window) and all(r == 0 for r in window),
+          f"18b /healthz read inside the observe windows {len(window)} times: retraces_since_warmup "
+          f"{sorted(set(window))}")
+    check(not failed and not gone_early and sum(out["joined"]) > 0,
+          f"18b {len(out['answers'])} requests answered, {sum(out['joined'])} labels joined; {len(failed)} failed, "
+          f"{len(gone_early)} connections lost before LATEST moved ({len(out['failed']) - len(failed)} answered "
+          f"by the closed batcher as the driver shut down after the run)"
+          + (f": {(failed + gone_early)[0]}" if failed or gone_early else ""))
+    cands = {c["generation"]: c for c in summary.get("candidates", [])}
+    regressed = [g for g in cands if (load_generation_manifest(str(roots["online"] / g)) or {}).get(
+        "experiment", {}).get("regressed")]
+    poison = load_poison_list(str(roots["online"]))
+    check(len(regressed) == 1 and cands[regressed[0]]["status"] == "poisoned" and regressed[0] in poison,
+          f"18b the regressed candidate {regressed} poisoned ({[cands[g]['poisonReason'] for g in regressed]}) and "
+          f"on the poison list")
+    engine = summary.get("engine") or {}
+    check(winner is not None and _latest(roots["online"]) == winner and engine.get("primary") == winner
+          and engine.get("retracesSinceWarmup") == 0,
+          f"18b the winner {winner} passed the gate: LATEST {_latest(roots['online'])}, the engine's primary "
+          f"{engine.get('primary')} (retraces_since_warmup {engine.get('retracesSinceWarmup')})")
+    rounds = (summary.get("timing") or {}).get("rounds") or []
+    mem = [r.get("deviceBytes") for r in rounds]
+    check(len(mem) == EXP_ROUNDS and all(m is not None and m == mem[0] for m in mem),
+          f"18b device bytes allocated after each round's losers were dropped {mem} (resident "
+          f"{[r.get('resident') for r in rounds]})")
+    cli = subprocess.run([sys.executable, "-m", "photon_tpu_torch.cli.obs_tool", "experiments", "--publish-root",
+                          str(roots["online"]), "--json"], capture_output=True, text=True,
+                         cwd=str(Path(__file__).resolve().parent), timeout=120)
+    final = experiment_summary(str(roots["online"]))
+    check(obs_check.get("same") is True and cli.returncode == 0 and json.loads(cli.stdout or "{}") == final
+          and any(e.get("winner") == winner for e in final["experiments"]),
+          f"18b obs_tool experiments --publish-root prints /v1/experiment's rollup during the run ("
+          f"{obs_check.get('candidates')} candidates, reading {obs_check.get('attempts')}), and as a module after "
+          f"it the root's rollup with the winner (rc {cli.returncode})")
+    # Requests/s while candidates train (no lane open) against while they are observed.
+    spans = {True: 0.0, False: 0.0}
+    counts = {True: 0, False: 0}
+    stop_t = t_promo or t_end
+    for (t0, lanes, _), (t1, _, _) in zip(samples, samples[1:]):
+        if t0 >= t_traffic and t1 <= stop_t:
+            spans[lanes] += t1 - t0
+    marks = [(t, lanes) for t, lanes, _ in samples]
+    for t, _, _, _ in out["answers"]:
+        if t_traffic <= t <= stop_t:
+            prior = [lanes for tm, lanes in marks if tm <= t]
+            if prior:
+                counts[prior[-1]] += 1
+    trainer_walls = {g: w for r in rounds for g, w in r["trained"].items()}
+    log(f"  18b candidates " + "; ".join(
+        f"{g[-15:]} r{c['round']} {c['status']} obs {c['observation']} train {trainer_walls.get(g, float('nan')):.2f} s"
+        for g, c in cands.items()) + f"; rounds " + "; ".join(
+        f"{r['round']}: {r['wallS']:.2f} s (train {r['trainS']:.2f} s, observe {r['observeS']:.2f} s)"
+        for r in rounds) + f"; the winner's LATEST {('%.1f s' % (t_promo - t_spawn)) if t_promo else 'never'} "
+        f"after the spawn; requests/s "
+        + ", ".join(f"{'observing' if k else 'training'} {counts[k] / spans[k]:.1f} ({counts[k]} in {spans[k]:.1f} s)"
+                    for k in (False, True) if spans[k] > 0) + f" ({EXP_CLIENTS} clients, labels each 16) on {smi}")
+    log(f"  phase 18: {time.perf_counter() - t_phase:.1f} s on {smi}; launches {launches}")
     return launches
 
 
@@ -4632,67 +5117,105 @@ def main() -> int:
           and r5 <= 1e-6, f"5 TRON captured vs eager on the card: iterations and reason equal, coefficients rel "
                           f"{r5:.3e} (tolerance 1e-6)")
 
+    walls = {"1-5": time.perf_counter() - t_start}  # seconds a phase (a group: 1-5)
+
     # ---------------- 6. train_glm ----------------
     del fe_batch, block, ds
     default_cache().release()  # the GLMix step's entries (a step has no end of its own to release them at)
     torch.cuda.empty_cache()
+    walls["6"] = time.perf_counter()
     glm_launches = train_glm_phase(dev, smi, check)
+    walls["6"] = time.perf_counter() - walls["6"]
 
     # ---------------- 7. GAME ----------------
     torch.cuda.empty_cache()
+    walls["7"] = time.perf_counter()
     game_launches, train, valid, fe_auc = game_phase(dev, smi, check, Xb, Xr, users, E)
+    walls["7"] = time.perf_counter() - walls["7"]
     del Xb, Xr, users, y
 
     # ---------------- 9. GAME with the other solvers ----------------
     torch.cuda.empty_cache()
+    walls["9"] = time.perf_counter()
     solver_launches = game_solvers_phase(dev, smi, check, train, valid, fe_auc)
+    walls["9"] = time.perf_counter() - walls["9"]
 
     # ---------------- 11a. hyperparameter tuning in process ----------------
     torch.cuda.empty_cache()
+    walls["11a"] = time.perf_counter()
     tuning_launches = tuning_phase(dev, smi, check, train, valid)
+    walls["11a"] = time.perf_counter() - walls["11a"]
 
     # ---------------- 10. the sparse wide fixed effect ----------------
     torch.cuda.empty_cache()
+    walls["10a"] = time.perf_counter()
     wide = sparse_wide_phase(dev, smi, check)
+    walls["10a"] = time.perf_counter() - walls["10a"]
     log("phase 10a " + json.dumps({k: v for k, v in wide.items()}))
     torch.cuda.empty_cache()
+    walls["10b"] = time.perf_counter()
     sparse_launches = sparse_game_phase(dev, smi, check, train, valid)
+    walls["10b"] = time.perf_counter() - walls["10b"]
     del train, valid
     torch.cuda.empty_cache()
+    walls["10c"] = time.perf_counter()
     sparse_drivers_phase(dev, smi, check)
+    walls["10c"] = time.perf_counter() - walls["10c"]
 
     # ---------------- 8. GAME drivers ----------------
     torch.cuda.empty_cache()
+    walls["8"] = time.perf_counter()
     driver_launches, driver_files = game_drivers_phase(dev, smi, check)
+    walls["8"] = time.perf_counter() - walls["8"]
 
     # ---------------- 16. telemetry ----------------
     torch.cuda.empty_cache()
+    walls["16"] = time.perf_counter()
     telemetry_launches = telemetry_phase(dev, smi, check, driver_files)
+    walls["16"] = time.perf_counter() - walls["16"]
 
     # ---------------- 11b. the tuning driver ----------------
     torch.cuda.empty_cache()
+    walls["11b"] = time.perf_counter()
     tuning_driver_launches = tuning_driver_phase(dev, smi, check, driver_files)
+    walls["11b"] = time.perf_counter() - walls["11b"]
 
     # ---------------- 12. durability and streaming ingest ----------------
     torch.cuda.empty_cache()
+    walls["12"] = time.perf_counter()
     durability_launches = durability_phase(dev, smi, check, driver_files)
+    walls["12"] = time.perf_counter() - walls["12"]
 
     # ---------------- 13. out-of-core random effects ----------------
     torch.cuda.empty_cache()
+    walls["13"] = time.perf_counter()
     ooc_launches = out_of_core_phase(dev, smi, check, driver_files)
+    walls["13"] = time.perf_counter() - walls["13"]
 
     # ---------------- 15. online serving ----------------
     torch.cuda.empty_cache()
+    walls["15"] = time.perf_counter()
     serving_launches = serving_phase(dev, smi, check, driver_files)
+    walls["15"] = time.perf_counter() - walls["15"]
 
     # ---------------- 17. the streaming freshness loop ----------------
     torch.cuda.empty_cache()
+    walls["17"] = time.perf_counter()
     stream_launches = streaming_phase(dev, smi, check, driver_files)
+    walls["17"] = time.perf_counter() - walls["17"]
+
+    # ---------------- 18. online experiments ----------------
+    torch.cuda.empty_cache()
+    walls["18"] = time.perf_counter()
+    experiment_launches = experiment_phase(dev, smi, check, driver_files)
+    walls["18"] = time.perf_counter() - walls["18"]
     shutil.rmtree(driver_files["work"], ignore_errors=True)
 
     # ---------------- 14. multiple devices ----------------
     torch.cuda.empty_cache()
+    walls["14"] = time.perf_counter()
     multi_rank_launches = multi_rank_phase(dev, smi, check)
+    walls["14"] = time.perf_counter() - walls["14"]
 
     # ---------------- report ----------------
     sources = {
@@ -4719,12 +5242,13 @@ def main() -> int:
     # launch flag was off; K3 has no flag).
     paths = (glmix_launches, tron_launches, glm_launches, game_launches, driver_launches, solver_launches,
              sparse_launches, tuning_launches, tuning_driver_launches, durability_launches, ooc_launches,
-             multi_rank_launches, serving_launches, telemetry_launches, stream_launches)
+             multi_rank_launches, serving_launches, telemetry_launches, stream_launches, experiment_launches)
     rows = []
     for name, (src, repl) in sources.items():
         rows.append(dict(name=name, route="cuda", source=src, replaces=repl,
                          launches=sum(c.get(name, 0) for c in paths), ran=sum(ran(c, name) for c in paths),
                          max_abs_err=headline_err[name], **timings[name]))
+    log("# phase walls: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
     log(f"# chip_smoke wall {time.perf_counter() - t_start:.1f} s on {smi}")
     if failures:
         log(f"chip_smoke: {len(failures)} check(s) failed: {failures}")

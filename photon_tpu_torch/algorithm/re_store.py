@@ -47,8 +47,9 @@ Invariants (the reference's):
   effective budget, floored (with a warning) at the largest block plus the
   buffers. The graph pool lies outside the budget.
 
-The reference's metrics registry is not ported: every number it published
-is in ``stats()``.
+Every number the reference publishes to the metrics registry is published
+there under its name (``re_store_*``, ``re_spill_*``, ``re_device_*``) and
+is also in ``stats()``.
 """
 
 from __future__ import annotations

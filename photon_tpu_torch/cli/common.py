@@ -176,6 +176,17 @@ def close_otlp(exporter) -> None:
     uninstall_exporter()
 
 
+def drop_otlp(exporter) -> None:
+    """A run that raised: uninstall its exporter (its queue is dropped, with
+    no exit export), so the process keeps no exporter of a run that ended."""
+    if exporter is None:
+        return
+    from photon_tpu_torch.obs.export import active_exporter, uninstall_exporter
+
+    if active_exporter() is exporter:
+        uninstall_exporter()
+
+
 def refuse_unported(driver: str, unported: Dict[str, bool]) -> None:
     """Exit non-zero naming every given flag whose machinery is not ported."""
     named = [flag for flag, given in unported.items() if given]

@@ -34,7 +34,8 @@ promotions until the burn clears, each decision a forced trace.
 ``--feedback-spool`` attaches the streaming feedback spool: scored requests
 carrying a ``uid`` wait in its label join, ``POST /v1/feedback`` completes
 it, and joined records seal into JSONL segments that ``game_streaming``
-consumes. Not ported yet: ``/v1/experiment`` answers 501.
+consumes. ``GET /v1/experiment`` rolls up the experiments recorded under
+the publish root (``game_experiment`` runs them).
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ import threading
 import time
 from typing import Optional
 
-from photon_tpu_torch.cli.common import (add_device_arg, close_otlp, install_otlp, resolve_device,
+from photon_tpu_torch.cli.common import (add_device_arg, close_otlp, drop_otlp, install_otlp, resolve_device,
                                          setup_logging)
 from photon_tpu_torch.obs import begin_run, finalize_run_report
 from photon_tpu_torch.obs.metrics import registry
@@ -691,8 +692,12 @@ def _run_multiprocess(args):
 def _run_inprocess(args):
     begin_run()
     exporter = install_otlp(args, "photon-tpu-serving")
-    engine = _load_engine(args, _serve_config(args))
-    server = ServingHTTPServer((args.host, args.port), make_handler(engine))
+    try:
+        engine = _load_engine(args, _serve_config(args))
+        server = ServingHTTPServer((args.host, args.port), make_handler(engine))
+    except BaseException:
+        drop_otlp(exporter)
+        raise
     stop = threading.Event()
 
     def _shutdown(signum, frame):

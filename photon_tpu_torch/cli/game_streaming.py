@@ -43,6 +43,7 @@ from typing import Dict
 from photon_tpu_torch.cli.common import (
     add_device_arg,
     close_otlp,
+    drop_otlp,
     install_otlp,
     parse_coordinate_config,
     resolve_device,
@@ -165,16 +166,26 @@ def build_parser() -> argparse.ArgumentParser:
 
 def run(args) -> Dict:
     setup_logging(args.verbose)
+    from photon_tpu_torch.obs import begin_run
+
+    begin_run()
+    device = resolve_device(args.device)
+    exporter = install_otlp(args, "photon-tpu-streaming")
+    try:
+        return _stream(args, device, exporter)
+    except BaseException:
+        drop_otlp(exporter)
+        raise
+
+
+def _stream(args, device, exporter) -> Dict:
     from photon_tpu_torch.data.index_map import EntityIndex, IndexMap
-    from photon_tpu_torch.obs import begin_run, finalize_run_report
+    from photon_tpu_torch.obs import finalize_run_report
     from photon_tpu_torch.stream.updater import (
         StreamingUpdater,
         StreamingUpdaterConfig,
     )
 
-    begin_run()
-    device = resolve_device(args.device)
-    exporter = install_otlp(args, "photon-tpu-streaming")
     task = task_of(args)
     coord_configs = [
         parse_coordinate_config(s) for s in args.coordinate_configurations

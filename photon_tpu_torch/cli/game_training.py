@@ -66,6 +66,7 @@ from photon_tpu_torch.cli.common import (
     add_out_of_core_args,
     add_validation_arg,
     close_otlp,
+    drop_otlp,
     handle_termination,
     install_otlp,
     parse_coordinate_config,
@@ -209,6 +210,14 @@ def run(args) -> Dict:
     setup_logging(args.verbose)
     begin_run()  # fresh spans, metrics and phase records for this run
     otlp = install_otlp(args, "photon-tpu-training")
+    try:
+        return _train(args, otlp)
+    except BaseException:
+        drop_otlp(otlp)
+        raise
+
+
+def _train(args, otlp) -> Dict:
     device = resolve_device(args.device)
     # Host RSS watchdog: inert without a detectable limit; at hard pressure
     # the pass boundary fails cleanly instead of meeting the OOM-killer.

@@ -1,8 +1,9 @@
 """Copy of photon_tpu/cli/obs_tool.py (framework-free; the port does not import it), run as
 ``python -m photon_tpu_torch.cli.obs_tool``, with one command the reference
 lacks: ``report PATH`` summarizes a run report (``--telemetry-out``) of
-either package offline, no server needed. The offline experiment summary
-(``experiments --publish-root``) is not ported yet.
+either package offline, no server needed. ``experiments --publish-root``
+reads the port's ``experiment_summary`` of a publish root that either
+package wrote.
 
 photon-tpu-obs: read the serving observability plane from a terminal.
 
@@ -446,11 +447,9 @@ def cmd_experiments(args: argparse.Namespace) -> int:
         # Offline rollup straight from the generation manifests — works on
         # the publish root with no server running (the manifests ARE the
         # experiment store).
-        # The experiment store (photon_tpu/experiment) is not ported yet.
-        from photon_tpu_torch.cli.common import refuse_unported
+        from photon_tpu_torch.experiment import experiment_summary
 
-        refuse_unported("photon-tpu-obs experiments", {"--publish-root": True})
-        return 2
+        doc = experiment_summary(args.publish_root)
     else:
         url = args.url.rstrip("/") + "/v1/experiment"
         try:

@@ -1,5 +1,6 @@
 """Copy of photon_tpu/io/columnar.py (framework-free; the port does not import
-it), apart from where the native library is built.
+it), apart from where the native library is built and the whole-file read's
+concurrent block decode (``read_avro_columnar(workers=)``).
 
 Columnar Avro ingest: native block decode + vectorized batch assembly.
 
@@ -401,14 +402,29 @@ def _compile_for_paths(paths: Sequence[str]):
     return program, names, gens
 
 
-def read_avro_columnar(paths: Sequence[str]) -> Optional[ColumnarRows]:
+def read_avro_columnar(paths: Sequence[str], workers: Optional[int] = None) -> Optional[ColumnarRows]:
     """Decode container files into columns via the native decoder. Blocks
-    stream through one at a time (bounded by a single decompressed block,
-    not the file). Returns None when the native path is unavailable or the
-    schema is outside the supported program (callers fall back to rows)."""
+    stream through a bounded window (one decompressed block serially, 2 ×
+    ``workers`` concurrently), never the file. Returns None when the native
+    path is unavailable or the schema is outside the supported program
+    (callers fall back to rows).
+
+    ``workers`` > 1 (default: one a core, at most 16) decodes the blocks
+    concurrently, as ``stream_avro_columnar`` does, and merges them: the
+    same columns, bit for bit, as the serial pass (which the reference
+    always takes)."""
     lib = _load_lib()
     if lib is None:
         return None
+    if workers is None:
+        workers = min(16, _available_cores())
+    if workers > 1:
+        try:
+            parts = list(stream_avro_columnar(paths, chunk_rows=np.iinfo(np.int64).max, workers=workers))
+        except ValueError:
+            return None  # outside the program, or malformed: Python-codec fallback
+        if parts:
+            return parts[0]
     compiled = _compile_for_paths(paths)
     if compiled is None:
         return None

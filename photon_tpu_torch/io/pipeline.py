@@ -38,7 +38,9 @@ Where the card differs from the reference's ``jax.device_put``:
   close the stream before it captures anything: the training drivers
   materialize the whole batch (``materialize_game_batch``) before they fit.
 
-The reference's spans and registry counters are not ported.
+The reference's spans (``pipeline-stage/<thread>``, ``pipeline/<label>``)
+and registry counters (``pipeline_*``, ``dead_letter_*``, ``replay_*``) are
+published at its sites and under its names.
 """
 
 from __future__ import annotations

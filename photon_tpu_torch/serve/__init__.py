@@ -1,8 +1,9 @@
 """Online GAME serving (port of photon_tpu/serve): micro-batched scoring,
 hot/cold entity residency, zero-downtime reload, the HTTP front end, and
 the consistent-hash ring that the entity-sharded training path shares with
-serving. See serve/engine.py for the composition. The scorer fleet
-(serve/fleet.py) is not ported yet."""
+serving. See serve/engine.py for the composition; ``/v1/experiment``
+(serve/frontend.py) rolls up the experiments of photon_tpu_torch/experiment.
+The scorer fleet (serve/fleet.py) is not ported yet."""
 
 from photon_tpu_torch.serve.admission import (
     BATCH,

@@ -771,6 +771,25 @@ class ServingEngine:
         self._count("delta_loads")
         return dict(model_version=version, base=base_key, store=new_state.store.stats())
 
+    def unload_version(self, model_version: str) -> bool:
+        """Drop one resident version now, with its store and graphs; the
+        primary, a shadow, the promotion's parent and the quality baseline
+        stay. True when it was dropped."""
+        with self._lock:
+            self._maybe_settle_promotion_locked()
+            try:
+                key = self._resolve_version(model_version)
+            except ValueError:
+                return False
+            keep = {self._primary, self._quality_baseline, *self._shadows}
+            if self._promotion is not None:
+                keep.add(self._promotion["parent"])
+            if key in keep:
+                return False
+            del self._states[key]
+        logger.info("serving: unloaded resident version %r", key)
+        return True
+
     # -- feedback spool (streaming freshness loop) --------------------------
 
     def attach_feedback(self, spool) -> None:

@@ -25,8 +25,9 @@ hop (HTTP handler, scorer, engine) records its span under it, and
 ``/v1/traces`` merges the kept trees of the worker and the scorer.
 ``/metrics`` is the Prometheus text of the registry (merged across the
 worker and the scorer, labelled by replica). ``/v1/feedback`` completes
-the engine's feedback-spool label join in both shapes. Not ported yet:
-``/v1/experiment`` answers 501.
+the engine's feedback-spool label join in both shapes. ``/v1/experiment``
+is the manifest-derived experiment rollup of the publish root the engine
+serves from, with the engine's live shadow lanes.
 """
 
 from __future__ import annotations
@@ -75,9 +76,6 @@ MAX_FRAME_BYTES = 64 << 20
 # Shared secret for the TCP transport's HMAC handshake. Environment, never
 # argv: command lines are world-readable via /proc.
 FLEET_SECRET_ENV = "PHOTON_TPU_FLEET_SECRET"
-
-NOT_PORTED = "not ported yet"
-
 
 # ---------------------------------------------------------------------------
 # Request parsing + error classification (shared by both deployment shapes)
@@ -483,7 +481,9 @@ class ScorerServer:
             elif op == "traces":
                 out.put(dict(id=rid, ok=True, result=self._op_traces(msg)))
             elif op == "experiment":
-                raise NotImplementedError(f"scorer op {op!r}: {NOT_PORTED}")
+                out.put(dict(
+                    id=rid, ok=True, result=self._op_experiment(msg),
+                ))
             elif op == "ping":
                 out.put(dict(id=rid, ok=True, result="pong"))
             else:
@@ -532,6 +532,9 @@ class ScorerServer:
 
     def _op_feedback(self, msg: dict) -> dict:
         return apply_feedback(self.engine, msg.get("body") or {})
+
+    def _op_experiment(self, msg: dict) -> dict:
+        return experiment_rollup(self.engine)
 
     def _op_metrics(self, msg: dict) -> List[dict]:
         """The registry snapshot for the worker-side ``/metrics`` merge."""
@@ -733,6 +736,36 @@ def reload_engine(engine, body: dict) -> dict:
     return engine.reload(model, body.get("modelVersion") or model_dir)
 
 
+def experiment_rollup(engine) -> dict:
+    """``/v1/experiment`` payload: the manifest-derived experiment rollup
+    for the publish root this engine serves from (the manifests ARE the
+    experiment store — a dead manager leaves a readable history), plus the
+    engine's LIVE candidate state (resident shadow lanes and their
+    divergence counters), which manifests can't know."""
+    from photon_tpu_torch.experiment import experiment_summary
+
+    root = getattr(engine, "artifacts_dir", None)
+    if not root:
+        version = str(getattr(engine, "model_version", "") or "")
+        parent = os.path.dirname(version.rstrip("/"))
+        root = parent if os.path.isdir(parent) else None
+    doc: dict = {"publishRoot": root, "experiments": []}
+    if root:
+        try:
+            doc.update(experiment_summary(root))
+        except Exception as exc:  # noqa: BLE001 — rollup is best-effort
+            doc["error"] = str(exc)
+    try:
+        doc["live"] = {
+            "primary": engine.model_version,
+            "shadows": engine.shadow_versions,
+            "shadowStats": engine.shadow_stats(),
+        }
+    except Exception:  # noqa: BLE001 — a closing engine must not 500 this
+        pass
+    return doc
+
+
 class LocalBackend:
     """Direct engine access — the single-process deployment shape."""
 
@@ -792,6 +825,9 @@ class LocalBackend:
     def feedback(self, body: dict) -> dict:
         return apply_feedback(self.engine, body)
 
+    def experiment(self) -> dict:
+        return experiment_rollup(self.engine)
+
 
 class RemoteBackend:
     """Scorer access over the IPC channel — the worker deployment shape."""
@@ -850,6 +886,9 @@ class RemoteBackend:
 
     def feedback(self, body: dict) -> dict:
         return self.client.call("feedback", timeout_s=30.0, body=body)
+
+    def experiment(self) -> dict:
+        return self.client.call("experiment", timeout_s=30.0)
 
 
 def make_http_handler(backend):
@@ -925,7 +964,7 @@ def make_http_handler(backend):
                 elif route == "/v1/traces":
                     self._reply_json(200, {"traces": backend.traces(limit=self._query_int("limit"))})
                 elif route == "/v1/experiment":
-                    self._reply_json(501, {"error": f"{route}: {NOT_PORTED}", "kind": "not_ported"})
+                    self._reply_json(200, backend.experiment())
                 else:
                     self._reply_json(404, {"error": f"no route {self.path}"})
             except Exception as exc:  # noqa: BLE001 — classified below

@@ -313,6 +313,28 @@ def test_stream_chunks_merge_to_the_whole_decode(tmp_path, workers):
         np.testing.assert_array_equal(getattr(merged, part), getattr(whole, part))
 
 
+@pytest.mark.parametrize("workers", [2, 5])
+def test_parallel_whole_decode_is_the_serial_one(tmp_path, workers):
+    """read_avro_columnar over many blocks, decoded on ``workers`` threads
+    and merged, gives the serial decode's columns and intern table bit for
+    bit."""
+    paths = [tmp_path / "a.avro", tmp_path / "b.avro"]
+    _write_training_examples(paths[0], n=700, second_bag=True)
+    _write_training_examples(paths[1], n=333, seed=81, second_bag=True)
+    serial = columnar.read_avro_columnar([str(p) for p in paths], workers=1)
+    par = columnar.read_avro_columnar([str(p) for p in paths], workers=workers)
+    assert par.n == serial.n == 1033 and par.intern == serial.intern
+    for field in ("numeric", "longs", "strings"):
+        assert getattr(par, field).keys() == getattr(serial, field).keys()
+        for k, v in getattr(serial, field).items():
+            np.testing.assert_array_equal(getattr(par, field)[k], v)
+    for k, bag in serial.bags.items():
+        for part in ("offsets", "key_ids", "values"):
+            np.testing.assert_array_equal(getattr(par.bags[k], part), getattr(bag, part))
+    for part in ("meta_rows", "meta_keys", "meta_vals"):
+        np.testing.assert_array_equal(getattr(par, part), getattr(serial, part))
+
+
 def test_concurrent_build_leaves_no_partial_file(tmp_path):
     """Three processes load the decoder at once into an empty build
     directory: each builds to a file of its own and moves it into place, so

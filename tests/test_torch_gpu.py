@@ -1213,3 +1213,67 @@ def test_incremental_generation_on_card_matches_cpu(cuda_device, tmp_path):
         else:
             np.testing.assert_allclose(sub.model.coefficients.means.numpy(),
                                        cpu.models[cid].model.coefficients.means.numpy(), rtol=1e-3, atol=1e-3)
+
+
+def test_spawned_experiment_trainer_on_card(cuda_device, tmp_path):
+    """The experiment trainer of a serving process: candidates trained in
+    its spawned process on the card (the delta read there) have the model
+    files, sha256 for sha256, of the same candidates trained in this
+    process on the card over a copy of the root; LATEST stays put, and the
+    host master the trainer loads feeds an engine on the card whose warm
+    candidate scores with nothing captured after warm-up."""
+    import functools
+    import shutil
+
+    from photon_tpu_torch.cli import game_experiment, game_training
+    from photon_tpu_torch.estimators.config import GameOptimizationConfig, RegularizationConfig
+    from photon_tpu_torch.experiment import SpawnedCandidateTrainer
+    from photon_tpu_torch.io.model_io import load_generation_manifest
+    from photon_tpu_torch.serve import ServeConfig, load_engine
+
+    train, valid = _write_driver_file(tmp_path / "t.avro", 2048, 1), _write_driver_file(tmp_path / "v.avro", 512, 2)
+    delta = _write_driver_file(tmp_path / "d.avro", 64, 3)
+    shards = ["--feature-shard-configurations", "name=g,feature.bags=features", "name=u,feature.bags=userFeatures",
+              "name=i,feature.bags=itemFeatures"]
+    coords = ["--coordinate-configurations", "name=global,feature.shard=g,reg.weights=1",
+              "name=perUser,feature.shard=u,random.effect.type=userId,reg.weights=1",
+              "name=perItem,feature.shard=i,random.effect.type=itemId,reg.weights=1", "--update-sequence",
+              "global,perUser,perItem"]
+    root = tmp_path / "spawned"
+    game_training.main(["--input-paths", train, "--validation-paths", valid, *shards, *coords, "--evaluators", "AUC",
+                        "--output-dir", str(root), "--device", "cuda"])
+    shutil.copytree(root, tmp_path / "inline")
+    configs = [GameOptimizationConfig({"global": RegularizationConfig(lg), "perUser": RegularizationConfig(lu),
+                                       "perItem": RegularizationConfig(li)})
+               for lg, lu, li in ((0.5, 3.0, 8.0), (20.0, 0.2, 1.0))]
+    dirs = {}
+    for where in ("spawned", "inline"):
+        args = game_experiment.build_parser().parse_args(
+            ["--publish-root", str(tmp_path / where), "--input-paths", delta, "--validation-paths", valid, *shards,
+             *coords, "--experiment-id", "gpu", "--device", "cuda"])
+        if where == "spawned":
+            trainer = SpawnedCandidateTrainer(args.publish_root, functools.partial(game_experiment.build_trainer, args))
+        else:
+            trainer = game_experiment.build_trainer(args)
+        try:
+            dirs[where] = [trainer.train(c, f"exp-gpu-r0-{k}", {"experiment": {"id": "gpu", "index": k}})
+                           for k, c in enumerate(configs)]
+            if where == "spawned":
+                assert trainer.device == "cuda"
+                model = trainer.load(dirs[where][0])
+        finally:
+            if where == "spawned":
+                trainer.close()
+    for a, b in zip(dirs["spawned"], dirs["inline"]):
+        ma, mb = load_generation_manifest(a), load_generation_manifest(b)
+        assert ma["files"] == mb["files"] and ma["experiment"] == mb["experiment"] == {"id": "gpu", "index": ma[
+            "experiment"]["index"]}
+    assert (root / "LATEST").read_text().strip() == "best"
+    eng = load_engine(str(root / "best"), artifacts_dir=str(root), config=ServeConfig(max_batch_size=8))
+    try:
+        eng.load_version(model, model_version="exp-gpu-r0-0")
+        assert eng.score({"g": [0.1] * 32}, {"userId": "u3"}, model_version="exp-gpu-r0-0") is not None
+        assert eng.retraces_since_warmup == 0
+        assert eng.unload_version("exp-gpu-r0-0") and eng.versions == [eng.model_version]
+    finally:
+        eng.close()

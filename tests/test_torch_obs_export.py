@@ -12,6 +12,8 @@ import socket
 import threading
 import time
 
+import pytest
+
 from photon_tpu_torch.cli.obs_tool import cmd_traces, parse_prometheus
 from photon_tpu_torch.obs.export import (
     MockCollector,
@@ -213,6 +215,29 @@ def test_install_uninstall_and_health_block():
     finally:
         uninstall_exporter()
         col.close()
+    assert exporter_health() is None
+
+
+@pytest.mark.parametrize("driver", ["game_training", "game_serving", "game_streaming"])
+def test_failed_driver_run_leaves_no_exporter_installed(tmp_path, driver):
+    """A driver given --otlp-endpoint that stops on a missing input
+    uninstalls its exporter on the way out (the reference's drivers leave
+    it installed, so a later run in the same process found it there)."""
+    import importlib
+
+    module = importlib.import_module(f"photon_tpu_torch.cli.{driver}")
+    argv = {
+        "game_training": ["--input-paths", str(tmp_path / "none.avro"), "--coordinate-configurations",
+                          "name=global,feature.shard=g", "--update-sequence", "global",
+                          "--output-dir", str(tmp_path / "o")],
+        "game_serving": ["--model-input-dir", str(tmp_path / "nowhere"), "--port", "0"],
+        "game_streaming": ["--publish-root", str(tmp_path / "nowhere"), "--spool-dir", str(tmp_path / "spool"),
+                           "--coordinate-configurations", "name=global,feature.shard=g",
+                           "--update-sequence", "global"],
+    }[driver]
+    assert exporter_health() is None
+    with pytest.raises(Exception):
+        module.main(argv + ["--device", "cpu", "--otlp-endpoint", "http://localhost:1"])
     assert exporter_health() is None
 
 

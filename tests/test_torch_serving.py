@@ -1197,9 +1197,9 @@ def test_http_scores_equal_game_scoring_exactly(tmp_path):
 
 
 def test_serving_modules_import_no_jax():
-    """The serve modules, the generation half of io/model_io.py and
-    cli.game_serving load in a fresh interpreter without jax or the
-    reference package."""
+    """The serve modules, the generation half of io/model_io.py,
+    cli.game_serving, the experiment plane and cli.game_experiment load in a
+    fresh interpreter without jax or the reference package."""
     import subprocess
     import sys
     from pathlib import Path
@@ -1210,7 +1210,7 @@ def test_serving_modules_import_no_jax():
         f"sys.path[:0] = [{str(repo)!r}]\n"
         "import photon_tpu_torch.serve, photon_tpu_torch.serve.store, photon_tpu_torch.serve.engine\n"
         "import photon_tpu_torch.serve.frontend, photon_tpu_torch.serve.batcher, photon_tpu_torch.serve.admission\n"
-        "import photon_tpu_torch.cli.game_serving\n"
+        "import photon_tpu_torch.cli.game_serving, photon_tpu_torch.experiment, photon_tpu_torch.cli.game_experiment\n"
         "from photon_tpu_torch.io.model_io import gate_and_publish, load_resolved_game_model, save_delta_model\n"
         "bad = sorted(k for k in sys.modules if k in ('jax', 'photon_tpu') or k.startswith(('jax.', 'photon_tpu.')))\n"
         "print(bad)\n"
@@ -1221,10 +1221,11 @@ def test_serving_modules_import_no_jax():
 
 
 def test_unported_flags_and_routes_say_so(http_server):
-    """The routes waiting for experiments answer 501; the telemetry and
-    feedback flags and routes are ported: the flags get past the refusal,
-    /metrics and /v1/traces answer 200, and /v1/feedback on a server with no
-    spool answers 400 naming it (the reference's answer)."""
+    """Nothing here is refused any more: the telemetry and feedback flags
+    get past the refusal, /metrics, /v1/traces and /v1/experiment answer 200
+    (the experiment rollup with its publish root, experiments and the
+    engine's live lanes), and /v1/feedback on a server with no spool answers
+    400 naming it (the reference's answer)."""
     from photon_tpu_torch.cli import game_serving
 
     for extra in (["--telemetry-out", "t.jsonl"], ["--otlp-endpoint", "http://h"], ["--slo-gate"],
@@ -1238,9 +1239,11 @@ def test_unported_flags_and_routes_say_so(http_server):
     for route in ("/metrics", "/v1/traces"):
         with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}", timeout=10) as resp:
             assert resp.status == 200
-    with pytest.raises(urllib.error.HTTPError) as err:
-        urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/experiment", timeout=10)
-    assert err.value.code == 501
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/experiment", timeout=10) as resp:
+        assert resp.status == 200
+        rollup = json.loads(resp.read())
+    assert {"publishRoot", "experiments", "live"} <= set(rollup)
+    assert rollup["experiments"] == [] and rollup["live"]["shadows"] == []
     with pytest.raises(urllib.error.HTTPError) as err:
         _post(port, "/v1/feedback", json.dumps({"uid": "1", "label": 1.0}).encode())
     assert err.value.code == 400

@@ -342,3 +342,57 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
     for out in runs:
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def _smoke_module():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("kind", ["game", "delta", "sparse", "plain"])
+def test_chip_smoke_encoded_rows_are_the_codecs_bytes(tmp_path, kind):
+    """chip_smoke.py encodes its Avro rows in bulk; with the same sync
+    marker its files are byte for byte those of the port's record writer
+    on the same rows."""
+    from photon_tpu_torch.io.avro import read_avro_records, write_avro_records
+    from photon_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA
+
+    cs, n, sync = _smoke_module(), 300, bytes(range(16))
+
+    def feats(names, values):
+        return [{"name": a, "term": "", "value": float(v)} for a, v in zip(names, values)]
+
+    if kind in ("game", "delta"):
+        schema = cs._driver_schema([bag for bag, _, _ in cs.H_BAGS[1:]])
+        encoded = cs._driver_rows(n, 5, 40, 30, delta=kind == "delta")
+        X, users, items, y = cs._driver_arrays(n, 5, 40, 30)
+        uids, iids = (cs._delta_ids(users, items) if kind == "delta"
+                      else ([f"user{k}" for k in users], [f"item{k}" for k in items]))
+        records = [{"uid": str(i), "label": float(y[i]), "weight": None, "offset": None,
+                    "metadataMap": {"userId": uids[i], "itemId": iids[i]},
+                    **{bag: feats([f"{bag[0]}{j}" for j in range(k)], X[bag][i]) for bag, _, k in cs.H_BAGS}}
+                   for i in range(n)]
+    elif kind == "sparse":
+        schema = cs._driver_schema(["userFeatures"])
+        encoded = cs._sparse_driver_rows(n, 9)
+        cols, vals, users, ucols, uvals, y = cs._sparse_driver_arrays(n, 9)
+        records = [{"uid": str(i), "label": float(y[i]), "weight": None, "offset": None,
+                    "metadataMap": {"userId": f"user{users[i]}"},
+                    "features": feats([f"f{c}" for c in cols[i]], vals[i]),
+                    "userFeatures": feats([f"u{users[i]}_{c}" for c in ucols[i]], uvals[i])}
+                   for i in range(n)]
+    else:
+        rng = np.random.default_rng(3)
+        X, y = rng.normal(size=(n, 7)).astype(np.float32), (rng.uniform(size=n) < 0.5).astype(np.float32)
+        schema = TRAINING_EXAMPLE_SCHEMA
+        encoded = cs._encoded_rows(y, [None] * n, [cs._dense_bag([str(j + 1) for j in range(7)], X)])
+        records = [{"uid": str(i), "label": float(y[i]), "metadataMap": None, "weight": None, "offset": None,
+                    "features": feats([str(j + 1) for j in range(7)], X[i])} for i in range(n)]
+    cs._write_encoded(str(tmp_path / "bulk.avro"), schema, encoded, sync=sync)
+    write_avro_records(str(tmp_path / "codec.avro"), schema, records, sync=sync)
+    assert (tmp_path / "bulk.avro").read_bytes() == (tmp_path / "codec.avro").read_bytes()
+    assert read_avro_records(str(tmp_path / "bulk.avro")) == records
