@@ -237,6 +237,21 @@ Phases, each of which must pass:
                 --publish-root printing /v1/experiment's rollup (train walls,
                 round walls, the time to the winner, requests/s while
                 candidates train and while they are observed).
+ 19. scorer fleet — on phase 8's files and model: a ScorerFleet of spawned
+                replicas (each ``python -m photon_tpu_torch.serve.fleet
+                --device cuda``, a CUDA context of its own on this card)
+                with the per-user type routed and sharded, FLEET_ROWS
+                validation rows through FleetBackend.submit from 8 threads
+                in each state: three replicas (game_scoring's scores bit for
+                bit, all three serving, owned users summing to the users,
+                /v1/feedback joining every uid), r1 SIGKILLed (no caller
+                error; its users' rows the batch path's on the card with
+                userId unknown), r1 revived, r3 joined warm, r3 left warm
+                (bit for bit each), retraces_since_warmup 0 on every
+                replica, and one /v1/score and /healthz through
+                FleetHTTPFrontend; spawn-to-ready seconds, revive, join and
+                leave walls, requests/s and p50/p99, device memory free
+                before and after the start.
 Phases 4, 6b, 7b, 8 and 9 print, per pass, λ or driver, the host reads (every
 device-to-host read of the path, through ``HOST_READS``; validation apart),
 the solve cache's captures (programs; the keys, which count each λ, apart),
@@ -248,7 +263,7 @@ at K = 1, 2, 4 and 8, and fails at any K unless iterations and reasons are
 equal and coefficients within 1e-6; it fails if pass 2 captures anything or
 the two passes' coordinate updates make more than 60 host reads; 6b fails
 above SWEEP_READS reads for a λ solve. The order of the run is 1-7, 9, 11a,
-10, 8, 16, 11b, 12, 13, 15, 17, 18, 14; the whole run's wall is printed at
+10, 8, 16, 11b, 12, 13, 15, 17, 18, 19, 14; the whole run's wall is printed at
 its end.
 It prints the card's name and power limit, a JSON line of per-kernel numbers
 ("launches" and "ran": the launches of the main paths, and those of them
@@ -381,8 +396,11 @@ OOC_PASSES, OOC_BUCKETS, OOC_BUDGET_DIVISOR = 3, 16, 4
 # HTTP /v1/score-batch, requests a client in the load runs (through HTTP at
 # most SERVE_HTTP_LOAD_REQUESTS a run: the front end answers ~400 a second,
 # so 64 clients send 16 each), the rows of the bucket-invariance, promotion
-# and device-shard checks, shadow scores before a promotion.
+# and device-shard checks, shadow scores before a promotion; the rows
+# through submit at each hot budget (2^13, cut from phase 8's 2^15
+# validation rows for the smoke's clock).
 SERVE_MAX_BATCH, SERVE_CLIENTS, SERVE_HTTP_ROWS, SERVE_LOAD_REQUESTS = 64, 8, 4096, 64
+SERVE_BUDGET_ROWS = 1 << 13
 SERVE_HTTP_LOAD_REQUESTS = 1024
 SERVE_INVARIANCE_ROWS, SERVE_SHADOW_QUOTA = 4096, 256
 # Phase 16: requests a client in the telemetry on/off load runs, and the
@@ -409,6 +427,10 @@ STREAM_CHECK_ROWS, STREAM_QUALITY_REQUESTS = 2048, 512
 # clients of 18b's traffic and the validation rows it scores.
 EXP_ROUNDS, EXP_CANDIDATES, EXP_SEED, EXP_REGRESS_AT = 2, 2, 7, 1
 EXP_MIN_EVENTS, EXP_AUC_DROP, EXP_LOSS_BURN, EXP_CLIENTS, EXP_ROWS = 256, 0.2, 0.25, 4, 4096
+# Phase 19 (the scorer fleet, on phase 8's files and model): the validation
+# rows each pass scores, its client threads, and the seconds a spawned
+# replica has to become connectable (torch, CUDA, the model and its warm-up).
+FLEET_ROWS, FLEET_CLIENTS, FLEET_CONNECT_TIMEOUT_S = 4096, 8, 120.0
 # Phase 14 (multiple devices: torch.distributed ranks on this one card).
 # Each group's timeout (a dead rank fails its peers
 # within it) and each run's deadline; 14c's per-shard budget divisor (a
@@ -2793,8 +2815,9 @@ def serving_phase(dev, smi: str, check, files: dict) -> dict:
     """Phase 15: online serving on the card, on phase 8's files. The
     engine (``load_engine`` of phase 8's best/ model, its index maps and
     entity indexes) at two hot budgets, one that pins every table and one
-    that holds a quarter of the per-item table: phase 8's validation rows
-    through ``submit`` from 8 client threads and a share of them through
+    that holds a quarter of the per-item table: SERVE_BUDGET_ROWS of phase
+    8's validation rows through ``submit`` from 8 client threads and a share
+    of them through
     HTTP /v1/score-batch, each score equal to game_scoring's bit for bit;
     max_batch_size 1 against 64; nothing captured or allocated after
     warm-up; requests/s and p50/p99 at 1, 8 and 64 clients through
@@ -2828,7 +2851,7 @@ def serving_phase(dev, smi: str, check, files: dict) -> dict:
     log(f"  {n} validation rows of phase 8 read for serving in {time.perf_counter() - t0:.1f} s; shards "
         f"{ {s: m.shape[1] for s, m in feats.items()} }, entity types {list(ids)}")
     reqs = _requests(feats, ids, offsets, range(n))
-    n_http = min(n, SERVE_HTTP_ROWS)
+    n_budget, n_http = min(n, SERVE_BUDGET_ROWS), min(n, SERVE_HTTP_ROWS)
     lines_http = [json.dumps({"features": {s: m[i].tolist() for s, m in feats.items()},
                               "entityIds": {rt: int(v[i]) for rt, v in ids.items()},
                               "offset": float(offsets[i])}) for i in range(n_http)]
@@ -2860,12 +2883,13 @@ def serving_phase(dev, smi: str, check, files: dict) -> dict:
                     f"{rt}: {st['entities']} entities, {st['hot_capacity']} hot rows, pinned {st['pinned']}"
                     for rt, st in store.items()))
             up0 = eng._state.store.upload_stats()
-            got, failed, lat, wall = _submit_all(eng, reqs, SERVE_CLIENTS)
+            got, failed, lat, wall = _submit_all(eng, reqs[:n_budget], SERVE_CLIENTS)
             up = eng._state.store.upload_stats()
-            check(not failed and np.array_equal(got, want),
-                  f"15 {budget_label}: {n} rows through submit from {SERVE_CLIENTS} client threads equal "
+            check(not failed and np.array_equal(got, want[:n_budget]),
+                  f"15 {budget_label}: {n_budget} rows through submit from {SERVE_CLIENTS} client threads equal "
                   f"game_scoring's scores bit for bit ({len(failed)} failed, max |diff| "
-                  f"{float(np.nanmax(np.abs(got - want))):.3e}); " + _load_text("load", n, lat, wall))
+                  f"{float(np.nanmax(np.abs(got - want[:n_budget]))):.3e}); "
+                  + _load_text("load", n_budget, lat, wall))
             if budget_label != "pinned":
                 rows_up = up["rows"] - up0["rows"]
                 secs = up["seconds"] - up0["seconds"]
@@ -4762,6 +4786,206 @@ def experiment_phase(dev, smi: str, check, files: dict) -> dict:
     return launches
 
 
+def _batch_path_scores(dev, files: dict, model_dir: Path, unknown: tuple = ()) -> np.ndarray:
+    """Phase 8's validation rows scored by the port's batch path on ``dev``
+    (game_scoring's: ``load_game_model``, ``read_merged``,
+    ``GameTransformer``), with the entity ids of the ``unknown`` types set
+    to -1 (the rows scored as if those entities had no random effect)."""
+    from photon_tpu_torch.cli.common import parse_feature_shard_config
+    from photon_tpu_torch.estimators.game_transformer import GameTransformer
+    from photon_tpu_torch.io.data_reader import read_merged
+    from photon_tpu_torch.io.model_io import load_game_model, model_re_types, read_model_metadata
+
+    artifacts = model_dir.parent
+    shard_configs: dict = {}
+    for spec in files["shards"][1:]:
+        shard_configs.update(parse_feature_shard_config(spec))
+    imaps, eidx = _root_artifacts(artifacts)
+    imaps = {s: imaps[s] for s in shard_configs}
+    re_types = model_re_types(read_model_metadata(str(model_dir)))
+    eidx = {rt: eidx[rt] for rt in re_types}
+    model = load_game_model(str(model_dir), imaps, eidx, device=dev)
+    batch, _, _ = read_merged([str(files["valid"])], shard_configs, index_maps=imaps,
+                              entity_id_columns={rt: rt for rt in re_types}, entity_indexes=eidx,
+                              intern_new_entities=False, device=dev)
+    ids = {rt: (torch.full_like(v, -1) if rt in unknown else v) for rt, v in batch.entity_ids.items()}
+    return GameTransformer(model).transform(dataclasses.replace(batch, entity_ids=ids)).cpu().numpy()
+
+
+def _fleet_submit_all(backend, reqs: list, clients: int) -> tuple:
+    """Every request (a JSON object) through ``FleetBackend.submit`` from
+    ``clients`` threads, each its share in turn, waiting for each answer;
+    (scores, failures, latencies s, wall s, the replica that answered each)."""
+    import threading
+
+    scores = np.full(len(reqs), np.nan, np.float32)
+    lat = np.zeros(len(reqs))
+    replicas = [None] * len(reqs)
+    failed = []
+
+    def client(k):
+        for i in range(k, len(reqs), clients):
+            t0 = time.perf_counter()
+            try:
+                res = backend.submit(reqs[i], "smoke", "interactive").result(timeout=120)
+                scores[i], replicas[i] = res["score"], res["replica"]
+            except Exception as exc:  # noqa: BLE001 — counted and reported
+                failed.append(repr(exc))
+            lat[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return scores, failed, lat, time.perf_counter() - t0, replicas
+
+
+def fleet_phase(dev, smi: str, check, files: dict) -> dict:
+    """Phase 19: the scorer fleet on the card, on phase 8's files. A
+    ``ScorerFleet`` of spawned replicas (``python -m
+    photon_tpu_torch.serve.fleet --device cuda``: each a process with a CUDA
+    context of its own, all on this one card) serves phase 8's best/ model
+    with the per-user type routed and sharded (a hot budget of a quarter of
+    the tables, so no type is pinned): FLEET_ROWS validation rows through
+    ``FleetBackend.submit`` from FLEET_CLIENTS threads. (a) three replicas:
+    every score game_scoring's bit for bit, all three serve, their owned
+    user counts sum to the users and each is fewer, /v1/feedback joins
+    every uid; (b) r1 SIGKILLed: no caller error, r1's keys score as the
+    batch path on the card scores them with userId unknown, the others
+    game_scoring's; (c) r1 revived: bit for bit again; (d) r3 joined warm,
+    then left warm: bit for bit after each, and at the end every replica's
+    retraces_since_warmup 0; (e) one /v1/score through ``FleetHTTPFrontend``
+    equal to game_scoring's and /healthz's fleet block. Prints each
+    replica's spawn-to-ready seconds, the revive, join and leave walls and
+    handoffs, requests/s and p50/p99 at FLEET_CLIENTS clients, and the
+    device memory free before and after ``start``. A replica that does not
+    start raises (no fallback). Returns the launches of this process (none
+    are expected: the replicas serve, the batch path only scores)."""
+    import http.client
+
+    from photon_tpu_torch.io.model_io import read_model_metadata
+    from photon_tpu_torch.serve.fleet import FleetBackend, FleetHTTPFrontend, ScorerFleet
+
+    log("## phase 19: the scorer fleet (spawned replicas on one card, router, warm join and leave, kill, revive)")
+    t_phase = time.perf_counter()
+    _reset_launches()
+    out, work = Path(files["out"]), Path(files["work"])
+    model_dir = out / "best"
+    feats, ids, offsets, labels = _serving_rows(files, model_dir, with_labels=True)
+    want = _driver_scores(Path(files["scores"]) / "scores.avro")
+    n = min(FLEET_ROWS, offsets.shape[0])
+    _, eidx = _root_artifacts(out)
+    reqs = []
+    for i in range(n):
+        names = {rt: eidx[rt].entity_id(int(v[i])) for rt, v in ids.items() if v[i] >= 0}
+        reqs.append({"features": {s: m[i].tolist() for s, m in feats.items()}, "entityIds": names,
+                     "offset": float(offsets[i]), "uid": f"fleet-{i}"})
+    t0 = time.perf_counter()
+    batch_full = _batch_path_scores(dev, files, model_dir)
+    batch_no_user = _batch_path_scores(dev, files, model_dir, unknown=("userId",))
+    check(np.array_equal(batch_full, want),
+          f"19 the batch path in process on the card ({time.perf_counter() - t0:.2f} s for both runs) scores the "
+          f"{want.shape[0]} rows as game_scoring did, bit for bit")
+    meta = read_model_metadata(str(model_dir))["coordinates"]
+    tables = {c["reType"]: 4 * c["dim"] * c["numEntities"] for c in meta.values() if c.get("reType")}
+    hot = sum(tables.values()) // 4
+    users = len(eidx["userId"])
+    fleet = ScorerFleet(str(model_dir), str(work / "fleet"), artifacts_dir=str(out), route_re_type="userId",
+                        hot_bytes=hot, max_batch_size=SERVE_MAX_BATCH, max_delay_ms=1.0, queue_cap=1 << 16,
+                        spool_base=str(work / "fleet-spool"), connect_timeout_s=FLEET_CONNECT_TIMEOUT_S,
+                        device=dev.type)
+    backend = FleetBackend(fleet.router)
+
+    def score(label: str, expect: np.ndarray, members: set) -> None:
+        got, failed, lat, wall, used = _fleet_submit_all(backend, reqs, FLEET_CLIENTS)
+        served = set(used) - {None}
+        check(not failed and np.array_equal(got, expect) and served == members,
+              f"19{label}: {n} rows through FleetBackend.submit from {FLEET_CLIENTS} threads, {len(failed)} failed"
+              f"{': ' + failed[0] if failed else ''}, {int(np.sum(got != expect))} differ from the expected scores "
+              f"bit for bit; answered by {sorted(served)} (expected {sorted(members)}); "
+              + _load_text("load", n, lat, wall) + " (the replicas time-slice one card: no measure of scaling)")
+
+    try:
+        free0 = torch.cuda.mem_get_info()[0]
+        t0 = time.perf_counter()
+        fleet.start(["r0", "r1", "r2"])
+        t_start = time.perf_counter() - t0
+        free1 = torch.cuda.mem_get_info()[0]
+        ready = dict(fleet.fleet_snapshot()["readyS"])
+        log(f"  19 start of r0 r1 r2 (hot budget {hot / 2 ** 10:.1f} KiB a replica, tables "
+            f"{ {k: v // 2 ** 10 for k, v in tables.items()} } KiB): {t_start:.2f} s; spawn-to-ready s "
+            f"{ {k: round(v, 2) for k, v in ready.items()} }; device memory free {free0 / 2 ** 30:.2f} -> "
+            f"{free1 / 2 ** 30:.2f} GiB on {smi}")
+        # (a) healthy.
+        score("a healthy fleet", want[:n], {"r0", "r1", "r2"})
+        stats = fleet.router.replica_stats()
+        owned = {r: s["partition"]["re_types"]["userId"]["owned"] for r, s in stats.items()}
+        pinned = {r: {rt: st["pinned"] for rt, st in s["store"].items()} for r, s in stats.items()}
+        check(sum(owned.values()) == users and all(v < users for v in owned.values())
+              and not any(p for ps in pinned.values() for p in ps.values())
+              and all(s["device"].startswith(dev.type) for s in stats.values()),
+              f"19a owned users {owned} sum to {users}, each fewer; no table pinned ({pinned}); replicas on "
+              f"{sorted({s['device'] for s in stats.values()})}")
+        fb = backend.feedback({"labels": [{"uid": r["uid"], "label": float(labels[i])} for i, r in enumerate(reqs)]})
+        check(fb == {"joined": n, "dropped": 0}, f"19a /v1/feedback of the {n} uids: {fb}")
+        # (b) r1 SIGKILLed: its users score FE plus the item effect.
+        fleet.kill("r1")
+        lost = np.array(["userId" in r["entityIds"] and fleet.ring.owner(r["entityIds"]["userId"]) == "r1"
+                         for r in reqs])
+        check(0 < int(lost.sum()) < n, f"19b r1 owned the users of {int(lost.sum())} of the {n} rows")
+        score("b r1 killed (its rows: the batch path with userId unknown)",
+              np.where(lost, batch_no_user[:n], want[:n]), {"r0", "r2"})
+        # (c) revived.
+        t0 = time.perf_counter()
+        fleet.revive("r1")
+        t_revive = time.perf_counter() - t0
+        log(f"  19c revive of r1: {t_revive:.2f} s (spawn-to-ready {fleet.fleet_snapshot()['readyS']['r1']:.2f} s)")
+        score("c r1 revived", want[:n], {"r0", "r1", "r2"})
+        # (d) warm join, then warm leave.
+        t0 = time.perf_counter()
+        moved = fleet.join("r3", warm=True)
+        t_join = time.perf_counter() - t0
+        log(f"  19d join of r3: {t_join:.2f} s (spawn-to-ready {fleet.fleet_snapshot()['readyS']['r3']:.2f} s); warm "
+            f"handoff {moved['rows']} rows, {moved['promoted']} promoted, {moved['seconds']:.3f} s; ring "
+            f"v{fleet.ring.version}")
+        score("d r3 joined warm", want[:n], {"r0", "r1", "r2", "r3"})
+        t0 = time.perf_counter()
+        moved = fleet.leave("r3", warm=True)
+        t_leave = time.perf_counter() - t0
+        log(f"  19d leave of r3: {t_leave:.2f} s; drain handoff {moved['rows']} rows, {moved['promoted']} promoted, "
+            f"{moved['seconds']:.3f} s; ring v{fleet.ring.version}")
+        score("d r3 left warm", want[:n], {"r0", "r1", "r2"})
+        retr = {r: s["retraces_since_warmup"] for r, s in fleet.router.replica_stats().items()}
+        check(set(retr) == {"r0", "r1", "r2"} and all(v == 0 for v in retr.values()),
+              f"19d retraces_since_warmup of every replica after the kill, revive, join and leave: {retr}")
+        # (e) HTTP.
+        front = FleetHTTPFrontend(backend).start()
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", front.port, timeout=60)
+            conn.request("POST", "/v1/score", body=json.dumps(reqs[0]), headers={"Content-Type": "application/json"})
+            answer = json.loads(conn.getresponse().read())
+            conn.request("GET", "/healthz")
+            health = json.loads(conn.getresponse().read())
+            conn.close()
+        finally:
+            front.close()
+        block = health.get("fleet") or {}
+        check(np.float32(answer.get("score", np.nan)) == want[0] and block.get("ringVersion") == fleet.ring.version
+              and set(block.get("shardRanges") or {}) == {"r0", "r1", "r2"}
+              and block.get("states") == {m: "live" for m in ("r0", "r1", "r2")},
+              f"19e /v1/score through FleetHTTPFrontend (replica {answer.get('replica')}) equals game_scoring's "
+              f"score; /healthz fleet ringVersion {block.get('ringVersion')}, shardRanges "
+              f"{sorted(block.get('shardRanges') or {})}, states {block.get('states')}")
+    finally:
+        fleet.shutdown()
+    launches: dict = {}
+    _add_launches(launches)
+    log(f"  phase 19: {time.perf_counter() - t_phase:.1f} s on {smi}; launches in this process {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs only on a GPU", file=sys.stderr)
@@ -5209,6 +5433,12 @@ def main() -> int:
     walls["18"] = time.perf_counter()
     experiment_launches = experiment_phase(dev, smi, check, driver_files)
     walls["18"] = time.perf_counter() - walls["18"]
+
+    # ---------------- 19. the scorer fleet ----------------
+    torch.cuda.empty_cache()
+    walls["19"] = time.perf_counter()
+    fleet_launches = fleet_phase(dev, smi, check, driver_files)
+    walls["19"] = time.perf_counter() - walls["19"]
     shutil.rmtree(driver_files["work"], ignore_errors=True)
 
     # ---------------- 14. multiple devices ----------------
@@ -5242,7 +5472,8 @@ def main() -> int:
     # launch flag was off; K3 has no flag).
     paths = (glmix_launches, tron_launches, glm_launches, game_launches, driver_launches, solver_launches,
              sparse_launches, tuning_launches, tuning_driver_launches, durability_launches, ooc_launches,
-             multi_rank_launches, serving_launches, telemetry_launches, stream_launches, experiment_launches)
+             multi_rank_launches, serving_launches, telemetry_launches, stream_launches, experiment_launches,
+             fleet_launches)
     rows = []
     for name, (src, repl) in sources.items():
         rows.append(dict(name=name, route="cuda", source=src, replaces=repl,

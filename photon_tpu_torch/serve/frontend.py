@@ -558,6 +558,20 @@ class ScorerServer:
             self._closed = True
             conns = list(self._conns)
         if self._sock is not None:
+            # Wake the accept loop with a connection of our own (it sees
+            # _closed and returns): closing the listener does not interrupt
+            # a blocked accept() everywhere, and the join below would wait
+            # out its timeout.
+            fam, addr = parse_endpoint(self.socket_path)
+            try:
+                if fam == "unix":
+                    with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as waker:
+                        waker.settimeout(1.0)
+                        waker.connect(addr)
+                else:
+                    socket.create_connection(addr, timeout=1.0).close()
+            except OSError:
+                pass
             try:
                 self._sock.close()
             except OSError:

@@ -23,7 +23,7 @@ adding/removing one member moves ≤ 1/N + ε of keys.
 Snapshots are plain JSON dicts (members + vnodes + seed + version) and
 travel over the existing framed IPC as the ``ring`` op — a replica whose
 membership view changes rebuilds the ring locally and re-derives its
-:class:`~photon_tpu.serve.store.StorePartition` predicate from it.
+:class:`~photon_tpu_torch.serve.store.StorePartition` predicate from it.
 """
 
 from __future__ import annotations

@@ -1277,3 +1277,55 @@ def test_spawned_experiment_trainer_on_card(cuda_device, tmp_path):
         assert eng.unload_version("exp-gpu-r0-0") and eng.versions == [eng.model_version]
     finally:
         eng.close()
+
+
+def test_scorer_fleet_on_card_scores_bit_for_bit(cuda_device, tmp_path):
+    """A two-replica scorer fleet on the card (each replica a spawned
+    process with a CUDA context of its own, the routed type sharded and
+    unpinned): every routed score equals the batch path's on the card bit
+    for bit, both replicas serve, their owned counts cover the entities,
+    and neither captures or allocates after warm-up."""
+    import os
+
+    import numpy as np
+
+    from photon_tpu_torch.data.game_data import GameBatch
+    from photon_tpu_torch.data.index_map import IndexMap
+    from photon_tpu_torch.estimators.game_transformer import GameTransformer
+    from photon_tpu_torch.io.model_io import publish_latest_pointer, save_game_model
+    from photon_tpu_torch.serve.fleet import FleetBackend, ScorerFleet
+
+    model, eidx = _serving_model()
+    root = str(tmp_path / "pub")
+    os.makedirs(root)
+    imaps = {"a": IndexMap.build([f"a{j}" for j in range(24)]), "b": IndexMap.build([f"b{j}" for j in range(8)])}
+    for shard, imap in imaps.items():
+        imap.save(os.path.join(root, f"index-map-{shard}.json"))
+    eidx.save(os.path.join(root, "entity-index-userId.json"))
+    save_game_model(model, os.path.join(root, "gen-1"), imaps, {"userId": eidx}, sparsity_threshold=0.0)
+    publish_latest_pointer(root, "gen-1")
+    n = 200
+    g = np.random.default_rng(9)
+    xa, xb = g.normal(size=(n, 24)).astype(np.float32), g.normal(size=(n, 8)).astype(np.float32)
+    users = g.integers(0, 96, size=n)
+    want = GameTransformer(_model_on(model, cuda_device)).transform(GameBatch(
+        label=torch.zeros(n, device=cuda_device), offset=torch.zeros(n, device=cuda_device),
+        weight=torch.ones(n, device=cuda_device),
+        features={"a": torch.as_tensor(xa, device=cuda_device), "b": torch.as_tensor(xb, device=cuda_device)},
+        entity_ids={"userId": torch.as_tensor(users, dtype=torch.int32, device=cuda_device)})).cpu().numpy()
+    fleet = ScorerFleet(os.path.join(root, "gen-1"), str(tmp_path / "work"), artifacts_dir=root,
+                        route_re_type="userId", hot_bytes=1, max_batch_size=16, max_delay_ms=1.0,
+                        connect_timeout_s=120.0, device="cuda")
+    try:
+        fleet.start(["r0", "r1"])
+        backend = FleetBackend(fleet.router)
+        futs = [backend.submit({"features": {"a": xa[i].tolist(), "b": xb[i].tolist()},
+                                "entityIds": {"userId": f"u{users[i]}"}}, None, "interactive") for i in range(n)]
+        res = [f.result(timeout=60) for f in futs]
+        np.testing.assert_array_equal(np.asarray([r["score"] for r in res], np.float32), want)
+        assert {r["replica"] for r in res} == {"r0", "r1"}
+        stats = fleet.router.replica_stats()
+        assert sum(s["partition"]["re_types"]["userId"]["owned"] for s in stats.values()) == 96
+        assert all(s["device"] == "cuda" and s["retraces_since_warmup"] == 0 for s in stats.values()), stats
+    finally:
+        fleet.shutdown()

@@ -3,14 +3,13 @@ held to the cases of tests/test_obs_plane.py: cross-process trace
 propagation, the tail-based flight recorder, the merged Prometheus scrape,
 and the SLO burn-rate state machine.
 
-Left out of tests/test_obs_plane.py, with the item of ROADMAP queue 1 that
-ports their machinery:
-- ``test_replica_metrics_partial_scrape_is_labeled`` (:285): the scorer
-  fleet, item 9;
-- ``test_one_score_produces_one_trace_across_three_processes`` (:567): the
-  fleet relay, item 9. Its two-process counterpart here runs the port's
-  ``game_serving --workers 1``: one request, one trace, the worker's and
-  the scorer's spans nested across the process boundary.
+``test_replica_metrics_partial_scrape_is_labeled`` (:285) holds the port's
+scorer fleet (serve/fleet.py). Left out of tests/test_obs_plane.py, with
+the item of ROADMAP queue 1 that ports its machinery:
+``test_one_score_produces_one_trace_across_three_processes`` (:567), the
+fleet relay, item 9b. Its two-process counterpart here runs the port's
+``game_serving --workers 1``: one request, one trace, the worker's and the
+scorer's spans nested across the process boundary.
 """
 
 import json
@@ -214,6 +213,50 @@ def test_metric_name_aliases_resolve_to_one_instrument():
     # Snapshots carry only canonical names.
     names = {s["metric"] for s in reg.snapshot()}
     assert names == {"re_entities_skipped_total"}
+
+
+# ---------------------------------------------------------------------------
+# Fleet partial scrape
+# ---------------------------------------------------------------------------
+
+
+def test_replica_metrics_partial_scrape_is_labeled():
+    from photon_tpu_torch.serve.admission import FleetAdmissionLedger
+    from photon_tpu_torch.serve.fleet import LIVE, FleetBackend, FleetRouter
+    from photon_tpu_torch.serve.routing import HashRing
+
+    ring = HashRing()
+    ring.add("r0")
+    ring.add("r1")
+    router = FleetRouter(ring, FleetAdmissionLedger())
+
+    class _Good:
+        def call(self, op, timeout_s=30.0, **kw):
+            if op == "metrics":
+                return [dict(record="metric", metric="serve_store_hits_total", type="counter",
+                             labels={"replica": "r0"}, value=5, stats=None)]
+            return []
+
+    class _DiesMidScrape:
+        def call(self, op, timeout_s=30.0, **kw):
+            raise ConnectionError("scorer connection lost")
+
+    router._clients = {"r0": _Good(), "r1": _DiesMidScrape()}
+    router._state = {"r0": LIVE, "r1": LIVE}
+
+    out = router.replica_metrics()
+    assert out["r0"] == {"ok": True, "metrics": [
+        dict(record="metric", metric="serve_store_hits_total", type="counter", labels={"replica": "r0"}, value=5,
+             stats=None),
+    ]}
+    assert out["r1"]["ok"] is False
+    assert "connection lost" in out["r1"]["error"]
+
+    # The merged render marks the missing member rather than silently
+    # presenting the partial scrape as the whole fleet.
+    text = FleetBackend(router).metrics_text()
+    assert 'serve_store_hits_total{replica="r0"} 5' in text
+    assert 'fleet_scrape_failed{replica="r1"} 1' in text
 
 
 # ---------------------------------------------------------------------------
